@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the PSO serving slice on one NVIDIA H100.
+"""Drive the PyTorch port of online PSO (serving and update) on one NVIDIA H100.
 
     python3 chip_smoke.py [--seed N]
 
@@ -21,16 +21,37 @@ PyTorch. In order:
    is set to 0 just before each run and read just after; the counts must
    equal the ones the configuration implies. Log-probs, images and scores
    must be finite, each winner 0 or 1. Prints per-phase ms, pairs/s and
-   peak memory;
-5. one phase per kernel at every shape the slice gave it (recorded during
-   step 4) in bf16, plus one fp32 case: the kernel against its plain
-   version on the same inputs (|diff| <= atol + rtol*|plain|: attention
-   2e-2 bf16 / 2e-3 fp32, GroupNorm+SiLU 3e-2 / 2e-4), and CUDA-event
-   device times of the kernel, the plain version and, where one PyTorch
-   call computes the same function, that call (timed here only; the port
-   never calls it). Back-to-back calls on one input: an input under the
-   50 MB L2 stays there, as a GroupNorm input just written by a conv does;
-6. prints the ``{"kernels": [...]}`` line, then, last, the device line.
+   peak memory. The serving pipeline is freed afterwards;
+5. the online-PSO loop at full width through its entry point,
+   ``cli.online_runner.run_online_pso`` with the config's defaults
+   (``configs/sdxl_turbo_dpo.py``): 4 pair batches of 4 prompts = 16 pairs,
+   then 2 optimizer updates of 2 x 3 microbatches (policy pass at batch 8,
+   remat "full", bf16 towers, fp32 LoRA rank 32). Launch counters are set
+   to 0 just before and read just after; the counts must equal the ones
+   the configuration implies. Every loss and grad_norm must be finite, the
+   first update's loss log 2 within 1e-3 (a fresh adapter: policy =
+   reference), the LoRA changed and the frozen UNet weights not (against a
+   rebuild from the seed), and the checkpoint written at step 1 must
+   restore. Prints sample / update / microbatch ms, pairs/s of the loop
+   and peak memory;
+6. one phase per kernel at every shape the loop gave it (recorded during
+   step 5) in bf16, plus one fp32 case: the kernel against its plain
+   version on the same inputs (|diff| <= atol + rtol*|plain|, atol = rtol
+   unless stated: attention forward 2e-2 bf16 / 2e-3 fp32, attention
+   backward 1e-4 fp32 and in bf16 rtol 1e-2 with an atol of 5% of the
+   plain gradient's rms, see ``bwd_tolerance``; GroupNorm+SiLU 3e-2 /
+   2e-4), and CUDA-event device times of
+   the kernel, the plain version and, where one PyTorch call computes the
+   same function, that call (timed here only; the port never calls it):
+   SDPA forward for K1, autograd of SDPA (dQ, dK, dV in one backward) for
+   K2 and K3. Back-to-back calls on one input: an input under the 50 MB L2
+   stays there, as a GroupNorm input just written by a conv does. Also the
+   autograd Function's gradients against autograd of the plain forward:
+   at one UNet shape in fp32, and in bf16 at the update's 1024-token
+   self- and cross-attention shapes, with the upstream gradient handed
+   over contiguous (as the UNet's reshape and output projection give it),
+   as a strided view and with a strided last dim (copied first);
+7. prints the ``{"kernels": [...]}`` line, then, last, the device line.
 
 Any failure raises, and the script exits non-zero. It also exits non-zero,
 printing no result, where CUDA or the port's package is missing. The full
@@ -42,6 +63,8 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -49,16 +72,23 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+RUN_DIR = ROOT / "chip_smoke_runs"  # the training run's checkpoints (git-ignored, removed)
 
 # One H100 SXM at its 700 W limit (NVIDIA data sheet, dense): device memory
 # rate, bf16 tensor-core rate, fp32 rate outside the tensor cores.
 H100_BYTES_PER_S = 3.35e12
 H100_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
 GN_STATS_OPS, GN_NORM_OPS = 3, 8  # fp32 operations per element of K4, K5
-TOL = {"attention": {"bf16": 2e-2, "fp32": 2e-3}, "gn": {"bf16": 3e-2, "fp32": 2e-4}}
+TOL = {"attention": {"bf16": (2e-2, 2e-2), "fp32": (2e-3, 2e-3)},  # (atol, rtol)
+       "attention_bwd": {"bf16": (5e-2, 1e-2), "fp32": (1e-4, 1e-4)},  # bf16: see bwd_tolerance
+       "gn": {"bf16": (3e-2, 3e-2), "fp32": (2e-4, 2e-4)}}
 KERNELS = {
     "flash_attn_fwd": ("pairwise_sample_optimization_tpu_torch/csrc/flash_attn_fwd.cu",
                        "pairwise_sample_optimization_tpu/ops/flash_attention.py:99"),
+    "flash_attn_bwd_dkv": ("pairwise_sample_optimization_tpu_torch/csrc/flash_attn_bwd.cu",
+                           "pairwise_sample_optimization_tpu/ops/flash_attention.py:193"),
+    "flash_attn_bwd_dq": ("pairwise_sample_optimization_tpu_torch/csrc/flash_attn_bwd.cu",
+                          "pairwise_sample_optimization_tpu/ops/flash_attention.py:244"),
     "gn_stats": ("pairwise_sample_optimization_tpu_torch/csrc/group_norm_silu.cu",
                  "pairwise_sample_optimization_tpu/ops/fused_groupnorm.py:55"),
     "gn_silu_norm": ("pairwise_sample_optimization_tpu_torch/csrc/group_norm_silu.cu",
@@ -77,32 +107,67 @@ def dtype_name(dt):
 
 
 def check_close(name, got, want, tol):
-    """Fail unless |got - want| <= tol + tol*|want| everywhere; returns max|diff|."""
+    """Fail unless |got - want| <= atol + rtol*|want| everywhere, ``tol`` =
+    (atol, rtol); returns max|diff|."""
     import torch
 
+    atol, rtol = tol
     got, want = got.float(), want.float()
     diff = (got - want).abs()
-    bad = diff > tol + tol * want.abs()
+    limit = atol + rtol * want.abs()
+    bad = diff > limit
     if not torch.isfinite(got).all() or bool(bad.any()):
-        raise AssertionError(f"{name}: max|diff| {diff.max().item():.3e} over tolerance {tol} "
+        raise AssertionError(f"{name}: max|diff| {diff.max().item():.3e}, largest |diff|/limit "
+                             f"{(diff / limit).max().item():.3f}, mean|want| "
+                             f"{want.abs().mean().item():.3e}: over atol {atol} rtol {rtol} "
                              f"({int(bad.sum())} elements)")
     return diff.max().item()
 
 
+def bwd_tolerance(want):
+    """(atol, rtol) of the attention backward against the plain gradient
+    ``want``. In bf16 the atol is a share (5%) of want's rms: P and dS are
+    rounded to bf16 before sums over up to 1024 rows, as in the TPU
+    kernels, and that error follows the gradient's scale, not each
+    element's. In ``tests/test_torch_port_smoke_tolerance.py`` a backward
+    rounded that way stays within half this limit, and one with a 5% error
+    in P or dS, or with a tile left out of a kernel's loop, exceeds it."""
+    atol, rtol = TOL["attention_bwd"][dtype_name(want.dtype)]
+    if dtype_name(want.dtype) == "bf16":
+        atol *= want.float().pow(2).mean().sqrt().item()
+    return atol, rtol
+
+
+def tolerance_used(got, want, tol):
+    """The largest |got - want| / (atol + rtol*|want|): 1 is the limit."""
+    atol, rtol = tol
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
 def timed_ms(fn, reps=10, inner=10):
     """Median over ``reps`` of CUDA-event device time per call for ``inner``
-    calls in a row, after 3 warm-up calls. Each rep first queues ~2 ms of
-    device sleep, so the host has enqueued the calls before the start event
-    runs: the time is the device's, not the host's launch rate."""
+    calls in a row, after 3 warm-up calls. Each rep first queues a device
+    sleep of at least ~2 ms and of about twice the host's time to enqueue
+    ``inner`` calls (measured once; an autograd backward takes the host
+    longer than its kernels take the card), so the host has enqueued the
+    calls before the start event runs: the time is the device's, not the
+    host's launch rate."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_cycles = int(max(4e6, 4e6 * host_ms))  # ~2 GHz: 2e6 cycles per ms, twice host_ms
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(4_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         for _ in range(inner):
             fn()
@@ -167,8 +232,8 @@ def small_reference(seed):
         outs.append(pipe.sample_pairs(cond, init_noise=init.to(dev), step_noise=noise.to(dev)))
     torch.cuda.synchronize()
     counts = dict(kernel_lib.launch_counts)
-    if min(counts.values()) == 0:
-        raise AssertionError(f"small reference did not reach every kernel: {counts}")
+    if min(v for k, v in counts.items() if "bwd" not in k) == 0:
+        raise AssertionError(f"small reference did not reach every forward kernel: {counts}")
     want, got = outs
     tol = TOL["attention"]["fp32"]
     errs = {
@@ -192,16 +257,45 @@ def small_reference(seed):
 # ---------------------------------------------------------------------- #
 
 
+def _unet_counts(ucfg):
+    """(attention calls, GroupNorm+SiLU calls, ResnetBlocks, ResnetBlocks
+    that run before the first attention) of one UNet forward."""
+    n, lpb, depths = len(ucfg.block_out_channels), ucfg.layers_per_block, ucfg.transformer_layers
+    blocks = sum(d * (2 * lpb + 1) for d in depths) + depths[-1]
+    resnets = n * (2 * lpb + 1) + 2
+    first = next(i for i, d in enumerate(depths) if d)
+    return 2 * blocks, 2 * resnets + 1, resnets, first * lpb + 1
+
+
 def expected_launches(pipe, steps):
-    ucfg, vcfg = pipe.unet.config, pipe.vae.config
-    n, lpb = len(ucfg.block_out_channels), ucfg.layers_per_block
-    blocks = sum(d * (2 * lpb + 1) for d in ucfg.transformer_layers) + ucfg.transformer_layers[-1]
-    unet_resnets = n * (2 * lpb + 1) + 2
+    """Launches of one ``sample_pairs`` call: ``steps`` UNet forwards, the
+    VAE decode (its mid-block attention) and the PickScore vision tower."""
+    vcfg = pipe.vae.config
+    attn, gn_unet, _, _ = _unet_counts(pipe.unet.config)
     vae_resnets = 2 + len(vcfg.block_out_channels) * (vcfg.layers_per_block + 1)
     vision_layers = pipe.scorer.model.vision_config.layers
-    k1 = steps * 2 * blocks + 1 + vision_layers
-    gn = steps * (2 * unet_resnets + 1) + 2 * vae_resnets + 1
-    return {"flash_attn_fwd": k1, "gn_stats": gn, "gn_silu_norm": gn}
+    k1 = steps * attn + 1 + vision_layers
+    gn = steps * gn_unet + 2 * vae_resnets + 1
+    return {"flash_attn_fwd": k1, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0,
+            "gn_stats": gn, "gn_silu_norm": gn}
+
+
+def expected_update_launches(ucfg, n_micro, fuse_ref_pass):
+    """Launches of one optimizer update of ``n_micro`` microbatches. Per
+    microbatch: the policy forward (with grad), its recompute under remat
+    "full" and, unless fused into the policy call, the reference forward
+    (no grad); K2 and K3 once per attention call in the backward. Under
+    remat the ResnetBlocks that run before the first attention are not
+    recomputed: nothing in them depends on the LoRA, so they save nothing
+    for the backward. The GroupNorm+SiLU backward is the plain version."""
+    attn, gn, resnets, grad_free = _unet_counts(ucfg)
+    remat = ucfg.remat == "full"
+    passes = 1 + (0 if fuse_ref_pass else 1)
+    k1 = attn * (passes + remat)
+    k45 = gn * passes + (2 * (resnets - grad_free) if remat else 0)
+    return {"flash_attn_fwd": n_micro * k1, "flash_attn_bwd_dkv": n_micro * attn,
+            "flash_attn_bwd_dq": n_micro * attn, "gn_stats": n_micro * k45,
+            "gn_silu_norm": n_micro * k45}
 
 
 class ShapeRecorder:
@@ -212,29 +306,35 @@ class ShapeRecorder:
         from pairwise_sample_optimization_tpu_torch.ops import flash_attention as tfa
         from pairwise_sample_optimization_tpu_torch.ops import fused_groupnorm as tfg
 
-        self.mods, self.attention, self.gn = (tfa, tfg), {}, {}
-        self.orig = (tfa.flash_attention_fwd, tfg.fused_groupnorm_silu)
+        self.mods, self.attention, self.attention_bwd, self.gn = (tfa, tfg), {}, {}, {}
+        self.orig = (tfa.flash_attention_fwd, tfa.flash_attention_bwd, tfg.fused_groupnorm_silu)
 
     def __enter__(self):
         tfa, tfg = self.mods
-        fwd, gn = self.orig
+        fwd, bwd, gn = self.orig
+
+        def count(table, key):
+            table[key] = table.get(key, 0) + 1
 
         def rec_fwd(q, k, v, scale=None):
-            key = (tuple(q.shape), tuple(k.shape), q.dtype)
-            self.attention[key] = self.attention.get(key, 0) + 1
+            count(self.attention, (tuple(q.shape), tuple(k.shape), q.dtype))
             return fwd(q, k, v, scale)
 
+        def rec_bwd(q, k, v, o, lse, do, scale=None):
+            count(self.attention_bwd, (tuple(q.shape), tuple(k.shape), q.dtype))
+            return bwd(q, k, v, o, lse, do, scale)
+
         def rec_gn(x, weight, bias, num_groups, eps=1e-5):
-            key = (tuple(x.shape), num_groups, eps, x.dtype, weight.dtype)
-            self.gn[key] = self.gn.get(key, 0) + 1
+            count(self.gn, (tuple(x.shape), num_groups, eps, x.dtype, weight.dtype))
             return gn(x, weight, bias, num_groups, eps)
 
-        tfa.flash_attention_fwd, tfg.fused_groupnorm_silu = rec_fwd, rec_gn
+        tfa.flash_attention_fwd, tfa.flash_attention_bwd, tfg.fused_groupnorm_silu = (
+            rec_fwd, rec_bwd, rec_gn)
         return self
 
     def __exit__(self, *exc):
         tfa, tfg = self.mods
-        tfa.flash_attention_fwd, tfg.fused_groupnorm_silu = self.orig
+        tfa.flash_attention_fwd, tfa.flash_attention_bwd, tfg.fused_groupnorm_silu = self.orig
 
 
 def full_slice(seed, prompts=4, steps=4, iters=5):
@@ -270,16 +370,12 @@ def full_slice(seed, prompts=4, steps=4, iters=5):
                                  timings=timings)
 
     run({})  # warm-up: first-call setup of cuDNN and the kernels
-    runs, recorder = [], None
+    runs = []
     for i in range(iters):
         timings = {}
         torch.cuda.reset_peak_memory_stats()
         kernel_lib.reset_launch_counts()
-        if i == 0:
-            with ShapeRecorder() as recorder:
-                out = run(timings)
-        else:
-            out = run(timings)
+        out = run(timings)
         counts = dict(kernel_lib.launch_counts)
         peak = torch.cuda.max_memory_allocated()
         if counts != want:
@@ -311,9 +407,125 @@ def full_slice(seed, prompts=4, steps=4, iters=5):
     }
     log(f"slice median over {iters} runs: {summary['median_total_ms']:.1f} ms, "
         f"{summary['median_pairs_per_s']:.3f} pairs/s, phases {summary['median_phase_ms']}")
-    del pipe
+    del pipe, out
     torch.cuda.empty_cache()
-    return summary, recorder
+    return summary
+
+
+# ---------------------------------------------------------------------- #
+# the online-PSO loop (sampling + update) at full width
+# ---------------------------------------------------------------------- #
+
+
+def _frozen_and_lora(unet):
+    frozen = {k: v for k, v in unet.state_dict().items() if ".lora." not in k}
+    lora = {k: v for k, v in unet.state_dict().items() if ".lora." in k}
+    return frozen, lora
+
+
+def train_slice(seed):
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.checkpoints import (latest_checkpoint,
+                                                                    restore_train_state)
+    from pairwise_sample_optimization_tpu_torch.cli.online_runner import run_dir, run_online_pso
+    from pairwise_sample_optimization_tpu_torch.configs.sdxl_turbo_dpo import get_config
+    from pairwise_sample_optimization_tpu_torch.models.layers import init_random_
+    from pairwise_sample_optimization_tpu_torch.models.unet import SDXLUNet
+    from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
+    from pairwise_sample_optimization_tpu_torch.train import (PSOTrainState, lora_parameters,
+                                                              make_optimizer)
+
+    config = get_config()
+    config.seed = seed
+    config.output_dir = str(RUN_DIR)
+    config.run_name = "online_turbo"
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    t_cfg, s_cfg = config.train, config.sample
+    pairs = s_cfg.batch_size * s_cfg.num_batches_per_epoch
+    n_updates = pairs // (t_cfg.batch_size * t_cfg.gradient_accumulation_steps)
+    n_micro = t_cfg.gradient_accumulation_steps * t_cfg.distilled_train_steps
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ShapeRecorder() as recorder:
+        state, history, pipe = run_online_pso(config, num_epochs=1, device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = dict(kernel_lib.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    out_dir = Path(run_dir(config))
+
+    want = {k: s_cfg.num_batches_per_epoch * v
+            for k, v in expected_launches(pipe, s_cfg.num_steps).items()}
+    upd = expected_update_launches(pipe.unet.config, n_micro, bool(t_cfg.fuse_ref_pass))
+    want = {k: want[k] + n_updates * upd[k] for k in want}
+    if counts != want:
+        raise AssertionError(f"training-run launch counts {counts} != expected {want}")
+    if len(history) != n_updates or state.step != n_updates:
+        raise AssertionError(f"{len(history)} updates logged, state at step {state.step}; "
+                             f"expected {n_updates}")
+    for m in history:
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm", "ratio_win")):
+            raise AssertionError(f"non-finite update metrics {m}")
+    first = history[0]["loss"]
+    if abs(first - math.log(2.0)) > 1e-3:
+        raise AssertionError(f"first update loss {first} != log 2 (fresh adapter)")
+
+    # frozen UNet weights unchanged and LoRA moved, against a rebuild from
+    # the seed (the UNet is the first tower SDXLPipeline.random draws)
+    ref = SDXLUNet(pipe.unet.config, device="meta").to_empty(device="cuda")
+    init_random_(ref, torch.Generator(device="cuda").manual_seed(seed))
+    frozen, lora = _frozen_and_lora(pipe.unet)
+    frozen0, lora0 = _frozen_and_lora(ref)
+    checksum = lambda d: sum(float(v.double().sum()) for v in d.values())
+    frozen_changed = [k for k in frozen if not torch.equal(frozen[k], frozen0[k])]
+    if frozen_changed or set(lora) != set(lora0):
+        raise AssertionError(f"frozen UNet weights changed: {frozen_changed[:5]}")
+    lora_moved = max(float((lora[k].float() - lora0[k].float()).abs().max()) for k in lora)
+    up_zero_before = all(float(v.abs().max()) == 0 for k, v in lora0.items() if ".up." in k)
+    if not up_zero_before or lora_moved == 0:
+        raise AssertionError(f"LoRA did not move (max|delta| {lora_moved})")
+    checksums = {"frozen": checksum(frozen), "frozen_rebuilt": checksum(frozen0),
+                 "lora": checksum(lora), "lora_before": checksum(lora0)}
+
+    # the checkpoint written at step 1 restores into a fresh state (into the
+    # rebuilt UNet's adapter, whose tensors lora0 shares)
+    ckpt = latest_checkpoint(str(out_dir))
+    lora_ref = lora_parameters(ref)
+    restored = PSOTrainState.create(lora_ref, make_optimizer(lora_ref))
+    extra = restore_train_state(ckpt, restored)
+    if restored.step != state.step or extra.get("epoch") != 0 or any(
+            not torch.equal(restored.lora[k], state.lora[k]) for k in state.lora):
+        raise AssertionError(f"checkpoint {ckpt} did not restore the trained state")
+
+    metrics_jsonl = (out_dir / "metrics.jsonl").read_text()
+    metrics = [json.loads(line) for line in metrics_jsonl.splitlines()]
+    times = next(m for m in metrics if "loss" in m)
+    sample_ms, train_ms = times["time/sample_s"] * 1e3, times["time/train_s"] * 1e3
+    summary = {
+        "pairs": pairs, "updates": n_updates, "microbatches_per_update": n_micro,
+        "policy_batch": 2 * t_cfg.batch_size, "remat": config.activation_checkpoint,
+        "history": history, "launches": counts, "expected_launches": want,
+        "sample_ms": sample_ms, "update_ms": train_ms / n_updates,
+        "microbatch_ms": train_ms / n_updates / n_micro,
+        "loop_pairs_per_s": pairs / (sample_ms + train_ms) * 1e3, "wall_s": wall_s,
+        "peak_bytes": peak, "checkpoint": Path(ckpt).name, "lora_max_abs_delta": lora_moved,
+        "checksums": checksums,
+    }
+    log(f"online PSO loop (1 epoch, {pairs} pairs, {n_updates} updates x {n_micro} "
+        f"microbatches): sample {sample_ms:.1f} ms, update {summary['update_ms']:.1f} ms, "
+        f"microbatch {summary['microbatch_ms']:.1f} ms, {summary['loop_pairs_per_s']:.3f} "
+        f"pairs/s of the loop, peak {peak / 2**30:.2f} GiB; losses "
+        f"{[round(m['loss'], 6) for m in history]}, grad_norm "
+        f"{[round(m['grad_norm'], 6) for m in history]}; launches {counts}; LoRA max|delta| "
+        f"{lora_moved:.3e}, frozen unchanged; restored {summary['checkpoint']}")
+    del pipe, state, ref, restored, frozen, frozen0, lora, lora0, lora_ref
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return summary, recorder, metrics_jsonl
 
 
 # ---------------------------------------------------------------------- #
@@ -359,6 +571,124 @@ def attention_phase(shapes, seed):
             f"{row['ms']:.4f} ms vs bound {bound_ms:.4f} ({bound_by}), plain "
             f"{row['plain_ms']:.4f}, sdpa {row['library_ms']:.4f}, {launches} launches")
     return {"flash_attn_fwd": rows}
+
+
+def attention_bwd_phase(shapes, seed):
+    """K2 and K3 at every (q, kv, dtype) the update gave the backward, plus
+    one fp32 case, against ``flash_attention_bwd_plain``."""
+    import torch
+    import torch.nn.functional as F
+
+    from pairwise_sample_optimization_tpu_torch.ops import flash_attention as tfa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    cases = [(q, k, dt, n) for (q, k, dt), n in shapes.items()]
+    q0, k0, _, _ = max(cases, key=lambda c: (c[3], c[0][1] * c[1][1]))
+    cases.append((q0, k0, torch.float32, 0))  # the fp32 case, off the main path
+    dkv_rows, dq_rows = [], []
+    for qs, ks, dt, launches in cases:
+        q, k, v = (torch.randn(s, generator=gen, device="cuda", dtype=dt) for s in (qs, ks, ks))
+        do = torch.randn(qs, generator=gen, device="cuda", dtype=dt)
+        o, lse = tfa.flash_attention_fwd(q, k, v)
+        di = tfa.attention_di(o, do)
+        dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, di)
+        dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, di)
+        dq_p, dk_p, dv_p = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        name = f"{qs} kv {ks[1]} {dtype_name(dt)}"
+        tol = {n: bwd_tolerance(w) for n, w in (("dq", dq_p), ("dk", dk_p), ("dv", dv_p))}
+        err_kv = max(check_close(f"dk {name}", dk, dk_p, tol["dk"]),
+                     check_close(f"dv {name}", dv, dv_p, tol["dv"]))
+        err_q = check_close(f"dq {name}", dq, dq_p, tol["dq"])
+        used_kv = max(tolerance_used(dk, dk_p, tol["dk"]), tolerance_used(dv, dv_p, tol["dv"]))
+        used_q = tolerance_used(dq, dq_p, tol["dq"])
+        grad_scale = {n: {"mean_abs": w.float().abs().mean().item(),
+                          "rms": w.float().pow(2).mean().sqrt().item(), "atol": tol[n][0]}
+                      for n, w in (("dq", dq_p), ("dk", dk_p), ("dv", dv_p))}
+        b, sq, h, d = qs
+        el, pair = q.element_size(), 2 * b * h * sq * ks[1] * d
+        inputs = el * (2 * q.numel() + 2 * k.numel()) + 4 * 2 * lse.numel()  # q, do, k, v, lse, Di
+        b2, by2 = bound(inputs + el * 2 * k.numel(), 4 * pair, dtype_name(dt))
+        b3, by3 = bound(inputs + el * q.numel(), 3 * pair, dtype_name(dt))
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        sdpa_bwd = timed_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
+        plain = timed_ms(lambda: tfa.flash_attention_bwd_plain(q, k, v, o, lse, do), reps=5)
+        common = {"shape": {"q": list(qs), "kv": list(ks)}, "dtype": dtype_name(dt),
+                  "launches": launches, "plain_ms": plain, "library_ms": sdpa_bwd,
+                  "grad_scale": grad_scale}
+        dkv_rows.append({**common, "max_abs_err": err_kv, "tolerance_used": used_kv,
+                         "bound_ms": b2, "bound_by": by2,
+                         "ms": timed_ms(lambda: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, di))})
+        dq_rows.append({**common, "max_abs_err": err_q, "tolerance_used": used_q,
+                        "bound_ms": b3, "bound_by": by3,
+                        "ms": timed_ms(lambda: tfa.flash_attention_bwd_dq(q, k, v, do, lse, di))})
+        r2, r3 = dkv_rows[-1], dq_rows[-1]
+        log(f"flash_attn_bwd {name}: K2 max|diff| {err_kv:.2e} {r2['ms']:.4f} ms (bound {b2:.4f} "
+            f"{by2}); K3 max|diff| {err_q:.2e} {r3['ms']:.4f} ms (bound {b3:.4f} {by3}); "
+            f"share of tolerance used K2 {used_kv:.3f} K3 {used_q:.3f}; (mean|grad|, rms, atol) "
+            + ", ".join(f"{n} ({g['mean_abs']:.3e}, {g['rms']:.3e}, {g['atol']:.2e})"
+                        for n, g in grad_scale.items())
+            + f"; plain bwd {plain:.4f}, SDPA bwd {sdpa_bwd:.4f}; {launches} launches each")
+        del out, qt, kt, vt
+    return {"flash_attn_bwd_dkv": dkv_rows, "flash_attn_bwd_dq": dq_rows}
+
+
+def attention_function_check(seed):
+    """The autograd Function (K1 forward, K2/K3 backward) against autograd
+    of the plain forward on the same inputs and upstream gradient: in fp32
+    at a UNet cross-attention shape, and in bf16 at the update's 1024-token
+    self- and cross-attention shapes with dO handed over as autograd gives
+    it: contiguous (the UNet's reshape and output projection), as a
+    (B, S, H, D) view of a (B, H, S, D) gradient (read in place) and with a
+    strided last dim (copied first)."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.ops import flash_attention as tfa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    rand = lambda shape, dt: torch.randn(shape, generator=gen, device="cuda", dtype=dt)
+
+    def project(o, g, w):  # the UNet's reshape and output projection
+        b, s, h, d = o.shape
+        return ((o.reshape(b, s, h * d) @ w).float() * g.float()).sum()
+
+    # dO layout -> (loss of o, g and w; g's shape from q's (B, S, H, D);
+    # what dO must be: (contiguous, read in place by the kernels))
+    consumers = {
+        "contiguous": (project, lambda b, s, h, d: (b, s, h * d), (True, True)),
+        "strided": (lambda o, g, w: (o.transpose(1, 2).float() * g.float()).sum(),
+                    lambda b, s, h, d: (b, h, s, d), (False, True)),
+        "last_dim_strided": (lambda o, g, w: (o.transpose(2, 3).float() * g.float()).sum(),
+                             lambda b, s, h, d: (b, s, d, h), (False, False)),
+    }
+    cases = [((8, 256, 20, 64), 77, torch.float32, "contiguous")]
+    cases += [((8, 1024, 10, 64), skv, torch.bfloat16, layout)
+              for skv in (1024, 77) for layout in consumers]
+    results = []
+    for qs, skv, dt, layout in cases:
+        b, sq, h, d = qs
+        q, k, v = (rand(s, dt).requires_grad_() for s in (qs, (b, skv, h, d), (b, skv, h, d)))
+        loss, g_shape, expect = consumers[layout]
+        g, w = rand(g_shape(*qs), dt), rand((h * d, h * d), dt) / math.sqrt(h * d)
+        seen = []
+        o = tfa.flash_attention(q, k, v)
+        o.register_hook(lambda grad: seen.append((grad.is_contiguous(), tfa._takes_layout(grad))))
+        got = torch.autograd.grad(loss(o, g, w), (q, k, v))
+        want = torch.autograd.grad(loss(tfa.flash_attention_plain(q, k, v)[0], g, w), (q, k, v))
+        if seen != [expect]:
+            raise AssertionError(f"dO {layout}: (contiguous, read in place) {seen} != {expect}")
+        name = f"Function {dtype_name(dt)} q{qs} kv {skv} dO {layout}"
+        errs = {n: check_close(f"{name} d{n}", a, r, bwd_tolerance(r))
+                for n, a, r in zip("qkv", got, want)}
+        used = max(tolerance_used(a, r, bwd_tolerance(r)) for a, r in zip(got, want))
+        results.append({"q": list(qs), "kv": skv, "dtype": dtype_name(dt), "do": layout,
+                        "max_abs_err": errs, "tolerance_used": used})
+        log(f"FlashAttentionFunction grads vs autograd of the plain forward ({name}): max|diff| "
+            + ", ".join(f"d{n} {e:.2e}" for n, e in errs.items())
+            + f"; share of tolerance used {used:.3f}")
+        del q, k, v, o, g, w, got, want
+    return results
 
 
 def gn_phase(shapes, seed):
@@ -477,18 +807,23 @@ def main(argv=None) -> int:
                 log(f"  {log_file.stem}: {line.strip()}")
 
     small = small_reference(args.seed)
-    slice_summary, recorder = full_slice(args.seed)
-    launches = slice_summary["runs"][0]["launches"]
+    slice_summary = full_slice(args.seed)
+    train_summary, recorder, metrics_jsonl = train_slice(args.seed)
+    launches = train_summary["launches"]
     rows = {**attention_phase(recorder.attention, args.seed),
+            **attention_bwd_phase(recorder.attention_bwd, args.seed),
             **gn_phase(recorder.gn, args.seed)}
+    function_errs = attention_function_check(args.seed)
     kernels = [summarize(name, rows[name], launches[name]) for name in KERNELS]
 
     record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": build_s, "small_reference": small, "slice": slice_summary,
-              "kernels": kernels, "seconds": time.perf_counter() - t_start}
+              "train": train_summary, "function_check": function_errs, "kernels": kernels,
+              "seconds": time.perf_counter() - t_start}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    (out / "train_metrics.jsonl").write_text(metrics_jsonl)
     log(f"chip_smoke done in {record['seconds']:.1f} s")
     print(json.dumps({"kernels": [{k: v for k, v in kern.items() if k != "shapes"}
                                   for kern in kernels]}))

@@ -1,0 +1,350 @@
+// Flash-attention backward for Hopper (sm_90a), head dim 64: two kernels
+// that recompute the probabilities from the forward's per-row fp32
+// logsumexp (LSE) and share no state, as the TPU design does.
+//
+// Replaces the TPU kernels pairwise_sample_optimization_tpu/ops/
+// flash_attention.py::_bwd_dkv_kernel (K2) and ::_bwd_dq_kernel (K3),
+// both launched by _bwd. Semantics kept:
+//   S  = Q K^T * scale, columns at or past kv_len set to the finite -1e30
+//   P  = exp(S - LSE)                   (masked columns give exactly 0)
+//   dP = dO V^T
+//   dS = P * (dP - Di) * scale,          Di = rowsum(O * dO), given in fp32
+//   K2: dV = P^T dO,  dK = dS^T Q        (one block per kv tile, loops over q)
+//   K3: dQ = dS K                        (one block per q tile, loops over kv)
+// The products take their operands in the input dtype (P and dS are cast
+// to it first) and accumulate in fp32; outputs are written in the input
+// dtype. Each block owns its output rows and sums over the other sequence
+// in a loop inside the block, so there are no atomics and the result does
+// not depend on the order blocks run in.
+//
+// What bounds it on an H100: tensor-core operations at the UNet's
+// 1024-token self-attention (K2 does four and K3 three products of
+// 2*Sq*Skv*64 per head) and bytes at the 256-token and the 77-token
+// cross-attention shapes. This simple design is far from both: S and dP
+// are recomputed in both kernels, P and dS go through shared memory to
+// become the A operand of the next product, and the copies are not
+// overlapped with the products.
+//
+// Design, simple and right first:
+// - 4 warps, 64x64 tiles; each warp owns 16 rows of S / dP (all 64 columns)
+//   and, in K2, 16 kv rows of the dK / dV accumulators (64 fp32 registers
+//   each warp thread), in K3 16 q rows of dQ.
+// - tiles are copied to shared memory with 16-byte loads from the caller's
+//   (B, S, H, D) strides; rows past either sequence end are zero-filled and
+//   their probabilities set to 0, which covers the 77-token kv without
+//   padding on the host. Rows that do not exist are never written.
+// - K2 stores P^T and dS^T in shared memory so the transposed products read
+//   a row-major A operand; K3 stores dS row-major (each warp its own rows).
+// - fp32 inputs take the same structure with exact fp32 FMAs in place of
+//   the tensor-core product (a correctness path, not a fast one).
+// - ldmatrix, register-resident P / dS, wgmma and TMA are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "mma_tile.cuh"
+
+namespace {
+
+using pso::from_float;
+using pso::load_tile;
+using pso::tile_mma;
+
+constexpr float kMask = -1e30f;
+constexpr int D = 64, BM = 64, BN = 64, NWARPS = 4, NTHREADS = 32 * NWARPS;
+constexpr int NT = 8;  // 8-column n-tiles across a 64-wide tile
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;  // (B*H, Sq)
+  const float* di;   // (B*H, Sq)
+  void* dq;
+  void* dk;
+  void* dv;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh;
+  long long dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
+  int heads, sq, skv;
+  float scale;
+};
+
+template <typename T>
+struct Layout {
+  static constexpr int PAD = 16 / sizeof(T);
+  static constexpr int LDT = D + PAD;   // Q, K, V, dO rows
+  static constexpr int LDX = BM + PAD;  // K2: P^T / dS^T rows (BN of them, BM wide)
+  static constexpr int LDS = BN + PAD;  // K3: dS rows (BM of them, BN wide)
+  static constexpr size_t SMEM_DKV =
+      sizeof(T) * (size_t)(2 * BN * LDT + 2 * BM * LDT + 2 * BN * LDX) + sizeof(float) * 2 * BM;
+  static constexpr size_t SMEM_DQ =
+      sizeof(T) * (size_t)(2 * BM * LDT + 2 * BN * LDT + BM * LDS) + sizeof(float) * 2 * BM;
+};
+
+// S = Q K^T and dP = dO V^T for this warp's 16 rows, all BN columns.
+template <typename T>
+__device__ __forceinline__ void scores(float (&s)[NT][4], float (&dp)[NT][4], const T* Qs,
+                                       const T* dOs, const T* Ks, const T* Vs, int row0,
+                                       int lane) {
+  constexpr int LDT = Layout<T>::LDT;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      tile_mma<true>(s[j], Qs + row0 * LDT + kk, LDT, Ks + (j * 8) * LDT + kk, LDT, lane);
+      tile_mma<true>(dp[j], dOs + row0 * LDT + kk, LDT, Vs + (j * 8) * LDT + kk, LDT, lane);
+    }
+  }
+}
+
+// Rows [row0, row0 + BM) of lse and Di for head bh into shared memory; 0
+// past the end (those rows get P = 0 anyway).
+__device__ __forceinline__ void load_rows(float* lse_s, float* di_s, const Params& p, int bh,
+                                          int row0) {
+  for (int r = threadIdx.x; r < BM; r += NTHREADS) {
+    const bool ok = row0 + r < p.sq;
+    lse_s[r] = ok ? p.lse[(long long)bh * p.sq + row0 + r] : 0.f;
+    di_s[r] = ok ? p.di[(long long)bh * p.sq + row0 + r] : 0.f;
+  }
+}
+
+// Write a warp's 16 x 64 fp32 accumulator (rows row0.., fragment layout) to
+// dst rows < n in T.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* dst, long long row_stride, const float (&acc)[NT][4],
+                                           int row0, int n, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + g + half * 8;
+    if (r >= n) continue;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      T* out = dst + (long long)r * row_stride + j * 8 + 2 * t;
+      out[0] = from_float<T>(acc[j][half * 2]);
+      out[1] = from_float<T>(acc[j][half * 2 + 1]);
+    }
+  }
+}
+
+// K2: one block per (kv tile of BN rows, batch*head); loops over q tiles.
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(Params p) {
+  using L = Layout<T>;
+  constexpr int LDT = L::LDT, LDX = L::LDX;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + BN * LDT;
+  T* Qs = Vs + BN * LDT;
+  T* dOs = Qs + BM * LDT;
+  T* Pt = dOs + BM * LDT;   // P^T:  BN x BM
+  T* dSt = Pt + BN * LDX;   // dS^T: BN x BM
+  float* lse_s = reinterpret_cast<float*>(dSt + BN * LDX);
+  float* di_s = lse_s + BM;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int k0 = blockIdx.x * BN;
+
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+
+  load_tile<T, D, NTHREADS>(Ks, LDT, kb, p.k_ss, k0, BN, p.skv);
+  load_tile<T, D, NTHREADS>(Vs, LDT, vb, p.v_ss, k0, BN, p.skv);
+
+  float dk[NT][4], dv[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  const int n_q = (p.sq + BM - 1) / BM;
+  for (int qt = 0; qt < n_q; ++qt) {
+    const int q0 = qt * BM;
+    __syncthreads();  // the previous tile's readers of Qs / dOs / Pt / dSt are done
+    load_tile<T, D, NTHREADS>(Qs, LDT, qb, p.q_ss, q0, BM, p.sq);
+    load_tile<T, D, NTHREADS>(dOs, LDT, dob, p.do_ss, q0, BM, p.sq);
+    load_rows(lse_s, di_s, p, bh, q0);
+    __syncthreads();
+
+    float s[NT][4], dp[NT][4];
+    scores<T>(s, dp, Qs, dOs, Ks, Vs, warp * 16, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1), r = warp * 16 + g + (e >> 1) * 8;
+        float pr = 0.f, ds = 0.f;
+        if (q0 + r < p.sq) {
+          const float sv = (k0 + c < p.skv) ? s[j][e] * p.scale : kMask;
+          pr = __expf(sv - lse_s[r]);
+          ds = pr * (dp[j][e] - di_s[r]) * p.scale;
+        }
+        Pt[c * LDX + r] = from_float<T>(pr);
+        dSt[c * LDX + r] = from_float<T>(ds);
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q for this warp's 16 kv rows
+#pragma unroll
+    for (int kk = 0; kk < BM; kk += 16) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        tile_mma<false>(dv[j], Pt + (warp * 16) * LDX + kk, LDX, dOs + kk * LDT + j * 8, LDT, lane);
+        tile_mma<false>(dk[j], dSt + (warp * 16) * LDX + kk, LDX, Qs + kk * LDT + j * 8, LDT, lane);
+      }
+    }
+  }
+
+  T* dkb = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  T* dvb = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  store_rows<T>(dkb, p.dk_ss, dk, k0 + warp * 16, p.skv, lane);
+  store_rows<T>(dvb, p.dv_ss, dv, k0 + warp * 16, p.skv, lane);
+}
+
+// K3: one block per (q tile of BM rows, batch*head); loops over kv tiles.
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(Params p) {
+  using L = Layout<T>;
+  constexpr int LDT = L::LDT, LDS = L::LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + BM * LDT;
+  T* Ks = dOs + BM * LDT;
+  T* Vs = Ks + BN * LDT;
+  T* dSs = Vs + BN * LDT;  // dS: BM x BN, each warp its own 16 rows
+  float* lse_s = reinterpret_cast<float*>(dSs + BM * LDS);
+  float* di_s = lse_s + BM;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = blockIdx.x * BM;
+
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+
+  load_tile<T, D, NTHREADS>(Qs, LDT, qb, p.q_ss, q0, BM, p.sq);
+  load_tile<T, D, NTHREADS>(dOs, LDT, dob, p.do_ss, q0, BM, p.sq);
+  load_rows(lse_s, di_s, p, bh, q0);
+
+  float dq[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  const int n_kv = (p.skv + BN - 1) / BN;
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int k0 = kt * BN;
+    __syncthreads();  // the previous tile's readers of Ks / Vs are done
+    load_tile<T, D, NTHREADS>(Ks, LDT, kb, p.k_ss, k0, BN, p.skv);
+    load_tile<T, D, NTHREADS>(Vs, LDT, vb, p.v_ss, k0, BN, p.skv);
+    __syncthreads();
+
+    float s[NT][4], dp[NT][4];
+    scores<T>(s, dp, Qs, dOs, Ks, Vs, warp * 16, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1), r = warp * 16 + g + (e >> 1) * 8;
+        float ds = 0.f;
+        if (q0 + r < p.sq) {
+          const float sv = (k0 + c < p.skv) ? s[j][e] * p.scale : kMask;
+          ds = __expf(sv - lse_s[r]) * (dp[j][e] - di_s[r]) * p.scale;
+        }
+        dSs[r * LDS + c] = from_float<T>(ds);
+      }
+    }
+    __syncwarp();  // a warp reads back only the dS rows it wrote
+
+    // dQ += dS K for this warp's 16 q rows
+#pragma unroll
+    for (int kk = 0; kk < BN; kk += 16) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        tile_mma<false>(dq[j], dSs + (warp * 16) * LDS + kk, LDS, Ks + kk * LDT + j * 8, LDT, lane);
+    }
+  }
+
+  T* dqb = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  store_rows<T>(dqb, p.dq_ss, dq, q0 + warp * 16, p.sq, lane);
+}
+
+template <typename T, bool kDkv>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  using L = Layout<T>;
+  auto kernel = kDkv ? flash_bwd_dkv_kernel<T> : flash_bwd_dq_kernel<T>;
+  const size_t smem = kDkv ? L::SMEM_DKV : L::SMEM_DQ;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int rows = kDkv ? p.skv : p.sq;
+  dim3 grid((rows + (kDkv ? BN : BM) - 1) / (kDkv ? BN : BM), batch * p.heads);
+  kernel<<<grid, NTHREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool kDkv>
+int dispatch(int dtype, int d, const Params& p, int batch, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d != D) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch<__nv_bfloat16, kDkv>(p, batch, s);
+  if (dtype == 1) return launch<float, kDkv>(p, batch, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = bfloat16, 1 = float32; d must be 64. Strides are in elements;
+// the last dim is contiguous. q/k/v/dout/dk/dv are (B, S, H, D) views; lse
+// and di are (B*H, Sq) fp32. Writes dk and dv (kv rows < skv).
+int flash_attn_bwd_dkv(int dtype, int d, const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* di, void* dk, void* dv,
+                       long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                       long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                       long long v_sh, long long do_sb, long long do_ss, long long do_sh,
+                       long long dk_sb, long long dk_ss, long long dk_sh, long long dv_sb,
+                       long long dv_ss, long long dv_sh, int batch, int heads, int sq, int skv,
+                       float scale, void* stream) {
+  Params p{q,     k,     v,     dout,  lse,   di,    nullptr, dk,    dv,    q_sb,  q_ss,
+           q_sh,  k_sb,  k_ss,  k_sh,  v_sb,  v_ss,  v_sh,    do_sb, do_ss, do_sh, 0,
+           0,     0,     dk_sb, dk_ss, dk_sh, dv_sb, dv_ss,   dv_sh, heads, sq,    skv,
+           scale};
+  return dispatch<true>(dtype, d, p, batch, stream);
+}
+
+// The same inputs; writes dq (q rows < sq).
+int flash_attn_bwd_dq(int dtype, int d, const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* di, void* dq,
+                      long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                      long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                      long long v_sh, long long do_sb, long long do_ss, long long do_sh,
+                      long long dq_sb, long long dq_ss, long long dq_sh, int batch, int heads,
+                      int sq, int skv, float scale, void* stream) {
+  Params p{q,     k,     v,     dout,  lse,  di,   dq,    nullptr, nullptr, q_sb,  q_ss,
+           q_sh,  k_sb,  k_ss,  k_sh,  v_sb, v_ss, v_sh,  do_sb,   do_ss,   do_sh, dq_sb,
+           dq_ss, dq_sh, 0,     0,     0,    0,    0,     0,       heads,   sq,    skv,
+           scale};
+  return dispatch<false>(dtype, d, p, batch, stream);
+}
+
+const char* pso_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+}  // extern "C"

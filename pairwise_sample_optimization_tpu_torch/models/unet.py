@@ -12,6 +12,11 @@ the timestep embedding. ``state_dict`` keys are diffusers'
 ``UNet2DConditionModel`` keys (plus ``*.lora.down/up.weight`` when LoRA is
 on). ``lora_scale`` reaches every attention q/k/v/out projection; the DPO
 reference model is ``lora_scale=0`` on the same module.
+
+``UNetConfig.remat`` is the JAX package's remat knob: ``"full"`` wraps
+every ResnetBlock and SpatialTransformer in ``torch.utils.checkpoint``
+(non-reentrant) while gradients are on, as ``nn.remat`` wraps them there;
+``""`` / ``"none"`` turns it off. The selective modes are not ported.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .layers import (
@@ -49,6 +55,8 @@ class UNetConfig:
     num_time_ids: int = 6
     norm_groups: int = 32
     lora_rank: int = 0
+    # "full": checkpoint every ResnetBlock and SpatialTransformer; "" / "none": off
+    remat: str = ""
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -60,12 +68,12 @@ class UNetConfig:
         return self.pooled_embed_dim + self.num_time_ids * self.addition_time_embed_dim
 
     @staticmethod
-    def sdxl(lora_rank: int = 0, dtype=torch.bfloat16) -> "UNetConfig":
+    def sdxl(lora_rank: int = 0, dtype=torch.bfloat16, remat: str = "") -> "UNetConfig":
         """Full SDXL (Turbo / DMD2 share this architecture; 2.6B params)."""
-        return UNetConfig(lora_rank=lora_rank, dtype=dtype)
+        return UNetConfig(lora_rank=lora_rank, remat=remat, dtype=dtype)
 
     @staticmethod
-    def tiny(lora_rank: int = 0, dtype=torch.float32) -> "UNetConfig":
+    def tiny(lora_rank: int = 0, dtype=torch.float32, remat: str = "") -> "UNetConfig":
         """2-level toy config for CPU tests."""
         return UNetConfig(
             block_out_channels=(32, 64),
@@ -77,8 +85,12 @@ class UNetConfig:
             pooled_embed_dim=16,
             norm_groups=8,
             lora_rank=lora_rank,
+            remat=remat,
             dtype=dtype,
         )
+
+
+SELECTIVE_REMAT_MODES = ("resnets", "dots", "lowres", "lowres_dots")
 
 
 class SDXLUNet(nn.Module):
@@ -88,6 +100,10 @@ class SDXLUNet(nn.Module):
             self._build(config)
 
     def _build(self, cfg: UNetConfig):
+        if cfg.remat in SELECTIVE_REMAT_MODES:
+            raise NotImplementedError(f"remat={cfg.remat!r} is not ported; use 'full' or ''")
+        if cfg.remat not in ("", "none", "full"):
+            raise ValueError(f"unknown remat mode {cfg.remat!r}")
         self.config = cfg
         dt = cfg.dtype
         chs = cfg.block_out_channels
@@ -164,27 +180,34 @@ class SDXLUNet(nn.Module):
         temb = temb + self.add_embedding(add.to(dt))
         context = encoder_hidden_states.to(dt)
 
+        remat = cfg.remat == "full" and torch.is_grad_enabled()
+
+        def run(block, *args):
+            if remat:
+                return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+            return block(*args)
+
         h = self.conv_in(sample.to(dt))
         skips = [h]
         for blk in self.down_blocks:
             for i, res in enumerate(blk.resnets):
-                h = res(h, temb)
+                h = run(res, h, temb)
                 if hasattr(blk, "attentions"):
-                    h = blk.attentions[i](h, context, lora_scale)
+                    h = run(blk.attentions[i], h, context, lora_scale)
                 skips.append(h)
             if hasattr(blk, "downsamplers"):
                 h = blk.downsamplers[0](h)
                 skips.append(h)
 
-        h = self.mid_block.resnets[0](h, temb)
-        h = self.mid_block.attentions[0](h, context, lora_scale)
-        h = self.mid_block.resnets[1](h, temb)
+        h = run(self.mid_block.resnets[0], h, temb)
+        h = run(self.mid_block.attentions[0], h, context, lora_scale)
+        h = run(self.mid_block.resnets[1], h, temb)
 
         for blk in self.up_blocks:
             for i, res in enumerate(blk.resnets):
-                h = res(torch.cat([h, skips.pop()], dim=1), temb)
+                h = run(res, torch.cat([h, skips.pop()], dim=1), temb)
                 if hasattr(blk, "attentions"):
-                    h = blk.attentions[i](h, context, lora_scale)
+                    h = run(blk.attentions[i], h, context, lora_scale)
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h)
 

@@ -10,10 +10,12 @@ activations, as two kernels with a wrapper each:
   silu((x - mean) * rsqrt(var + eps) * weight + bias) in x's dtype, with
   var = E[x^2] - E[x]^2 clamped at 0.
 
-``fused_groupnorm_silu`` runs both. A CPU tensor takes the plain version
-(``ops.group_norm.group_norm_plain`` with ``act="silu"``); a CUDA tensor
-takes the kernels or raises. Inference only: the CUDA path refuses inputs
-that need a gradient.
+``fused_groupnorm_silu`` runs both through :class:`FusedGroupNormSiLU`.
+A CPU tensor takes the plain version (``ops.group_norm.group_norm_plain``
+with ``act="silu"``); a CUDA tensor takes the kernels or raises. The JAX
+package has no backward kernel here: its VJP recomputes through the jnp
+reference (``_fgs_bwd``). So does the port's: the Function's backward is
+autograd through ``group_norm_plain``.
 """
 
 from __future__ import annotations
@@ -101,8 +103,6 @@ def _check(x, num_groups, weight=None, bias=None):
                          f"{[tuple(t.shape) for t in params]}")
     if (x.numel() // (x.shape[0] * c)) % 8 or x.data_ptr() % 16:
         raise ValueError(f"spatial size of {tuple(x.shape)} must be a multiple of 8")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in [x] + params):
-        raise NotImplementedError("the GroupNorm+SiLU kernels have no backward yet")
 
 
 def group_stats(x, num_groups: int):
@@ -140,9 +140,38 @@ def group_norm_silu_from_stats(x, partial, weight, bias, num_groups: int, eps: f
     return y
 
 
+class FusedGroupNormSiLU(torch.autograd.Function):
+    """silu(groupnorm(x) * weight + bias). Forward: K4 + K5 on CUDA, the
+    plain version on the CPU. Backward: autograd through
+    ``group_norm_plain(..., act="silu")`` recomputed from the saved x,
+    weight and bias (the counterpart of the JAX package's ``_fgs_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.num_groups, ctx.eps = num_groups, eps
+        if x.device.type == "cpu":
+            return fused_groupnorm_silu_plain(x, weight, bias, num_groups, eps)
+        return group_norm_silu_from_stats(x, group_stats(x, num_groups), weight, bias,
+                                          num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        from .group_norm import group_norm_plain
+
+        saved = ctx.saved_tensors
+        wanted = [i for i in range(3) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(saved)]
+            y = group_norm_plain(*inputs, ctx.num_groups, ctx.eps, act="silu")
+            grads = torch.autograd.grad(y, [inputs[i] for i in wanted], gy)
+        out = [None] * 3
+        for i, g in zip(wanted, grads):
+            out[i] = g
+        return (*out, None, None)
+
+
 def fused_groupnorm_silu(x, weight, bias, num_groups: int, eps: float = 1e-5):
-    """x (B, C, *spatial) -> silu(groupnorm(x) * weight + bias) in x's dtype."""
-    if x.device.type == "cpu":
-        return fused_groupnorm_silu_plain(x, weight, bias, num_groups, eps)
-    return group_norm_silu_from_stats(x, group_stats(x, num_groups), weight, bias, num_groups,
-                                      eps)
+    """x (B, C, *spatial) -> silu(groupnorm(x) * weight + bias) in x's
+    dtype, differentiable in x, weight and bias."""
+    return FusedGroupNormSiLU.apply(x, weight, bias, num_groups, eps)

@@ -26,6 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
     "flash_attn_fwd": "flash_attn_fwd.cu",
+    "flash_attn_bwd": "flash_attn_bwd.cu",
     "group_norm_silu": "group_norm_silu.cu",
 }
 NVCC_FLAGS = [
@@ -35,7 +36,8 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> launches since the last reset (wrappers increment these)
-launch_counts = {"flash_attn_fwd": 0, "gn_stats": 0, "gn_silu_norm": 0}
+launch_counts = {"flash_attn_fwd": 0, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0,
+                 "gn_stats": 0, "gn_silu_norm": 0}
 _libs: dict[str, ctypes.CDLL] = {}
 
 

@@ -10,7 +10,7 @@ PickScore -> winner per pair.
 Public functions keep the JAX layouts: latents (B, h, w, 4), images
 (B, H, W, 3) in [-1, 1], trajectories with (S, B, ...) step axes. The
 NHWC <-> NCHW permute happens at the UNet and VAE call boundaries. The
-slice takes token ids; tokenizers are not ported yet.
+pipeline takes token ids (``data.tokenizer`` makes them).
 """
 
 from __future__ import annotations
@@ -59,16 +59,17 @@ class SDXLPipeline:
     @classmethod
     def random(cls, lora_rank: int = 32, dtype=torch.bfloat16, resolution: int = 512,
                tiny: bool = False, seed: int = 0, lora_b_std: float = 0.0,
-               device="cuda") -> "SDXLPipeline":
+               remat: str = "", device="cuda") -> "SDXLPipeline":
         """Architecture-true random weights made from ``seed``, built on
         ``device`` directly: each tower is constructed on the meta device,
         materialized there with ``to_empty`` and filled by
         ``models.layers.init_random_``. Frozen weights are ``dtype``; LoRA
         is fp32, its B gaussian with std ``lora_b_std`` (0 = a fresh no-op
-        adapter). ``tiny`` gives the CPU-test configuration."""
+        adapter). ``tiny`` gives the CPU-test configuration; ``remat`` is the
+        UNet's activation checkpointing (``UNetConfig.remat``)."""
         dev = resolve_device(device)
         if tiny:
-            ucfg = UNetConfig.tiny(lora_rank=lora_rank, dtype=dtype)
+            ucfg = UNetConfig.tiny(lora_rank=lora_rank, dtype=dtype, remat=remat)
             vcfg = VAEConfig.tiny(dtype=dtype)
             # TE widths sum to the UNet cross-attention dim (16 + 16 = 32)
             t1cfg = dataclasses.replace(CLIPTextConfig.tiny(dtype), width=16, heads=2)
@@ -76,7 +77,7 @@ class SDXLPipeline:
                                         projection_dim=16)
             pcfg = (CLIPTextConfig.tiny(dtype), CLIPVisionConfig.tiny(dtype))
         else:
-            ucfg = UNetConfig.sdxl(lora_rank=lora_rank, dtype=dtype)
+            ucfg = UNetConfig.sdxl(lora_rank=lora_rank, dtype=dtype, remat=remat)
             vcfg = VAEConfig.sdxl(dtype=dtype)
             t1cfg = CLIPTextConfig.sdxl_te1(dtype)
             t2cfg = CLIPTextConfig.sdxl_te2(dtype)

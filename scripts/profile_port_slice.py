@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of one serving-slice iteration goes on the card.
+"""Where the time of one serving-slice iteration, or of one online-PSO
+update, goes on the card.
 
-    python3 scripts/profile_port_slice.py [--seed N]
+    python3 scripts/profile_port_slice.py [--seed N] [--update]
 
 Builds the full-width SDXL-Turbo slice of the PyTorch port (the
 configuration ``chip_smoke.py`` drives: 4 prompts, 8 trajectories, 4
 steps, 512^2, bf16, LoRA rank 32), runs one warm-up iteration, then one
-iteration under ``torch.profiler`` and prints:
+iteration under ``torch.profiler``. With ``--update`` the iteration is one
+optimizer update of the online trainer at the config's defaults (remat
+"full", 2 x 3 microbatches of 4 pairs, the policy pass at batch 8, a
+grad-free reference pass) on 8 pairs sampled first. It prints:
 
 - the wall-clock ms of an unprofiled iteration (host clock, ends in a
   synchronize) and the device-busy ms of the profiled one (sum of kernel
@@ -19,6 +23,7 @@ iteration under ``torch.profiler`` and prints:
 
 Needs one CUDA card; writes the same summary to
 ``chiprun_out/profile_port_slice.json``.
+With ``--update`` the file is ``profile_port_update.json`` beside it.
 """
 
 from __future__ import annotations
@@ -35,10 +40,12 @@ ROOT = Path(__file__).resolve().parent.parent
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("K1 flash_attn_fwd", ("flash_fwd_kernel",)),
+    ("K2 flash_attn_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K3 flash_attn_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K4 gn_stats", ("gn_stats_kernel",)),
     ("K5 gn_silu_norm", ("gn_norm_silu_kernel",)),
     ("cuDNN NCHW<->NHWC layout copies", ("nchwtonhwc", "nhwctonchw")),
-    ("convolution", ("conv", "cudnn", "implicit", "dgrad", "fprop")),
+    ("convolution", ("conv", "cudnn", "implicit", "dgrad", "wgrad", "fprop")),
     ("matrix product", ("gemm", "cutlass", "xmma", "gemv", "matmul", "nvjet")),
 )
 
@@ -54,6 +61,7 @@ def category(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--update", action="store_true", help="profile one optimizer update")
     args = ap.parse_args(argv)
 
     import torch
@@ -71,7 +79,8 @@ def main(argv=None) -> int:
     print(card, flush=True)
     kernel_lib.build()
     pipe = SDXLPipeline.random(lora_rank=32, dtype=torch.bfloat16, resolution=512,
-                               seed=args.seed, lora_b_std=1.0 / 32, device="cuda")
+                               seed=args.seed, lora_b_std=1.0 / 32,
+                               remat="full" if args.update else "", device="cuda")
     gen = torch.Generator().manual_seed(args.seed)
     ids = [torch.randint(1, 49407, (4, 77), generator=gen).cuda() for _ in range(3)]
     cuda_gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -79,6 +88,9 @@ def main(argv=None) -> int:
     def iteration():
         cond = pipe.encode_prompt(*ids)
         return pipe.sample_pairs(cond, cuda_gen, num_steps=4)
+
+    if args.update:
+        iteration = update_iteration(pipe, ids, cuda_gen, gen)
 
     def wall(fn):
         torch.cuda.synchronize()
@@ -96,7 +108,10 @@ def main(argv=None) -> int:
 
     by_name, by_cat, launches = defaultdict(float), defaultdict(float), 0
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # kernels only: ranges such as "Optimizer.step#AdamW.step" are also
+        # listed among the device events, as user annotations
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                evt, "is_user_annotation", False):
             us = evt.time_range.elapsed_us()
             by_name[evt.name] += us / 1e3
             by_cat[category(evt.name)] += us / 1e3
@@ -122,8 +137,34 @@ def main(argv=None) -> int:
         print(f"  {ms:9.2f} ms  {name[:110]}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_port_slice.json").write_text(json.dumps(summary, indent=1))
+    name = "profile_port_update.json" if args.update else "profile_port_slice.json"
+    (out / name).write_text(json.dumps({"update": args.update, **summary}, indent=1))
     return 0
+
+
+def update_iteration(pipe, ids, cuda_gen, gen):
+    """One optimizer update of the online trainer (config defaults) on 8
+    pairs sampled from two prompt batches."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.train import (OnlinePSOConfig, OnlinePSOTrainer,
+                                                              PSOTrainState, lora_parameters,
+                                                              make_optimizer)
+
+    for module in (pipe.vae, pipe.te1, pipe.te2, pipe.scorer.model):
+        module.requires_grad_(False)
+    trainer = OnlinePSOTrainer(OnlinePSOConfig(num_steps=4, train_batch_size=4, grad_accum=2),
+                               pipe)
+    lora = lora_parameters(pipe.unet)
+    state = PSOTrainState.create(lora, make_optimizer(lora))
+    parts = []
+    for _ in range(2):
+        cond = pipe.encode_prompt(*ids)
+        samples, _ = trainer.sample_pairs(cond, cuda_gen)
+        parts.append((samples, {k: cond[k] for k in ("embeds", "pooled", "time_ids")}))
+    split = lambda trees: {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+    batch, cond = split([p[0] for p in parts]), split([p[1] for p in parts])
+    return lambda: trainer.update(state, batch, cond, gen)
 
 
 if __name__ == "__main__":

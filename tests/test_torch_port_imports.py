@@ -1,6 +1,7 @@
-"""The port's boundaries: it imports no JAX and nothing of the JAX package,
-its entry points run on CUDA unless told otherwise, and a tensor that is
-not on the CPU never reaches a kernel's plain version.
+"""The port's boundaries: it (and ``chip_smoke.py``) imports no JAX,
+nothing of the JAX package and none of the packages the card's machine
+lacks, its entry points run on CUDA unless told otherwise, and a tensor
+that is not on the CPU never reaches a kernel's plain version.
 """
 
 import ast
@@ -20,7 +21,20 @@ from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
 
 PKG = Path(port.__file__).resolve().parent
 ROOT = PKG.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pairwise_sample_optimization_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_collections", "absl", "regex",
+             "safetensors", "PIL", "pairwise_sample_optimization_tpu")
+SUBPACKAGES = ("checkpoints", "cli", "configs", "data", "models", "ops", "rewards", "train",
+               "utils")
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The shapes here are tiny: one intra-op thread is as fast, and does not
+    oversubscribe the CPU when test files run in parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _forbidden(name: str) -> bool:
@@ -31,7 +45,13 @@ def _modules():
     return sorted(PKG.rglob("*.py"))
 
 
-@pytest.mark.parametrize("path", _modules(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_every_subpackage_is_covered():
+    covered = {p.relative_to(PKG).parts[0] for p in _modules() if len(p.relative_to(PKG).parts) > 1}
+    assert set(SUBPACKAGES) <= covered
+
+
+@pytest.mark.parametrize("path", _modules() + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
 def test_module_imports_nothing_of_jax(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -88,6 +108,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         build(device="cpu")  # the CPU is taken only when asked for
 
 
+def test_trainer_entry_point_defaults_to_cuda(no_cuda, tmp_path):
+    from pairwise_sample_optimization_tpu_torch.cli.online_runner import run_online_pso
+    from pairwise_sample_optimization_tpu_torch.cli.train_online_pso_sdxl_turbo import (
+        build_config, main)
+
+    config = build_config(tiny=True, overrides=[f"output_dir={tmp_path}"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_online_pso(config, num_epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--tiny", "--epochs", "1", f"output_dir={tmp_path}"])
+    _, history, _ = run_online_pso(config, num_epochs=1, device="cpu")
+    assert len(history) == 1
+
+
 class _FakeLib:
     """Stands in for a kernel library: records calls, returns ``rc``."""
 
@@ -115,6 +149,7 @@ def kernel_path(monkeypatch):
         raise AssertionError("a non-CPU tensor reached the plain version")
 
     monkeypatch.setattr(tfa, "flash_attention_plain", plain_reached)
+    monkeypatch.setattr(tfa, "flash_attention_bwd_plain", plain_reached)
     monkeypatch.setattr(tfg, "fused_groupnorm_silu_plain", plain_reached)
     monkeypatch.setattr(tfa, "_check", lambda *a: None)
     monkeypatch.setattr(tfg, "_check", lambda *a: None)
@@ -156,7 +191,7 @@ def test_kernel_failure_propagates_and_is_not_counted(kernel_path):
     w = torch.empty((64,), device="meta")
     with pytest.raises(RuntimeError, match="gn_stats: CUDA error 700"):
         group_norm(torch.empty((2, 64, 8, 8), device="meta"), w, w, 32, act="silu")
-    assert kernel_lib.launch_counts == {"flash_attn_fwd": 0, "gn_stats": 0, "gn_silu_norm": 0}
+    assert set(kernel_lib.launch_counts.values()) == {0}
 
 
 def test_each_launch_counts_once(kernel_path):
@@ -169,13 +204,59 @@ def test_each_launch_counts_once(kernel_path):
     group_norm(torch.empty((2, 64, 8, 8), device="meta"), w, w, 32, act="silu")
     group_norm(torch.empty((2, 64, 8, 8), device="meta"), w, w, 32)  # no act: plain, no kernel
     assert kernel_path.calls == ["flash_attn_fwd", "gn_stats", "gn_silu_norm"]
-    assert kernel_lib.launch_counts == {"flash_attn_fwd": 1, "gn_stats": 1, "gn_silu_norm": 1}
+    assert kernel_lib.launch_counts == {"flash_attn_fwd": 1, "flash_attn_bwd_dkv": 0,
+                                        "flash_attn_bwd_dq": 0, "gn_stats": 1,
+                                        "gn_silu_norm": 1}
+
+
+def _meta_bwd_inputs(d=64, skv=77):
+    q = torch.empty((2, 64, 2, d), device="meta")
+    k, v = (torch.empty((2, skv, 2, d), device="meta") for _ in range(2))
+    o = torch.empty_like(q)
+    lse = torch.empty((2, 2, 64), device="meta")
+    return q, k, v, o, lse
+
+
+def test_backward_launches_k2_then_k3_and_counts_each_once(kernel_path):
+    q, k, v, o, lse = _meta_bwd_inputs()
+    # dO as autograd may hand it over: a non-contiguous view is copied, not refused
+    do = torch.empty((2, 64, 2, 64, 2), device="meta")[..., 0]
+    assert do.stride(3) != 1
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    assert kernel_path.calls == ["flash_attn_bwd_dkv", "flash_attn_bwd_dq"]
+    assert kernel_lib.launch_counts["flash_attn_bwd_dkv"] == 1
+    assert kernel_lib.launch_counts["flash_attn_bwd_dq"] == 1
+
+
+def test_attention_function_backward_goes_through_the_kernels(kernel_path):
+    q, k, v, _, _ = _meta_bwd_inputs()
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    o = tfa.flash_attention(q, k, v)
+    torch.autograd.grad(o, (q, k, v), torch.empty_like(o))
+    assert kernel_path.calls == ["flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq"]
+
+
+def test_backward_kernel_failure_propagates_and_is_not_counted(kernel_path):
+    kernel_path.rc = 700
+    q, k, v, o, lse = _meta_bwd_inputs()
+    with pytest.raises(RuntimeError, match="flash_attn_bwd_dkv: CUDA error 700"):
+        tfa.flash_attention_bwd(q, k, v, o, lse, torch.empty_like(q))
+    assert set(kernel_lib.launch_counts.values()) == {0}
+
+
+def test_backward_takes_head_dim_64_only():
+    q, k, v, o, lse = _meta_bwd_inputs(d=80)
+    for kernel in (tfa.flash_attention_bwd_dkv, tfa.flash_attention_bwd_dq):
+        with pytest.raises(ValueError, match=r"head dim 80 of q \(2, 64, 2, 80\)"):
+            kernel(q, k, v, torch.empty_like(q), lse, lse)
 
 
 def test_kernel_sources_and_signatures_line_up():
     """Each C entry point a wrapper declares exists in its source, with as
     many parameters as the wrapper passes (the card is needed to build)."""
     for name, sigs in (("flash_attn_fwd", tfa._SIGNATURES),
+                       ("flash_attn_bwd", tfa._BWD_SIGNATURES),
                        ("group_norm_silu", tfg._SIGNATURES)):
         src = (kernel_lib.CSRC / kernel_lib.SOURCES[name]).read_text()
         c_api = src[src.index('extern "C" {'):]
