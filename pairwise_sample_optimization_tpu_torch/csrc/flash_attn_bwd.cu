@@ -20,12 +20,33 @@
 // What bounds it on an H100: tensor-core operations at the UNet's
 // 1024-token self-attention (K2 does four and K3 three products of
 // 2*Sq*Skv*64 per head) and bytes at the 256-token and the 77-token
-// cross-attention shapes. This simple design is far from both: S and dP
-// are recomputed in both kernels, P and dS go through shared memory to
-// become the A operand of the next product, and the copies are not
-// overlapped with the products.
+// cross-attention shapes, where a block's few tiles make latency and waves
+// matter as much as either rate.
 //
-// Design, simple and right first:
+// K2 in bf16 (flash_bwd_dkv_kernel_d64, all of the update's K2 launches)
+// computes the scores transposed, so nothing is transposed in memory:
+// - one block of 4 warps per (64 kv rows, batch*head), looping over q tiles
+//   of 64; warp w owns kv rows 16w..16w+15. Their K and V rows are A
+//   fragments in registers, loaded once (ldmatrix), and their dK and dV
+//   accumulators stay in registers.
+// - S^T = K Q^T and dP^T = V dO^T: Q and dO rows are the n of the B
+//   operand, read with ldmatrix as they lie. LSE and Di are indexed by
+//   column (q), staged per q tile.
+// - P^T and dS^T come out of the accumulators already in the m16n8
+//   fragment layout whose bf16 packing is the A fragment of dV += P^T dO
+//   and dK += dS^T Q (pso::acc_to_a): no shared-memory round trip, no
+//   transposed store. In those products dO's and Q's k (the q row) runs
+//   along their rows, so their B fragments come through ldmatrix.trans.
+// - Q, dO, LSE and Di stream through a 2-stage cp.async ring (one
+//   __syncthreads a q tile). Pad q rows (past sq) are zero-filled by the
+//   copy, never copies of a real row: with zero Q and dO a pad column adds
+//   nothing to dK or dV whatever its P, and LSE = Di = 0 keeps that P
+//   finite. kv rows past skv get S = -1e30 (P = 0) and are never stored.
+// - dK and dV are staged in the warp's own rows of the K / V buffers and
+//   stored as 16-byte rows.
+//
+// K3 (all dtypes) and the fp32 K2 keep the first, simple design
+// (flash_bwd_dkv_kernel, flash_bwd_dq_kernel):
 // - 4 warps, 64x64 tiles; each warp owns 16 rows of S / dP (all 64 columns)
 //   and, in K2, 16 kv rows of the dK / dV accumulators (64 fp32 registers
 //   each warp thread), in K3 16 q rows of dQ.
@@ -37,7 +58,7 @@
 //   a row-major A operand; K3 stores dS row-major (each warp its own rows).
 // - fp32 inputs take the same structure with exact fp32 FMAs in place of
 //   the tensor-core product (a correctness path, not a fast one).
-// - ldmatrix, register-resident P / dS, wgmma and TMA are later work.
+// - K3 is next for the K2 treatment; wgmma and TMA are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -288,22 +309,214 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(Params p) {
 template <typename T, bool kDkv>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   using L = Layout<T>;
-  auto kernel = kDkv ? flash_bwd_dkv_kernel<T> : flash_bwd_dq_kernel<T>;
+  void (*kernel)(Params);
+  if constexpr (kDkv)
+    kernel = flash_bwd_dkv_kernel<T>;
+  else
+    kernel = flash_bwd_dq_kernel<T>;
   const size_t smem = kDkv ? L::SMEM_DKV : L::SMEM_DQ;
-  cudaError_t err =
+  // once per instantiation: the host's launch rate bounds the update
+  static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   const int rows = kDkv ? p.skv : p.sq;
   dim3 grid((rows + (kDkv ? BN : BM) - 1) / (kDkv ? BN : BM), batch * p.heads);
   kernel<<<grid, NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// ---- K2 in bf16: the transposed-score design --------------------------------
+namespace dkv_bf16 {
+
+using bf16 = __nv_bfloat16;
+using namespace pso;
+
+constexpr int LD = D + 8;      // padded rows of 144 bytes: ldmatrix reads without bank conflicts
+constexpr int TILE = 64 * LD;  // one 64-row tile in shared memory
+constexpr int STAGES = 2;      // the Q / dO / LSE / Di copy ring
+// K and V (the block's kv rows), then per stage Q and dO, then per stage LSE and Di
+constexpr size_t SMEM = sizeof(bf16) * (size_t)(2 * TILE + STAGES * 2 * TILE) +
+                        sizeof(float) * (size_t)(STAGES * 2 * BM);  // 56,320 bytes
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(NTHREADS == 2 * BM, "one LSE or Di value per thread");
+
+// Start copying q tile [q0, q0 + BM): Q and dO rows (zero-filled past sq,
+// so pad columns add nothing to dK or dV whatever their P), LSE and Di
+// (zero past sq, which keeps those P finite).
+__device__ __forceinline__ void copy_q_tile(bf16* Qs, bf16* dOs, float* rows_s, const bf16* qb,
+                                            const bf16* dob, const Params& p, int bh, int q0) {
+  copy_rows_async<BM, NTHREADS>(Qs, LD, qb, p.q_ss, q0, p.sq);
+  copy_rows_async<BM, NTHREADS>(dOs, LD, dob, p.do_ss, q0, p.sq);
+  const int r = threadIdx.x % BM, row = q0 + r;
+  const float* src = (threadIdx.x < BM ? p.lse : p.di) + (long long)bh * p.sq;
+  cp_async_4(smem_u32(rows_s + threadIdx.x), src + (row < p.sq ? row : p.sq - 1), row < p.sq);
+}
+
+// One block per (64 kv rows, batch*head), looping over q tiles; warp w owns
+// kv rows 16w..16w+15, their K and V as A fragments in registers, and their
+// dK and dV accumulators. It computes the scores transposed, S^T = K Q^T and
+// dP^T = V dO^T, so that P^T and dS^T come out of the accumulators already
+// as the A operands of dV += P^T dO and dK += dS^T Q.
+__global__ void __launch_bounds__(NTHREADS, 2) flash_bwd_dkv_kernel_d64(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + TILE;
+  bf16* Qs = Vs + TILE;  // stage s: Q at Qs + 2 s TILE, dO right after it
+  float* rows_s = reinterpret_cast<float*>(Qs + STAGES * 2 * TILE);  // stage s: LSE, Di at + 2 s BM
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int k0 = blockIdx.x * BN;
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dob = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float sl2 = p.scale * kLog2e;
+  // this lane's kv rows (g and g + 8 of the warp's 16): those at or past skv
+  // get S = -1e30, so P = 0
+  const bool kv_ok[2] = {k0 + warp * 16 + g < p.skv, k0 + warp * 16 + g + 8 < p.skv};
+
+  copy_rows_async<BN, NTHREADS>(Ks, LD, kb, p.k_ss, k0, p.skv);
+  copy_rows_async<BN, NTHREADS>(Vs, LD, vb, p.v_ss, k0, p.skv);
+  copy_q_tile(Qs, Qs + TILE, rows_s, qb, dob, p, bh, 0);
+  cp_async_commit();
+
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  float dk[NT][4], dv[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  const int n_q = (p.sq + BM - 1) / BM;
+  for (int qt = 0; qt < n_q; ++qt) {
+    cp_async_wait<0>();
+    __syncthreads();  // q tile qt has landed, and every warp is done with tile qt - 1
+    if (qt + 1 < n_q) {  // the next tile's copy overlaps this tile's products
+      const int st = (qt + 1) % STAGES;
+      copy_q_tile(Qs + 2 * st * TILE, Qs + (2 * st + 1) * TILE, rows_s + 2 * st * BM, qb, dob, p,
+                  bh, (qt + 1) * BM);
+      cp_async_commit();
+    }
+    if (qt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (warp * 16 + a_row(lane)) * LD + kk * 16 + a_col(lane);
+        ldmatrix_x4(kf[kk], smem_u32(Ks + off));
+        ldmatrix_x4(vf[kk], smem_u32(Vs + off));
+      }
+    }
+    const bf16* Qt = Qs + 2 * (qt % STAGES) * TILE;
+    const bf16* dOt = Qt + TILE;
+    const float* lse_t = rows_s + 2 * (qt % STAGES) * BM;
+    const float* di_t = lse_t + BM;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 kv rows x 64 q columns; Q and dO
+    // rows are the n of the B operand, read by ldmatrix as they lie
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < BM / 16; ++jp) {
+        const int off = (jp * 16 + bn_row(lane)) * LD + kk * 16 + bn_col(lane);
+        uint32_t bq[4], bo[4];
+        ldmatrix_x4(bq, smem_u32(Qt + off));
+        ldmatrix_x4(bo, smem_u32(dOt + off));
+        mma_bf16(s[2 * jp], kf[kk], bq[0], bq[1]);
+        mma_bf16(s[2 * jp + 1], kf[kk], bq[2], bq[3]);
+        mma_bf16(dp[2 * jp], vf[kk], bo[0], bo[1]);
+        mma_bf16(dp[2 * jp + 1], vf[kk], bo[2], bo[3]);
+      }
+    }
+    // P^T = exp(S^T scale - LSE[q]) and dS^T = P^T (dP^T - Di[q]) scale, in
+    // fp32; LSE and Di are indexed by column
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1);
+        const float x = kv_ok[e >> 1] ? s[j][e] * sl2 : kMask * kLog2e;
+        const float pr = ex2(x - lse_t[c] * kLog2e);
+        s[j][e] = pr;
+        dp[j][e] = pr * (dp[j][e] - di_t[c]) * p.scale;
+      }
+    }
+    // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to bf16 straight
+    // from the accumulators; dO's and Q's k (the q row) runs along their
+    // rows, so their B fragments come through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      acc_to_a(pa, s, kk);
+      acc_to_a(da, dp, kk);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        const int off = (kk * 16 + bk_row(lane)) * LD + np * 16 + bk_col(lane);
+        uint32_t bo[4], bq[4];
+        ldmatrix_x4_trans(bo, smem_u32(dOt + off));
+        ldmatrix_x4_trans(bq, smem_u32(Qt + off));
+        mma_bf16(dv[2 * np], pa, bo[0], bo[1]);
+        mma_bf16(dv[2 * np + 1], pa, bo[2], bo[3]);
+        mma_bf16(dk[2 * np], da, bq[0], bq[1]);
+        mma_bf16(dk[2 * np + 1], da, bq[2], bq[3]);
+      }
+    }
+  }
+
+  // stage this warp's 16 rows of dK and dV in its own rows of the K and V
+  // buffers (only this warp read them), then write rows < skv as 16-byte rows
+  bf16* Kw = Ks + warp * 16 * LD;
+  bf16* Vw = Vs + warp * 16 * LD;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int off = (g + 8 * i) * LD + j * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(Kw + off) = pack_f32(dk[j][2 * i], dk[j][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(Vw + off) = pack_f32(dv[j][2 * i], dv[j][2 * i + 1]);
+    }
+  }
+  __syncwarp();
+  bf16* dkb = static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  bf16* dvb = static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+#pragma unroll
+  for (int it = 0; it < 16 * (D / 8) / 32; ++it) {
+    const int idx = lane + 32 * it, r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    const int row = k0 + warp * 16 + r;
+    if (row < p.skv) {
+      *reinterpret_cast<uint4*>(dkb + (long long)row * p.dk_ss + c) =
+          *reinterpret_cast<const uint4*>(Kw + r * LD + c);
+      *reinterpret_cast<uint4*>(dvb + (long long)row * p.dv_ss + c) =
+          *reinterpret_cast<const uint4*>(Vw + r * LD + c);
+    }
+  }
+}
+
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel_d64, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((p.skv + BN - 1) / BN, batch * p.heads);
+  flash_bwd_dkv_kernel_d64<<<grid, NTHREADS, SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace dkv_bf16
+
 template <bool kDkv>
 int dispatch(int dtype, int d, const Params& p, int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d != D) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch<__nv_bfloat16, kDkv>(p, batch, s);
+  if constexpr (kDkv) {
+    if (dtype == 0) return dkv_bf16::launch(p, batch, s);
+  } else {
+    if (dtype == 0) return launch<__nv_bfloat16, false>(p, batch, s);
+  }
   if (dtype == 1) return launch<float, kDkv>(p, batch, s);
   return (int)cudaErrorInvalidValue;
 }

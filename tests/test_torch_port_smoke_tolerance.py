@@ -89,3 +89,30 @@ def test_bf16_backward_limit_passes_the_kernels_rounding(smoke, skv):
 @pytest.mark.parametrize("skv", [1024, 77])
 def test_bf16_backward_limit_fails_a_wrong_kernel(smoke, skv, fault):
     assert not _held(smoke, skv, fault)
+
+
+def _pad_q_rows(t, rows, copies):
+    """``t`` (B, S, ...) padded to ``rows`` along S: zeros, or with
+    ``copies`` copies of its last row."""
+    extra = rows - t.shape[1]
+    tail = t[:, -1:].expand(-1, extra, *t.shape[2:]) if copies else t.new_zeros(
+        (t.shape[0], extra, *t.shape[2:]))
+    return torch.cat([t, tail], 1)
+
+
+def test_bf16_backward_limit_fails_copied_pad_q_rows(smoke):
+    """K2 loops over q tiles of 64 rows; at a ragged q length (1000) the pad
+    rows of the last tile must be zero-filled Q and dO (their P can be
+    anything: they add nothing to dK or dV). A copy that clamps the source
+    row without zero-filling adds the last real row 24 more times."""
+    r = np.random.default_rng(1000)
+    q, k, v, do = (torch.from_numpy(r.standard_normal(s).astype(np.float32)).to(torch.bfloat16)
+                   for s in ((1, 1000, 4, 64), (1, 77, 4, 64), (1, 77, 4, 64), (1, 1000, 4, 64)))
+    o, lse = tfa.flash_attention_plain(q, k, v)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)[1:]
+    for copies in (False, True):
+        q_pad, o_pad, do_pad = (_pad_q_rows(t, 1024, copies) for t in (q, o, do))
+        lse_pad = _pad_q_rows(lse.transpose(1, 2), 1024, copies).transpose(1, 2)
+        got = _backward(q_pad, k, v, o_pad, lse_pad, do_pad)[1:]
+        used = max(smoke.tolerance_used(g, w, smoke.bwd_tolerance(w)) for g, w in zip(got, want))
+        assert (used > 1) == copies, (copies, used)
