@@ -36,7 +36,8 @@ PyTorch. In order:
    and peak memory;
 6. one phase per kernel at every shape the loop gave it (recorded during
    step 5) in bf16, plus one fp32 case and, for the attention kernels,
-   the bf16 ragged lengths of ``RAGGED`` (0 launches): the kernel against
+   the bf16 ragged lengths of ``RAGGED`` (and, for the forward, of
+   ``RAGGED_FWD`` at head dims 80 and 512; 0 launches): the kernel against
    its plain version on the same inputs (|diff| <= atol + rtol*|plain|,
    atol = rtol unless stated: attention forward 2e-3 fp32 and in bf16 rtol
    1e-2 with an atol of 5% of the plain O's rms, see ``fwd_tolerance``,
@@ -92,6 +93,10 @@ TOL = {"attention": {"bf16": (5e-2, 1e-2), "fp32": (2e-3, 2e-3)},
 # length). Every main-path length but kv 77 is a multiple of 64, so only these
 # reach the zero-filled and masked edges of the q and kv tiles.
 RAGGED = (((2, 1000, 3, 64), 77), ((1, 200, 5, 64), 1000), ((1, 1, 2, 64), 1))
+# The same for the forward's own tilings at PickScore's and the VAE's head
+# dims (forward only: the backward takes d = 64).
+RAGGED_FWD = (((2, 1000, 3, 80), 77), ((1, 1, 2, 80), 1), ((1, 1000, 1, 512), 77),
+              ((2, 200, 1, 512), 1000))
 KERNELS = {
     "flash_attn_fwd": ("pairwise_sample_optimization_tpu_torch/csrc/flash_attn_fwd.cu",
                        "pairwise_sample_optimization_tpu/ops/flash_attention.py:99"),
@@ -582,7 +587,7 @@ def attention_phase(shapes, seed):
     cases = [(q, k, dt, n) for (q, k, dt), n in shapes.items()]
     q0, k0, _, _ = max(cases, key=lambda c: c[3])
     cases.append((q0, k0, torch.float32, 0))  # the fp32 case, off the main path
-    cases += [(qs, (qs[0], skv, *qs[2:]), torch.bfloat16, 0) for qs, skv in RAGGED]
+    cases += [(qs, (qs[0], skv, *qs[2:]), torch.bfloat16, 0) for qs, skv in RAGGED + RAGGED_FWD]
     rows = []
     for qs, ks, dt, launches in cases:
         q = torch.randn(qs, generator=gen, device="cuda", dtype=dt)

@@ -45,20 +45,37 @@
 // - dK and dV are staged in the warp's own rows of the K / V buffers and
 //   stored as 16-byte rows.
 //
-// K3 (all dtypes) and the fp32 K2 keep the first, simple design
-// (flash_bwd_dkv_kernel, flash_bwd_dq_kernel):
+// K3 in bf16 (flash_bwd_dq_kernel_d64, all of the update's K3 launches) has
+// the forward's shape and runs on Hopper's warpgroup products
+// (csrc/wgmma.cuh):
+// - one block of one warpgroup per (64 q rows, batch*head), looping over
+//   kv tiles of 64; warp w owns q rows 16w..16w+15. Q and dO stay resident
+//   in shared memory in the 128-byte swizzle; each thread loads the LSE
+//   and Di of its two rows once.
+// - K and V tiles stream through a 2-stage cp.async ring in the same
+//   swizzle; keys past skv are zero-filled and masked to -1e30 (P = 0).
+// - S = Q K^T and dP = dO V^T are wgmma m64n64k16 with both operands
+//   K-major from descriptors; P = exp2(S scale log2 e - LSE log2 e) and
+//   dS = P (dP - Di) scale in registers.
+// - dQ += dS K is a wgmma with dS, rounded to bf16, as the register A
+//   operand (pso::acc_to_a) and the same K tile read MN-major, as the
+//   forward reads V. dQ is staged in the warp's own rows of the Q tile and
+//   stored as 16-byte rows.
+// - 50 KB of shared memory and 124 registers: 4 blocks an SM, 3-9%
+//   faster than 3 at every main-path shape on the H100 (PERF.md).
+//
+// fp32 inputs (a correctness path, not a fast one) keep the first, simple
+// design (flash_bwd_dkv_kernel, flash_bwd_dq_kernel):
 // - 4 warps, 64x64 tiles; each warp owns 16 rows of S / dP (all 64 columns)
-//   and, in K2, 16 kv rows of the dK / dV accumulators (64 fp32 registers
-//   each warp thread), in K3 16 q rows of dQ.
+//   and, in K2, 16 kv rows of the dK / dV accumulators, in K3 16 q rows of
+//   dQ, computed with exact fp32 FMAs in the m16n8 fragment layout.
 // - tiles are copied to shared memory with 16-byte loads from the caller's
 //   (B, S, H, D) strides; rows past either sequence end are zero-filled and
 //   their probabilities set to 0, which covers the 77-token kv without
 //   padding on the host. Rows that do not exist are never written.
 // - K2 stores P^T and dS^T in shared memory so the transposed products read
 //   a row-major A operand; K3 stores dS row-major (each warp its own rows).
-// - fp32 inputs take the same structure with exact fp32 FMAs in place of
-//   the tensor-core product (a correctness path, not a fast one).
-// - K3 is next for the K2 treatment; wgmma and TMA are later work.
+// - TMA copies are later work for all of them, and K2 on wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +83,7 @@
 #include <stdint.h>
 
 #include "mma_tile.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -508,6 +526,156 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 
 }  // namespace dkv_bf16
 
+// ---- K3 in bf16: the forward's shape on wgmma ------------------------------
+namespace dq_bf16 {
+
+using bf16 = __nv_bfloat16;
+using namespace pso;
+
+constexpr int TILE = 64 * 128;  // one 64-row tile of Q, dO, K or V: 8 KB
+constexpr int STAGES = 2;       // the K / V copy ring
+// 1 KB of slack to align the tiles to the 1024-byte swizzle period
+constexpr size_t SMEM = 1024 + (size_t)TILE * (2 + 2 * STAGES);  // 50,176 bytes
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One block (one warpgroup) per (64 q rows, batch*head), looping over kv
+// tiles; warp w owns q rows 16w..16w+15 of the wgmma products.
+__global__ void __launch_bounds__(NTHREADS, 4) flash_bwd_dq_kernel_d64(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t Qa = base, dOa = Qa + TILE;
+  const uint32_t Ka = dOa + TILE;           // stage s at Ka + s * TILE
+  const uint32_t Va = Ka + STAGES * TILE;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = blockIdx.x * BM;
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dob = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float sl2 = p.scale * kLog2e;
+
+  copy_rows_swz<D, BM, NTHREADS>(Qa, qb, p.q_ss, q0, p.sq);
+  copy_rows_swz<D, BM, NTHREADS>(dOa, dob, p.do_ss, q0, p.sq);
+  copy_rows_swz<D, BN, NTHREADS>(Ka, kb, p.k_ss, 0, p.skv);
+  copy_rows_swz<D, BN, NTHREADS>(Va, vb, p.v_ss, 0, p.skv);
+  cp_async_commit();
+  // LSE (in log2 units) and Di of this thread's rows g and g + 8; 0 past sq,
+  // where Q and dO are zero rows: P stays finite and dS = 0
+  float lse2[2], di[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + 8 * i;
+    const bool ok = row < p.sq;
+    lse2[i] = ok ? p.lse[(long long)bh * p.sq + row] * kLog2e : 0.f;
+    di[i] = ok ? p.di[(long long)bh * p.sq + row] : 0.f;
+  }
+
+  const uint64_t dq_desc = sw128_desc(Qa, 16), ddo = sw128_desc(dOa, 16);
+  float dq[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  const int n_kv = (p.skv + BN - 1) / BN;
+  for (int kt = 0; kt < n_kv; ++kt) {
+    cp_async_wait<0>();
+    fence_proxy_async();  // this thread's copies, visible to wgmma
+    __syncthreads();
+    if (kt + 1 < n_kv) {  // the next tile's copy overlaps this tile's products
+      const int st = (kt + 1) % STAGES;
+      copy_rows_swz<D, BN, NTHREADS>(Ka + st * TILE, kb, p.k_ss, (kt + 1) * BN, p.skv);
+      copy_rows_swz<D, BN, NTHREADS>(Va + st * TILE, vb, p.v_ss, (kt + 1) * BN, p.skv);
+      cp_async_commit();
+    }
+    const uint32_t Kt = Ka + (kt % STAGES) * TILE, Vt = Va + (kt % STAGES) * TILE;
+    const uint64_t dk = sw128_desc(Kt, 16), dv = sw128_desc(Vt, 16);
+    // K read MN-major for dS K: one 64-wide block of n, 8-row groups 1024 apart
+    const uint64_t dk_mn = sw128_desc(Kt, 1024);
+
+    // S = Q K^T and dP = dO V^T, all four operands K-major in shared memory
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    fence_acc(s);
+    fence_acc(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(s, dq_desc + 2 * kk, dk + 2 * kk, kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(dp, ddo + 2 * kk, dv + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc(s);
+    fence_acc(dp);
+
+    // P = exp2(S scale log2 e - LSE log2 e), keys at or past skv masked;
+    // dS = P (dP - Di) scale, in place of S
+    const int k0 = kt * BN;
+    const bool last = k0 + BN > p.skv;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool masked = last && k0 + j * 8 + 2 * t + (e & 1) >= p.skv;
+        const float x = masked ? kMask * kLog2e : s[j][e] * sl2;
+        const float pr = ex2(x - lse2[e >> 1]);
+        s[j][e] = pr * (dp[j][e] - di[e >> 1]) * p.scale;
+      }
+    }
+
+    // dQ += dS K: dS rounded to bf16 straight from the accumulators
+    uint32_t da[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) acc_to_a(da[kk], s, kk);
+    fence_acc(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)  // 16 keys = 2048 bytes of K a step
+      wgmma_rs_mn(dq, da[kk], dk_mn + kk * (2048 >> 4));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc(dq);
+    fence_a(da);
+  }
+
+  __syncthreads();  // the last product has read all of Q
+  // dQ staged in this warp's own (swizzled) rows of the Q tile, then
+  // written as 16-byte rows
+  unsigned char* Qw = smem_raw + (Qa - raw) + warp * 16 * 128;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint32_t*>(Qw + sw128(g + 8 * i, j) + 4 * t) =
+          pack_f32(dq[j][2 * i], dq[j][2 * i + 1]);
+  __syncwarp();
+  bf16* dqb = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int it = 0; it < 16 * 8 / 32; ++it) {
+    const int idx = lane + 32 * it, r = idx >> 3, ch = idx & 7;
+    const int row = q0 + warp * 16 + r;
+    if (row < p.sq)
+      *reinterpret_cast<uint4*>(dqb + (long long)row * p.dq_ss + ch * 8) =
+          *reinterpret_cast<const uint4*>(Qw + sw128(r, ch));
+  }
+}
+
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel_d64, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((p.sq + BM - 1) / BM, batch * p.heads);
+  flash_bwd_dq_kernel_d64<<<grid, NTHREADS, SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace dq_bf16
+
 template <bool kDkv>
 int dispatch(int dtype, int d, const Params& p, int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -515,7 +683,7 @@ int dispatch(int dtype, int d, const Params& p, int batch, void* stream) {
   if constexpr (kDkv) {
     if (dtype == 0) return dkv_bf16::launch(p, batch, s);
   } else {
-    if (dtype == 0) return launch<__nv_bfloat16, false>(p, batch, s);
+    if (dtype == 0) return dq_bf16::launch(p, batch, s);
   }
   if (dtype == 1) return launch<float, kDkv>(p, batch, s);
   return (int)cudaErrorInvalidValue;

@@ -1,10 +1,10 @@
 // Tile helpers shared by the flash-attention kernels (forward and backward):
-// conversions, the mma.sync m16n8k16 tile product (bf16 operands, fp32
-// accumulation) with its exact-fp32 counterpart, and the strided tile copy
-// into shared memory. Below them, the register-fragment helpers of the
-// head-dim-64 bf16 kernels: ldmatrix (plain and .trans), cp.async with
-// zero-fill and its commit / wait, the fragment-level mma, and the packing
-// of fp32 accumulators into a bf16 A fragment.
+// the m16n8k16 fragment contract computed with exact fp32 FMAs and the
+// strided tile copy into shared memory (the fp32 kernels). Below them, the
+// register-fragment helpers of the bf16 kernels: ldmatrix (plain and
+// .trans), cp.async with zero-fill and its commit / wait, the
+// fragment-level mma.sync, and the packing of fp32 accumulators into a bf16
+// A fragment.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,13 +15,6 @@ namespace pso {
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
 
 // c (16x8 fp32 fragment) += A B on fragments already in registers (the
 // ownership below).
@@ -36,29 +29,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 
 // c (16x8 fp32 fragment) += A (16x16, row-major at A, leading dim lda)
 //                          * B (16x8; element (k, n) at B[n*ldb + k] when
-//                            kBRowsAreN, else at B[k*ldb + n]).
+//                            kBRowsAreN, else at B[k*ldb + n]), in fp32.
 // Fragment ownership (PTX m16n8k16): lane = 4*g + t; c[0..1] are row g,
 // cols 2t, 2t+1; c[2..3] are row g+8, same cols.
-template <bool kBRowsAreN>
-__device__ __forceinline__ void tile_mma(float (&c)[4], const __nv_bfloat16* A, int lda,
-                                         const __nv_bfloat16* B, int ldb, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(A + g * lda + 2 * t),
-                         *reinterpret_cast<const uint32_t*>(A + (g + 8) * lda + 2 * t),
-                         *reinterpret_cast<const uint32_t*>(A + g * lda + 8 + 2 * t),
-                         *reinterpret_cast<const uint32_t*>(A + (g + 8) * lda + 8 + 2 * t)};
-  uint32_t b0, b1;
-  if (kBRowsAreN) {
-    b0 = *reinterpret_cast<const uint32_t*>(B + g * ldb + 2 * t);
-    b1 = *reinterpret_cast<const uint32_t*>(B + g * ldb + 8 + 2 * t);
-  } else {
-    b0 = pack_bf16(B[(2 * t) * ldb + g], B[(2 * t + 1) * ldb + g]);
-    b1 = pack_bf16(B[(2 * t + 8) * ldb + g], B[(2 * t + 9) * ldb + g]);
-  }
-  mma_bf16(c, a, b0, b1);
-}
-
-// The same fragment contract computed with fp32 FMAs (fp32 inputs).
 template <bool kBRowsAreN>
 __device__ __forceinline__ void tile_mma(float (&c)[4], const float* A, int lda,
                                          const float* B, int ldb, int lane) {
