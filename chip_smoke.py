@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of online PSO (serving and update) on one NVIDIA H100.
+"""Drive the PyTorch port of online PSO (serving, updates, eval) on one NVIDIA H100.
 
     python3 chip_smoke.py [--seed N]
 
@@ -34,8 +34,19 @@ PyTorch. In order:
    rebuild from the seed), and the checkpoint written at step 1 must
    restore. Prints sample / update / microbatch ms, pairs/s of the loop
    and peak memory;
-6. one phase per kernel at every shape the loop gave it (recorded during
-   step 5) in bf16, plus one fp32 case and, for the attention kernels,
+6. the same for SDXL-DMD2 (``run_online_pso(sampler="dmd")``,
+   ``configs/sdxl_dmd_dpo.py``): 1024^2, 4 pair batches of 2 prompts = 8
+   pairs, 2 updates of 4 x 3 microbatches (policy pass at batch 2, remat
+   "full", a grad-free reference pass), LoRA rank 16, the transition noise
+   shared within each trajectory side; the same checks (first loss log 2);
+7. the PickaPic eval protocol, ``cli.evaluate_sdxl_dmd2`` at full width and
+   1024^2: the first 8 packaged ImageReward prompts at batch 2, scored by
+   PickScore, CLIP score, HPS (ViT-H/14 towers) and the aesthetic scorer
+   (CLIP-L/14, the released MLP); launch counts as implied, scores finite,
+   and the first two prompts run again at batch 1 must score the same
+   within ``TOL["eval_batch"]``. Prints prompts/min and peak memory;
+8. one phase per kernel at every shape steps 5-7 gave it (recorded during
+   those runs) in bf16, plus one fp32 case and, for the attention kernels,
    the bf16 ragged lengths of ``RAGGED`` (and, for the forward, of
    ``RAGGED_FWD`` at head dims 80 and 512; 0 launches): the kernel against
    its plain version on the same inputs (|diff| <= atol + rtol*|plain|,
@@ -55,8 +66,11 @@ PyTorch. In order:
    self- and cross-attention shapes, with the upstream gradient handed
    over contiguous (as the UNet's reshape and output projection give it),
    as a strided view and with a strided last dim (copied first), and in
-   bf16 at the ``RAGGED`` shapes;
-7. prints the ``{"kernels": [...]}`` line, then, last, the device line.
+   bf16 at the ``RAGGED`` shapes. The plain attention forward runs over
+   slices of the batch where its logits would pass 1 GiB (the VAE's 16384
+   tokens). GroupNorm rows report the share of the limit used;
+9. prints the card line again, the ``{"kernels": [...]}`` line (launches:
+   the sum over the runs of steps 5-7), then, last, the device line.
 
 Any failure raises, and the script exits non-zero. It also exits non-zero,
 printing no result, where CUDA or the port's package is missing. The full
@@ -88,7 +102,14 @@ GN_STATS_OPS, GN_NORM_OPS = 3, 8  # fp32 operations per element of K4, K5
 TOL = {"attention": {"bf16": (5e-2, 1e-2), "fp32": (2e-3, 2e-3)},
        "attention_lse": (2e-3, 0.0),  # the fp32 logsumexp of either dtype
        "attention_bwd": {"bf16": (5e-2, 1e-2), "fp32": (1e-4, 1e-4)},
-       "gn": {"bf16": (3e-2, 3e-2), "fp32": (2e-4, 2e-4)}}
+       "gn": {"bf16": (3e-2, 3e-2), "fp32": (2e-4, 2e-4)},
+       # an eval score at batch 2 against the same prompt's at batch 1 (bf16):
+       # the noise is the same, the kernels cuBLAS and cuDNN pick may not be
+       "eval_batch": (1e-2, 1e-2)}
+EVAL_PROMPTS = 8  # packaged ImageReward prompts in the eval phase
+# the plain attention forward runs over slices of the batch of at most this
+# many fp32 logits (1 GiB): 16384 VAE tokens at batch 4 would be 4.3 GB at once
+PLAIN_LOGITS = 2**28
 # bf16 head-dim-64 attention cases off the main path (0 launches): (q shape, kv
 # length). Every main-path length but kv 77 is a multiple of 64, so only these
 # reach the zero-filled and masked edges of the q and kv tiles.
@@ -311,17 +332,32 @@ def _unet_counts(ucfg):
     return 2 * blocks, 2 * resnets + 1, resnets, first * lpb + 1
 
 
-def expected_launches(pipe, steps):
-    """Launches of one ``sample_pairs`` call: ``steps`` UNet forwards, the
-    VAE decode (its mid-block attention) and the PickScore vision tower."""
-    vcfg = pipe.vae.config
-    attn, gn_unet, _, _ = _unet_counts(pipe.unet.config)
+def _generation_launches(ucfg, vcfg, steps, vision_layers):
+    """Launches of ``steps`` UNet forwards (Turbo's steps, or DMD2's S - 1
+    transitions and the final x0 prediction), one VAE decode (its
+    mid-block attention) and vision towers of ``vision_layers`` layers."""
+    attn, gn_unet, _, _ = _unet_counts(ucfg)
     vae_resnets = 2 + len(vcfg.block_out_channels) * (vcfg.layers_per_block + 1)
-    vision_layers = pipe.scorer.model.vision_config.layers
-    k1 = steps * attn + 1 + vision_layers
+    k1 = steps * attn + 1 + sum(vision_layers)
     gn = steps * gn_unet + 2 * vae_resnets + 1
     return {"flash_attn_fwd": k1, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0,
             "gn_stats": gn, "gn_silu_norm": gn}
+
+
+def expected_launches(pipe, steps):
+    """Launches of one ``sample_pairs`` call (either sampler): ``steps`` UNet
+    forwards, the VAE decode and the PickScore vision tower."""
+    return _generation_launches(pipe.unet.config, pipe.vae.config, steps,
+                                [pipe.scorer.model.vision_config.layers])
+
+
+def expected_eval_launches(ucfg, vcfg, steps, batches, vision_layers):
+    """Launches of an eval run of ``batches`` batches: per batch one DMD2
+    generation (``steps`` UNet forwards, one VAE decode) and the scorers'
+    vision towers (``vision_layers``: one entry per scorer). The scorers'
+    text towers are causal and take no kernel."""
+    return {k: batches * v for k, v in
+            _generation_launches(ucfg, vcfg, steps, vision_layers).items()}
 
 
 def expected_update_launches(ucfg, n_micro, fuse_ref_pass):
@@ -467,23 +503,26 @@ def _frozen_and_lora(unet):
     return frozen, lora
 
 
-def train_slice(seed):
+def train_slice(seed, sampler, recorder):
+    """One epoch of ``run_online_pso`` with ``sampler``'s config defaults
+    (Turbo: ``configs/sdxl_turbo_dpo.py``; DMD2: ``configs/sdxl_dmd_dpo.py``),
+    the kernel wrappers' shapes recorded into ``recorder``."""
     import torch
 
     from pairwise_sample_optimization_tpu_torch.checkpoints import (latest_checkpoint,
                                                                     restore_train_state)
     from pairwise_sample_optimization_tpu_torch.cli.online_runner import run_dir, run_online_pso
-    from pairwise_sample_optimization_tpu_torch.configs.sdxl_turbo_dpo import get_config
+    from pairwise_sample_optimization_tpu_torch.configs import sdxl_dmd_dpo, sdxl_turbo_dpo
     from pairwise_sample_optimization_tpu_torch.models.layers import init_random_
     from pairwise_sample_optimization_tpu_torch.models.unet import SDXLUNet
     from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
     from pairwise_sample_optimization_tpu_torch.train import (PSOTrainState, lora_parameters,
                                                               make_optimizer)
 
-    config = get_config()
+    config = (sdxl_turbo_dpo if sampler == "turbo" else sdxl_dmd_dpo).get_config()
     config.seed = seed
     config.output_dir = str(RUN_DIR)
-    config.run_name = "online_turbo"
+    config.run_name = f"online_{sampler}"
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     t_cfg, s_cfg = config.train, config.sample
     pairs = s_cfg.batch_size * s_cfg.num_batches_per_epoch
@@ -494,8 +533,9 @@ def train_slice(seed):
     torch.cuda.reset_peak_memory_stats()
     kernel_lib.reset_launch_counts()
     t0 = time.perf_counter()
-    with ShapeRecorder() as recorder:
-        state, history, pipe = run_online_pso(config, num_epochs=1, device="cuda")
+    with recorder:
+        state, history, pipe = run_online_pso(config, sampler=sampler, num_epochs=1,
+                                              device="cuda")
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = dict(kernel_lib.launch_counts)
@@ -550,7 +590,8 @@ def train_slice(seed):
     times = next(m for m in metrics if "loss" in m)
     sample_ms, train_ms = times["time/sample_s"] * 1e3, times["time/train_s"] * 1e3
     summary = {
-        "pairs": pairs, "updates": n_updates, "microbatches_per_update": n_micro,
+        "sampler": sampler, "resolution": s_cfg.resolution, "pairs": pairs,
+        "updates": n_updates, "microbatches_per_update": n_micro,
         "policy_batch": 2 * t_cfg.batch_size, "remat": config.activation_checkpoint,
         "history": history, "launches": counts, "expected_launches": want,
         "sample_ms": sample_ms, "update_ms": train_ms / n_updates,
@@ -559,8 +600,9 @@ def train_slice(seed):
         "peak_bytes": peak, "checkpoint": Path(ckpt).name, "lora_max_abs_delta": lora_moved,
         "checksums": checksums,
     }
-    log(f"online PSO loop (1 epoch, {pairs} pairs, {n_updates} updates x {n_micro} "
-        f"microbatches): sample {sample_ms:.1f} ms, update {summary['update_ms']:.1f} ms, "
+    log(f"online PSO loop, {sampler} at {s_cfg.resolution}^2 (1 epoch, {pairs} pairs, "
+        f"{n_updates} updates x {n_micro} microbatches of policy batch {2 * t_cfg.batch_size}): "
+        f"sample {sample_ms:.1f} ms, update {summary['update_ms']:.1f} ms, "
         f"microbatch {summary['microbatch_ms']:.1f} ms, {summary['loop_pairs_per_s']:.3f} "
         f"pairs/s of the loop, peak {peak / 2**30:.2f} GiB; losses "
         f"{[round(m['loss'], 6) for m in history]}, grad_norm "
@@ -569,12 +611,105 @@ def train_slice(seed):
     del pipe, state, ref, restored, frozen, frozen0, lora, lora0, lora_ref
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
-    return summary, recorder, metrics_jsonl
+    return summary, metrics_jsonl
+
+
+# ---------------------------------------------------------------------- #
+# the PickaPic eval protocol (SDXL-DMD2 at 1024^2, four scorers)
+# ---------------------------------------------------------------------- #
+
+
+def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
+    """``cli.evaluate_sdxl_dmd2`` at full width and 1024^2 on the first
+    ``prompts`` packaged ImageReward prompts at batch 2 with PickScore,
+    CLIP score, HPS and the aesthetic scorer (the released MLP), shapes
+    recorded into ``recorder``; then the first two prompts again at batch 1,
+    whose per-prompt scores must equal the batch-2 run's within
+    ``TOL["eval_batch"]`` (each prompt's noise depends on its index only;
+    what differs is bf16 rounding in kernels chosen by batch size)."""
+    import contextlib
+
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.cli import evaluate_sdxl_dmd2 as ev
+    from pairwise_sample_optimization_tpu_torch.models import (CLIPVisionConfig, UNetConfig,
+                                                               VAEConfig)
+    from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
+
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    layers = [CLIPVisionConfig.vit_h14().layers] * 3 + [CLIPVisionConfig.vit_l14().layers]
+
+    def run(n, bs, rec):
+        path = out / f"eval_b{bs}.json"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        with rec or contextlib.nullcontext():
+            ev.main(["--device", "cuda", "--seed", str(seed), "--prompts_json", "imagereward",
+                     "--max_prompts", str(n), "--batch_size", str(bs), "--scorers",
+                     ",".join(ev.SCORERS), "--aesthetic_mlp_path", "packaged", "--timing",
+                     "--output_json", str(path)])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts, peak = dict(kernel_lib.launch_counts), torch.cuda.max_memory_allocated()
+        want = expected_eval_launches(UNetConfig.sdxl(), VAEConfig.sdxl(), 4, -(-n // bs), layers)
+        if counts != want:
+            raise AssertionError(f"eval launch counts {counts} != expected {want}")
+        result = json.loads(path.read_text())
+        for name in ev.SCORERS:
+            scores = result["per_prompt"][name]
+            if len(scores) != n or not all(math.isfinite(x) for x in scores):
+                raise AssertionError(f"eval {name} scores {scores}")
+        return {"result": result, "launches": counts, "peak_bytes": peak, "wall_s": wall_s}
+
+    main_run = run(prompts, 2, recorder)
+    solo = run(2, 1, None)
+    per_prompt, solo_scores = main_run["result"]["per_prompt"], solo["result"]["per_prompt"]
+    errs, used = {}, {}
+    for name in ev.SCORERS:
+        got, want = torch.tensor(per_prompt[name][:2]), torch.tensor(solo_scores[name])
+        errs[name] = check_close(f"eval {name} batch 2 vs batch 1", got, want, TOL["eval_batch"])
+        used[name] = tolerance_used(got, want, TOL["eval_batch"])
+    timing = main_run["result"]["timing"]
+    summary = {
+        "prompts": prompts, "batch_size": 2, "resolution": 1024, "scorers": list(ev.SCORERS),
+        "means": {k: v for k, v in main_run["result"].items() if k.endswith("_mean")},
+        "per_prompt": per_prompt, "batch1_scores": solo_scores, "batch1_max_abs_diff": errs,
+        "batch1_tolerance_used": used, "timing": timing, "launches": main_run["launches"],
+        "peak_bytes": main_run["peak_bytes"], "wall_s": main_run["wall_s"],
+        "batch1_run": {k: solo[k] for k in ("launches", "peak_bytes", "wall_s")},
+    }
+    log(f"eval (DMD2 at 1024^2, {prompts} ImageReward prompts at batch 2, four scorers): "
+        f"{timing['prompts_per_min']:.2f} prompts/min (steady batches {timing['steady_batch_s']:.3f} "
+        f"s, generation {timing['gen_s']:.3f} s, scoring {timing['score_s']}), peak "
+        f"{main_run['peak_bytes'] / 2**30:.2f} GiB; means {summary['means']}; launches "
+        f"{main_run['launches']}; first two prompts at batch 1: max|diff| "
+        + ", ".join(f"{k} {v:.2e} (share of limit {used[k]:.3f})" for k, v in errs.items()))
+    torch.cuda.empty_cache()
+    return summary
 
 
 # ---------------------------------------------------------------------- #
 # kernel phases
 # ---------------------------------------------------------------------- #
+
+
+def attention_plain(q, k, v):
+    """``flash_attention_plain`` over slices of the batch, each with at most
+    ``PLAIN_LOGITS`` logits (the same function: batch rows are independent)."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.ops import flash_attention as tfa
+
+    b, sq, h, _ = q.shape
+    per = max(1, PLAIN_LOGITS // (sq * k.shape[1] * h))
+    if per >= b:
+        return tfa.flash_attention_plain(q, k, v)
+    parts = [tfa.flash_attention_plain(q[i:i + per], k[i:i + per], v[i:i + per])
+             for i in range(0, b, per)]
+    return torch.cat([o for o, _ in parts]), torch.cat([lse for _, lse in parts])
 
 
 def attention_phase(shapes, seed):
@@ -594,7 +729,7 @@ def attention_phase(shapes, seed):
         k = torch.randn(ks, generator=gen, device="cuda", dtype=dt)
         v = torch.randn(ks, generator=gen, device="cuda", dtype=dt)
         o_k, lse_k = tfa.flash_attention_fwd(q, k, v)
-        o_p, lse_p = tfa.flash_attention_plain(q, k, v)
+        o_p, lse_p = attention_plain(q, k, v)
         tol, tol_lse = fwd_tolerance(o_p), TOL["attention_lse"]
         err = max(check_close(f"attention {qs} kv {ks[1]} {dtype_name(dt)}", o_k, o_p, tol),
                   check_close(f"attention lse {qs} {dtype_name(dt)}", lse_k, lse_p, tol_lse))
@@ -604,11 +739,12 @@ def attention_phase(shapes, seed):
         bytes_moved = q.element_size() * (2 * q.numel() + 2 * k.numel()) + 4 * lse_k.numel()
         bound_ms, bound_by = bound(bytes_moved, 4 * b * h * sq * skv * d, dtype_name(dt))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        big = b * h * sq * skv > PLAIN_LOGITS  # fewer timed calls of a slow plain version
         row = {
             "shape": {"q": list(qs), "kv": list(ks)}, "dtype": dtype_name(dt),
             "launches": launches, "max_abs_err": err, "tolerance_used": used,
             "ms": timed_ms(lambda: tfa.flash_attention_fwd(q, k, v)),
-            "plain_ms": timed_ms(lambda: tfa.flash_attention_plain(q, k, v)),
+            "plain_ms": timed_ms(lambda: attention_plain(q, k, v), *((3, 2) if big else ())),
             "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
@@ -768,6 +904,8 @@ def gn_phase(shapes, seed):
         y_k = tfg.group_norm_silu_from_stats(x, part_k, w, bias, g, eps)
         y_p = tfg.group_norm_silu_from_stats_plain(x, part_k, w, bias, g, eps)
         err5 = check_close(f"gn_silu_norm {name}", y_k, y_p, tol)
+        used4 = max(tolerance_used(mk, mp, tol), tolerance_used(vk, vp, tol))
+        used5 = tolerance_used(y_k, y_p, tol)
         el = x.element_size()
         part_bytes = 4 * part_k.numel()
         b4, by4 = bound(x.numel() * el + part_bytes, GN_STATS_OPS * x.numel(), "fp32")
@@ -777,14 +915,14 @@ def gn_phase(shapes, seed):
         common = {"shape": {"x": list(xs), "groups": g, "eps": eps}, "dtype": dtype_name(dt),
                   "launches": launches}
         stats_rows.append({
-            **common, "max_abs_err": err4,
+            **common, "max_abs_err": err4, "tolerance_used": used4,
             "ms": timed_ms(lambda: tfg.group_stats(x, g)),
             "plain_ms": timed_ms(lambda: tfg.group_stats_plain(x, g)),
             "library_ms": timed_ms(lambda: torch.var_mean(xv, dim=-1, correction=0)),
             "bound_ms": b4, "bound_by": by4,
         })
         norm_rows.append({
-            **common, "max_abs_err": err5,
+            **common, "max_abs_err": err5, "tolerance_used": used5,
             "ms": timed_ms(lambda: tfg.group_norm_silu_from_stats(x, part_k, w, bias, g, eps)),
             "plain_ms": timed_ms(
                 lambda: tfg.group_norm_silu_from_stats_plain(x, part_k, w, bias, g, eps)),
@@ -795,9 +933,10 @@ def gn_phase(shapes, seed):
                                                                     eps))),
         })
         s, n = stats_rows[-1], norm_rows[-1]
-        log(f"gn {name}: stats max|diff| {err4:.2e} {s['ms']:.4f} ms (bound {b4:.4f}, plain "
-            f"{s['plain_ms']:.4f}, var_mean {s['library_ms']:.4f}); norm+silu max|diff| "
-            f"{err5:.2e} {n['ms']:.4f} ms (bound {b5:.4f}, plain {n['plain_ms']:.4f}); "
+        log(f"gn {name}: stats max|diff| {err4:.2e} (share of tolerance used {used4:.3f}) "
+            f"{s['ms']:.4f} ms (bound {b4:.4f}, plain {s['plain_ms']:.4f}, var_mean "
+            f"{s['library_ms']:.4f}); norm+silu max|diff| {err5:.2e} ({used5:.3f}) "
+            f"{n['ms']:.4f} ms (bound {b5:.4f}, plain {n['plain_ms']:.4f}); "
             f"F.group_norm+F.silu {n['pair_library_ms']:.4f} ms; {launches} launches each")
     return {"gn_stats": stats_rows, "gn_silu_norm": norm_rows}
 
@@ -858,8 +997,15 @@ def main(argv=None) -> int:
 
     small = small_reference(args.seed)
     slice_summary = full_slice(args.seed)
-    train_summary, recorder, metrics_jsonl = train_slice(args.seed)
-    launches = train_summary["launches"]
+    # the main paths whose shapes the kernel phases check: each sets the
+    # counts to 0 just before its run and checks them just after
+    recorder = ShapeRecorder()
+    train_summary, metrics_jsonl = train_slice(args.seed, "turbo", recorder)
+    dmd_summary, dmd_metrics_jsonl = train_slice(args.seed, "dmd", recorder)
+    eval_summary = eval_slice(args.seed, recorder)
+    paths = {"turbo_loop": train_summary["launches"], "dmd_loop": dmd_summary["launches"],
+             "dmd_eval": eval_summary["launches"]}
+    launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     rows = {**attention_phase(recorder.attention, args.seed),
             **attention_bwd_phase(recorder.attention_bwd, args.seed),
             **gn_phase(recorder.gn, args.seed)}
@@ -868,13 +1014,16 @@ def main(argv=None) -> int:
 
     record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": build_s, "small_reference": small, "slice": slice_summary,
-              "train": train_summary, "function_check": function_errs, "kernels": kernels,
+              "train": train_summary, "dmd_train": dmd_summary, "eval": eval_summary,
+              "launches_by_path": paths, "function_check": function_errs, "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     (out / "train_metrics.jsonl").write_text(metrics_jsonl)
-    log(f"chip_smoke done in {record['seconds']:.1f} s")
+    (out / "dmd_train_metrics.jsonl").write_text(dmd_metrics_jsonl)
+    log(f"chip_smoke done in {record['seconds']:.1f} s; launches by path {paths}")
+    log(card.splitlines()[0])
     print(json.dumps({"kernels": [{k: v for k, v in kern.items() if k != "shapes"}
                                   for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

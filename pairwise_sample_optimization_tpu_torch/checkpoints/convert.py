@@ -20,6 +20,7 @@ import torch
 from .torch_names import (
     clip_text_param_map,
     clip_vision_param_map,
+    sequential_mlp_param_map,
     unet_param_map,
     vae_param_map,
 )
@@ -54,7 +55,10 @@ def _name_map(which: str, n_levels: int | None):
         return clip_text_param_map
     if which == "clip_vision":
         return clip_vision_param_map
-    raise ValueError(f"which must be unet|vae|clip_text|clip_vision, got {which!r}")
+    if which == "aesthetic_mlp":
+        return sequential_mlp_param_map
+    raise ValueError("which must be unet|vae|clip_text|clip_vision|clip_dual|aesthetic_mlp, "
+                     f"got {which!r}")
 
 
 def state_dict_from_jax(params: Mapping, which: str, n_levels: int | None = None,
@@ -63,10 +67,18 @@ def state_dict_from_jax(params: Mapping, which: str, n_levels: int | None = None
     given). ``params`` may also be a variables dict holding ``params`` and
     ``lora``. For ``which="vae"`` only the decoder and ``post_quant_conv``
     are carried (the port has no encoder yet). ``n_levels`` is the UNet's
-    number of resolution levels (3 for SDXL)."""
+    number of resolution levels (3 for SDXL). ``which`` names the tower:
+    ``clip_vision`` serves any ``CLIPVisionTower`` (the aesthetic scorer's
+    CLIP-L/14 too), ``clip_dual`` a ``CLIPDualEncoder`` (PickScore, CLIP
+    score, HPS: its ``text`` and ``vision`` subtrees and ``logit_scale``),
+    ``aesthetic_mlp`` the ``AestheticMLP``."""
     if "params" in params:
         lora = params.get("lora", lora)
         params = params["params"]
+    if which == "clip_dual":
+        return {**state_dict_from_jax(params["text"], "clip_text"),
+                **state_dict_from_jax(params["vision"], "clip_vision"),
+                "logit_scale": torch.tensor(np.asarray(params["logit_scale"]))}
     name_map = _name_map(which, n_levels)
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _leaves(params):

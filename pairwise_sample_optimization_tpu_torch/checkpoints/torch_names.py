@@ -1,9 +1,10 @@
 """Flax param path -> diffusers/HF state-dict key, for the port's towers.
 
 The port's own copy of the name maps of the JAX package's
-``checkpoints/torch_names.py`` (UNet, VAE, CLIP text, CLIP vision). Each
-map returns (key, kind); kind is ``"?"`` for a flax ``kernel`` (linear or
-conv, resolved by rank) or ``"direct"``.
+``checkpoints/torch_names.py`` (UNet, VAE, CLIP text, CLIP vision, the
+aesthetic scorer's sequential MLP). Each map returns (key, kind); kind is
+``"?"`` for a flax ``kernel`` (linear or conv, resolved by rank) or
+``"direct"``.
 """
 
 from __future__ import annotations
@@ -148,3 +149,14 @@ def clip_vision_param_map(path: Tuple[str, ...]) -> Tuple[str, str]:
         head = _CLIP_VISION[mods[0]]
     suffix, kind = _leaf(leaf, mods[-1])
     return head + "." + suffix, kind
+
+
+def sequential_mlp_param_map(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """flax ``fc{i}`` of the 5-layer aesthetic MLP -> ``layers.{0,2,4,6,7}``,
+    the released ``nn.Sequential``'s Linear slots (dropouts between)."""
+    mod, leaf = path
+    m = re.fullmatch(r"fc(\d)", mod)
+    if not m:
+        raise KeyError(f"unexpected MLP module {mod!r}")
+    suffix, kind = _leaf(leaf, mod)
+    return f"layers.{(0, 2, 4, 6, 7)[int(m.group(1))]}.{suffix}", kind

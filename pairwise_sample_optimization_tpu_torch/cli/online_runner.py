@@ -1,4 +1,4 @@
-"""The online-PSO run loop for SDXL-Turbo on one device.
+"""The online-PSO run loop for SDXL-Turbo and SDXL-DMD2 on one device.
 
 Counterpart of the JAX package's ``cli/online_runner.py::run_online_pso``:
 build the pipeline (architecture-true random weights from the seed), the
@@ -8,10 +8,13 @@ state; resume from ``resume_from``; then per epoch sample
 epoch's shuffled DPO updates, log each update's metrics with the phase
 times, and checkpoint at step 1 and every ``checkpointing_steps``.
 
-Not ported yet, and refused by :func:`check_config` when asked for: the
-DMD2 sampler, validation, pretrained checkpoints, the LoRA safetensors
-export, meshes beyond one device, and the JAX package's memory and int8
-options.
+The DMD2 sampler (``sampler="dmd"``) takes strict-dominance preference
+(``compare="pareto"``) and ``sample.shared_noise``, as the JAX runner
+does; the Turbo sampler per-sample random-axis preference.
+
+Not ported yet, and refused by :func:`check_config` when asked for:
+validation, pretrained checkpoints, the LoRA safetensors export, meshes
+beyond one device, and the JAX package's memory and int8 options.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from ..checkpoints import (latest_checkpoint, prune_checkpoints, restore_train_s
                            save_train_state)
 from ..data import PromptDataset, PromptLoader, make_clip_tokenizers
 from ..device import resolve_device
-from ..pipeline import SDXLPipeline
+from ..pipeline import SAMPLERS, SDXLPipeline
 from ..train import (OnlinePSOConfig, OnlinePSOTrainer, PSOTrainState, lora_parameters,
                      make_optimizer)
 from ..utils import MetricLogger, PhaseTimer, get_logger
@@ -57,8 +60,8 @@ def _get(config, dotted: str):
 def check_config(config, sampler: str) -> None:
     """Refuse knobs the port does not implement. The remat mode is the
     UNet's to check (``models/unet.py``)."""
-    if sampler != "turbo":
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet (turbo only)")
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r}; have {SAMPLERS}")
     for key, allowed in _UNPORTED.items():
         if _get(config, key) not in allowed:
             raise NotImplementedError(f"{key}={_get(config, key)!r} is not ported yet "
@@ -106,8 +109,10 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
         sampler=sampler, num_steps=config.sample.num_steps, beta=config.train.beta,
         eps=config.train.eps, train_batch_size=config.train.batch_size,
         grad_accum=config.train.gradient_accumulation_steps,
-        num_inner_epochs=config.train.num_inner_epochs, compare="sample",
+        num_inner_epochs=config.train.num_inner_epochs,
+        compare="sample" if sampler == "turbo" else "pareto",
         clamp_mode=config.train.clamp_mode,
+        shared_noise=bool(config.sample.get("shared_noise", True)),
         num_train_timesteps=config.train.distilled_train_steps,
         fuse_ref_pass=bool(config.train.fuse_ref_pass))
     trainer = OnlinePSOTrainer(ocfg, pipe)

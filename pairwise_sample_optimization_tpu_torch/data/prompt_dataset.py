@@ -3,8 +3,10 @@
 The port's copy of the JAX package's ``data/prompt_dataset.py``. A prompt
 set is a JSON list of ``{caption: ...}`` records (or plain strings, or a
 dict of splits), a newline-delimited ``.txt``, ``"4k"`` for the packaged
-4000 PickaPic training captions (``assets/4k_training_prompts.json``), or
-nothing for the built-in 16-prompt set. The loader draws each epoch's
+4000 PickaPic training captions (``assets/4k_training_prompts.json``),
+``"imagereward"`` for the packaged ImageReward benchmark prompts
+(``assets/imagereward_prompt.txt``), or nothing for the built-in 16-prompt
+set. The loader draws each epoch's
 order from ``numpy.random.default_rng(seed)``, as there, so both packages
 give the same batches for the same seed.
 """
@@ -43,6 +45,15 @@ def training_prompts_path() -> str:
                         "4k_training_prompts.json")
 
 
+def imagereward_prompts_path() -> str:
+    """The packaged ImageReward benchmark prompts (one per line)."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                        "imagereward_prompt.txt")
+
+
+_PACKAGED = {"4k": training_prompts_path, "imagereward": imagereward_prompts_path}
+
+
 class PromptDataset:
     def __init__(self, json_path: Optional[str] = None, caption_key: str = "caption",
                  split: Optional[str] = None, hf_dataset: Optional[str] = None):
@@ -51,8 +62,8 @@ class PromptDataset:
         if hf_dataset:
             raise NotImplementedError("HuggingFace datasets sources are not ported yet; pass a "
                                       "prompts JSON or .txt path")
-        if json_path == "4k":
-            json_path = training_prompts_path()
+        if json_path in _PACKAGED:
+            json_path = _PACKAGED[json_path]()
         if json_path and not os.path.exists(json_path):
             raise FileNotFoundError(f"prompt json not found: {json_path!r}")
         if json_path and json_path.endswith(".txt"):

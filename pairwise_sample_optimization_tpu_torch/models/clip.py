@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``models/clip.py``. One implementation
 serves SDXL text encoder 1 (CLIP-L text, quick-gelu), text encoder 2 (bigG
-text, gelu, projected pooled output) and PickScore's CLIP-H dual encoder.
+text, gelu, projected pooled output), the CLIP-H dual encoder of PickScore,
+CLIP score and HPS, and the aesthetic scorer's CLIP-L image tower.
 
 Text towers are causal (plain attention path); the vision tower is not
 (flash-attention kernel). Pooling follows HF: the final-LN state at each
@@ -72,6 +73,12 @@ class CLIPVisionConfig:
     @staticmethod
     def vit_h14(dtype=torch.bfloat16) -> "CLIPVisionConfig":
         return CLIPVisionConfig(dtype=dtype)
+
+    @staticmethod
+    def vit_l14(dtype=torch.bfloat16) -> "CLIPVisionConfig":
+        """Image tower of OpenAI CLIP ViT-L/14 (the aesthetic scorer's)."""
+        return CLIPVisionConfig(width=1024, layers=24, heads=16, act="quick_gelu",
+                                projection_dim=768, dtype=dtype)
 
     @staticmethod
     def tiny(dtype=torch.float32) -> "CLIPVisionConfig":

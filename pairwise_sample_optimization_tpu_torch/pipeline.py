@@ -1,11 +1,13 @@
-"""SDXL-Turbo pipeline: text encoders, LoRA UNet, VAE decoder and PickScore.
+"""SDXL pipeline: text encoders, LoRA UNet, VAE decoder and PickScore.
 
 Counterpart of the JAX package's ``pipeline.py`` for the serving half of
 the online-PSO loop, the composite that ``bench.py`` times:
 
-dual CLIP text encode -> a pair of Euler-ancestral trajectories per prompt
-through the LoRA UNet, recording per-step log-probs -> VAE decode ->
-PickScore -> winner per pair.
+dual CLIP text encode -> a pair of trajectories per prompt through the
+LoRA UNet, recording per-step log-probs -> VAE decode -> PickScore ->
+winner per pair. The trajectories are SDXL-Turbo's Euler-ancestral ones or
+SDXL-DMD2's DDPM re-noise ones on the fixed lattice (``sampler="dmd"``);
+``generate_dmd`` is the eval protocol's DMD2 txt2img.
 
 Public functions keep the JAX layouts: latents (B, h, w, 4), images
 (B, H, W, 3) in [-1, 1], trajectories with (S, B, ...) step axes. The
@@ -27,9 +29,11 @@ from .models.layers import init_random_
 from .models.sdxl_text import compute_time_ids, encode_sdxl_prompt
 from .models.unet import SDXLUNet, UNetConfig
 from .models.vae import AutoencoderKL, VAEConfig
-from .ops.schedules import make_euler_ancestral_schedule
+from .ops.schedules import distill_timesteps, make_alphas_cumprod, make_euler_ancestral_schedule
 from .rewards.pickscore import PickScoreScorer
-from .train.sampling import Trajectory, sample_turbo_trajectories
+from .train.sampling import Trajectory, sample_dmd_trajectories, sample_turbo_trajectories
+
+SAMPLERS = ("turbo", "dmd")
 
 
 class PairSample(NamedTuple):
@@ -59,14 +63,15 @@ class SDXLPipeline:
     @classmethod
     def random(cls, lora_rank: int = 32, dtype=torch.bfloat16, resolution: int = 512,
                tiny: bool = False, seed: int = 0, lora_b_std: float = 0.0,
-               remat: str = "", device="cuda") -> "SDXLPipeline":
+               remat: str = "", device="cuda", with_scorer: bool = True) -> "SDXLPipeline":
         """Architecture-true random weights made from ``seed``, built on
         ``device`` directly: each tower is constructed on the meta device,
         materialized there with ``to_empty`` and filled by
         ``models.layers.init_random_``. Frozen weights are ``dtype``; LoRA
         is fp32, its B gaussian with std ``lora_b_std`` (0 = a fresh no-op
         adapter). ``tiny`` gives the CPU-test configuration; ``remat`` is the
-        UNet's activation checkpointing (``UNetConfig.remat``)."""
+        UNet's activation checkpointing (``UNetConfig.remat``);
+        ``with_scorer=False`` leaves out the PickScore scorer."""
         dev = resolve_device(device)
         if tiny:
             ucfg = UNetConfig.tiny(lora_rank=lora_rank, dtype=dtype, remat=remat)
@@ -93,7 +98,7 @@ class SDXLPipeline:
         vae = make(AutoencoderKL(vcfg, device="meta"))
         te1 = make(CLIPTextTower(t1cfg, device="meta"))
         te2 = make(CLIPTextTower(t2cfg, device="meta"))
-        scorer = PickScoreScorer.random(*pcfg, seed=seed + 1, device=dev)
+        scorer = PickScoreScorer.random(*pcfg, seed=seed + 1, device=dev) if with_scorer else None
         return cls(unet=unet, vae=vae, te1=te1, te2=te2, scorer=scorer, resolution=resolution)
 
     @torch.no_grad()
@@ -121,19 +126,40 @@ class SDXLPipeline:
         return self.vae.decode(z).permute(0, 2, 3, 1).float()
 
     def rollout(self, cond, generator=None, num_steps: int = 4, lora_scale=1.0,
-                init_noise=None, step_noise=None) -> Trajectory:
-        """Turbo trajectories for ``cond``'s batch. Noise is drawn from
-        ``generator`` unless given: ``init_noise`` (B, h, w, 4) and
-        ``step_noise`` (S, B, h, w, 4), unit normals."""
-        schedule = make_euler_ancestral_schedule(num_steps)
+                init_noise=None, step_noise=None, sampler: str = "turbo",
+                shared_noise: bool = True) -> Trajectory:
+        """Trajectories of ``sampler`` ("turbo" or "dmd") for ``cond``'s
+        batch. Noise is drawn from ``generator`` unless given, as unit
+        normals: ``init_noise`` (B, h, w, 4) and ``step_noise``, Turbo's
+        (S, B, h, w, 4) step noise or DMD2's (S-1, B, h, w, 4) transition
+        noise (when DMD2 draws its own, one sample is shared by the batch
+        if ``shared_noise``)."""
+        if sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r}")
         b = cond["embeds"].shape[0]
         if init_noise is None:
             init_noise = torch.randn((b, self.latent_hw, self.latent_hw,
                                       self.unet.config.in_channels),
                                      generator=generator, device=self.device)
         eps_fn = lambda x, t: self.unet_eps(x, t, cond, lora_scale)
-        return sample_turbo_trajectories(eps_fn, schedule, init_noise, noise=step_noise,
-                                         generator=generator)
+        if sampler == "dmd":
+            return sample_dmd_trajectories(eps_fn, make_alphas_cumprod(),
+                                           distill_timesteps(num_steps), init_noise,
+                                           transition_noise=step_noise,
+                                           shared_noise=shared_noise, generator=generator)
+        return sample_turbo_trajectories(eps_fn, make_euler_ancestral_schedule(num_steps),
+                                         init_noise, noise=step_noise, generator=generator)
+
+    def per_sample_noise(self, generators, num_steps: int = 4):
+        """DMD2 noise that depends on each sample's own generator only: from
+        generator i, the init draw, then the S-1 transition draws, each
+        (h, w, 4) -> (init (B, h, w, 4), transitions (S-1, B, h, w, 4)).
+        A sample's images then do not depend on the batch it is in."""
+        shape = (self.latent_hw, self.latent_hw, self.unet.config.in_channels)
+        draws = [torch.stack([torch.randn(shape, generator=g, device=self.device)
+                              for _ in range(num_steps)]) for g in generators]
+        draws = torch.stack(draws, dim=1)  # (S, B, h, w, 4)
+        return draws[0], draws[1:]
 
     @torch.no_grad()
     def generate(self, cond, generator=None, num_steps: int = 4, lora_scale=1.0):
@@ -141,17 +167,35 @@ class SDXLPipeline:
         return self.decode(self.rollout(cond, generator, num_steps, lora_scale).final_latents)
 
     @torch.no_grad()
+    def generate_dmd(self, cond, generator=None, num_steps: int = 4, lora_scale=1.0,
+                     shared_noise: bool = True, sample_generators=None, init_noise=None,
+                     transition_noise=None):
+        """DMD2 txt2img on the fixed lattice (4 steps: [999, 749, 499, 249]),
+        guidance 0: images (B, H, W, 3) in [-1, 1]. ``sample_generators``
+        (one ``torch.Generator`` on the pipeline's device per sample) make
+        each sample's noise a function of its own generator only (see
+        :meth:`per_sample_noise`); otherwise noise comes from ``generator``
+        unless given."""
+        if sample_generators is not None:
+            init_noise, transition_noise = self.per_sample_noise(sample_generators, num_steps)
+        traj = self.rollout(cond, generator, num_steps, lora_scale, init_noise,
+                            transition_noise, sampler="dmd", shared_noise=shared_noise)
+        return self.decode(traj.final_latents)
+
+    @torch.no_grad()
     def sample_pairs(self, cond, generator=None, num_steps: int = 4, lora_scale=1.0,
-                     init_noise=None, step_noise=None, timings: Optional[dict] = None):
+                     init_noise=None, step_noise=None, timings: Optional[dict] = None,
+                     sampler: str = "turbo", shared_noise: bool = True):
         """Two trajectories per prompt, decoded and scored.
 
         The conditioning is duplicated along the batch (trajectory 0 of
         every prompt, then trajectory 1), each trajectory with its own
-        noise. ``winner[i]`` is 1 when trajectory 1 of prompt i scored at
-        least as high as trajectory 0 (ties go to trajectory 1). When
-        ``timings`` is a dict, the device is synchronized after each phase
-        and its milliseconds recorded under ``rollout``, ``decode`` and
-        ``score``.
+        noise (``rollout`` says how ``sampler``, ``step_noise`` and
+        ``shared_noise`` shape it). ``winner[i]`` is 1 when trajectory 1
+        of prompt i scored at least as high as trajectory 0 (ties go to
+        trajectory 1). When ``timings`` is a dict, the device is
+        synchronized after each phase and its milliseconds recorded under
+        ``rollout``, ``decode`` and ``score``.
         """
         if self.scorer is None:
             raise ValueError("sample_pairs needs a PickScore scorer")
@@ -168,7 +212,8 @@ class SDXLPipeline:
                 timings[name] = (t1 - t0) * 1e3
                 t0 = t1
 
-        traj = self.rollout(pair, generator, num_steps, lora_scale, init_noise, step_noise)
+        traj = self.rollout(pair, generator, num_steps, lora_scale, init_noise, step_noise,
+                            sampler, shared_noise)
         mark("rollout")
         images = self.decode(traj.final_latents)
         mark("decode")

@@ -14,7 +14,9 @@ import torch
 from ..device import resolve_device
 from ..models.clip import CLIPDualEncoder, CLIPTextConfig, CLIPVisionConfig
 from ..models.layers import init_random_
-from .preprocess import clip_preprocess
+from .preprocess import clip_preprocess, clip_preprocess_max_size
+
+_PREPROCESS = {"resize": clip_preprocess, "max_size": clip_preprocess_max_size}
 
 
 def _normalize(f):
@@ -22,13 +24,20 @@ def _normalize(f):
 
 
 class PickScoreScorer:
-    def __init__(self, model: CLIPDualEncoder):
+    def __init__(self, model: CLIPDualEncoder, preprocess: str = "resize"):
+        """``preprocess``: "resize" (a square resize; the protocol's images
+        are square) or "max_size" (open_clip's ``ResizeMaxSize``, longest
+        side and pad, for non-square images)."""
+        if preprocess not in _PREPROCESS:
+            raise ValueError(f"preprocess must be one of {sorted(_PREPROCESS)}, "
+                             f"got {preprocess!r}")
         self.model = model
+        self.preprocess = preprocess
 
     @classmethod
     def random(cls, text_config: Optional[CLIPTextConfig] = None,
                vision_config: Optional[CLIPVisionConfig] = None, seed: int = 0,
-               device="cuda") -> "PickScoreScorer":
+               device="cuda", preprocess: str = "resize") -> "PickScoreScorer":
         """Architecture-true random weights (ViT-H/14 by default), built on
         ``device`` directly (meta first, no host copy)."""
         dev = resolve_device(device)
@@ -36,7 +45,7 @@ class PickScoreScorer:
                                 vision_config or CLIPVisionConfig.vit_h14(), device="meta")
         model.to_empty(device=dev)
         init_random_(model, torch.Generator(device=dev).manual_seed(seed))
-        return cls(model.eval())
+        return cls(model.eval(), preprocess)
 
     def text_features(self, input_ids):
         """(B, 77) token ids -> (B, P) unit-norm fp32 features."""
@@ -44,7 +53,7 @@ class PickScoreScorer:
 
     def image_features(self, images):
         """(B, H, W, 3) images in [-1, 1] -> (B, P) unit-norm fp32 features."""
-        pixels = clip_preprocess(images, self.model.vision_config.image_size)
+        pixels = _PREPROCESS[self.preprocess](images, self.model.vision_config.image_size)
         return _normalize(self.model.image_features(pixels.permute(0, 3, 1, 2).contiguous()))
 
     def score(self, images, input_ids):

@@ -1,7 +1,7 @@
 """Online PSO: sample trajectory pairs -> reward-rank -> DPO-style update.
 
 Counterpart of the JAX package's ``train/online_pso.py`` for the Turbo
-sampler, as eager PyTorch:
+and DMD2 samplers, as eager PyTorch:
 
 - ``sample_pairs``: both trajectories of every prompt through the
   pipeline's rollout (batch 2B), decoded and scored with PickScore, packed
@@ -17,6 +17,14 @@ sampler, as eager PyTorch:
   detached reference half), recomputes the transition log-probs and
   backpropagates loss / n_micro into the LoRA gradients.
 
+DMD2 (``sampler="dmd"``) samples on the fixed lattice
+(``ops.schedules.distill_timesteps``) with DDPM re-noise transitions, and
+recomputes each transition's log-prob towards ``timestep - step_ratio``
+(``step_ratio = 1000 // num_steps``), as the JAX package does. With
+``shared_noise`` (the reference's quirk) each transition's noise is one
+draw per trajectory side: every prompt's trajectory 0 shares one, every
+trajectory 1 another.
+
 Randomness is explicit: generators, or permutation and axis tensors that
 a test can take from the JAX side.
 """
@@ -28,8 +36,9 @@ from typing import Dict, Optional
 
 import torch
 
+from ..ops.ddpm_renoise import distilled_logprob
 from ..ops.euler_ancestral import turbo_logprob
-from ..ops.schedules import make_euler_ancestral_schedule
+from ..ops.schedules import distill_timesteps, make_alphas_cumprod, make_euler_ancestral_schedule
 from .losses import pareto_compare, pso_pairwise_loss, sample_compare
 from .train_state import PSOTrainState, global_norm
 
@@ -39,7 +48,7 @@ _STEP_KEYS = ("step_indices", "timesteps")
 
 @dataclasses.dataclass(frozen=True)
 class OnlinePSOConfig:
-    sampler: str = "turbo"  # only "turbo" is ported
+    sampler: str = "turbo"  # "turbo" | "dmd"
     num_steps: int = 4
     beta: float = 50.0
     eps: float = 0.1
@@ -52,6 +61,7 @@ class OnlinePSOConfig:
     fuse_ref_pass: bool = False
     full_finetune: bool = False
     int8_ref_pass: bool = False
+    shared_noise: bool = True  # dmd only: one transition draw per trajectory side
 
     def __post_init__(self):
         if self.num_steps < 2:
@@ -66,9 +76,7 @@ class OnlinePSOConfig:
             raise ValueError("full_finetune needs fuse_ref_pass=False")
         if self.int8_ref_pass and self.fuse_ref_pass:
             raise ValueError("int8_ref_pass needs fuse_ref_pass=False")
-        if self.sampler == "dmd":
-            raise NotImplementedError("the DMD2 sampler is not ported yet")
-        if self.sampler != "turbo":
+        if self.sampler not in ("turbo", "dmd"):
             raise ValueError(f"unknown sampler {self.sampler!r}")
         if self.full_finetune:
             raise NotImplementedError("full finetuning is not ported yet (LoRA only)")
@@ -95,7 +103,14 @@ class OnlinePSOTrainer:
     def __init__(self, config: OnlinePSOConfig, pipeline):
         self.config = config
         self.pipe = pipeline
-        self.schedule = make_euler_ancestral_schedule(config.num_steps)
+        if config.sampler == "turbo":
+            self.schedule = make_euler_ancestral_schedule(config.num_steps)
+            self.timestep_table = self.schedule.timesteps
+        else:
+            self.schedule = None
+            self.timestep_table = distill_timesteps(config.num_steps)
+            self.alphas_cumprod = make_alphas_cumprod()
+            self.step_ratio = 1000 // config.num_steps
 
     # ------------------------------------------------------------------ #
     # sampling
@@ -105,12 +120,24 @@ class OnlinePSOTrainer:
                      init_noise=None, step_noise=None):
         """Two trajectories per prompt of ``cond``'s batch B -> (samples,
         images (2B, H, W, 3)). Trajectory-major as the pipeline's batch:
-        row i of trajectory k is row k*B + i."""
-        out = self.pipe.sample_pairs(cond, generator, num_steps=self.config.num_steps,
+        row i of trajectory k is row k*B + i. For DMD2 with
+        ``shared_noise`` and no ``step_noise``, the transition noise is one
+        (S-1, 2, 1, h, w, C) draw broadcast over each side's B prompts."""
+        cfg = self.config
+        b = cond["embeds"].shape[0]
+        if cfg.sampler == "dmd" and cfg.shared_noise and step_noise is None:
+            hw, c, dev = self.pipe.latent_hw, self.pipe.unet.config.in_channels, self.pipe.device
+            if init_noise is None:
+                init_noise = torch.randn((2 * b, hw, hw, c), generator=generator, device=dev)
+            s = cfg.num_steps - 1
+            step_noise = torch.randn((s, 2, 1, hw, hw, c), generator=generator, device=dev)
+            step_noise = step_noise.expand(s, 2, b, hw, hw, c).reshape(s, 2 * b, hw, hw, c)
+        out = self.pipe.sample_pairs(cond, generator, num_steps=cfg.num_steps,
                                      lora_scale=1.0, init_noise=init_noise,
-                                     step_noise=step_noise)
-        traj, b = out.trajectory, cond["embeds"].shape[0]
-        t_axis = self.config.train_timesteps
+                                     step_noise=step_noise, sampler=cfg.sampler,
+                                     shared_noise=cfg.shared_noise)
+        traj = out.trajectory
+        t_axis = cfg.train_timesteps
         dev = traj.latents.device
 
         def to_bp(x):  # (T, 2B, ...) -> (B, 2, T, ...)
@@ -123,7 +150,7 @@ class OnlinePSOTrainer:
             "input_latents": to_bp(traj.input_latents),
             "log_probs": to_bp(traj.log_probs),
             "step_indices": torch.arange(t_axis, dtype=torch.long, device=dev).repeat(b, 1),
-            "timesteps": torch.as_tensor(self.schedule.timesteps[:t_axis], device=dev)
+            "timesteps": torch.as_tensor(self.timestep_table[:t_axis], device=dev)
             .to(torch.int32).repeat(b, 1),
             "rewards": out.scores.float().reshape(2, b, 1).transpose(0, 1),
         }
@@ -163,6 +190,12 @@ class OnlinePSOTrainer:
     # update
     # ------------------------------------------------------------------ #
 
+    def _recompute_logprob(self, eps, step_indices, timesteps, x_t, x_prev):
+        if self.config.sampler == "turbo":
+            return turbo_logprob(self.schedule, eps, step_indices, x_t, x_prev)
+        return distilled_logprob(self.alphas_cumprod, eps, timesteps,
+                                 timesteps - self.step_ratio, x_t, x_prev)
+
     def _micro_loss(self, micro: dict, cond: dict, generator=None, axis=None):
         """Loss and ratio_win for one (train_bs, one-timestep) microbatch."""
         cfg = self.config
@@ -186,8 +219,8 @@ class OnlinePSOTrainer:
             with torch.no_grad():
                 eps_ref = self.pipe.unet_eps(inp, t2, cond2, 0.0)
 
-        lp_0, lp_1 = turbo_logprob(self.schedule, eps_pol, s2, x_t, x_prev).chunk(2)
-        ref_0, ref_1 = turbo_logprob(self.schedule, eps_ref, s2, x_t, x_prev).chunk(2)
+        lp_0, lp_1 = self._recompute_logprob(eps_pol, s2, t2, x_t, x_prev).chunk(2)
+        ref_0, ref_1 = self._recompute_logprob(eps_ref, s2, t2, x_t, x_prev).chunk(2)
         r = micro["rewards"]
         if cfg.compare == "sample":
             prefer = sample_compare(r[:, 0], r[:, 1], generator, axis)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Check and time the port's bf16 flash-attention kernels (K1 forward, K2
-dK/dV, K3 dQ) at the online loop's attention shapes and the ragged lengths
-of ``chip_smoke.RAGGED`` and ``chip_smoke.RAGGED_FWD``, on one CUDA card.
+dK/dV, K3 dQ) at the attention shapes of the SDXL-Turbo online loop, of
+the SDXL-DMD2 loop and eval at 1024^2, and at the ragged lengths of
+``chip_smoke.RAGGED`` and ``chip_smoke.RAGGED_FWD``, on one CUDA card.
 
     python3 scripts/time_port_attention.py [--root DIR] [--tag NAME] [--seed N]
 
@@ -14,7 +15,9 @@ change, parent). The limits, the timer and the bound are this checkout's
 VAE's 512 (forward only) K1. For each shape it prints each kernel's share
 of its limit, its CUDA-event device ms beside the bound, SDPA's forward
 beside K1 and SDPA's backward (autograd, dQ + dK + dV) beside K2 + K3, and
-launch-weighted means over the loop's shapes; everything goes to
+launch-weighted means over each path's shapes (Turbo: one epoch of the
+loop; DMD2: one epoch of the loop and one 8-prompt eval run, the runs
+``chip_smoke.py`` drives); everything goes to
 ``time_port_attention_<tag>.json`` in the output directory that
 ``chip_smoke.py`` writes its record to. It exits non-zero if any check
 failed.
@@ -34,6 +37,17 @@ ROOT = Path(__file__).resolve().parent.parent
 MAIN_PATH = (((8, 1024, 10, 64), 1024, 520, 120), ((8, 1024, 10, 64), 77, 520, 120),
              ((8, 256, 20, 64), 256, 3120, 720), ((8, 256, 20, 64), 77, 3120, 720),
              ((8, 257, 16, 80), 257, 128, 0), ((8, 4096, 1, 512), 4096, 4, 0))
+# the same for one epoch of the DMD2 loop at 1024^2 (16 UNet forwards at batch
+# 4 when sampling; 24 microbatches of policy, remat and reference forwards at
+# batch 2 and one backward) plus one eval run of 8 prompts at batch 2 (16 UNet
+# forwards; PickScore, CLIP and HPS at d = 80, the aesthetic CLIP-L at 64)
+DMD_PATH = (((4, 4096, 10, 64), 4096, 160, 0), ((4, 4096, 10, 64), 77, 160, 0),
+            ((4, 1024, 20, 64), 1024, 960, 0), ((4, 1024, 20, 64), 77, 960, 0),
+            ((2, 4096, 10, 64), 4096, 880, 240), ((2, 4096, 10, 64), 77, 880, 240),
+            ((2, 1024, 20, 64), 1024, 5280, 1440), ((2, 1024, 20, 64), 77, 5280, 1440),
+            ((4, 257, 16, 80), 257, 128, 0), ((2, 257, 16, 80), 257, 384, 0),
+            ((2, 257, 16, 64), 257, 96, 0), ((4, 16384, 1, 512), 16384, 4, 0),
+            ((2, 16384, 1, 512), 16384, 4, 0))
 
 
 def _smoke():
@@ -75,7 +89,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     bf16 = torch.bfloat16
-    cases = list(MAIN_PATH) + [(qs, skv, 0, 0) for qs, skv in cs.RAGGED + cs.RAGGED_FWD]
+    cases = ([("turbo",) + c for c in MAIN_PATH] + [("dmd",) + c for c in DMD_PATH]
+             + [("ragged", qs, skv, 0, 0) for qs, skv in cs.RAGGED + cs.RAGGED_FWD])
     rows, failures = [], []
 
     def held(what, got, want, tol):
@@ -85,12 +100,12 @@ def main(argv=None) -> int:
             failures.append(str(e))
             print(f"[{args.tag}] FAILED {e}", flush=True)
 
-    for qs, skv, launches, bwd_launches in cases:
+    for path, qs, skv, launches, bwd_launches in cases:
         b, sq, h, d = qs
         ks = (b, skv, h, d)
         q, k, v = (torch.randn(s, generator=gen, device="cuda", dtype=bf16) for s in (qs, ks, ks))
         o, lse = tfa.flash_attention_fwd(q, k, v)
-        o_p, lse_p = tfa.flash_attention_plain(q, k, v)
+        o_p, lse_p = cs.attention_plain(q, k, v)
         name = f"q{qs} kv {skv}"
         tol_o = cs.fwd_tolerance(o_p)
         held(f"K1 o {name}", o, o_p, tol_o)
@@ -103,7 +118,8 @@ def main(argv=None) -> int:
         k1_bound = cs.bound(inputs + 4 * lse.numel(), 2 * pair, "bf16")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         row = {
-            "q": list(qs), "kv": skv, "launches": launches, "bwd_launches": bwd_launches,
+            "path": path, "q": list(qs), "kv": skv, "launches": launches,
+            "bwd_launches": bwd_launches,
             "tolerance_used": used,
             "k1_ms": cs.timed_ms(lambda: tfa.flash_attention_fwd(q, k, v)),
             "sdpa_fwd_ms": cs.timed_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
@@ -147,17 +163,18 @@ def main(argv=None) -> int:
         return sum(r[key] * r[weight] for r in subset) / sum(r[weight] for r in subset)
 
     means = {}
-    for d in sorted({r["q"][3] for r in rows if r["launches"]}):
-        at_d = [r for r in rows if r["q"][3] == d and r["launches"]]
-        means.update({f"d{d}_{key}": mean(key, "launches", at_d)
+    for path, prefix in (("turbo", ""), ("dmd", "dmd_")):
+        at_path = [r for r in rows if r["path"] == path]
+        for d in sorted({r["q"][3] for r in at_path}):
+            at_d = [r for r in at_path if r["q"][3] == d]
+            means.update({f"{prefix}d{d}_{key}": mean(key, "launches", at_d)
+                          for key in ("k1_ms", "k1_bound_ms", "sdpa_fwd_ms")})
+        means.update({f"{prefix}all_{key}": mean(key, "launches", at_path)
                       for key in ("k1_ms", "k1_bound_ms", "sdpa_fwd_ms")})
-    on_path = [r for r in rows if r["launches"]]
-    means.update({f"all_{key}": mean(key, "launches", on_path)
-                  for key in ("k1_ms", "k1_bound_ms", "sdpa_fwd_ms")})
-    bwd = [r for r in rows if r["bwd_launches"]]
-    means.update({key: mean(key, "bwd_launches", bwd)
-                  for key in ("k2_ms", "k2_bound_ms", "k3_ms", "k3_bound_ms", "sdpa_bwd_ms")})
-    print(f"[{args.tag}] launch-weighted means over the loop's shapes: "
+        bwd = [r for r in at_path if r["bwd_launches"]]
+        means.update({prefix + key: mean(key, "bwd_launches", bwd)
+                      for key in ("k2_ms", "k2_bound_ms", "k3_ms", "k3_bound_ms", "sdpa_bwd_ms")})
+    print(f"[{args.tag}] launch-weighted means over each path's shapes: "
           + ", ".join(f"{k} {v:.4f}" for k, v in means.items()), flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

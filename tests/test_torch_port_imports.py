@@ -91,7 +91,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         AutoencoderKL, CLIPDualEncoder, CLIPTextConfig, CLIPTextTower, CLIPVisionConfig,
         CLIPVisionTower, SDXLUNet, UNetConfig, VAEConfig)
     from pairwise_sample_optimization_tpu_torch.pipeline import SDXLPipeline
-    from pairwise_sample_optimization_tpu_torch.rewards import PickScoreScorer
+    from pairwise_sample_optimization_tpu_torch.rewards import (AestheticMLP, AestheticScorer,
+                                                                CLIPScorer, HPSScorer,
+                                                                PickScoreScorer)
 
     builders = [
         lambda **kw: SDXLPipeline.random(tiny=True, **kw),
@@ -101,6 +103,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         lambda **kw: CLIPTextTower(CLIPTextConfig.tiny(), **kw),
         lambda **kw: CLIPVisionTower(CLIPVisionConfig.tiny(), **kw),
         lambda **kw: CLIPDualEncoder(CLIPTextConfig.tiny(), CLIPVisionConfig.tiny(), **kw),
+        lambda **kw: CLIPScorer.random(CLIPTextConfig.tiny(), CLIPVisionConfig.tiny(), **kw),
+        lambda **kw: HPSScorer.random(CLIPTextConfig.tiny(), CLIPVisionConfig.tiny(), **kw),
+        lambda **kw: AestheticScorer.random(CLIPVisionConfig.tiny(), **kw),
+        lambda **kw: AestheticMLP(16, **kw),
     ]
     for build in builders:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -120,6 +126,17 @@ def test_trainer_entry_point_defaults_to_cuda(no_cuda, tmp_path):
         main(["--tiny", "--epochs", "1", f"output_dir={tmp_path}"])
     _, history, _ = run_online_pso(config, num_epochs=1, device="cpu")
     assert len(history) == 1
+
+
+def test_dmd2_entry_points_default_to_cuda(no_cuda, tmp_path):
+    from pairwise_sample_optimization_tpu_torch.cli import evaluate_sdxl_dmd2
+    from pairwise_sample_optimization_tpu_torch.cli.train_online_pso_sdxl_dmd2 import main
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--tiny", "--epochs", "1", f"output_dir={tmp_path}"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_sdxl_dmd2.main(["--tiny", "--max_prompts", "2"])
+    assert not any(tmp_path.iterdir())
 
 
 class _FakeLib:
@@ -272,3 +289,66 @@ def test_group_norm_splits_cover_each_slab():
     for slabs, slab_len in ((256, 40 * 256), (256, 4 * 512 * 512), (32, 8), (1, 24)):
         splits, chunk = tfg._splits(slabs, slab_len)
         assert chunk % 8 == 0 and splits * chunk >= slab_len > (splits - 1) * chunk
+
+
+def _port_imports(path: Path):
+    """(top-level names of absolute imports, port modules imported) of one
+    port module; relative imports resolved against its package."""
+    tree = ast.parse(path.read_text())
+    package = path.relative_to(ROOT).parts[:-1]
+    names, local = set(), set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add((node.module or "").split(".")[0])
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1]
+            mod = base + tuple((node.module or "").split(".")) if node.module else base
+            targets = [mod + (a.name,) for a in node.names] + [mod]
+            for t in targets:
+                for cand in (ROOT.joinpath(*t).with_suffix(".py"), ROOT.joinpath(*t, "__init__.py")):
+                    if cand.exists():
+                        local.add(cand)
+    return names, local
+
+
+@pytest.mark.parametrize("entry", ["cli/train_online_pso_sdxl_dmd2.py",
+                                   "cli/evaluate_sdxl_dmd2.py",
+                                   "checkpoints/scorer_loaders.py", "rewards/aesthetic.py"])
+def test_new_entry_points_need_only_torch_numpy_and_the_stdlib(entry):
+    """Every module the entry point reaches, through the port's own imports,
+    imports nothing but the port, torch, numpy and the standard library."""
+    seen, todo, outside = set(), [PKG / entry], {}
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        names, local = _port_imports(path)
+        bad = {n for n in names if n not in sys.stdlib_module_names
+               and n not in ("torch", "numpy", "__future__", PKG.name)}
+        if bad:
+            outside[str(path.relative_to(ROOT))] = sorted(bad)
+        todo.extend(local)
+    assert not outside, outside
+    if entry.startswith("cli/"):  # the walk followed the port's imports
+        assert PKG / "pipeline.py" in seen and PKG / "ops" / "flash_attention.py" in seen
+
+
+def test_packaged_assets_are_the_ports_own_copies():
+    """The port's packaged assets resolve inside its own tree and hold the
+    same bytes as the JAX package's."""
+    from pairwise_sample_optimization_tpu_torch.data import (DEFAULT_BPE_PATH,
+                                                             imagereward_prompts_path,
+                                                             training_prompts_path)
+    from pairwise_sample_optimization_tpu_torch.rewards import packaged_mlp_path
+
+    jax_pkg = ROOT / "pairwise_sample_optimization_tpu"
+    for path, twin in ((packaged_mlp_path(), "rewards/assets/sac+logos+ava1-l14-linearMSE.pth"),
+                       (imagereward_prompts_path(), "data/assets/imagereward_prompt.txt"),
+                       (training_prompts_path(), "data/assets/4k_training_prompts.json"),
+                       (DEFAULT_BPE_PATH, "data/assets/bpe_simple_vocab_16e6.txt.gz")):
+        path = Path(path).resolve()
+        assert path.is_relative_to(PKG) and path.is_file(), path
+        assert path.read_bytes() == (jax_pkg / twin).read_bytes(), twin

@@ -52,7 +52,7 @@ def unet_pair():
         r.standard_normal((3, 16)).astype(np.float32),
         np.tile(np.array([[512, 512, 0, 0, 512, 512]], np.float32), (3, 1)),
     )
-    variables = model.init(jax.random.key(0), *map(jnp.asarray, inputs))
+    variables = jax.jit(model.init)(jax.random.key(0), *map(jnp.asarray, inputs))
     variables = {"params": variables["params"], "lora": _nonzero_lora_b(variables["lora"], 1)}
     port = tunet.SDXLUNet(tunet.UNetConfig.tiny(lora_rank=4), device="cpu")
     port.load_state_dict(state_dict_from_jax(variables, "unet", n_levels=2), strict=True)
@@ -67,7 +67,8 @@ def test_tiny_unet_matches_jax(unet_pair, scale):
         "zero": (0.0, 0.0),
         "per_sample": (jnp.asarray([1.0, 0.0, 0.5]), torch.tensor([1.0, 0.0, 0.5])),
     }[scale]
-    want = model.apply(variables, *map(jnp.asarray, (x, t, ehs, pooled, tids)), lora_scale=ls_j)
+    want = jax.jit(model.apply)(variables, *map(jnp.asarray, (x, t, ehs, pooled, tids)),
+                                lora_scale=ls_j)
     with torch.no_grad():
         got = port(torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(t),
                    torch.from_numpy(ehs), torch.from_numpy(pooled), torch.from_numpy(tids),
@@ -91,11 +92,12 @@ def test_tiny_unet_lora_is_live_and_separate(unet_pair):
 def test_tiny_vae_decode_matches_jax():
     cfg = jvae.VAEConfig.tiny()
     model = jvae.AutoencoderKL(cfg)
-    variables = model.init(jax.random.key(2), jnp.zeros((1, 16, 16, 3)), jax.random.key(3))
+    variables = jax.jit(model.init)(jax.random.key(2), jnp.zeros((1, 16, 16, 3)),
+                                    jax.random.key(3))
     port = tvae.AutoencoderKL(tvae.VAEConfig.tiny(), device="cpu")
     port.load_state_dict(state_dict_from_jax(variables["params"], "vae"), strict=True)
     z = np.random.default_rng(4).standard_normal((2, 8, 8, 4)).astype(np.float32) * 0.5
-    want = model.apply(variables, jnp.asarray(z), method=model.decode)
+    want = jax.jit(lambda v, z: model.apply(v, z, method=model.decode))(variables, jnp.asarray(z))
     with torch.no_grad():
         got = port.decode(torch.from_numpy(z).permute(0, 3, 1, 2))
     _close(got.permute(0, 2, 3, 1).numpy(), want)
@@ -106,10 +108,10 @@ def test_tiny_clip_text_tower_matches_jax():
     model = jclip.CLIPTextTower(cfg)
     ids = np.random.default_rng(5).integers(1, 999, size=(2, 77)).astype(np.int32)
     ids[0, 9], ids[1, 40] = 999, 999  # EOS (highest id) positions
-    variables = model.init(jax.random.key(6), jnp.asarray(ids))
+    variables = jax.jit(model.init)(jax.random.key(6), jnp.asarray(ids))
     port = tclip.CLIPTextTower(tclip.CLIPTextConfig.tiny(), device="cpu")
     port.load_state_dict(state_dict_from_jax(variables["params"], "clip_text"), strict=True)
-    want = model.apply(variables, jnp.asarray(ids))
+    want = jax.jit(model.apply)(variables, jnp.asarray(ids))
     with torch.no_grad():
         got = port(torch.from_numpy(ids).long())
     for key in ("penultimate", "last_hidden_state", "pooled", "projected"):
@@ -120,10 +122,10 @@ def test_tiny_clip_vision_tower_matches_jax():
     cfg = jclip.CLIPVisionConfig.tiny()
     model = jclip.CLIPVisionTower(cfg)
     pixels = np.random.default_rng(7).standard_normal((2, 28, 28, 3)).astype(np.float32)
-    variables = model.init(jax.random.key(8), jnp.asarray(pixels))
+    variables = jax.jit(model.init)(jax.random.key(8), jnp.asarray(pixels))
     port = tclip.CLIPVisionTower(tclip.CLIPVisionConfig.tiny(), device="cpu")
     port.load_state_dict(state_dict_from_jax(variables["params"], "clip_vision"), strict=True)
-    want = model.apply(variables, jnp.asarray(pixels))
+    want = jax.jit(model.apply)(variables, jnp.asarray(pixels))
     with torch.no_grad():
         got = port(torch.from_numpy(pixels).permute(0, 3, 1, 2))
     _close(got.numpy(), want)

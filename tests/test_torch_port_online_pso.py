@@ -403,8 +403,10 @@ def test_runner_refuses_a_run_where_validation_would_fire(tmp_path):
     config = build_config(True, [f"output_dir={tmp_path}", "validation_steps=2"])
     with pytest.raises(NotImplementedError, match="validation"):
         online_runner.run_online_pso(config, num_epochs=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        online_runner.run_online_pso(config, sampler="dmd", num_epochs=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="validation"):  # the DMD2 sampler too
+        online_runner.run_online_pso(config, sampler="dmd", num_epochs=2, device="cpu")
+    with pytest.raises(ValueError, match="unknown sampler"):
+        online_runner.run_online_pso(config, sampler="ddim", num_epochs=1, device="cpu")
 
 
 def test_runner_tiny_epoch_logs_saves_and_resumes(tmp_path):
@@ -464,8 +466,8 @@ def test_remat_modes_not_ported_raise():
 
 
 def test_trainer_config_refusals():
-    with pytest.raises(NotImplementedError):
-        OnlinePSOConfig(sampler="dmd")
+    with pytest.raises(ValueError, match="unknown sampler"):
+        OnlinePSOConfig(sampler="ddim")
     with pytest.raises(NotImplementedError):
         OnlinePSOConfig(full_finetune=True)
     with pytest.raises(ValueError):

@@ -8,6 +8,8 @@ the init and per-step noise are drawn in JAX exactly as the JAX sampler
 draws them and handed to the port.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,18 +36,42 @@ def _ids(rng, vocab):
     return ids
 
 
+def _fill(tree, rng, lora_b_std=0.0):
+    """Random values in a zero-initialized flax tree's shapes (much faster
+    than running the towers' init): kernels gaussian with std
+    1/sqrt(fan_in), norms identity, embeddings and biases small, LoRA A
+    gaussian with std 1/rank and B with std ``lora_b_std``."""
+
+    def leaf(path, a):
+        name, shape = path[-1].key, a.shape
+        if name == "scale":
+            return np.ones(shape, np.float32)
+        if name == "logit_scale":
+            return np.full(shape, 4.6052, np.float32)
+        if name == "b":
+            std = lora_b_std
+        elif name == "a":
+            std = 1.0 / shape[-1]
+        elif name == "bias" or "embedding" in name or len(shape) < 2:
+            std = 0.02
+        else:
+            std = 1.0 / math.sqrt(np.prod(shape[:-1]))
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
 @pytest.fixture(scope="module")
 def slices():
     rng = np.random.default_rng(0)
-    jp = JPipeline.random(tiny=True, resolution=RES, lora_rank=4, key=jax.random.key(0))
-    # LoRA B made non-zero so the adapter does work; A keeps its gaussian init
-    lora = jax.tree_util.tree_map_with_path(
-        lambda p, leaf: (jnp.asarray(rng.standard_normal(leaf.shape).astype(np.float32) * 0.2)
-                         if p[-1].key == "b" else leaf),
-        jp.unet_variables["lora"])
-    uvars = {"params": jp.unet_variables["params"], "lora": lora}
+    jp = JPipeline.random(tiny=True, resolution=RES, lora_rank=4, fast_init=True)
+    # LoRA B made non-zero so the adapter does work
+    uvars = _fill(jp.unet_variables, rng, lora_b_std=0.2)
+    for name in ("vae_variables", "te1_variables", "te2_variables"):
+        setattr(jp, name, _fill(getattr(jp, name), rng))
     js = JScorer(text_config=CLIPTextConfig.tiny(), vision_config=CLIPVisionConfig.tiny(),
-                 key=jax.random.key(1))
+                 fast_init=True)
+    js.variables = _fill(js.variables, rng)
     ids1, ids2 = _ids(rng, 1000), _ids(rng, 1000)
     reward_ids = _ids(rng, 1000)
 
@@ -58,9 +84,12 @@ def slices():
     hw = RES // 2
     init = jax.random.normal(k_init, (2 * PROMPTS, hw, hw, 4), jnp.float32)
     sched = make_euler_ancestral_schedule(STEPS)
-    traj = sample_turbo_trajectories(
-        lambda x, t: jp.unet_apply(uvars, x, t, cond, 1.0), sched, init, k_step)
-    images = jp.decode(traj.final_latents)
+
+    def rollout(uv, vv, c, x, k):
+        tr = sample_turbo_trajectories(lambda x, t: jp.unet_apply(uv, x, t, c, 1.0), sched, x, k)
+        return tr, jp.decode(tr.final_latents, vv)
+
+    traj, images = jax.jit(rollout)(uvars, jp.vae_variables, cond, init, k_step)
     txt = js.text_features(jnp.asarray(reward_ids))
     scores = jnp.sum(jnp.concatenate([txt, txt]) * js.image_features(images), axis=-1)
     want = {
