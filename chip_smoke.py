@@ -31,9 +31,11 @@ PyTorch. In order:
    the configuration implies. Every loss and grad_norm must be finite, the
    first update's loss log 2 within 1e-3 (a fresh adapter: policy =
    reference), the LoRA changed and the frozen UNet weights not (against a
-   rebuild from the seed), and the checkpoint written at step 1 must
-   restore. Prints sample / update / microbatch ms, pairs/s of the loop
-   and peak memory;
+   rebuild from the seed), the checkpoint written at step 1 must
+   restore, and the adapter exported beside it
+   (``lora-1/pytorch_lora_weights.safetensors``, read back with the port's
+   ``load_file``) must equal the LoRA that checkpoint restores. Prints
+   sample / update / microbatch ms, pairs/s of the loop and peak memory;
 6. the same for SDXL-DMD2 (``run_online_pso(sampler="dmd")``,
    ``configs/sdxl_dmd_dpo.py``): 1024^2, 4 pair batches of 2 prompts = 8
    pairs, 2 updates of 4 x 3 microbatches (policy pass at batch 2, remat
@@ -54,13 +56,18 @@ PyTorch. In order:
    1e-2 with an atol of 5% of the plain O's rms, see ``fwd_tolerance``,
    its fp32 logsumexp atol 2e-3; attention backward 1e-4 fp32 and in bf16
    rtol 1e-2 with an atol of 5% of the plain gradient's rms, see
-   ``bwd_tolerance`` and ``grad_tolerance``; GroupNorm+SiLU 3e-2 / 2e-4),
+   ``bwd_tolerance`` and ``grad_tolerance``, its Di 1e-4 / 1e-5, its post
+   kernel bit for bit; GroupNorm+SiLU 3e-2 / 2e-4),
    and CUDA-event device times of
    the kernel, the plain version and, where one PyTorch call computes the
    same function, that call (timed here only; the port never calls it):
    SDPA forward for K1, autograd of SDPA (dQ, dK, dV in one backward) for
-   K2 and K3. Back-to-back calls on one input: an input under the 50 MB L2
-   stays there, as a GroupNorm input just written by a conv does. Also the
+   the backward kernel; for the backward also the whole backward (its three
+   kernels) beside the function's bound, and the backward twice at
+   ``RUN_TO_RUN`` with the max|diff| between the two runs (its sums over
+   blocks come in another order each run). Back-to-back calls on one
+   input: an input under the 50 MB L2 stays there, as a GroupNorm input
+   just written by a conv does. Also the
    autograd Function's gradients against autograd of the plain forward:
    at one UNet shape in fp32, and in bf16 at the update's 1024-token
    self- and cross-attention shapes, with the upstream gradient handed
@@ -102,6 +109,9 @@ GN_STATS_OPS, GN_NORM_OPS = 3, 8  # fp32 operations per element of K4, K5
 TOL = {"attention": {"bf16": (5e-2, 1e-2), "fp32": (2e-3, 2e-3)},
        "attention_lse": (2e-3, 0.0),  # the fp32 logsumexp of either dtype
        "attention_bwd": {"bf16": (5e-2, 1e-2), "fp32": (1e-4, 1e-4)},
+       # the pre kernel's Di against attention_di: fp32 sums of 64 products in
+       # another order (each within ~64 ulps of the sum of their magnitudes)
+       "attention_di": (1e-4, 1e-5),
        "gn": {"bf16": (3e-2, 3e-2), "fp32": (2e-4, 2e-4)},
        # an eval score at batch 2 against the same prompt's at batch 1 (bf16):
        # the noise is the same, the kernels cuBLAS and cuDNN pick may not be
@@ -118,13 +128,16 @@ RAGGED = (((2, 1000, 3, 64), 77), ((1, 200, 5, 64), 1000), ((1, 1, 2, 64), 1))
 # dims (forward only: the backward takes d = 64).
 RAGGED_FWD = (((2, 1000, 3, 80), 77), ((1, 1, 2, 80), 1), ((1, 1000, 1, 512), 77),
               ((2, 200, 1, 512), 1000))
+_BWD_SRC = "pairwise_sample_optimization_tpu_torch/csrc/flash_attn_bwd.cu"
+_JAX_ATTN = "pairwise_sample_optimization_tpu/ops/flash_attention.py"
 KERNELS = {
     "flash_attn_fwd": ("pairwise_sample_optimization_tpu_torch/csrc/flash_attn_fwd.cu",
-                       "pairwise_sample_optimization_tpu/ops/flash_attention.py:99"),
-    "flash_attn_bwd_dkv": ("pairwise_sample_optimization_tpu_torch/csrc/flash_attn_bwd.cu",
-                           "pairwise_sample_optimization_tpu/ops/flash_attention.py:193"),
-    "flash_attn_bwd_dq": ("pairwise_sample_optimization_tpu_torch/csrc/flash_attn_bwd.cu",
-                          "pairwise_sample_optimization_tpu/ops/flash_attention.py:244"),
+                       f"{_JAX_ATTN}:99"),
+    # the backward: Di (jnp in _bwd) and the zeroed accumulators; dQ, dK and dV
+    # in one kernel (K2 and K3); the fp32 accumulators to bf16 (the kernels' casts)
+    "flash_attn_bwd_pre": (_BWD_SRC, f"{_JAX_ATTN}:287"),
+    "flash_attn_bwd": (_BWD_SRC, f"{_JAX_ATTN}:193, {_JAX_ATTN}:244"),
+    "flash_attn_bwd_post": (_BWD_SRC, f"{_JAX_ATTN}:277"),
     "gn_stats": ("pairwise_sample_optimization_tpu_torch/csrc/group_norm_silu.cu",
                  "pairwise_sample_optimization_tpu/ops/fused_groupnorm.py:55"),
     "gn_silu_norm": ("pairwise_sample_optimization_tpu_torch/csrc/group_norm_silu.cu",
@@ -340,8 +353,8 @@ def _generation_launches(ucfg, vcfg, steps, vision_layers):
     vae_resnets = 2 + len(vcfg.block_out_channels) * (vcfg.layers_per_block + 1)
     k1 = steps * attn + 1 + sum(vision_layers)
     gn = steps * gn_unet + 2 * vae_resnets + 1
-    return {"flash_attn_fwd": k1, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0,
-            "gn_stats": gn, "gn_silu_norm": gn}
+    return {"flash_attn_fwd": k1, "flash_attn_bwd_pre": 0, "flash_attn_bwd": 0,
+            "flash_attn_bwd_post": 0, "gn_stats": gn, "gn_silu_norm": gn}
 
 
 def expected_launches(pipe, steps):
@@ -360,22 +373,53 @@ def expected_eval_launches(ucfg, vcfg, steps, batches, vision_layers):
             _generation_launches(ucfg, vcfg, steps, vision_layers).items()}
 
 
-def expected_update_launches(ucfg, n_micro, fuse_ref_pass):
-    """Launches of one optimizer update of ``n_micro`` microbatches. Per
-    microbatch: the policy forward (with grad), its recompute under remat
-    "full" and, unless fused into the policy call, the reference forward
-    (no grad); K2 and K3 once per attention call in the backward. Under
-    remat the ResnetBlocks that run before the first attention are not
+def attention_shapes(ucfg, batch, latent_hw, text_len=77):
+    """(q shape (B, S, H, D), kv length) of each attention call of one UNet
+    forward at ``batch`` and a ``latent_hw`` x ``latent_hw`` latent: per
+    transformer block a self-attention over the level's tokens and a
+    cross-attention to the ``text_len`` text tokens."""
+    n, lpb, depths = len(ucfg.block_out_channels), ucfg.layers_per_block, ucfg.transformer_layers
+    shapes = []
+    for i, (ch, d) in enumerate(zip(ucfg.block_out_channels, depths)):
+        blocks = d * (2 * lpb + 1) + (depths[-1] if i == n - 1 else 0)
+        tokens = (latent_hw // 2 ** i) ** 2
+        q = (batch, tokens, ch // ucfg.head_dim, ucfg.head_dim)
+        shapes += [(q, tokens), (q, text_len)] * blocks
+    return shapes
+
+
+def bwd_needs_post(q_shape, skv, sms=132):
+    """Whether the bf16 backward at these lengths runs the post kernel (has
+    an fp32 accumulator; ``ops.flash_attention.bwd_plan``)."""
+    from pairwise_sample_optimization_tpu_torch.ops import flash_attention as tfa
+
+    b, sq, h, _ = q_shape
+    _, dq_rows, kv_rows = tfa.bwd_plan(b * h, sq, skv, sms)
+    return bool(dq_rows or kv_rows)
+
+
+def expected_update_launches(ucfg, n_micro, fuse_ref_pass, batch, latent_hw, sms=132):
+    """Launches of one optimizer update of ``n_micro`` microbatches with a
+    policy pass at ``batch``. Per microbatch: the policy forward (with
+    grad), its recompute under remat "full" and, unless fused into the
+    policy call (one call at twice the batch), the reference forward (no
+    grad); per attention call in the backward the pre kernel and the
+    backward kernel, and the post kernel where that call's lengths give an
+    accumulator (``bwd_needs_post`` on a card of ``sms`` SMs). Under remat
+    the ResnetBlocks that run before the first attention are not
     recomputed: nothing in them depends on the LoRA, so they save nothing
     for the backward. The GroupNorm+SiLU backward is the plain version."""
     attn, gn, resnets, grad_free = _unet_counts(ucfg)
+    shapes = attention_shapes(ucfg, batch * (2 if fuse_ref_pass else 1), latent_hw)
+    assert len(shapes) == attn, (len(shapes), attn)
     remat = ucfg.remat == "full"
     passes = 1 + (0 if fuse_ref_pass else 1)
     k1 = attn * (passes + remat)
     k45 = gn * passes + (2 * (resnets - grad_free) if remat else 0)
-    return {"flash_attn_fwd": n_micro * k1, "flash_attn_bwd_dkv": n_micro * attn,
-            "flash_attn_bwd_dq": n_micro * attn, "gn_stats": n_micro * k45,
-            "gn_silu_norm": n_micro * k45}
+    post = sum(bwd_needs_post(q, skv, sms) for q, skv in shapes)
+    return {"flash_attn_fwd": n_micro * k1, "flash_attn_bwd_pre": n_micro * attn,
+            "flash_attn_bwd": n_micro * attn, "flash_attn_bwd_post": n_micro * post,
+            "gn_stats": n_micro * k45, "gn_silu_norm": n_micro * k45}
 
 
 class ShapeRecorder:
@@ -509,7 +553,8 @@ def train_slice(seed, sampler, recorder):
     the kernel wrappers' shapes recorded into ``recorder``."""
     import torch
 
-    from pairwise_sample_optimization_tpu_torch.checkpoints import (latest_checkpoint,
+    from pairwise_sample_optimization_tpu_torch.checkpoints import (LORA_FILE, latest_checkpoint,
+                                                                    load_file,
                                                                     restore_train_state)
     from pairwise_sample_optimization_tpu_torch.cli.online_runner import run_dir, run_online_pso
     from pairwise_sample_optimization_tpu_torch.configs import sdxl_dmd_dpo, sdxl_turbo_dpo
@@ -544,7 +589,9 @@ def train_slice(seed, sampler, recorder):
 
     want = {k: s_cfg.num_batches_per_epoch * v
             for k, v in expected_launches(pipe, s_cfg.num_steps).items()}
-    upd = expected_update_launches(pipe.unet.config, n_micro, bool(t_cfg.fuse_ref_pass))
+    upd = expected_update_launches(pipe.unet.config, n_micro, bool(t_cfg.fuse_ref_pass),
+                                   2 * t_cfg.batch_size, pipe.latent_hw,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
     want = {k: want[k] + n_updates * upd[k] for k in want}
     if counts != want:
         raise AssertionError(f"training-run launch counts {counts} != expected {want}")
@@ -585,6 +632,16 @@ def train_slice(seed, sampler, recorder):
             not torch.equal(restored.lora[k], state.lora[k]) for k in state.lora):
         raise AssertionError(f"checkpoint {ckpt} did not restore the trained state")
 
+    # the adapter for diffusers written beside checkpoint-1 equals the LoRA
+    # that checkpoint restores
+    lora_file = out_dir / "lora-1" / LORA_FILE
+    exported = load_file(str(lora_file))
+    want_lora = {"unet." + k: v.detach().float().cpu() for k, v in restored.lora.items()}
+    if set(exported) != set(want_lora) or any(
+            exported[k].dtype != torch.float32 or not torch.equal(exported[k], want_lora[k])
+            for k in want_lora):
+        raise AssertionError(f"{lora_file} does not hold the LoRA of {ckpt}")
+
     metrics_jsonl = (out_dir / "metrics.jsonl").read_text()
     metrics = [json.loads(line) for line in metrics_jsonl.splitlines()]
     times = next(m for m in metrics if "loss" in m)
@@ -598,7 +655,9 @@ def train_slice(seed, sampler, recorder):
         "microbatch_ms": train_ms / n_updates / n_micro,
         "loop_pairs_per_s": pairs / (sample_ms + train_ms) * 1e3, "wall_s": wall_s,
         "peak_bytes": peak, "checkpoint": Path(ckpt).name, "lora_max_abs_delta": lora_moved,
-        "checksums": checksums,
+        "checksums": checksums, "lora_export": {"file": str(lora_file.relative_to(out_dir)),
+                                                "tensors": len(exported),
+                                                "bytes": lora_file.stat().st_size},
     }
     log(f"online PSO loop, {sampler} at {s_cfg.resolution}^2 (1 epoch, {pairs} pairs, "
         f"{n_updates} updates x {n_micro} microbatches of policy batch {2 * t_cfg.batch_size}): "
@@ -607,7 +666,8 @@ def train_slice(seed, sampler, recorder):
         f"pairs/s of the loop, peak {peak / 2**30:.2f} GiB; losses "
         f"{[round(m['loss'], 6) for m in history]}, grad_norm "
         f"{[round(m['grad_norm'], 6) for m in history]}; launches {counts}; LoRA max|delta| "
-        f"{lora_moved:.3e}, frozen unchanged; restored {summary['checkpoint']}")
+        f"{lora_moved:.3e}, frozen unchanged; restored {summary['checkpoint']}; "
+        f"lora-1/{LORA_FILE} ({len(exported)} tensors) equals its LoRA")
     del pipe, state, ref, restored, frozen, frozen0, lora, lora0, lora_ref
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -756,71 +816,169 @@ def attention_phase(shapes, seed):
     return {"flash_attn_fwd": rows}
 
 
+RUN_TO_RUN = ((2, 4096, 10, 64), 4096)  # the backward twice at this shape, bf16
+
+
+def _bwd_bounds(q, k, skv, acc_q, acc_kv):
+    """Bounds (ms, by) of the backward at q's shape and kv length ``skv``:
+    the function's (q, k, v, O, dO, LSE read, dQ, dK, dV written; five
+    products), each kernel's, and those of the TPU design's K2 (four
+    products) and K3 (three) for comparison with earlier records.
+    ``acc_q`` / ``acc_kv``: whether dQ / dK and dV go through fp32
+    accumulators."""
+    b, sq, h, d = q.shape
+    el, kind = q.element_size(), dtype_name(q.dtype)
+    pair, rows = 2 * b * h * sq * skv * d, b * h * sq
+    nq, nk = q.numel(), k.numel()
+    acc = 4 * (nq * acc_q + 2 * nk * acc_kv)  # accumulator bytes (zeroed, added, read)
+    inputs = el * (2 * nq + 2 * nk) + 8 * rows  # q, do, k, v, lse, di
+    return {
+        "function": bound(el * (3 * nq + 2 * nk) + 4 * rows + el * (nq + 2 * nk), 5 * pair, kind),
+        "flash_attn_bwd_pre": bound(2 * el * nq + 4 * rows + acc, 2 * nq, "fp32"),
+        "flash_attn_bwd": bound(inputs + (4 if acc_q else el) * nq + (4 if acc_kv else el) * 2 * nk,
+                                5 * pair, kind),
+        "flash_attn_bwd_post": bound(acc + el * (nq * acc_q + 2 * nk * acc_kv), 0, "fp32"),
+        "k2": bound(inputs + el * 2 * nk, 4 * pair, kind),
+        "k3": bound(inputs + el * nq, 3 * pair, kind),
+    }
+
+
 def attention_bwd_phase(shapes, seed):
-    """K2 and K3 at every (q, kv, dtype) the update gave the backward, plus
-    one fp32 case, against ``flash_attention_bwd_plain``."""
+    """The backward at every (q, kv, dtype) the updates gave it, plus one fp32
+    case and the bf16 ``RAGGED`` cases: the whole backward
+    (``flash_attention_bwd``) against ``flash_attention_bwd_plain``
+    (``grad_tolerance``), and each kernel against its plain version on the
+    same inputs: the pre kernel's Di against ``attention_di``
+    (``TOL["attention_di"]``) and its accumulator all zero; the backward
+    kernel's gradients (the accumulators decoded by ``bwd_post_plain``)
+    against ``flash_attention_bwd_plain``; the post kernel against
+    ``bwd_post_plain`` on the same accumulator, bit for bit. CUDA-event ms
+    of each kernel, the whole backward, the plain backward and SDPA's
+    backward (autograd: dQ, dK, dV in one call); the function's bound and
+    each kernel's. Then the whole backward twice at ``RUN_TO_RUN``: the
+    max|diff| between the two runs (the sums taken by bulk reductions come
+    in another order) must lie within ``bwd_tolerance``."""
     import torch
     import torch.nn.functional as F
 
     from pairwise_sample_optimization_tpu_torch.ops import flash_attention as tfa
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     cases = [(q, k, dt, n) for (q, k, dt), n in shapes.items()]
     q0, k0, _, _ = max(cases, key=lambda c: (c[3], c[0][1] * c[1][1]))
     cases.append((q0, k0, torch.float32, 0))  # the fp32 case, off the main path
     cases += [(qs, (qs[0], skv, *qs[2:]), torch.bfloat16, 0) for qs, skv in RAGGED]
-    dkv_rows, dq_rows = [], []
+    rows = {name: [] for name in ("flash_attn_bwd_pre", "flash_attn_bwd", "flash_attn_bwd_post")}
+    whole_rows = []
     for qs, ks, dt, launches in cases:
         q, k, v = (torch.randn(s, generator=gen, device="cuda", dtype=dt) for s in (qs, ks, ks))
         do = torch.randn(qs, generator=gen, device="cuda", dtype=dt)
         o, lse = tfa.flash_attention_fwd(q, k, v)
-        di = tfa.attention_di(o, do)
-        dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, di)
-        dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, di)
-        dq_p, dk_p, dv_p = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)
-        name = f"{qs} kv {ks[1]} {dtype_name(dt)}"
-        tol = {n: grad_tolerance(n, w, ks[1]) for n, w in (("dq", dq_p), ("dk", dk_p),
-                                                            ("dv", dv_p))}
-        err_kv = max(check_close(f"dk {name}", dk, dk_p, tol["dk"]),
-                     check_close(f"dv {name}", dv, dv_p, tol["dv"]))
-        err_q = check_close(f"dq {name}", dq, dq_p, tol["dq"])
-        used_kv = max(tolerance_used(dk, dk_p, tol["dk"]), tolerance_used(dv, dv_p, tol["dv"]))
-        used_q = tolerance_used(dq, dq_p, tol["dq"])
-        grad_scale = {n: {"mean_abs": w.float().abs().mean().item(),
-                          "rms": w.float().pow(2).mean().sqrt().item(), "atol": tol[n][0]}
-                      for n, w in (("dq", dq_p), ("dk", dk_p), ("dv", dv_p))}
         b, sq, h, d = qs
-        el, pair = q.element_size(), 2 * b * h * sq * ks[1] * d
-        inputs = el * (2 * q.numel() + 2 * k.numel()) + 4 * 2 * lse.numel()  # q, do, k, v, lse, Di
-        b2, by2 = bound(inputs + el * 2 * k.numel(), 4 * pair, dtype_name(dt))
-        b3, by3 = bound(inputs + el * q.numel(), 3 * pair, dtype_name(dt))
+        skv, scale = ks[1], 1.0 / math.sqrt(d)
+        name = f"{qs} kv {skv} {dtype_name(dt)}"
+        want = dict(zip(("dq", "dk", "dv"), tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)))
+        tol = {n: grad_tolerance(n, w, skv) for n, w in want.items()}
+
+        def held(what, got):
+            errs = [check_close(f"{what} {n} {name}", got[i], want[n], tol[n])
+                    for i, n in enumerate(want)]
+            return max(errs), max(tolerance_used(got[i], want[n], tol[n])
+                                  for i, n in enumerate(want))
+
+        whole_err, whole_used = held("backward", tfa.flash_attention_bwd(q, k, v, o, lse, do))
+        # kernel by kernel, as flash_attention_bwd runs them
+        if dt == torch.bfloat16:
+            q_chunk, dq_rows, kv_rows = tfa.bwd_plan(b * h, sq, skv, sms)
+        else:
+            q_chunk, dq_rows, kv_rows = -(-sq // tfa.TILE), 0, 0
+        acc = torch.full((b * h * (dq_rows + 2 * kv_rows) * d,), float("nan"), device="cuda")
+        di = tfa.flash_attention_bwd_pre(o, do, acc)
+        err_pre = check_close(f"Di {name}", di, tfa.attention_di(o, do), TOL["attention_di"])
+        if acc.numel() and acc.abs().max().item() != 0:
+            raise AssertionError(f"pre kernel {name}: accumulator not zeroed")
+        dq, dk, dv = tfa.flash_attention_bwd_main(q, k, v, do, lse, di, acc, q_chunk, scale)
+        post = bool(dq_rows or kv_rows)
+        if post:
+            plain = [t.clone() for t in (dq, dk, dv)]
+            tfa.bwd_post_plain(acc, *plain, bool(dq_rows), bool(kv_rows))
+            tfa.flash_attention_bwd_post(acc, dq, dk, dv, bool(dq_rows), bool(kv_rows))
+            err_post = max(check_close(f"post {n} {name}", g, w, (0.0, 0.0))
+                           for n, g, w in zip("qkv", (dq, dk, dv), plain))
+        main_err, main_used = held("backward kernel", (dq, dk, dv))
+        bounds = _bwd_bounds(q, k, skv, bool(dq_rows), bool(kv_rows))
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt)
         dot = do.transpose(1, 2)
-        sdpa_bwd = timed_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
-        plain = timed_ms(lambda: tfa.flash_attention_bwd_plain(q, k, v, o, lse, do), reps=5)
+        big = b * h * sq * skv > PLAIN_LOGITS // 4  # fewer timed calls of a slow plain version
+        t = {
+            "sdpa": timed_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                         retain_graph=True)),
+            "plain": timed_ms(lambda: tfa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+                              *((3, 2) if big else (5,))),
+            "whole": timed_ms(lambda: tfa.flash_attention_bwd(q, k, v, o, lse, do)),
+            "pre": timed_ms(lambda: tfa.flash_attention_bwd_pre(o, do, acc)),
+            "pre_plain": timed_ms(lambda: tfa.attention_di(o, do)),
+            "main": timed_ms(lambda: tfa.flash_attention_bwd_main(q, k, v, do, lse, di, acc,
+                                                                  q_chunk, scale)),
+        }
+        if post:
+            t["post"] = timed_ms(lambda: tfa.flash_attention_bwd_post(
+                acc, dq, dk, dv, bool(dq_rows), bool(kv_rows)))
+            t["post_plain"] = timed_ms(lambda: tfa.bwd_post_plain(
+                acc, *plain, bool(dq_rows), bool(kv_rows)))
         common = {"shape": {"q": list(qs), "kv": list(ks)}, "dtype": dtype_name(dt),
-                  "launches": launches, "plain_ms": plain, "library_ms": sdpa_bwd,
-                  "grad_scale": grad_scale}
-        dkv_rows.append({**common, "max_abs_err": err_kv, "tolerance_used": used_kv,
-                         "bound_ms": b2, "bound_by": by2,
-                         "ms": timed_ms(lambda: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, di))})
-        dq_rows.append({**common, "max_abs_err": err_q, "tolerance_used": used_q,
-                        "bound_ms": b3, "bound_by": by3,
-                        "ms": timed_ms(lambda: tfa.flash_attention_bwd_dq(q, k, v, do, lse, di))})
-        r2, r3 = dkv_rows[-1], dq_rows[-1]
-        log(f"flash_attn_bwd {name}: K2 max|diff| {err_kv:.2e} {r2['ms']:.4f} ms (bound {b2:.4f} "
-            f"{by2}); K3 max|diff| {err_q:.2e} {r3['ms']:.4f} ms (bound {b3:.4f} {by3}); "
-            f"share of tolerance used K2 {used_kv:.3f} K3 {used_q:.3f}; (mean|grad|, rms, atol) "
-            + ", ".join(f"{n} ({g['mean_abs']:.3e}, {g['rms']:.3e}, {g['atol']:.2e})"
-                        for n, g in grad_scale.items())
-            + f"; plain bwd {plain:.4f}, SDPA bwd {sdpa_bwd:.4f}; {launches} launches each")
-        del out, qt, kt, vt
-    return {"flash_attn_bwd_dkv": dkv_rows, "flash_attn_bwd_dq": dq_rows}
+                  "launches": launches, "q_chunk": q_chunk,
+                  "accumulators": {"dq": bool(dq_rows), "dk_dv": bool(kv_rows)}}
+        rows["flash_attn_bwd_pre"].append({
+            **common, "max_abs_err": err_pre, "ms": t["pre"], "plain_ms": t["pre_plain"],
+            "library_ms": None, "bound_ms": bounds["flash_attn_bwd_pre"][0],
+            "bound_by": bounds["flash_attn_bwd_pre"][1]})
+        rows["flash_attn_bwd"].append({
+            **common, "max_abs_err": main_err, "tolerance_used": main_used, "ms": t["main"],
+            "plain_ms": t["plain"], "library_ms": t["sdpa"],
+            "bound_ms": bounds["flash_attn_bwd"][0], "bound_by": bounds["flash_attn_bwd"][1]})
+        if post:
+            rows["flash_attn_bwd_post"].append({
+                **common, "max_abs_err": err_post, "ms": t["post"], "plain_ms": t["post_plain"],
+                "library_ms": None, "bound_ms": bounds["flash_attn_bwd_post"][0],
+                "bound_by": bounds["flash_attn_bwd_post"][1]})
+        whole_rows.append({
+            **common, "max_abs_err": whole_err, "tolerance_used": whole_used,
+            "ms": t["whole"], "plain_ms": t["plain"], "sdpa_bwd_ms": t["sdpa"],
+            "bound_ms": bounds["function"][0], "bound_by": bounds["function"][1],
+            "k2_bound_ms": bounds["k2"][0], "k3_bound_ms": bounds["k3"][0],
+            "kernel_ms": {k_: v_ for k_, v_ in t.items() if k_ in ("pre", "main", "post")}})
+        log(f"backward {name} (q chunk {q_chunk}, accumulators dQ {bool(dq_rows)} dK/dV "
+            f"{bool(kv_rows)}): whole {t['whole']:.4f} ms (pre {t['pre']:.4f}, kernel "
+            f"{t['main']:.4f}" + (f", post {t['post']:.4f}" if post else "")
+            + f"), bound {bounds['function'][0]:.4f} ({bounds['function'][1]}; kernel "
+            f"{bounds['flash_attn_bwd'][0]:.4f}, TPU design K2 {bounds['k2'][0]:.4f} + K3 "
+            f"{bounds['k3'][0]:.4f}), plain {t['plain']:.4f}, SDPA bwd {t['sdpa']:.4f}; max|diff| "
+            f"{whole_err:.2e}, share of tolerance used {whole_used:.3f} (kernel by kernel "
+            f"{main_used:.3f}, Di {err_pre:.1e}" + (f", post {err_post:.0e}" if post else "")
+            + f"); {launches} launches")
+        del out, qt, kt, vt, acc
+
+    qs, skv = RUN_TO_RUN
+    ks = (qs[0], skv, *qs[2:])
+    q, k, v, do = (torch.randn(s, generator=gen, device="cuda", dtype=torch.bfloat16)
+                   for s in (qs, ks, ks, qs))
+    o, lse = tfa.flash_attention_fwd(q, k, v)
+    first = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    second = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    run_to_run = {}
+    for n, a_, b_, w in zip(("dq", "dk", "dv"), first, second, want):
+        run_to_run[n] = check_close(f"run to run {n} {qs} kv {skv}", b_, a_, bwd_tolerance(w))
+    log(f"backward run to run at {qs} kv {skv} bf16: max|diff| between two runs "
+        + ", ".join(f"{n} {e:.2e}" for n, e in run_to_run.items()))
+    return rows, whole_rows, {"q": list(qs), "kv": skv, "max_abs_diff": run_to_run}
 
 
 def attention_function_check(seed):
-    """The autograd Function (K1 forward, K2/K3 backward) against autograd
+    """The autograd Function (K1 forward, the backward's kernels) against autograd
     of the plain forward on the same inputs and upstream gradient: in fp32
     at a UNet cross-attention shape, in bf16 at the update's 1024-token
     self- and cross-attention shapes with dO handed over as autograd gives
@@ -1006,8 +1164,8 @@ def main(argv=None) -> int:
     paths = {"turbo_loop": train_summary["launches"], "dmd_loop": dmd_summary["launches"],
              "dmd_eval": eval_summary["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
-    rows = {**attention_phase(recorder.attention, args.seed),
-            **attention_bwd_phase(recorder.attention_bwd, args.seed),
+    bwd_rows, bwd_whole, run_to_run = attention_bwd_phase(recorder.attention_bwd, args.seed)
+    rows = {**attention_phase(recorder.attention, args.seed), **bwd_rows,
             **gn_phase(recorder.gn, args.seed)}
     function_errs = attention_function_check(args.seed)
     kernels = [summarize(name, rows[name], launches[name]) for name in KERNELS]
@@ -1016,6 +1174,7 @@ def main(argv=None) -> int:
               "build_s": build_s, "small_reference": small, "slice": slice_summary,
               "train": train_summary, "dmd_train": dmd_summary, "eval": eval_summary,
               "launches_by_path": paths, "function_check": function_errs, "kernels": kernels,
+              "backward": bwd_whole, "backward_run_to_run": run_to_run,
               "seconds": time.perf_counter() - t_start}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -6,15 +6,19 @@ PickScore scorer, tokenizers, prompt loader, trainer, optimizer and train
 state; resume from ``resume_from``; then per epoch sample
 ``num_batches_per_epoch`` pair batches, log the reward mean/std, run the
 epoch's shuffled DPO updates, log each update's metrics with the phase
-times, and checkpoint at step 1 and every ``checkpointing_steps``.
+times, and checkpoint at step 1 and every ``checkpointing_steps``: the
+train state under ``checkpoint-<step>`` and the adapter for diffusers as
+``lora-<step>/pytorch_lora_weights.safetensors``, as the JAX runner
+writes them.
 
 The DMD2 sampler (``sampler="dmd"``) takes strict-dominance preference
 (``compare="pareto"``) and ``sample.shared_noise``, as the JAX runner
 does; the Turbo sampler per-sample random-axis preference.
 
-Not ported yet, and refused by :func:`check_config` when asked for:
-validation, pretrained checkpoints, the LoRA safetensors export, meshes
-beyond one device, and the JAX package's memory and int8 options.
+Not ported yet, and refused when asked for (by :func:`check_config`, and
+validation by :func:`run_online_pso` where it would fire): validation,
+pretrained checkpoints, meshes beyond one device, and the JAX package's
+memory and int8 options.
 """
 
 from __future__ import annotations
@@ -25,8 +29,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..checkpoints import (latest_checkpoint, prune_checkpoints, restore_train_state,
-                           save_train_state)
+from ..checkpoints import (LORA_FILE, export_lora_safetensors, latest_checkpoint,
+                           prune_checkpoints, restore_train_state, save_train_state)
 from ..data import PromptDataset, PromptLoader, make_clip_tokenizers
 from ..device import resolve_device
 from ..pipeline import SAMPLERS, SDXLPipeline
@@ -185,8 +189,11 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
                     # the state after the whole epoch, under the update's step
                     # number, as the JAX runner saves it
                     path = save_train_state(out_dir, global_step, state, {"epoch": epoch})
+                    lora_dir = os.path.join(out_dir, f"lora-{global_step}")
+                    os.makedirs(lora_dir, exist_ok=True)
+                    export_lora_safetensors(pipe.unet, os.path.join(lora_dir, LORA_FILE))
                     prune_checkpoints(out_dir, int(config.num_checkpoint_limit))
-                    logger.info("saved state to %s", path)
+                    logger.info("saved state to %s and the LoRA to %s", path, lora_dir)
             timer.reset()
     finally:
         metrics_logger.close()

@@ -441,7 +441,7 @@ flash_fwd_kernel_wgmma(Params p) {
       wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
     if constexpr (SH::TAIL) wgmma_ss(s, dq_tail, sw32_desc(Kt + MAIN), 1);
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_acc(s);
 
     float alpha[2];
@@ -462,7 +462,7 @@ flash_fwd_kernel_wgmma(Params p) {
       if constexpr (SH::TAIL) wgmma_rs_mn_n16(ot, pa[kk], sw32_desc(Vt + MAIN) + kk * (512 >> 4));
     }
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_acc(o);
     if constexpr (SH::TAIL) fence_acc(ot);
     fence_a(pa);
@@ -587,7 +587,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_kernel_d512(Params p) {
       for (int kk = 0; kk < 4; ++kk)
         wgmma_ss(s, dq + c * (BLK >> 4) + 2 * kk, dk + c * (BLK >> 4) + 2 * kk, c | kk);
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     fence_acc(s);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
@@ -627,7 +627,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_fwd_kernel_d512(Params p) {
       for (int c = 0; c < HALF; ++c)
         wgmma_rs_mn(o[c], pa[kk], dv + c * (BLK >> 4) + kk * (2048 >> 4));
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
 #pragma unroll
     for (int c = 0; c < HALF; ++c) fence_acc(o[c]);
     fence_a(pa);

@@ -1,8 +1,9 @@
 // Hopper warpgroup-product helpers shared by the flash-attention kernels
 // built on wgmma (the bf16 forward at head dims 64, 80 and 512, the bf16
-// backward dQ at 64): the swizzled shared-memory layouts that cp.async
+// backward at 64): the swizzled shared-memory layouts that cp.async
 // writes and wgmma reads, the shared-memory matrix descriptors, the wgmma
-// instructions and the fences around them.
+// instructions and the fences around them, and the bulk reductions that
+// add a shared-memory tile into global memory.
 //
 // Layouts (CUTLASS's canonical GMMA layouts, bf16):
 // - a row of 64 values (128 bytes) is one row of the 128-byte swizzle:
@@ -88,12 +89,37 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Wait until at most N committed groups of wgmma are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// This thread's cp.async writes, made visible to wgmma's (async proxy) reads.
+// This thread's cp.async writes (or plain stores), made visible to the
+// async proxy's reads (wgmma, bulk copies).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Bulk asynchronous reduction (one thread starts it): dst[i] += src[i] for
+// the bytes / 4 floats at shared address src, into global memory at dst,
+// each element added atomically. Both 16-byte aligned, bytes a multiple of
+// 16. Committed and waited for as bulk groups.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// At most N bulk groups still reading their shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// At most N bulk groups not complete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 #define PSO_ACC32(c)                                                                       \
@@ -117,6 +143,20 @@ __device__ __forceinline__ void wgmma_ss(float (&c)[8][4], uint64_t da, uint64_t
       "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
       "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
       "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : PSO_ACC32(c)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// c = [c +] A B (m64n64k16), A and B MN-major in shared memory (both
+// transposed by the instruction: the k of the product runs down the rows).
+__device__ __forceinline__ void wgmma_ss_tt(float (&c)[8][4], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
       : PSO_ACC32(c)
       : "l"(da), "l"(db), "r"(accumulate));
 }

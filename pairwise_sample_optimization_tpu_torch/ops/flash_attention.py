@@ -12,14 +12,18 @@ length are masked in the kernels.
 
 A CPU tensor takes the plain versions; a CUDA tensor takes the kernels or
 raises. :class:`FlashAttentionFunction` runs the forward (K1) and saves
-q, k, v, o and the logsumexp; its backward computes Di = rowsum(O * dO)
-with torch ops, as the JAX package does outside Pallas, then runs K2 and
-K3 (head dim 64 only, the UNet's).
+q, k, v, o and the logsumexp; its backward (head dim 64 only, the UNet's)
+takes three launches in bf16: the pre kernel (Di = rowsum(O * dO), the
+fp32 accumulators zeroed), one kernel that computes dQ, dK and dV (in
+place of K2 and K3; dQ summed over kv tiles into an fp32 accumulator) and
+the post kernel (the accumulators to bf16). fp32 runs the pre kernel and
+the two-kernel correctness path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -32,12 +36,16 @@ _SIGNATURES = {
     "flash_attn_fwd": [_I, _I, _P, _P, _P, _P, _P] + [_LL] * 12 + [_I, _I, _I, _I, _F, _P],
 }
 _BWD_SIGNATURES = {
-    "flash_attn_bwd_dkv": [_I, _I] + [_P] * 8 + [_LL] * 18 + [_I, _I, _I, _I, _F, _P],
-    "flash_attn_bwd_dq": [_I, _I] + [_P] * 7 + [_LL] * 15 + [_I, _I, _I, _I, _F, _P],
+    "flash_attn_bwd_pre": [_I] + [_P] * 4 + [_LL] * 7 + [_I, _I, _I, _P],
+    "flash_attn_bwd": [_I, _I] + [_P] * 10 + [_LL] * 21 + [_I] * 5 + [_F, _P],
+    "flash_attn_bwd_post": [_P] * 4 + [_LL] * 9 + [_I] * 6 + [_P],
 }
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (64, 80, 512)
 BWD_HEAD_DIMS = (64,)
+TILE = 64  # the backward kernels' q and kv tile
+BWD_KV_ROWS = 128  # kv rows a block of the bf16 backward kernel (two warpgroups of 64)
+BWD_BLOCKS_PER_SM = 1  # its blocks an SM (147 KB of shared memory, 256 threads)
 
 
 def _scale(q, scale):
@@ -61,8 +69,8 @@ def attention_di(o, do):
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: Optional[float] = None):
-    """K2 and K3's plain version: the same recompute-from-LSE backward, step
-    by step in fp32 -> (dq, dk, dv) in the dtypes of q, k, v."""
+    """The backward's plain version: the same recompute-from-LSE backward,
+    step by step in fp32 -> (dq, dk, dv) in the dtypes of q, k, v."""
     scale = _scale(q, scale)
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
@@ -126,73 +134,153 @@ def flash_attention_fwd(q, k, v, scale: Optional[float] = None):
     return o, lse
 
 
-def _check_bwd(q, k, v, do, lse, di):
+def _check_bwd(q, k, v, o, do, lse):
     _check(q, k, v, BWD_HEAD_DIMS, "flash_attn_bwd")
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or (
-            not _takes_layout(do)):
-        raise ValueError(f"do {tuple(do.shape)} {do.dtype} strides {do.stride()} does not fit "
-                         f"q {tuple(q.shape)} {q.dtype}")
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device or (
+                not _takes_layout(t)):
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} strides {t.stride()} does not "
+                             f"fit q {tuple(q.shape)} {q.dtype}")
     rows = (q.shape[0], q.shape[2], q.shape[1])
-    for name, t in (("lse", lse), ("di", di)):
-        if t.shape != rows or t.dtype != torch.float32 or not t.is_contiguous() or (
-                t.device != q.device):
-            raise ValueError(f"{name} must be contiguous fp32 (B, H, Sq) = {rows}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+    if lse.shape != rows or lse.dtype != torch.float32 or not lse.is_contiguous() or (
+            lse.device != q.device):
+        raise ValueError(f"lse must be contiguous fp32 (B, H, Sq) = {rows}, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
 
 
-def _bwd_args(q, k, v, do, lse, di, outs, scale):
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bwd_plan(batch_heads: int, sq: int, skv: int, sms: int) -> tuple[int, int, int]:
+    """How the bf16 backward runs at these lengths on a card of ``sms`` SMs:
+    (q tiles of ``TILE`` rows a block walks, rows of 64 fp32 values per
+    batch*head of dQ's accumulator, of dK's and of dV's).
+
+    One block runs per (``BWD_KV_ROWS`` kv rows, chunk of q tiles,
+    batch*head). A block walks all the q tiles, unless one block per (kv
+    rows, batch*head) would leave the card under one wave (the 77-key
+    cross-attention has one block of kv rows): then chunks sized for about
+    two waves, none empty. dQ is summed over blocks of kv rows in its
+    accumulator unless one block holds every key (then written as it is);
+    dK and dV have accumulators only where the q loop is split. The post
+    kernel runs where any accumulator does."""
+    n_q, n_kv = -(-sq // TILE), -(-skv // TILE)
+    blocks, wave = -(-skv // BWD_KV_ROWS) * batch_heads, BWD_BLOCKS_PER_SM * sms
+    q_chunk = n_q if blocks >= wave else -(-n_q // min(n_q, -(-2 * wave // blocks)))
+    dq_rows = n_q * TILE if skv > BWD_KV_ROWS else 0
+    return q_chunk, dq_rows, n_kv * TILE if q_chunk < n_q else 0
+
+
+def _acc_chunk_perm():
+    """Index of the 16-byte chunk stored at each place of an accumulator tile
+    row: chunk c of row r sits at c ^ 2 (r % 8) (``acc_off`` in the source)."""
+    r = torch.arange(TILE)[:, None]
+    return torch.arange(16)[None, :] ^ ((r % 8) * 2)
+
+
+def bwd_post_plain(acc, dq, dk, dv, with_q: bool, with_kv: bool):
+    """The post kernel's plain version: the fp32 accumulator tiles (64 rows
+    of 256 bytes, each row's 16-byte chunks permuted as the kernel stores
+    them) written into ``dq`` (``with_q``) and ``dk``, ``dv``
+    (``with_kv``), (B, S, H, D) in their dtype."""
+    b, sq, h, d = dq.shape
+    skv = dk.shape[1]
+    n_q, n_kv = -(-sq // TILE), -(-skv // TILE)
+    place = _acc_chunk_perm().to(acc.device)  # place[r, c] = where chunk c of row r is
+
+    def decode(flat, tiles, n, out):
+        t = flat.view(b * h, tiles, TILE, 16, 4)
+        idx = place[None, None, :, :, None].expand(b * h, tiles, TILE, 16, 4)
+        rows = torch.gather(t, 3, idx).reshape(b, h, tiles * TILE, d)[:, :, :n]
+        out.copy_(rows.transpose(1, 2))
+
+    q_part = b * h * n_q * TILE * d if with_q else 0
+    if with_q:
+        decode(acc[:q_part], n_q, sq, dq)
+    if with_kv:
+        kv = acc[q_part:].view(2, -1)
+        decode(kv[0], n_kv, skv, dk)
+        decode(kv[1], n_kv, skv, dv)
+
+
+def flash_attention_bwd_pre(o, do, acc):
+    """Kernel: Di = rowsum(O * dO) in fp32 (B, H, Sq), and ``acc`` (the
+    backward's fp32 accumulator, flat) set to zero."""
+    b, sq, h, _ = o.shape
+    di = torch.empty((b, h, sq), dtype=torch.float32, device=o.device)
+    lib = kernel_lib.load("flash_attn_bwd", _BWD_SIGNATURES)
+    rc = lib.flash_attn_bwd_pre(_DTYPES[o.dtype], o.data_ptr(), do.data_ptr(), di.data_ptr(),
+                                acc.data_ptr(), acc.numel(), *_strides(o, do), b, h, sq,
+                                kernel_lib.stream_ptr(o.device))
+    kernel_lib.check(lib, rc, "flash_attn_bwd_pre")
+    kernel_lib.launch_counts["flash_attn_bwd_pre"] += 1
+    return di
+
+
+def flash_attention_bwd_main(q, k, v, do, lse, di, acc, q_chunk: int, scale):
+    """Kernel: the backward from Di -> (dq, dk, dv). bf16: as
+    :func:`bwd_plan` says, dQ is added into ``acc`` (and dq left for the
+    post kernel) or written, and dK and dV are added into ``acc`` where
+    ``q_chunk`` splits the q loop, else written. fp32: all three written
+    (the two-kernel path)."""
     b, sq, h, d = q.shape
-    return (_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), di.data_ptr(), *[t.data_ptr() for t in outs],
-            *_strides(q, k, v, do, *outs), b, h, sq, k.shape[1], float(scale),
-            kernel_lib.stream_ptr(q.device))
-
-
-def flash_attention_bwd_dkv(q, k, v, do, lse, di, scale: Optional[float] = None):
-    """K2 on CUDA tensors: (dk, dv) from the forward's ``lse`` and
-    ``di = attention_di(o, do)``."""
-    _check_bwd(q, k, v, do, lse, di)
-    dk, dv = torch.empty_like(k, memory_format=torch.contiguous_format), torch.empty_like(
-        v, memory_format=torch.contiguous_format)
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
     lib = kernel_lib.load("flash_attn_bwd", _BWD_SIGNATURES)
-    rc = lib.flash_attn_bwd_dkv(*_bwd_args(q, k, v, do, lse, di, (dk, dv), _scale(q, scale)))
-    kernel_lib.check(lib, rc, "flash_attn_bwd_dkv")
-    kernel_lib.launch_counts["flash_attn_bwd_dkv"] += 1
-    return dk, dv
+    rc = lib.flash_attn_bwd(
+        _DTYPES[q.dtype], d, *[t.data_ptr() for t in (q, k, v, do, lse, di, dq, dk, dv, acc)],
+        *_strides(q, k, v, do, dq, dk, dv), b, h, sq, k.shape[1], q_chunk, float(scale),
+        kernel_lib.stream_ptr(q.device))
+    kernel_lib.check(lib, rc, "flash_attn_bwd")
+    kernel_lib.launch_counts["flash_attn_bwd"] += 1
+    return dq, dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, di, scale: Optional[float] = None):
-    """K3 on CUDA tensors: dq from the forward's ``lse`` and ``di``."""
-    _check_bwd(q, k, v, do, lse, di)
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+def flash_attention_bwd_post(acc, dq, dk, dv, with_q: bool, with_kv: bool):
+    """Kernel (bf16): :func:`bwd_post_plain` on the card."""
+    b, sq, h, _ = dq.shape
     lib = kernel_lib.load("flash_attn_bwd", _BWD_SIGNATURES)
-    rc = lib.flash_attn_bwd_dq(*_bwd_args(q, k, v, do, lse, di, (dq,), _scale(q, scale)))
-    kernel_lib.check(lib, rc, "flash_attn_bwd_dq")
-    kernel_lib.launch_counts["flash_attn_bwd_dq"] += 1
-    return dq
+    rc = lib.flash_attn_bwd_post(acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                 *_strides(dq, dk, dv), b, h, sq, dk.shape[1], int(with_q),
+                                 int(with_kv), kernel_lib.stream_ptr(dq.device))
+    kernel_lib.check(lib, rc, "flash_attn_bwd_post")
+    kernel_lib.launch_counts["flash_attn_bwd_post"] += 1
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale: Optional[float] = None):
     """Gradients (dq, dk, dv) of the attention output ``o`` for the
-    upstream gradient ``do``, from the forward's ``lse``: Di, then K2 (dK,
-    dV) and K3 (dQ) on a CUDA tensor; :func:`flash_attention_bwd_plain` on
-    a CPU one. A ``do`` view the kernels cannot read is copied to a
-    contiguous tensor first."""
+    upstream gradient ``do``, from the forward's ``lse``.
+    :func:`flash_attention_bwd_plain` on a CPU tensor; on a CUDA one the
+    pre kernel (Di, the accumulators zeroed), the backward kernel and, in
+    bf16 where :func:`bwd_plan` gives an accumulator, the post kernel (the
+    fp32 accumulators to bf16). A ``do`` view the kernels cannot read is
+    copied to a contiguous tensor first."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
     if not _takes_layout(do):
         do = do.contiguous()
-    di = attention_di(o, do)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, scale)
-    return flash_attention_bwd_dq(q, k, v, do, lse, di, scale), dk, dv
+    _check_bwd(q, k, v, o, do, lse)
+    b, sq, h, d = q.shape
+    if q.dtype == torch.bfloat16:
+        q_chunk, dq_rows, kv_rows = bwd_plan(b * h, sq, k.shape[1], _sm_count(q.device.index or 0))
+    else:
+        q_chunk, dq_rows, kv_rows = -(-sq // TILE), 0, 0
+    acc = torch.empty((b * h * (dq_rows + 2 * kv_rows) * d,), dtype=torch.float32,
+                      device=q.device)
+    di = flash_attention_bwd_pre(o, do, acc)
+    dq, dk, dv = flash_attention_bwd_main(q, k, v, do, lse, di, acc, q_chunk, _scale(q, scale))
+    if dq_rows or kv_rows:
+        flash_attention_bwd_post(acc, dq, dk, dv, bool(dq_rows), bool(kv_rows))
+    return dq, dk, dv
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """(q, k, v, scale) -> (o, lse); ``lse`` is not differentiable.
 
     Forward: :func:`flash_attention_fwd` (K1). Backward:
-    :func:`flash_attention_bwd` (K2, K3). On CPU tensors both take their
-    plain versions."""
+    :func:`flash_attention_bwd`. On CPU tensors both take their plain
+    versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):

@@ -36,8 +36,8 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> launches since the last reset (wrappers increment these)
-launch_counts = {"flash_attn_fwd": 0, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0,
-                 "gn_stats": 0, "gn_silu_norm": 0}
+launch_counts = {"flash_attn_fwd": 0, "flash_attn_bwd_pre": 0, "flash_attn_bwd": 0,
+                 "flash_attn_bwd_post": 0, "gn_stats": 0, "gn_silu_norm": 0}
 _libs: dict[str, ctypes.CDLL] = {}
 
 

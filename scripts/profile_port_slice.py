@@ -24,7 +24,7 @@ It prints:
   synchronize) and the device-busy ms of the profiled one (sum of kernel
   durations; one stream, so kernels do not overlap), and the idle share
   1 - busy / wall;
-- device ms by category (the port's three kernels, cuDNN's layout copies,
+- device ms by category (the port's kernels, cuDNN's layout copies,
   convolutions, matrix products, everything else) and the number of kernel
   launches;
 - the top kernels by device time.
@@ -50,8 +50,11 @@ ROOT = Path(__file__).resolve().parent.parent
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("K1 flash_attn_fwd", ("flash_fwd_kernel",)),
-    ("K2 flash_attn_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K2 flash_attn_bwd_dkv", ("flash_bwd_dkv_kernel",)),  # older checkouts; the fp32 path
     ("K3 flash_attn_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_attn_bwd_pre (Di)", ("flash_bwd_pre_kernel",)),
+    ("flash_attn_bwd_post (casts)", ("flash_bwd_post_kernel",)),
+    ("flash_attn_bwd (K2 + K3)", ("flash_bwd_kernel",)),
     ("K4 gn_stats", ("gn_stats_kernel",)),
     ("K5 gn_silu_norm", ("gn_norm_silu_kernel",)),
     ("cuDNN NCHW<->NHWC layout copies", ("nchwtonhwc", "nhwctonchw")),

@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""Check and time the port's bf16 flash-attention kernels (K1 forward, K2
-dK/dV, K3 dQ) at the attention shapes of the SDXL-Turbo online loop, of
-the SDXL-DMD2 loop and eval at 1024^2, and at the ragged lengths of
-``chip_smoke.RAGGED`` and ``chip_smoke.RAGGED_FWD``, on one CUDA card.
+"""Check and time the port's bf16 flash-attention kernels at the attention
+shapes of the SDXL-Turbo online loop, of the SDXL-DMD2 loop and eval at
+1024^2, and at the ragged lengths of ``chip_smoke.RAGGED`` and
+``chip_smoke.RAGGED_FWD``, on one CUDA card.
 
     python3 scripts/time_port_attention.py [--root DIR] [--tag NAME] [--seed N]
 
 ``--root`` is the checkout whose ``pairwise_sample_optimization_tpu_torch``
 is imported and built (default: this one), so that two versions of the
 kernels can be timed in one call on one card, in turns (parent, change,
-change, parent). The limits, the timer and the bound are this checkout's
+change, parent). The limits, the timer and the bounds are this checkout's
 ``chip_smoke.py`` (``fwd_tolerance``, ``grad_tolerance``, ``timed_ms``,
-``bound``). At head dim 64 it runs K1, K2 and K3; at PickScore's 80 and the
-VAE's 512 (forward only) K1. For each shape it prints each kernel's share
-of its limit, its CUDA-event device ms beside the bound, SDPA's forward
-beside K1 and SDPA's backward (autograd, dQ + dK + dV) beside K2 + K3, and
+``bound``, ``_bwd_bounds``). At head dim 64 it runs K1 and the backward;
+at PickScore's 80 and the VAE's 512 (forward only) K1. For each shape it
+prints each check's share of its limit, K1's CUDA-event device ms beside
+its bound and SDPA's forward, and for the backward: each of its kernels'
+ms (this version's pre / backward / post kernels, or an older checkout's
+K2 / K3), the whole backward (``flash_attention_bwd``: Di, zeroing and
+casts included) beside the function's bound (five products of
+2 Sq Skv 64 a head) and the TPU design's K2 / K3 bounds (four and three
+products), and SDPA's backward (autograd, dQ + dK + dV); then
 launch-weighted means over each path's shapes (Turbo: one epoch of the
 loop; DMD2: one epoch of the loop and one 8-prompt eval run, the runs
-``chip_smoke.py`` drives); everything goes to
+``chip_smoke.py`` drives). Everything goes to
 ``time_port_attention_<tag>.json`` in the output directory that
 ``chip_smoke.py`` writes its record to. It exits non-zero if any check
 failed.
@@ -28,6 +33,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -87,6 +93,7 @@ def main(argv=None) -> int:
     print(f"[{args.tag}] built in {build_s}", *ptxas, sep="\n  ", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     bf16 = torch.bfloat16
     cases = ([("turbo",) + c for c in MAIN_PATH] + [("dmd",) + c for c in DMD_PATH]
@@ -113,9 +120,9 @@ def main(argv=None) -> int:
         used = {"k1_o": cs.tolerance_used(o, o_p, tol_o),
                 "k1_lse": cs.tolerance_used(lse, lse_p, cs.TOL["attention_lse"])}
         del o_p, lse_p
-        el, pair = q.element_size(), 2 * b * h * sq * skv * d
-        inputs = el * (2 * q.numel() + 2 * k.numel())
-        k1_bound = cs.bound(inputs + 4 * lse.numel(), 2 * pair, "bf16")
+        pair = 2 * b * h * sq * skv * d
+        k1_bound = cs.bound(q.element_size() * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel(),
+                            2 * pair, "bf16")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         row = {
             "path": path, "q": list(qs), "kv": skv, "launches": launches,
@@ -129,31 +136,51 @@ def main(argv=None) -> int:
                 f"SDPA fwd {row['sdpa_fwd_ms']:.4f}")
         if d in tfa.BWD_HEAD_DIMS:
             do = torch.randn(qs, generator=gen, device="cuda", dtype=bf16)
-            di = tfa.attention_di(o, do)
-            dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, di)
-            dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, di)
             want = dict(zip(("dq", "dk", "dv"), tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)))
-            got = {"dq": dq, "dk": dk, "dv": dv}
+            got = dict(zip(("dq", "dk", "dv"), tfa.flash_attention_bwd(q, k, v, o, lse, do)))
             tol = {n: cs.grad_tolerance(n, w, skv) for n, w in want.items()}
             for n in got:
                 held(f"{n} {name}", got[n], want[n], tol[n])
             used.update({n: cs.tolerance_used(got[n], want[n], tol[n]) for n in got})
-            k2_bound = cs.bound(inputs + 8 * lse.numel() + el * 2 * k.numel(), 4 * pair, "bf16")
-            k3_bound = cs.bound(inputs + 8 * lse.numel() + el * q.numel(), 3 * pair, "bf16")
+            kernels, acc_q, acc_kv = {}, True, False
+            if hasattr(tfa, "bwd_plan"):  # the pre / backward / post kernels
+                q_chunk, dq_rows, kv_rows = tfa.bwd_plan(b * h, sq, skv, sms)
+                acc_q, acc_kv = bool(dq_rows), bool(kv_rows)
+                acc = torch.zeros(b * h * (dq_rows + 2 * kv_rows) * d, device="cuda")
+                di = tfa.flash_attention_bwd_pre(o, do, acc)
+                kernels["pre"] = cs.timed_ms(lambda: tfa.flash_attention_bwd_pre(o, do, acc))
+                kernels["kernel"] = cs.timed_ms(lambda: tfa.flash_attention_bwd_main(
+                    q, k, v, do, lse, di, acc, q_chunk, 1.0 / math.sqrt(d)))
+                if acc_q or acc_kv:
+                    outs = [torch.empty_like(t) for t in (q, k, v)]
+                    kernels["post"] = cs.timed_ms(
+                        lambda: tfa.flash_attention_bwd_post(acc, *outs, acc_q, acc_kv))
+                row["q_chunk"] = q_chunk
+            else:  # an older checkout: Di in torch, then K2 and K3
+                di = tfa.attention_di(o, do)
+                kernels["di"] = cs.timed_ms(lambda: tfa.attention_di(o, do))
+                kernels["k2"] = cs.timed_ms(
+                    lambda: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, di))
+                kernels["k3"] = cs.timed_ms(
+                    lambda: tfa.flash_attention_bwd_dq(q, k, v, do, lse, di))
+            bounds = cs._bwd_bounds(q, k, skv, acc_q, acc_kv)
             qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
             out = F.scaled_dot_product_attention(qg, kg, vg)
             dot = do.transpose(1, 2)
             row.update({
-                "k2_ms": cs.timed_ms(lambda: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, di)),
-                "k3_ms": cs.timed_ms(lambda: tfa.flash_attention_bwd_dq(q, k, v, do, lse, di)),
+                "kernel_ms": kernels,
+                "bwd_ms": cs.timed_ms(lambda: tfa.flash_attention_bwd(q, k, v, o, lse, do)),
                 "sdpa_bwd_ms": cs.timed_ms(
                     lambda: torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True)),
-                "k2_bound_ms": k2_bound[0], "k2_bound_by": k2_bound[1],
-                "k3_bound_ms": k3_bound[0], "k3_bound_by": k3_bound[1],
+                "bwd_bound_ms": bounds["function"][0], "bwd_bound_by": bounds["function"][1],
+                "kernel_bound_ms": {k_: bounds[k_][0] for k_ in
+                                    ("flash_attn_bwd_pre", "flash_attn_bwd",
+                                     "flash_attn_bwd_post", "k2", "k3")},
             })
-            line += (f", K2 {row['k2_ms']:.4f} (bound {k2_bound[0]:.4f}), K3 {row['k3_ms']:.4f} "
-                     f"(bound {k3_bound[0]:.4f} {k3_bound[1]}), K2+K3 "
-                     f"{row['k2_ms'] + row['k3_ms']:.4f}, SDPA bwd {row['sdpa_bwd_ms']:.4f}")
+            line += (", kernels " + " ".join(f"{k_} {v_:.4f}" for k_, v_ in kernels.items())
+                     + f", whole backward {row['bwd_ms']:.4f} (bound {bounds['function'][0]:.4f} "
+                     f"{bounds['function'][1]}; K2 {bounds['k2'][0]:.4f}, K3 "
+                     f"{bounds['k3'][0]:.4f}), SDPA bwd {row['sdpa_bwd_ms']:.4f}")
             del out, qg, kg, vg
         rows.append(row)
         print(f"[{args.tag}] {name}: {line}; share of limit used "
@@ -173,7 +200,11 @@ def main(argv=None) -> int:
                       for key in ("k1_ms", "k1_bound_ms", "sdpa_fwd_ms")})
         bwd = [r for r in at_path if r["bwd_launches"]]
         means.update({prefix + key: mean(key, "bwd_launches", bwd)
-                      for key in ("k2_ms", "k2_bound_ms", "k3_ms", "k3_bound_ms", "sdpa_bwd_ms")})
+                      for key in ("bwd_ms", "bwd_bound_ms", "sdpa_bwd_ms")})
+        for kern in bwd[0]["kernel_ms"]:  # per call of the backward (0 where not launched)
+            means[f"{prefix}{kern}_kernel_ms"] = sum(
+                r["kernel_ms"].get(kern, 0.0) * r["bwd_launches"] for r in bwd) / sum(
+                r["bwd_launches"] for r in bwd)
     print(f"[{args.tag}] launch-weighted means over each path's shapes: "
           + ", ".join(f"{k} {v:.4f}" for k, v in means.items()), flush=True)
     out = ROOT / "chiprun_out"

@@ -366,9 +366,12 @@ def test_chip_smoke_launch_counts_match_the_tiny_dmd_loop(tmp_path):
         _, _, pipe = online_runner.run_online_pso(config, sampler="dmd", num_epochs=1,
                                                   device="cpu")
     want = cs.expected_launches(pipe, STEPS)
-    upd = cs.expected_update_launches(pipe.unet.config, T, False)
+    upd = cs.expected_update_launches(pipe.unet.config, T, False, 2 * config.train.batch_size,
+                                      pipe.latent_hw)
     got = {"flash_attn_fwd": sum(rec.attention.values()),
-           "flash_attn_bwd_dkv": sum(rec.attention_bwd.values()),
-           "flash_attn_bwd_dq": sum(rec.attention_bwd.values()),
+           "flash_attn_bwd_pre": sum(rec.attention_bwd.values()),
+           "flash_attn_bwd": sum(rec.attention_bwd.values()),
+           "flash_attn_bwd_post": sum(n for (qs, ks, _), n in rec.attention_bwd.items()
+                                      if cs.bwd_needs_post(qs, ks[1])),
            "gn_stats": sum(rec.gn.values()), "gn_silu_norm": sum(rec.gn.values())}
     assert got == {k: want[k] + upd[k] for k in want}

@@ -261,8 +261,10 @@ def test_chip_smoke_launch_counts_match_the_tiny_eval(tmp_path):
     layers = [CLIPVisionConfig.tiny().layers] * 4
     want = cs.expected_eval_launches(UNetConfig.tiny(), VAEConfig.tiny(), STEPS, 2, layers)
     got = {"flash_attn_fwd": sum(rec.attention.values()),
-           "flash_attn_bwd_dkv": sum(rec.attention_bwd.values()),
-           "flash_attn_bwd_dq": sum(rec.attention_bwd.values()),
+           "flash_attn_bwd_pre": sum(rec.attention_bwd.values()),
+           "flash_attn_bwd": sum(rec.attention_bwd.values()),
+           "flash_attn_bwd_post": sum(n for (qs, ks, _), n in rec.attention_bwd.items()
+                                      if cs.bwd_needs_post(qs, ks[1])),
            "gn_stats": sum(rec.gn.values()), "gn_silu_norm": sum(rec.gn.values())}
     assert got == want
     # the four vision towers (17 tokens: 16 patches and the class token)

@@ -171,6 +171,7 @@ def kernel_path(monkeypatch):
     monkeypatch.setattr(tfa, "_check", lambda *a: None)
     monkeypatch.setattr(tfg, "_check", lambda *a: None)
     monkeypatch.setattr(kernel_lib, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(tfa, "_sm_count", lambda index: 132)  # an H100's
     lib = _FakeLib(rc=0)
     monkeypatch.setattr(kernel_lib, "load", lambda name, sigs: lib)
     kernel_lib.reset_launch_counts()
@@ -221,52 +222,63 @@ def test_each_launch_counts_once(kernel_path):
     group_norm(torch.empty((2, 64, 8, 8), device="meta"), w, w, 32, act="silu")
     group_norm(torch.empty((2, 64, 8, 8), device="meta"), w, w, 32)  # no act: plain, no kernel
     assert kernel_path.calls == ["flash_attn_fwd", "gn_stats", "gn_silu_norm"]
-    assert kernel_lib.launch_counts == {"flash_attn_fwd": 1, "flash_attn_bwd_dkv": 0,
-                                        "flash_attn_bwd_dq": 0, "gn_stats": 1,
-                                        "gn_silu_norm": 1}
+    assert kernel_lib.launch_counts == {"flash_attn_fwd": 1, "flash_attn_bwd_pre": 0,
+                                        "flash_attn_bwd": 0, "flash_attn_bwd_post": 0,
+                                        "gn_stats": 1, "gn_silu_norm": 1}
 
 
-def _meta_bwd_inputs(d=64, skv=77):
-    q = torch.empty((2, 64, 2, d), device="meta")
-    k, v = (torch.empty((2, skv, 2, d), device="meta") for _ in range(2))
+def _meta_bwd_inputs(d=64, skv=77, dtype=torch.float32):
+    q = torch.empty((2, 64, 2, d), device="meta", dtype=dtype)
+    k, v = (torch.empty((2, skv, 2, d), device="meta", dtype=dtype) for _ in range(2))
     o = torch.empty_like(q)
     lse = torch.empty((2, 2, 64), device="meta")
     return q, k, v, o, lse
 
 
-def test_backward_launches_k2_then_k3_and_counts_each_once(kernel_path):
-    q, k, v, o, lse = _meta_bwd_inputs()
+# (dtype, kv length, the kernels the backward launches): bf16 runs the post
+# kernel only where it has an fp32 accumulator (dQ summed over more than one
+# block of 128 keys, or dK / dV over a split q loop); fp32 runs the
+# two-kernel correctness path after the same pre kernel
+BWD_LAUNCHES = [
+    (torch.bfloat16, 200, ["flash_attn_bwd_pre", "flash_attn_bwd", "flash_attn_bwd_post"]),
+    (torch.bfloat16, 77, ["flash_attn_bwd_pre", "flash_attn_bwd"]),
+    (torch.float32, 77, ["flash_attn_bwd_pre", "flash_attn_bwd"]),
+]
+
+
+@pytest.mark.parametrize("dtype,skv,calls", BWD_LAUNCHES)
+def test_backward_launches_k2_then_k3_and_counts_each_once(kernel_path, dtype, skv, calls):
+    q, k, v, o, lse = _meta_bwd_inputs(skv=skv, dtype=dtype)
     # dO as autograd may hand it over: a non-contiguous view is copied, not refused
-    do = torch.empty((2, 64, 2, 64, 2), device="meta")[..., 0]
+    do = torch.empty((2, 64, 2, 64, 2), device="meta", dtype=dtype)[..., 0]
     assert do.stride(3) != 1
     dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do)
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
-    assert kernel_path.calls == ["flash_attn_bwd_dkv", "flash_attn_bwd_dq"]
-    assert kernel_lib.launch_counts["flash_attn_bwd_dkv"] == 1
-    assert kernel_lib.launch_counts["flash_attn_bwd_dq"] == 1
+    assert kernel_path.calls == calls
+    assert {n: c for n, c in kernel_lib.launch_counts.items() if c} == {n: 1 for n in calls}
 
 
 def test_attention_function_backward_goes_through_the_kernels(kernel_path):
-    q, k, v, _, _ = _meta_bwd_inputs()
+    q, k, v, _, _ = _meta_bwd_inputs(skv=200, dtype=torch.bfloat16)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     o = tfa.flash_attention(q, k, v)
     torch.autograd.grad(o, (q, k, v), torch.empty_like(o))
-    assert kernel_path.calls == ["flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq"]
+    assert kernel_path.calls == ["flash_attn_fwd", "flash_attn_bwd_pre", "flash_attn_bwd",
+                                 "flash_attn_bwd_post"]
 
 
 def test_backward_kernel_failure_propagates_and_is_not_counted(kernel_path):
     kernel_path.rc = 700
     q, k, v, o, lse = _meta_bwd_inputs()
-    with pytest.raises(RuntimeError, match="flash_attn_bwd_dkv: CUDA error 700"):
+    with pytest.raises(RuntimeError, match="flash_attn_bwd_pre: CUDA error 700"):
         tfa.flash_attention_bwd(q, k, v, o, lse, torch.empty_like(q))
     assert set(kernel_lib.launch_counts.values()) == {0}
 
 
 def test_backward_takes_head_dim_64_only():
     q, k, v, o, lse = _meta_bwd_inputs(d=80)
-    for kernel in (tfa.flash_attention_bwd_dkv, tfa.flash_attention_bwd_dq):
-        with pytest.raises(ValueError, match=r"head dim 80 of q \(2, 64, 2, 80\)"):
-            kernel(q, k, v, torch.empty_like(q), lse, lse)
+    with pytest.raises(ValueError, match=r"head dim 80 of q \(2, 64, 2, 80\)"):
+        tfa.flash_attention_bwd(q, k, v, o, lse, torch.empty_like(q))
 
 
 def test_kernel_sources_and_signatures_line_up():
@@ -352,3 +364,17 @@ def test_packaged_assets_are_the_ports_own_copies():
         path = Path(path).resolve()
         assert path.is_relative_to(PKG) and path.is_file(), path
         assert path.read_bytes() == (jax_pkg / twin).read_bytes(), twin
+
+
+def test_safetensors_modules_are_covered_and_use_no_safetensors_package():
+    """The port writes and reads safetensors files itself: its two modules
+    for it are among those the import tests walk, and neither imports the
+    ``safetensors`` package (the card's machine has none)."""
+    names = {str(p.relative_to(PKG)) for p in _modules()}
+    for mod in ("checkpoints/safetensors_io.py", "checkpoints/lora_safetensors.py"):
+        assert mod in names
+        tree = ast.parse((PKG / mod).read_text())
+        imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        imported += [n.module for n in ast.walk(tree)
+                     if isinstance(n, ast.ImportFrom) and n.level == 0]
+        assert not any(m.split(".")[0] == "safetensors" for m in imported), (mod, imported)

@@ -8,6 +8,7 @@ port's ``update``. Tolerance: ATOL 3e-5 / RTOL 2e-4 unless a test says
 otherwise.
 """
 
+import collections
 import dataclasses
 import importlib.util
 import json
@@ -448,12 +449,24 @@ def test_chip_smoke_launch_counts_match_the_tiny_loop(tmp_path):
         with cs.ShapeRecorder() as rec:  # one pair batch, one update of 1 x T microbatches
             _, _, pipe = online_runner.run_online_pso(config, num_epochs=1, device="cpu")
         want = cs.expected_launches(pipe, STEPS)
-        upd = cs.expected_update_launches(pipe.unet.config, T, config.train.fuse_ref_pass)
+        upd = cs.expected_update_launches(pipe.unet.config, T, config.train.fuse_ref_pass,
+                                          2 * config.train.batch_size, pipe.latent_hw)
         got = {"flash_attn_fwd": sum(rec.attention.values()),
-               "flash_attn_bwd_dkv": sum(rec.attention_bwd.values()),
-               "flash_attn_bwd_dq": sum(rec.attention_bwd.values()),
+               "flash_attn_bwd_pre": sum(rec.attention_bwd.values()),
+               "flash_attn_bwd": sum(rec.attention_bwd.values()),
+               "flash_attn_bwd_post": sum(n for (qs, ks, _), n in rec.attention_bwd.items()
+                                          if cs.bwd_needs_post(qs, ks[1])),
                "gn_stats": sum(rec.gn.values()), "gn_silu_norm": sum(rec.gn.values())}
         assert got == {k: want[k] + upd[k] for k in want}, extra
+        # the backward's shapes the count formula derives from the config are
+        # the ones the loop handed the backward
+        derived = collections.Counter()
+        fused = 2 if config.train.fuse_ref_pass else 1  # policy and reference in one call
+        for qs, skv in cs.attention_shapes(pipe.unet.config, 2 * config.train.batch_size * fused,
+                                           pipe.latent_hw):
+            derived[(qs, skv)] += T
+        assert collections.Counter({(qs, ks[1]): n for (qs, ks, _), n
+                                    in rec.attention_bwd.items()}) == derived, extra
 
 
 def test_remat_modes_not_ported_raise():

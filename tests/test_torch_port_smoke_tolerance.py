@@ -1,14 +1,23 @@
-"""``chip_smoke.py`` holds the bf16 flash-attention backward kernels (K2 dK/dV,
-K3 dQ) against ``flash_attention_bwd_plain`` with ``bwd_tolerance``: rtol
-1e-2 and an atol of 5% of the plain gradient's rms. This file shows on the
-CPU that a backward that rounds as the kernels round (P and dS to bf16
-before the products, fp32 sums) stays within half the limit, and that one
-wrong as a kernel could be fails it: a q tile left out of K2's loop, a kv
-tile left out of K3's, or P or dS off by 5%. Shapes are one batch of the
-update's 1024-token self-attention and 77-token cross-attention, four
-heads; inputs are standard normal, as in the smoke's kernel phase.
+"""``chip_smoke.py`` holds the bf16 flash-attention backward against
+``flash_attention_bwd_plain`` with ``bwd_tolerance``: rtol 1e-2 and an atol
+of 5% of the plain gradient's rms. This file shows on the CPU that a
+backward that rounds as the kernels round (P and dS to bf16 before the
+products, fp32 sums) stays within half the limit, and that one wrong as a
+kernel could be fails it: a q tile left out of the dK / dV loop, a kv tile
+left out of the dQ loop, or P or dS off by 5%. The same for the one-kernel
+backward's sums over blocks (dQ over blocks of keys, dK and dV over q
+chunks, added in a shuffled order as bulk reductions add them): within
+half the limit, two orders far closer to each other, and a block's share
+dropped or added twice fails. Shapes are one batch of the update's
+1024-token self-attention and 77-token cross-attention, four heads; inputs
+are standard normal, as in the smoke's kernel phase. Also the backward's
+plan (chunks, accumulators) at the update's shapes, the accumulator tile
+layout its plain post version reads, and the update shapes chip_smoke
+derives for its launch counts.
 """
 
+import collections
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -116,3 +125,151 @@ def test_bf16_backward_limit_fails_copied_pad_q_rows(smoke):
         got = _backward(q_pad, k, v, o_pad, lse_pad, do_pad)[1:]
         used = max(smoke.tolerance_used(g, w, smoke.bwd_tolerance(w)) for g, w in zip(got, want))
         assert (used > 1) == copies, (copies, used)
+
+
+# ---- the one-kernel backward: sums over blocks taken in the card's order ----
+
+SMS = 132  # an H100's SMs: the chunking of bwd_plan on the card
+
+
+def _fused_backward(q, k, v, o, lse, do, fault="", seed=0):
+    """The bf16 backward kernel's arithmetic in torch: P and dS rounded to
+    bf16 before the products; dQ summed in fp32 over blocks of
+    ``BWD_KV_ROWS`` keys, dK and dV over the chunks of q rows that
+    ``bwd_plan`` gives these lengths, each sum in a shuffled order (the
+    bulk reductions add in the order blocks finish). ``fault`` drops one
+    block's dQ share, or drops or doubles one q chunk's dK / dV share."""
+    bf = lambda t: t.to(torch.bfloat16).float()
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    scale = 1.0 / 8.0
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - tfa.attention_di(o, do)[..., None]) * scale
+    p, ds = bf(p), bf(ds)
+    q_chunk, _, _ = tfa.bwd_plan(b * h, sq, skv, SMS)
+    gen = torch.Generator().manual_seed(seed)
+    kv_blocks = list(range(0, skv, tfa.BWD_KV_ROWS))
+    chunks = list(range(0, sq, q_chunk * TILE))
+    dq_parts = [torch.einsum("bhqk,bkhd->bqhd", ds[..., k0:k0 + tfa.BWD_KV_ROWS],
+                             kf[:, k0:k0 + tfa.BWD_KV_ROWS]) for k0 in kv_blocks]
+    kv_parts = [(torch.einsum("bhqk,bqhd->bkhd", ds[:, :, q0:q0 + q_chunk * TILE],
+                              qf[:, q0:q0 + q_chunk * TILE]),
+                 torch.einsum("bhqk,bqhd->bkhd", p[:, :, q0:q0 + q_chunk * TILE],
+                              dof[:, q0:q0 + q_chunk * TILE])) for q0 in chunks]
+    if fault == "drops_a_kv_block_of_dq":
+        dq_parts = dq_parts[:-1]
+    if fault == "drops_a_q_chunk_of_dkv":
+        kv_parts = kv_parts[1:]
+    if fault == "adds_a_q_chunk_of_dkv_twice":
+        kv_parts = kv_parts + kv_parts[-1:]
+
+    def shuffled_sum(parts, like):
+        total = torch.zeros_like(like)
+        for i in torch.randperm(len(parts), generator=gen).tolist():
+            total = total + parts[i]
+        return total
+
+    dq = shuffled_sum(dq_parts, qf)
+    dk, dv = (shuffled_sum([part[i] for part in kv_parts], kf) for i in (0, 1))
+    return [t.to(torch.bfloat16) for t in (dq, dk, dv)]
+
+
+def _fused_held(smoke, skv, fault, seed=0):
+    q, k, v, do = _inputs(skv, seed=skv)
+    o, lse = tfa.flash_attention_plain(q, k, v)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    got = _fused_backward(q, k, v, o, lse, do, fault, seed)
+    return got, want
+
+
+@pytest.mark.parametrize("skv", [1024, 77])
+def test_bf16_backward_limit_passes_the_fused_kernels_sums(smoke, skv):
+    """Sums over 8 kv blocks (dQ) and 8 or 16 q chunks (dK, dV) in two
+    shuffled orders stay within half the limit, and the two orders differ
+    by far less than the limit (the run-to-run check of chip_smoke)."""
+    runs = [_fused_held(smoke, skv, "", seed) for seed in (0, 1)]
+    for got, want in runs:
+        assert max(smoke.tolerance_used(g, w, smoke.bwd_tolerance(w))
+                   for g, w in zip(got, want)) < 0.5
+    (first, want), (second, _) = runs
+    assert max(smoke.tolerance_used(b, a, smoke.bwd_tolerance(w))
+               for a, b, w in zip(first, second, want)) < 0.2
+
+
+@pytest.mark.parametrize("fault", ["drops_a_kv_block_of_dq", "drops_a_q_chunk_of_dkv",
+                                   "adds_a_q_chunk_of_dkv_twice"])
+@pytest.mark.parametrize("skv", [1024, 77])
+def test_bf16_backward_limit_fails_a_wrong_fused_kernel(smoke, skv, fault):
+    got, want = _fused_held(smoke, skv, fault)
+    assert max(smoke.tolerance_used(g, w, smoke.bwd_tolerance(w))
+               for g, w in zip(got, want)) > 1
+
+
+def test_bwd_plan_at_the_update_shapes():
+    """Per (batch * heads, sq, skv) on 132 SMs: the q tiles a block walks
+    (every chunk non-empty, all tiles covered) and which gradients go
+    through fp32 accumulators: dQ wherever more than one block of keys
+    adds to it, dK and dV where the q loop is split."""
+    cases = {  # Turbo (8 x 10 / 20 heads) and DMD2 (2 x 10 / 20 heads) update shapes
+        (80, 1024, 1024): (16, True, False), (80, 1024, 77): (4, False, True),
+        (160, 256, 256): (4, True, False), (160, 256, 77): (4, False, False),
+        (20, 4096, 4096): (64, True, False), (20, 4096, 77): (5, False, True),
+        (40, 1024, 1024): (16, True, False), (40, 1024, 77): (3, False, True),
+    }
+    for (bh, sq, skv), (chunk, acc_q, acc_kv) in cases.items():
+        q_chunk, dq_rows, kv_rows = tfa.bwd_plan(bh, sq, skv, SMS)
+        n_q = -(-sq // TILE)
+        assert (q_chunk, bool(dq_rows), bool(kv_rows)) == (chunk, acc_q, acc_kv), (bh, sq, skv)
+        assert dq_rows in (0, n_q * TILE) and kv_rows in (0, -(-skv // TILE) * TILE)
+        assert (-(-n_q // q_chunk) - 1) * q_chunk < n_q  # the last chunk is not empty
+
+
+def test_bwd_post_plain_reads_the_kernels_tile_layout():
+    """The accumulators' layout as the kernels write it (``acc_off``: per
+    head 64-row tiles of 256-byte rows, 16-byte chunk c of row r stored at
+    chunk c ^ 2 (r % 8)), built here element by element, decodes to the
+    gradients it encodes."""
+    r = np.random.default_rng(5)
+    b, sq, h, d, skv = 2, 100, 3, 64, 70
+    grads = [torch.from_numpy(r.standard_normal(s).astype(np.float32))
+             for s in ((b, sq, h, d), (b, skv, h, d), (b, skv, h, d))]
+
+    def encode(x):
+        n = x.shape[1]
+        tiles = -(-n // TILE)
+        out = np.zeros((b * h, tiles * TILE, 64), np.float32)
+        rows = x.permute(0, 2, 1, 3).reshape(b * h, n, d).numpy()
+        for row in range(n):
+            rr = row % TILE
+            for c in range(16):
+                place = (row - rr) + rr, c ^ ((rr % 8) * 2)
+                out[:, place[0], 4 * place[1]:4 * place[1] + 4] = rows[:, row, 4 * c:4 * c + 4]
+        return torch.from_numpy(out.reshape(-1))
+
+    acc = torch.cat([encode(g) for g in grads])
+    outs = [torch.empty_like(g).to(torch.bfloat16) for g in grads]
+    tfa.bwd_post_plain(acc, *outs, True, True)
+    for got, want in zip(outs, grads):
+        assert torch.equal(got, want.to(torch.bfloat16))
+    only_kv = torch.cat([encode(g) for g in grads[1:]])
+    dq = torch.zeros_like(outs[0])
+    tfa.bwd_post_plain(only_kv, dq, *outs[1:], False, True)
+    assert torch.equal(outs[2], grads[2].to(torch.bfloat16)) and not dq.any()
+
+
+def test_chip_smoke_derives_the_update_shapes_of_sdxl(smoke):
+    """``attention_shapes`` at the full SDXL UNet, policy batch 8, 64^2
+    latents (Turbo at 512^2): per UNet pass 10 transformer blocks at 32^2
+    tokens and 10 heads, 60 at 16^2 tokens and 20 heads, each with a self-
+    and a cross-attention; the post kernel runs for all but the 16^2-token
+    cross-attention (one block of keys, no split at 160 batch * heads)."""
+    from pairwise_sample_optimization_tpu_torch.models import UNetConfig
+
+    ucfg = UNetConfig.sdxl()
+    shapes = collections.Counter(smoke.attention_shapes(ucfg, 8, 64))
+    assert shapes == {((8, 1024, 10, 64), 1024): 10, ((8, 1024, 10, 64), 77): 10,
+                      ((8, 256, 20, 64), 256): 60, ((8, 256, 20, 64), 77): 60}
+    upd = smoke.expected_update_launches(dataclasses.replace(ucfg, remat="full"), 6, False, 8, 64)
+    assert upd["flash_attn_bwd_pre"] == upd["flash_attn_bwd"] == 6 * 140
+    assert upd["flash_attn_bwd_post"] == 6 * 80
