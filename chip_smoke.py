@@ -21,7 +21,17 @@ PyTorch. In order:
    is set to 0 just before each run and read just after; the counts must
    equal the ones the configuration implies. Log-probs, images and scores
    must be finite, each winner 0 or 1. Prints per-phase ms, pairs/s and
-   peak memory. The serving pipeline is freed afterwards;
+   peak memory. Then a checkpoint round trip: the pipeline's towers
+   (rounded to fp16 values in place first) are written as a diffusers
+   checkpoint directory in fp16 (``unet/diffusion_pytorch_model.fp16.
+   safetensors``, ``vae/...``, ``text_encoder/model.fp16.safetensors``,
+   ``text_encoder_2/...``, in a temporary directory under
+   ``chip_smoke_runs/``, removed afterwards) and read back through
+   ``SDXLPipeline.from_torch_dir``: every weight must equal the original,
+   the LoRA exported and imported back must equal it, and generation with
+   the same noise must give the same images. Prints the write and load
+   seconds and the host's peak resident memory over the round trip. The
+   serving pipelines are freed afterwards;
 5. the online-PSO loop at full width through its entry point,
    ``cli.online_runner.run_online_pso`` with the config's defaults
    (``configs/sdxl_turbo_dpo.py``): 4 pair batches of 4 prompts = 16 pairs,
@@ -34,24 +44,39 @@ PyTorch. In order:
    rebuild from the seed), the checkpoint written at step 1 must
    restore, and the adapter exported beside it
    (``lora-1/pytorch_lora_weights.safetensors``, read back with the port's
-   ``load_file``) must equal the LoRA that checkpoint restores. Prints
-   sample / update / microbatch ms, pairs/s of the loop and peak memory;
+   ``load_file``) must equal the LoRA that checkpoint restores. Validation
+   runs at step 2 (``validation_steps = 2``, ``val_max_prompts = 8``: two
+   chunks of 4 prompts, 4-step generation with the live adapter, PickScore
+   and a CLIP-H scorer): ``val/pickscore`` and ``val/clip_score`` must be
+   logged and finite, and ``val-2/`` must hold five PNGs. The ``lora-1``
+   file is imported (``import_lora_safetensors``) into a fresh UNet, whose
+   adapter must equal checkpoint-1's, and ``cli.generate`` runs twice at
+   full width on the same random weights and prompts, once with
+   ``--lora_path`` of that file: the images must differ. Prints
+   sample / update / microbatch / validation ms, pairs/s of the loop and
+   peak memory;
 6. the same for SDXL-DMD2 (``run_online_pso(sampler="dmd")``,
    ``configs/sdxl_dmd_dpo.py``): 1024^2, 4 pair batches of 2 prompts = 8
    pairs, 2 updates of 4 x 3 microbatches (policy pass at batch 2, remat
    "full", a grad-free reference pass), LoRA rank 16, the transition noise
-   shared within each trajectory side; the same checks (first loss log 2);
+   shared within each trajectory side; the same checks (first loss log 2),
+   no validation;
 7. the PickaPic eval protocol, ``cli.evaluate_sdxl_dmd2`` at full width and
    1024^2: the first 8 packaged ImageReward prompts at batch 2, scored by
-   PickScore, CLIP score, HPS (ViT-H/14 towers) and the aesthetic scorer
-   (CLIP-L/14, the released MLP); launch counts as implied, scores finite,
-   and the first two prompts run again at batch 1 must score the same
-   within ``TOL["eval_batch"]``. Prints prompts/min and peak memory;
+   PickScore, CLIP score, HPS (ViT-H/14 towers), the aesthetic scorer
+   (CLIP-L/14, the released MLP) and ImageReward (BLIP ViT-L/16 and BERT,
+   on a WordPiece vocabulary the script writes); launch counts as implied
+   (ImageReward's 24 ViT self-attention and 12 BERT cross-attention
+   launches a batch among them), scores finite, and the first two prompts
+   run again at batch 1 must score the same within ``TOL["eval_batch"]``.
+   Prints prompts/min and peak memory;
 8. one phase per kernel at every shape steps 5-7 gave it (recorded during
    those runs) in bf16, plus one fp32 case and, for the attention kernels,
    the bf16 ragged lengths of ``RAGGED`` (and, for the forward, of
    ``RAGGED_FWD`` at head dims 80 and 512; 0 launches): the kernel against
-   its plain version on the same inputs (|diff| <= atol + rtol*|plain|,
+   its plain version on the same inputs (ImageReward's two shapes, the ViT's
+   self-attention (B, 197, 16, 64) and BERT's cross-attention (B, 35, 12,
+   64) over 197 keys, among them; |diff| <= atol + rtol*|plain|,
    atol = rtol unless stated: attention forward 2e-3 fp32 and in bf16 rtol
    1e-2 with an atol of 5% of the plain O's rms, see ``fwd_tolerance``,
    its fp32 logsumexp atol 2e-3; attention backward 1e-4 fp32 and in bf16
@@ -90,10 +115,13 @@ import argparse
 import copy
 import json
 import math
+import os
+import resource
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -117,6 +145,12 @@ TOL = {"attention": {"bf16": (5e-2, 1e-2), "fp32": (2e-3, 2e-3)},
        # the noise is the same, the kernels cuBLAS and cuDNN pick may not be
        "eval_batch": (1e-2, 1e-2)}
 EVAL_PROMPTS = 8  # packaged ImageReward prompts in the eval phase
+VALIDATION = {"validation_steps": 2, "val_max_prompts": 8}  # the Turbo loop's validation
+# the diffusers checkpoint layout of the round trip: folder, file, pipeline tower
+TOWER_FILES = (("unet", "diffusion_pytorch_model.fp16.safetensors", "unet"),
+               ("vae", "diffusion_pytorch_model.fp16.safetensors", "vae"),
+               ("text_encoder", "model.fp16.safetensors", "te1"),
+               ("text_encoder_2", "model.fp16.safetensors", "te2"))
 # the plain attention forward runs over slices of the batch of at most this
 # many fp32 logits (1 GiB): 16384 VAE tokens at batch 4 would be 4.3 GB at once
 PLAIN_LOGITS = 2**28
@@ -364,11 +398,24 @@ def expected_launches(pipe, steps):
                                 [pipe.scorer.model.vision_config.layers])
 
 
+def expected_validation_launches(pipe, n_prompts, batch, validations=1):
+    """Launches of ``validations`` validations of ``n_prompts`` prompts in
+    chunks of ``batch``: per chunk one 4-step generation and two CLIP-H
+    vision towers (the pipeline's PickScore and the validation's CLIP
+    scorer, of the same architecture)."""
+    layers = pipe.scorer.model.vision_config.layers
+    chunks = validations * -(-n_prompts // batch)
+    return {k: chunks * v for k, v in
+            _generation_launches(pipe.unet.config, pipe.vae.config, 4, [layers, layers]).items()}
+
+
 def expected_eval_launches(ucfg, vcfg, steps, batches, vision_layers):
     """Launches of an eval run of ``batches`` batches: per batch one DMD2
     generation (``steps`` UNet forwards, one VAE decode) and the scorers'
-    vision towers (``vision_layers``: one entry per scorer). The scorers'
-    text towers are causal and take no kernel."""
+    vision towers (``vision_layers``: one entry per scorer, its non-causal
+    attention calls: ImageReward's are its ViT's layers and its BERT's
+    cross-attention layers). The CLIP text towers are causal and BERT's
+    self-attention is masked: neither takes a kernel."""
     return {k: batches * v for k, v in
             _generation_launches(ucfg, vcfg, steps, vision_layers).items()}
 
@@ -461,6 +508,123 @@ class ShapeRecorder:
         tfa.flash_attention_fwd, tfa.flash_attention_bwd, tfg.fused_groupnorm_silu = self.orig
 
 
+class HostPeak:
+    """The host's resident memory over a ``with`` block: sampled every 10 ms
+    from ``/proc/self/statm`` by a thread (``peak`` stays None where that
+    file cannot be read), beside the process's lifetime peak
+    (``ru_maxrss``) before and after the block."""
+
+    def __enter__(self):
+        import threading
+
+        self.max_rss_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        self.before = self.peak = self._resident()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _resident():
+        try:
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+        except (OSError, ValueError, IndexError):
+            return None
+
+    def _sample(self):
+        while not self._stop.wait(0.01):
+            now = self._resident()
+            if now is not None:
+                self.peak = max(self.peak or 0, now)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.max_rss_after = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+    def summary(self):
+        return {"resident_before_bytes": self.before, "resident_peak_bytes": self.peak,
+                "max_rss_before_bytes": self.max_rss_before,
+                "max_rss_after_bytes": self.max_rss_after}
+
+
+def checkpoint_round_trip(pipe, seed):
+    """``pipe``'s towers through a diffusers checkpoint directory in fp16 and
+    back through ``SDXLPipeline.from_torch_dir``; see the module docstring."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.checkpoints import (LORA_FILE,
+                                                                    export_lora_safetensors,
+                                                                    import_lora_safetensors,
+                                                                    save_file)
+    from pairwise_sample_optimization_tpu_torch.pipeline import SDXLPipeline
+
+    towers = {name: getattr(pipe, name) for _, _, name in TOWER_FILES}
+    with torch.no_grad():  # fp16 values, so that the file holds the weights exactly
+        for module in towers.values():
+            for name, p in module.named_parameters():
+                if ".lora." not in name:
+                    p.copy_(p.half().to(p.dtype))
+    RUN_DIR.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="checkpoint_", dir=RUN_DIR))
+    try:
+        with HostPeak() as host:
+            t0 = time.perf_counter()
+            file_bytes = {}
+            for folder, file, name in TOWER_FILES:
+                (tmp / folder).mkdir()
+                sd = {k: v.half() for k, v in towers[name].state_dict().items()
+                      if ".lora." not in k}
+                save_file(sd, str(tmp / folder / file))
+                file_bytes[folder] = (tmp / folder / file).stat().st_size
+                del sd
+            export_lora_safetensors(pipe.unet, str(tmp / LORA_FILE))
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = SDXLPipeline.from_torch_dir(str(tmp), lora_rank=pipe.unet.config.lora_rank,
+                                                 dtype=torch.bfloat16, resolution=pipe.resolution,
+                                                 seed=seed + 7, device="cuda", with_scorer=False)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        import_lora_safetensors(str(tmp / LORA_FILE), loaded.unet)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_tensors, differing = 0, []
+    for _, _, name in TOWER_FILES:
+        want, got = towers[name].state_dict(), getattr(loaded, name).state_dict()
+        if set(want) != set(got):
+            raise AssertionError(f"round trip {name}: keys differ")
+        for k, w in want.items():
+            n_tensors += 1
+            if got[k].dtype != w.dtype or not torch.equal(got[k], w):
+                differing.append(f"{name}.{k}")
+    if differing:
+        raise AssertionError(f"round trip: {len(differing)} tensors differ, e.g. {differing[:5]}")
+    gen = torch.Generator().manual_seed(seed + 8)
+    ids = [torch.randint(1, 49407, (2, 77), generator=gen) for _ in range(2)]
+    for t in ids:
+        t[:, 20] = 49407  # EOS
+    images = []
+    for p_ in (pipe, loaded):
+        cond = p_.encode_prompt(*[t.cuda() for t in ids])
+        images.append(p_.generate(cond, torch.Generator(device="cuda").manual_seed(seed + 9)))
+    if not torch.equal(*images):
+        raise AssertionError(f"round trip: images differ, max|diff| "
+                             f"{(images[0] - images[1]).abs().max().item():.3e}")
+    summary = {"file_bytes": file_bytes, "tensors": n_tensors, "write_s": write_s,
+               "load_s": load_s, "host": host.summary(), "images": list(images[0].shape)}
+    gib = lambda x: "not readable" if x is None else f"{x / 2**30:.2f} GiB"
+    log(f"checkpoint round trip (fp16 diffusers dir, {sum(file_bytes.values()) / 1e9:.2f} GB, "
+        f"{n_tensors} tensors): write {write_s:.1f} s, from_torch_dir {load_s:.1f} s; host "
+        f"resident {gib(host.before)} before, peak {gib(host.peak)} (sampled every 10 ms); the "
+        f"process's peak {gib(host.max_rss_before)} before, {gib(host.max_rss_after)} after; "
+        f"every tensor equal, the LoRA back equal, the same images {summary['images']}")
+    del loaded, images
+    torch.cuda.empty_cache()
+    return summary
+
+
 def full_slice(seed, prompts=4, steps=4, iters=5):
     import torch
 
@@ -531,7 +695,9 @@ def full_slice(seed, prompts=4, steps=4, iters=5):
     }
     log(f"slice median over {iters} runs: {summary['median_total_ms']:.1f} ms, "
         f"{summary['median_pairs_per_s']:.3f} pairs/s, phases {summary['median_phase_ms']}")
-    del pipe, out
+    del out
+    summary["checkpoint_round_trip"] = checkpoint_round_trip(pipe, seed)
+    del pipe
     torch.cuda.empty_cache()
     return summary
 
@@ -547,16 +713,64 @@ def _frozen_and_lora(unet):
     return frozen, lora
 
 
+def lora_import_and_generate(lora_file, restored, unet_config, seed):
+    """The Turbo loop's ``lora-1`` file imported into a fresh UNet (its
+    adapter must equal checkpoint-1's, ``restored``), then ``cli.generate``
+    at full width twice on the same random weights, prompts and noise,
+    once with ``--lora_path`` of the file: the images must differ."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.checkpoints import import_lora_safetensors
+    from pairwise_sample_optimization_tpu_torch.cli import generate
+    from pairwise_sample_optimization_tpu_torch.models.layers import init_random_
+    from pairwise_sample_optimization_tpu_torch.models.unet import SDXLUNet
+
+    fresh = SDXLUNet(unet_config, device="meta").to_empty(device="cuda")
+    init_random_(fresh, torch.Generator(device="cuda").manual_seed(seed + 5))
+    import_lora_safetensors(str(lora_file), fresh)
+    got = {k: v for k, v in fresh.state_dict().items() if ".lora." in k}
+    if set(got) != set(restored.lora) or any(
+            not torch.equal(got[k], restored.lora[k].detach()) for k in got):
+        raise AssertionError(f"{lora_file} imported into a fresh UNet is not checkpoint-1's LoRA")
+    del fresh, got
+    torch.cuda.empty_cache()
+    out = {}
+    for name, extra in (("base", []), ("lora", ["--lora_path", str(lora_file)])):
+        t0 = time.perf_counter()
+        paths = generate.main(["--device", "cuda", "--seed", str(seed), "--lora_rank",
+                               str(unet_config.lora_rank), "--out", str(RUN_DIR / f"gen_{name}"),
+                               "--prompt", "a red fox in the snow", "--prompt",
+                               "an astronaut riding a horse", *extra])
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t0,
+                     "png": [Path(p).read_bytes() for p in paths]}
+        torch.cuda.empty_cache()
+    if any(not p.startswith(b"\x89PNG") for p in out["base"]["png"] + out["lora"]["png"]):
+        raise AssertionError("cli.generate wrote no PNG")
+    if out["base"]["png"] == out["lora"]["png"]:
+        raise AssertionError("cli.generate with --lora_path gave the images it gave without")
+    summary = {"imported_tensors": len(restored.lora),
+               "generate_s": {k: v["s"] for k, v in out.items()},
+               "images_differ": [a != b for a, b in zip(out["base"]["png"], out["lora"]["png"])]}
+    log(f"lora-1 imported into a fresh UNet equals checkpoint-1's LoRA ({len(restored.lora)} "
+        f"tensors); cli.generate at 512^2 without / with --lora_path "
+        f"{summary['generate_s']['base']:.1f} / {summary['generate_s']['lora']:.1f} s, the "
+        f"images differ: {summary['images_differ']}")
+    return summary
+
+
 def train_slice(seed, sampler, recorder):
     """One epoch of ``run_online_pso`` with ``sampler``'s config defaults
-    (Turbo: ``configs/sdxl_turbo_dpo.py``; DMD2: ``configs/sdxl_dmd_dpo.py``),
-    the kernel wrappers' shapes recorded into ``recorder``."""
+    (Turbo: ``configs/sdxl_turbo_dpo.py``, with validation at step 2;
+    DMD2: ``configs/sdxl_dmd_dpo.py``, without), the kernel wrappers' shapes
+    recorded into ``recorder``."""
     import torch
 
     from pairwise_sample_optimization_tpu_torch.checkpoints import (LORA_FILE, latest_checkpoint,
                                                                     load_file,
                                                                     restore_train_state)
-    from pairwise_sample_optimization_tpu_torch.cli.online_runner import run_dir, run_online_pso
+    from pairwise_sample_optimization_tpu_torch.cli.online_runner import (VAL_IMAGES, run_dir,
+                                                                          run_online_pso)
     from pairwise_sample_optimization_tpu_torch.configs import sdxl_dmd_dpo, sdxl_turbo_dpo
     from pairwise_sample_optimization_tpu_torch.models.layers import init_random_
     from pairwise_sample_optimization_tpu_torch.models.unet import SDXLUNet
@@ -568,6 +782,8 @@ def train_slice(seed, sampler, recorder):
     config.seed = seed
     config.output_dir = str(RUN_DIR)
     config.run_name = f"online_{sampler}"
+    for key, value in (VALIDATION if sampler == "turbo" else {"validation_steps": 0}).items():
+        config[key] = value
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     t_cfg, s_cfg = config.train, config.sample
     pairs = s_cfg.batch_size * s_cfg.num_batches_per_epoch
@@ -592,7 +808,11 @@ def train_slice(seed, sampler, recorder):
     upd = expected_update_launches(pipe.unet.config, n_micro, bool(t_cfg.fuse_ref_pass),
                                    2 * t_cfg.batch_size, pipe.latent_hw,
                                    torch.cuda.get_device_properties(0).multi_processor_count)
-    want = {k: want[k] + n_updates * upd[k] for k in want}
+    validations = sum(step % config.validation_steps == 0 for step in range(1, n_updates + 1)
+                      ) if config.validation_steps else 0
+    val = expected_validation_launches(pipe, config.val_max_prompts, s_cfg.batch_size,
+                                       validations)
+    want = {k: want[k] + n_updates * upd[k] + val[k] for k in want}
     if counts != want:
         raise AssertionError(f"training-run launch counts {counts} != expected {want}")
     if len(history) != n_updates or state.step != n_updates:
@@ -645,6 +865,21 @@ def train_slice(seed, sampler, recorder):
     metrics_jsonl = (out_dir / "metrics.jsonl").read_text()
     metrics = [json.loads(line) for line in metrics_jsonl.splitlines()]
     times = next(m for m in metrics if "loss" in m)
+    val_rows = [m for m in metrics if "val/pickscore" in m]
+    if len(val_rows) != validations or not all(
+            math.isfinite(m[k]) for m in val_rows for k in ("val/pickscore", "val/clip_score")):
+        raise AssertionError(f"validation rows {val_rows}, expected {validations} finite")
+    validation = None
+    if validations:
+        step = val_rows[0]["step"]
+        pngs = sorted((out_dir / f"val-{step}").glob("*.png"))
+        if len(pngs) != VAL_IMAGES or any(not p.read_bytes().startswith(b"\x89PNG")
+                                          for p in pngs):
+            raise AssertionError(f"val-{step}/ holds {[p.name for p in pngs]}")
+        validation = {"rows": val_rows, "pngs": [p.name for p in pngs],
+                      "ms": val_rows[0]["time/validation_s"] * 1e3}
+    lora_check = (lora_import_and_generate(lora_file, restored, pipe.unet.config, seed)
+                  if sampler == "turbo" else None)
     sample_ms, train_ms = times["time/sample_s"] * 1e3, times["time/train_s"] * 1e3
     summary = {
         "sampler": sampler, "resolution": s_cfg.resolution, "pairs": pairs,
@@ -658,6 +893,7 @@ def train_slice(seed, sampler, recorder):
         "checksums": checksums, "lora_export": {"file": str(lora_file.relative_to(out_dir)),
                                                 "tensors": len(exported),
                                                 "bytes": lora_file.stat().st_size},
+        "validation": validation, "lora_import_and_generate": lora_check,
     }
     log(f"online PSO loop, {sampler} at {s_cfg.resolution}^2 (1 epoch, {pairs} pairs, "
         f"{n_updates} updates x {n_micro} microbatches of policy batch {2 * t_cfg.batch_size}): "
@@ -667,7 +903,11 @@ def train_slice(seed, sampler, recorder):
         f"{[round(m['loss'], 6) for m in history]}, grad_norm "
         f"{[round(m['grad_norm'], 6) for m in history]}; launches {counts}; LoRA max|delta| "
         f"{lora_moved:.3e}, frozen unchanged; restored {summary['checkpoint']}; "
-        f"lora-1/{LORA_FILE} ({len(exported)} tensors) equals its LoRA")
+        f"lora-1/{LORA_FILE} ({len(exported)} tensors) equals its LoRA"
+        + (f"; validation at step {val_rows[0]['step']}: {validation['ms']:.1f} ms, "
+           f"val/pickscore {val_rows[0]['val/pickscore']:.6f}, val/clip_score "
+           f"{val_rows[0]['val/clip_score']:.6f}, {len(validation['pngs'])} PNGs"
+           if validation else ""))
     del pipe, state, ref, restored, frozen, frozen0, lora, lora0, lora_ref
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -679,10 +919,29 @@ def train_slice(seed, sampler, recorder):
 # ---------------------------------------------------------------------- #
 
 
+def write_wordpiece_vocab(path):
+    """A BERT-style WordPiece vocabulary for the eval's ImageReward: the
+    four specials, single characters and their ``##`` continuations, and
+    the words of the packaged ImageReward prompts (fewer entries than
+    BLIP's 30524 ids). Returns its size."""
+    from pairwise_sample_optimization_tpu_torch.data import (PromptDataset,
+                                                             WordPieceTokenizer)
+
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]"]
+    chars = list("abcdefghijklmnopqrstuvwxyz0123456789.,!?;:()[]{}\"'`~@#$%^&*+=|\\/<>-")
+    split = WordPieceTokenizer(vocab=specials)._split
+    words = sorted({w for p in PromptDataset("imagereward").prompts for w in split(p)}
+                   - set(chars))
+    vocab = specials + chars + ["##" + c for c in chars] + words
+    Path(path).write_text("\n".join(vocab) + "\n", encoding="utf-8")
+    return len(vocab)
+
+
 def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
     """``cli.evaluate_sdxl_dmd2`` at full width and 1024^2 on the first
     ``prompts`` packaged ImageReward prompts at batch 2 with PickScore,
-    CLIP score, HPS and the aesthetic scorer (the released MLP), shapes
+    CLIP score, HPS, the aesthetic scorer (the released MLP) and ImageReward
+    (on the vocabulary of :func:`write_wordpiece_vocab`), shapes
     recorded into ``recorder``; then the first two prompts again at batch 1,
     whose per-prompt scores must equal the batch-2 run's within
     ``TOL["eval_batch"]`` (each prompt's noise depends on its index only;
@@ -692,13 +951,19 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
     import torch
 
     from pairwise_sample_optimization_tpu_torch.cli import evaluate_sdxl_dmd2 as ev
-    from pairwise_sample_optimization_tpu_torch.models import (CLIPVisionConfig, UNetConfig,
-                                                               VAEConfig)
+    from pairwise_sample_optimization_tpu_torch.models import (BertConfig, CLIPVisionConfig,
+                                                               UNetConfig, VAEConfig, ViTConfig)
     from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    layers = [CLIPVisionConfig.vit_h14().layers] * 3 + [CLIPVisionConfig.vit_l14().layers]
+    vocab = out / "wordpiece_vocab.txt"
+    vocab_size = write_wordpiece_vocab(vocab)
+    vit, bert = ViTConfig.blip_large(), BertConfig.blip_base()
+    # per batch: each CLIP vision tower's layers; ImageReward's ViT layers and
+    # BERT cross-attention layers
+    layers = ([CLIPVisionConfig.vit_h14().layers] * 3 + [CLIPVisionConfig.vit_l14().layers]
+              + [vit.layers + bert.layers])
 
     def run(n, bs, rec):
         path = out / f"eval_b{bs}.json"
@@ -709,8 +974,8 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
         with rec or contextlib.nullcontext():
             ev.main(["--device", "cuda", "--seed", str(seed), "--prompts_json", "imagereward",
                      "--max_prompts", str(n), "--batch_size", str(bs), "--scorers",
-                     ",".join(ev.SCORERS), "--aesthetic_mlp_path", "packaged", "--timing",
-                     "--output_json", str(path)])
+                     ",".join(ev.SCORERS), "--aesthetic_mlp_path", "packaged",
+                     "--wordpiece_vocab", str(vocab), "--timing", "--output_json", str(path)])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts, peak = dict(kernel_lib.launch_counts), torch.cuda.max_memory_allocated()
@@ -725,6 +990,12 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
         return {"result": result, "launches": counts, "peak_bytes": peak, "wall_s": wall_s}
 
     main_run = run(prompts, 2, recorder)
+    tokens = (vit.image_size // vit.patch_size) ** 2 + 1
+    head_dim = vit.width // vit.heads
+    for q, kv in (((2, tokens, vit.heads, head_dim), tokens),
+                  ((2, 35, bert.heads, bert.hidden // bert.heads), tokens)):
+        if not any(qs == q and ks[1] == kv for qs, ks, _ in recorder.attention):
+            raise AssertionError(f"the eval gave the attention no q {q} kv {kv}")
     solo = run(2, 1, None)
     per_prompt, solo_scores = main_run["result"]["per_prompt"], solo["result"]["per_prompt"]
     errs, used = {}, {}
@@ -735,13 +1006,14 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
     timing = main_run["result"]["timing"]
     summary = {
         "prompts": prompts, "batch_size": 2, "resolution": 1024, "scorers": list(ev.SCORERS),
+        "wordpiece_vocab_size": vocab_size,
         "means": {k: v for k, v in main_run["result"].items() if k.endswith("_mean")},
         "per_prompt": per_prompt, "batch1_scores": solo_scores, "batch1_max_abs_diff": errs,
         "batch1_tolerance_used": used, "timing": timing, "launches": main_run["launches"],
         "peak_bytes": main_run["peak_bytes"], "wall_s": main_run["wall_s"],
         "batch1_run": {k: solo[k] for k in ("launches", "peak_bytes", "wall_s")},
     }
-    log(f"eval (DMD2 at 1024^2, {prompts} ImageReward prompts at batch 2, four scorers): "
+    log(f"eval (DMD2 at 1024^2, {prompts} ImageReward prompts at batch 2, five scorers): "
         f"{timing['prompts_per_min']:.2f} prompts/min (steady batches {timing['steady_batch_s']:.3f} "
         f"s, generation {timing['gen_s']:.3f} s, scoring {timing['score_s']}), peak "
         f"{main_run['peak_bytes'] / 2**30:.2f} GiB; means {summary['means']}; launches "

@@ -1,4 +1,10 @@
-"""Carry weights from the JAX package's param trees into the port.
+"""Carry weights into the port: from released torch checkpoints, and from
+the JAX package's param trees.
+
+``load_torch_state_dict`` reads a ``.safetensors`` (through the port's own
+reader), ``.bin`` or ``.pt`` file, or an HF snapshot directory, into torch
+tensors; ``load_weights`` puts such a state dict into a module whose keys it
+names (the port's modules carry the diffusers/HF keys, so no name map).
 
 ``state_dict_from_jax`` takes a flax param tree as nested dicts of numpy
 arrays (optionally with its ``lora`` collection) and returns the port's
@@ -12,11 +18,13 @@ and ``<site>.lora.up.weight`` (out, r), the diffusers LoRA layout.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Mapping, Tuple
+import os
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
+from .safetensors_io import load_file
 from .torch_names import (
     clip_text_param_map,
     clip_vision_param_map,
@@ -26,6 +34,60 @@ from .torch_names import (
 )
 
 _LORA_SUFFIX = {"a": "lora.down.weight", "b": "lora.up.weight"}
+_WEIGHT_FILES = (".safetensors", ".bin", ".pt")
+
+
+def load_torch_state_dict(path: str, device=None) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` or torch ``.bin`` / ``.pt`` file -> {key: tensor}
+    in its stored dtype (bf16 included), on ``device`` (default the CPU).
+
+    A directory (an HF snapshot) gives its ``model.safetensors``, else its
+    ``pytorch_model.bin``, else its first weight file in name order. A
+    ``.bin`` / ``.pt`` file is read with ``torch.load(weights_only=True)``
+    and a ``state_dict`` entry unwrapped."""
+    if os.path.isdir(path):
+        names = sorted(os.listdir(path))
+        for preferred in ("model.safetensors", "pytorch_model.bin"):
+            if preferred in names:
+                path = os.path.join(path, preferred)
+                break
+        else:
+            found = [n for n in names if n.endswith(_WEIGHT_FILES)]
+            if not found:
+                raise FileNotFoundError(f"no weight files in {path}")
+            path = os.path.join(path, found[0])
+    if path.endswith(".safetensors"):
+        return load_file(path, device)
+    sd = torch.load(path, map_location=device or "cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return dict(sd)
+
+
+def tower_weight_file(path: str):
+    """The weight file of a diffusers tower folder: its first ``.safetensors``
+    or ``.bin`` file in name order (a diffusers ``fp16`` variant sorts before
+    the full-precision file), None when there is none; a file path is
+    returned as it is."""
+    if not os.path.isdir(path):
+        return path if os.path.isfile(path) else None
+    found = [n for n in sorted(os.listdir(path)) if n.endswith((".safetensors", ".bin"))]
+    return os.path.join(path, found[0]) if found else None
+
+
+def load_weights(module: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> List[str]:
+    """Copy ``sd`` into ``module`` (cast to each parameter's dtype and
+    device), strictly: every key of the module but its LoRA adapter's must
+    be in ``sd`` with its shape. The adapter keeps its values. Returns the
+    keys of ``sd`` the module has no place for (read past, as the JAX
+    package's ``torch_to_flax`` reports them)."""
+    own = module.state_dict()
+    missing = [k for k in own if k not in sd and ".lora." not in k]
+    if missing:
+        raise KeyError(f"{len(missing)} weights missing from the checkpoint, e.g. {missing[:5]}")
+    module.load_state_dict({k: sd[k] if ".lora." not in k else v for k, v in own.items()},
+                           strict=True)
+    return sorted(k for k in sd if k not in own)
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):

@@ -2,8 +2,10 @@
 
     python -m pairwise_sample_optimization_tpu_torch.cli.evaluate_sdxl_dmd2 \
         [--tiny] [--device cpu] [--prompts_json imagereward] [--max_prompts N] \
-        [--scorers pickscore,clip,hps,aesthetic] [--aesthetic_mlp_path packaged] \
-        [--output_json FILE] [--timing]
+        [--model_dir DIR] [--lora_path pytorch_lora_weights.safetensors] \
+        [--scorers pickscore,clip,hps,aesthetic,imagereward] [--aesthetic_mlp_path packaged] \
+        [--pickscore_dir D] [--clip_dir D] [--hps_path F] [--aesthetic_clip_dir D] \
+        [--imagereward_path F] [--wordpiece_vocab vocab.txt] [--output_json FILE] [--timing]
 
 Counterpart of the JAX package's ``cli/evaluate_sdxl_dmd2.py``: 4-step DMD2
 generation on the fixed lattice [999, 749, 499, 249] at guidance 0, one
@@ -11,19 +13,26 @@ image per prompt, each prompt's noise drawn from a generator seeded by
 (``--seed``, its global index) so that the batch size never changes an
 image; the prompts are sharded round-robin over processes (the last shard
 padded, the scores gathered back into dataset order and truncated; one
-process today); the images scored by PickScore, CLIP score, HPS and the
-LAION aesthetic model; the means reported. It prints the timing line (with
-``--timing``) and then the summary as JSON, and writes ``--output_json``
-with ``n_prompts``, ``<scorer>_mean`` and ``per_prompt``.
+process today); the images scored by PickScore, CLIP score, HPS, the
+LAION aesthetic model and ImageReward; the means reported. It prints the
+timing line (with ``--timing``) and then the summary as JSON, and writes
+``--output_json`` with ``n_prompts``, ``<scorer>_mean`` and ``per_prompt``.
 
-Weights are random, made from ``--seed`` (the towers' architectures are
-true; the aesthetic MLP can be the released one, ``--aesthetic_mlp_path
-packaged``). ``--tiny`` selects the toy models at 32x32 (a CPU run of
-seconds); the device is CUDA unless ``--device cpu`` is given.
+Weights: the SDXL towers from a local diffusers checkpoint
+(``--model_dir``) and the PSO adapter from ``--lora_path``; the scorers'
+released weights from ``--pickscore_dir`` and ``--clip_dir`` (HF
+``CLIPModel``), ``--hps_path`` (open_clip's ``HPS_v2_compressed.pt``),
+``--aesthetic_clip_dir`` (HF CLIP-L/14) and ``--aesthetic_mlp_path``
+(``packaged`` = the port's copy of the released MLP), ``--imagereward_path``
+(ImageReward-v1.0's ``.pt``). What is not given is random, made from
+``--seed`` (the architectures are true). ImageReward tokenizes with a BERT
+WordPiece vocabulary (``--wordpiece_vocab``); without one it is skipped,
+with a warning. ``--tiny`` selects the toy models at 32x32 (a CPU run of
+seconds; ImageReward with a vocabulary of letters); the device is CUDA
+unless ``--device cpu`` is given.
 
-Not ported yet, and refused when asked for: pretrained weights
-(``--model_dir``, the scorer weight paths), ``--lora_path``, HF datasets,
-the ImageReward scorer, the JAX package's scorer offload and chunking
+Not ported yet, and refused when asked for: HF datasets
+(``--hf_dataset``), the JAX package's scorer offload and chunking
 (``--offload_scorers``, ``--score_chunk``, ``--vae_decode_chunk``) and
 ``--gelu_exact``.
 """
@@ -40,22 +49,26 @@ import warnings
 import numpy as np
 import torch
 
-from ..data import PromptDataset, make_clip_tokenizers
+from ..checkpoints import (import_lora_safetensors, load_clip_dual, load_clip_vision,
+                           load_imagereward)
+from ..data import PromptDataset, WordPieceTokenizer, make_clip_tokenizers
 from ..device import resolve_device
+from ..models.bert import BertConfig
 from ..models.clip import CLIPTextConfig, CLIPVisionConfig
+from ..models.vit import ViTConfig
 from ..pipeline import SDXLPipeline
-from ..rewards import AestheticScorer, CLIPScorer, HPSScorer, PickScoreScorer
+from ..rewards import (AestheticScorer, CLIPScorer, HPSScorer, ImageRewardScorer,
+                       PickScoreScorer)
 from ..utils import get_logger
 
 logger = get_logger("pso.eval")
 
-SCORERS = ("pickscore", "clip", "hps", "aesthetic")
+SCORERS = ("pickscore", "clip", "hps", "aesthetic", "imagereward")
 # flag -> its default; any other value is refused until the port has it
-_UNPORTED = {
-    "model_dir": "", "lora_path": "", "hf_dataset": "", "pickscore_dir": "", "clip_dir": "",
-    "hps_path": "", "aesthetic_clip_dir": "", "imagereward_path": "", "wordpiece_vocab": "",
-    "offload_scorers": False, "score_chunk": 0, "vae_decode_chunk": -1, "gelu_exact": False,
-}
+_UNPORTED = {"hf_dataset": "", "offload_scorers": False, "score_chunk": 0,
+             "vae_decode_chunk": -1, "gelu_exact": False}
+# the toy ImageReward's vocabulary (--tiny), the JAX package's
+TINY_WORDPIECE = ["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + [chr(c) for c in range(97, 123)]
 
 
 def parse_args(argv=None):
@@ -76,8 +89,18 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--scorers", default="pickscore,clip,aesthetic",
                    help="comma list of " + ",".join(SCORERS))
+    p.add_argument("--model_dir", default="", help="local diffusers SDXL checkpoint dir")
+    p.add_argument("--lora_path", default="", help="pytorch_lora_weights.safetensors")
+    p.add_argument("--pickscore_dir", default="",
+                   help="HF CLIPModel dir or file (yuvalkirstain/PickScore_v1)")
+    p.add_argument("--clip_dir", default="", help="HF CLIPModel dir or file (laion CLIP-ViT-H-14)")
+    p.add_argument("--hps_path", default="", help="HPS_v2_compressed.pt (open_clip layout)")
     p.add_argument("--aesthetic_mlp_path", default="",
                    help='sac+logos+ava1-l14-linearMSE.pth; "packaged" = the port\'s copy')
+    p.add_argument("--aesthetic_clip_dir", default="",
+                   help="HF CLIPModel dir or file (openai/clip-vit-large-patch14)")
+    p.add_argument("--imagereward_path", default="", help="ImageReward-v1.0 .pt checkpoint")
+    p.add_argument("--wordpiece_vocab", default="", help="BERT vocab.txt for ImageReward")
     p.add_argument("--clip_resize_max_size", action="store_true",
                    help="open_clip's ResizeMaxSize transform for the CLIP scorer")
     p.add_argument("--output_json", default="")
@@ -85,9 +108,7 @@ def parse_args(argv=None):
                    help="per-batch generation and scoring wall time, each phase ending in a "
                         "device synchronize, and prompts/min")
     # not ported yet: parsed so launch scripts parse, refused unless default
-    for flag in ("model_dir", "lora_path", "hf_dataset", "pickscore_dir", "clip_dir", "hps_path",
-                 "aesthetic_clip_dir", "imagereward_path", "wordpiece_vocab"):
-        p.add_argument(f"--{flag}", default="", help="not ported yet")
+    p.add_argument("--hf_dataset", default="", help="not ported yet")
     p.add_argument("--offload_scorers", action="store_true", help="not ported yet")
     p.add_argument("--gelu_exact", action="store_true", help="not ported yet")
     p.add_argument("--score_chunk", type=int, default=0, help="not ported yet")
@@ -101,8 +122,6 @@ def check_args(args) -> list:
         if getattr(args, flag) != default:
             raise NotImplementedError(f"--{flag} is not ported yet")
     wanted = [s for s in args.scorers.split(",") if s]
-    if "imagereward" in wanted:
-        raise NotImplementedError("the ImageReward scorer is not ported yet")
     unknown = [s for s in wanted if s not in SCORERS]
     if unknown or not wanted:
         raise ValueError(f"unknown scorers {unknown}; have {SCORERS}")
@@ -134,12 +153,17 @@ def prompt_generator(seed: int, index: int, device) -> torch.Generator:
 
 
 def build_scorers(wanted, tiny: bool, seed: int, device, clip_max_size: bool = False,
-                  aesthetic_mlp_path: str = ""):
-    """Random-weight scorers, each from its own seed: PickScore, CLIP score
-    and HPS on the CLIP-H dual encoder (ViT-H/14), the aesthetic scorer on
-    CLIP-L/14. ``tiny``: toy towers (the aesthetic one with a 768-wide
-    embedding, so the released MLP loads)."""
+                  aesthetic_mlp_path: str = "", weights=None):
+    """The scorers in ``wanted``, each random from its own seed, then loaded
+    from ``weights`` (scorer name -> path: ``pickscore``, ``clip`` and
+    ``hps`` into the CLIP-H dual encoder, ``aesthetic`` the CLIP-L/14 tower,
+    ``imagereward`` the BLIP ViT-L/16, BERT and head) where it names one:
+    PickScore, CLIP score and HPS on the CLIP-H dual encoder (ViT-H/14), the
+    aesthetic scorer on CLIP-L/14, ImageReward on BLIP. ``tiny``: toy towers
+    (the aesthetic one with a 768-wide embedding, so the released MLP
+    loads)."""
     dtype = torch.float32 if tiny else torch.bfloat16
+    weights = weights or {}
     text = CLIPTextConfig.tiny(dtype) if tiny else CLIPTextConfig.vit_h14(dtype)
     vision = CLIPVisionConfig.tiny(dtype) if tiny else CLIPVisionConfig.vit_h14(dtype)
     aes_vision = (dataclasses.replace(CLIPVisionConfig.tiny(dtype), projection_dim=768)
@@ -151,12 +175,39 @@ def build_scorers(wanted, tiny: bool, seed: int, device, clip_max_size: bool = F
         "hps": lambda: HPSScorer.random(text, vision, seed=seed + 3, device=device),
         "aesthetic": lambda: AestheticScorer.random(aes_vision, seed=seed + 4,
                                                     mlp_path=aesthetic_mlp_path, device=device),
+        "imagereward": lambda: ImageRewardScorer.random(
+            ViTConfig.tiny(dtype) if tiny else ViTConfig.blip_large(dtype),
+            BertConfig.tiny(dtype) if tiny else BertConfig.blip_base(dtype), seed=seed + 5,
+            device=device),
     }
-    scorers = {name: make[name]() for name in wanted}
+    load = {
+        "pickscore": lambda s, path: load_clip_dual(path, s.model),
+        "clip": lambda s, path: load_clip_dual(path, s.model),
+        "hps": lambda s, path: load_clip_dual(path, s.model),
+        "aesthetic": lambda s, path: load_clip_vision(path, s.vision),
+        "imagereward": lambda s, path: load_imagereward(path, s),
+    }
+    scorers = {}
+    for name in wanted:
+        scorers[name] = make[name]()
+        if weights.get(name):
+            load[name](scorers[name], weights[name])
+            logger.info("loaded the %s weights from %s", name, weights[name])
     for s in scorers.values():
-        for module in ((s.vision, s.mlp) if isinstance(s, AestheticScorer) else (s.model,)):
-            module.requires_grad_(False)
+        for name in ("model", "vision", "vit", "bert", "mlp"):
+            if hasattr(s, name):
+                getattr(s, name).requires_grad_(False)
     return scorers
+
+
+def imagereward_tokenizer(tiny: bool, vocab_path: str):
+    """ImageReward's WordPiece tokenizer: the toy vocabulary under ``tiny``,
+    else the BERT ``vocab.txt`` at ``vocab_path``; None without one."""
+    if tiny:
+        return WordPieceTokenizer(vocab=TINY_WORDPIECE)
+    if vocab_path and os.path.exists(vocab_path):
+        return WordPieceTokenizer(vocab_path)
+    return None
 
 
 def _timing_summary(timing):
@@ -192,15 +243,28 @@ def main(argv=None):
     shard = shard_prompts(prompts, rank, world)
     per = len(shard)
 
-    # ---- models (random weights from the seed) ----
-    logger.warning("no pretrained weights -- random towers from seed %d", args.seed)
-    dtype = torch.float32 if args.tiny else torch.bfloat16
-    pipe = SDXLPipeline.random(lora_rank=args.lora_rank, dtype=dtype, resolution=resolution,
-                               tiny=args.tiny, seed=args.seed, device=dev, with_scorer=False)
+    # ---- models: the checkpoints given, random weights from the seed otherwise ----
+    kw = dict(lora_rank=args.lora_rank, dtype=torch.float32 if args.tiny else torch.bfloat16,
+              resolution=resolution, tiny=args.tiny, seed=args.seed, device=dev,
+              with_scorer=False)
+    if args.model_dir:
+        pipe = SDXLPipeline.from_torch_dir(args.model_dir, **kw)
+    else:
+        logger.warning("no --model_dir: random SDXL towers from seed %d", args.seed)
+        pipe = SDXLPipeline.random(**kw)
+    if args.lora_path:
+        import_lora_safetensors(args.lora_path, pipe.unet)
+        logger.info("loaded the PSO LoRA from %s", args.lora_path)
     for module in (pipe.unet, pipe.vae, pipe.te1, pipe.te2):
         module.requires_grad_(False)
+    ir_tok = imagereward_tokenizer(args.tiny, args.wordpiece_vocab)
+    if "imagereward" in wanted and ir_tok is None:
+        logger.warning("ImageReward needs --wordpiece_vocab (a BERT vocab.txt); skipping it")
+        wanted.remove("imagereward")
+    weights = {"pickscore": args.pickscore_dir, "clip": args.clip_dir, "hps": args.hps_path,
+               "aesthetic": args.aesthetic_clip_dir, "imagereward": args.imagereward_path}
     scorers = build_scorers(wanted, args.tiny, args.seed, dev, args.clip_resize_max_size,
-                            args.aesthetic_mlp_path)
+                            args.aesthetic_mlp_path, weights)
     tok1, tok2, tok_r = make_clip_tokenizers(args.bpe_path, pipe.te1.config.vocab_size,
                                              with_reward=True)
 
@@ -231,8 +295,13 @@ def main(argv=None):
             reward_ids = ids(tok_r, batch)
             for name, scorer in scorers.items():
                 t_score = time.perf_counter()
-                s = scorer.score(images) if name == "aesthetic" else scorer.score(images,
-                                                                                  reward_ids)
+                if name == "aesthetic":
+                    s = scorer.score(images)
+                elif name == "imagereward":
+                    s = scorer.score(images, *(torch.as_tensor(a, dtype=torch.long, device=dev)
+                                               for a in ir_tok(batch)))
+                else:
+                    s = scorer.score(images, reward_ids)
                 results[name].append(s.float().cpu().numpy())
                 if timing is not None:
                     timing["score_s"][name].append(time.perf_counter() - t_score)

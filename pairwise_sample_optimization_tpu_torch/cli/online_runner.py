@@ -1,42 +1,56 @@
 """The online-PSO run loop for SDXL-Turbo and SDXL-DMD2 on one device.
 
 Counterpart of the JAX package's ``cli/online_runner.py::run_online_pso``:
-build the pipeline (architecture-true random weights from the seed), the
-PickScore scorer, tokenizers, prompt loader, trainer, optimizer and train
-state; resume from ``resume_from``; then per epoch sample
-``num_batches_per_epoch`` pair batches, log the reward mean/std, run the
-epoch's shuffled DPO updates, log each update's metrics with the phase
-times, and checkpoint at step 1 and every ``checkpointing_steps``: the
-train state under ``checkpoint-<step>`` and the adapter for diffusers as
+build the pipeline (a local diffusers checkpoint under
+``pretrained.model_dir``, else architecture-true random weights from the
+seed; a separate VAE under ``pretrained.vae_dir``, such as the fp16-fix
+VAE), the PickScore scorer (its HF ``CLIPModel`` weights under
+``pretrained.pickscore_dir``, else random), tokenizers, prompt loader,
+trainer, optimizer and train state; resume from ``resume_from``; then per
+epoch sample ``num_batches_per_epoch`` pair batches, log the reward
+mean/std, run the epoch's shuffled DPO updates, log each update's metrics
+with the phase times, validate every ``validation_steps`` updates, and
+checkpoint at step 1 and every ``checkpointing_steps``: the train state
+under ``checkpoint-<step>`` and the adapter for diffusers as
 ``lora-<step>/pytorch_lora_weights.safetensors``, as the JAX runner
 writes them.
+
+Validation (:func:`run_validation`) generates 4-step images of the first
+``val_max_prompts`` validation prompts with the live adapter, logs their
+mean PickScore and CLIP score as ``val/pickscore`` and ``val/clip_score``
+(with its wall time, ``time/validation_s``), and writes the first five
+images to ``val-<step>/`` as PNGs.
 
 The DMD2 sampler (``sampler="dmd"``) takes strict-dominance preference
 (``compare="pareto"``) and ``sample.shared_noise``, as the JAX runner
 does; the Turbo sampler per-sample random-axis preference.
 
 Not ported yet, and refused when asked for (by :func:`check_config`, and
-validation by :func:`run_online_pso` where it would fire): validation,
-pretrained checkpoints, meshes beyond one device, and the JAX package's
-memory and int8 options.
+an ``hf:`` validation source by :func:`run_online_pso` where validation
+would fire): the HF datasets validation source, meshes beyond one device,
+and the JAX package's memory and int8 options.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..checkpoints import (LORA_FILE, export_lora_safetensors, latest_checkpoint,
-                           prune_checkpoints, restore_train_state, save_train_state)
+from ..checkpoints import (LORA_FILE, export_lora_safetensors, latest_checkpoint, load_clip_dual,
+                           load_torch_state_dict, load_weights, prune_checkpoints,
+                           restore_train_state, save_train_state, tower_weight_file)
 from ..data import PromptDataset, PromptLoader, make_clip_tokenizers
 from ..device import resolve_device
 from ..pipeline import SAMPLERS, SDXLPipeline
+from ..rewards import CLIPScorer
 from ..train import (OnlinePSOConfig, OnlinePSOTrainer, PSOTrainState, lora_parameters,
                      make_optimizer)
 from ..utils import MetricLogger, PhaseTimer, get_logger
+from ..utils.png import save_pngs
 
 logger = get_logger("pso.online")
 
@@ -49,9 +63,8 @@ _UNPORTED = {
     "train.use_8bit_adam": (False,), "train.optimizer_state_dtype": ("", "float32"),
     "kernels.subpixel_upsample": (False,), "kernels.int8_vae_decode": (False,),
     "kernels.int8_smooth_alpha": (0.0,), "kernels.gelu_exact": (False,),
-    "pretrained.model_dir": ("",), "pretrained.vae_dir": ("",),
-    "pretrained.pickscore_dir": ("",),
 }
+VAL_IMAGES = 5  # validation images saved per validation, as the JAX runner saves
 
 
 def _get(config, dotted: str):
@@ -84,6 +97,72 @@ def _epoch_seed(seed: int, epoch: int, stream: int) -> int:
     return int(np.random.SeedSequence([seed, epoch, stream]).generate_state(1)[0])
 
 
+def build_pipeline(config, dtype, tiny: bool, dev) -> SDXLPipeline:
+    """The pipeline of ``config.pretrained``: the diffusers checkpoint, the
+    separate VAE and the PickScore weights where given, random from the
+    seed otherwise."""
+    p = config.pretrained
+    kw = dict(lora_rank=config.train.lora_rank, dtype=dtype, resolution=config.sample.resolution,
+              tiny=tiny, seed=config.seed, remat=config.activation_checkpoint, device=dev)
+    if p.model_dir:
+        pipe = SDXLPipeline.from_torch_dir(p.model_dir, **kw)
+    else:
+        logger.warning("no pretrained model_dir -- random weights from seed %d", config.seed)
+        pipe = SDXLPipeline.random(**kw)
+    if p.vae_dir:
+        path = tower_weight_file(p.vae_dir)
+        if path is None:
+            raise FileNotFoundError(f"no VAE weights at {p.vae_dir!r}")
+        load_weights(pipe.vae, load_torch_state_dict(path, dev))
+        logger.info("loaded VAE weights from %s", path)
+    if p.pickscore_dir:
+        load_clip_dual(p.pickscore_dir, pipe.scorer.model)
+        logger.info("loaded PickScore weights from %s", p.pickscore_dir)
+    return pipe
+
+
+def validation_prompts(config):
+    """The first ``val_max_prompts`` prompts of ``val_dataset``: a local
+    prompts file where the path exists, else the built-in set."""
+    src = str(config.val_dataset)
+    if src.startswith("hf:"):
+        raise NotImplementedError(f"val_dataset={src!r}: the HF datasets source is not ported "
+                                  "yet (give a local prompts file)")
+    dataset = PromptDataset(src if os.path.exists(src) else None, split=config.val_split_name)
+    return dataset.prompts[:config.val_max_prompts]
+
+
+@torch.no_grad()
+def run_validation(pipe, clip_scorer, prompts, tokenizers, sampler: str, seed: int,
+                   batch_size: int, image_dir: Optional[str] = None):
+    """4-step images of ``prompts`` with the pipeline's live adapter, in
+    chunks of ``batch_size`` (the last padded with its last prompt), scored
+    by the pipeline's PickScore and ``clip_scorer`` -> {"val/pickscore",
+    "val/clip_score"}: the means over the prompts. Each chunk's noise comes
+    from a generator seeded by (``seed``, the chunk's start). The first
+    ``VAL_IMAGES`` images go to ``image_dir`` as PNGs (the JAX runner takes
+    them from the first chunk only, so fewer where a chunk is smaller)."""
+    tok1, tok2, tok_r = tokenizers
+    ids = lambda tok, chunk: torch.as_tensor(tok(chunk), dtype=torch.long, device=pipe.device)
+    generate = pipe.generate if sampler == "turbo" else pipe.generate_dmd
+    ps, cs = [], []
+    for start in range(0, len(prompts), batch_size):
+        chunk = prompts[start:start + batch_size]
+        real = len(chunk)
+        chunk = chunk + [chunk[-1]] * (batch_size - real)
+        cond = pipe.encode_prompt(ids(tok1, chunk), ids(tok2, chunk))
+        gen = torch.Generator(device=pipe.device).manual_seed(_epoch_seed(seed, start, 2))
+        images = generate(cond, gen, num_steps=4)
+        if image_dir and start < VAL_IMAGES:
+            save_pngs(images[:min(real, VAL_IMAGES - start)], image_dir, first=start)
+        r_ids = ids(tok_r, chunk)
+        ps.append(pipe.scorer.score(images, r_ids).float())
+        cs.append(clip_scorer.score(images, r_ids).float())
+    n = len(prompts)
+    return {"val/pickscore": float(torch.cat(ps)[:n].mean()),
+            "val/clip_score": float(torch.cat(cs)[:n].mean())}
+
+
 def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = None,
                    device="cuda"):
     """Run ``num_epochs`` epochs (default ``config.num_epochs``) from the
@@ -97,10 +176,7 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
     epochs = config.num_epochs if num_epochs is None else num_epochs
 
     # ---- models ----
-    logger.warning("no pretrained model_dir -- random weights from seed %d", config.seed)
-    pipe = SDXLPipeline.random(lora_rank=config.train.lora_rank, dtype=dtype,
-                               resolution=config.sample.resolution, tiny=tiny, seed=config.seed,
-                               remat=config.activation_checkpoint, device=dev)
+    pipe = build_pipeline(config, dtype, tiny, dev)
     for module in (pipe.vae, pipe.te1, pipe.te2, pipe.scorer.model):
         module.requires_grad_(False)
     tok1, tok2, tok_r = make_clip_tokenizers(
@@ -138,15 +214,30 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
             start_epoch = int(extra.get("epoch", 0)) + 1
             logger.info("resumed from %s (step %d, epoch %d)", ckpt, state.step, start_epoch)
 
-    # ---- validation is not ported: refuse a run in which it would fire ----
+    # ---- validation: its prompts where it will fire; the CLIP scorer when it
+    # first fires (at full width ~2 GB a run without validation need not hold) ----
     per_epoch = (config.sample.batch_size * config.sample.num_batches_per_epoch
                  // (config.train.batch_size * config.train.gradient_accumulation_steps)
                  * config.train.num_inner_epochs)
     steps = range(state.step + 1, state.step + 1 + per_epoch * epochs)
+    val_prompts, clip_scorer = None, None
     if config.validation_steps and any(s % config.validation_steps == 0 for s in steps):
-        raise NotImplementedError(
-            f"validation_steps={config.validation_steps} would run validation within steps "
-            f"{steps.start}..{steps.stop - 1}; validation is not ported yet (set it to 0)")
+        val_prompts = validation_prompts(config)
+
+    def validate(step):
+        nonlocal clip_scorer
+        if clip_scorer is None:
+            s = pipe.scorer.model
+            clip_scorer = CLIPScorer.random(s.text_config, s.vision_config, seed=config.seed + 2,
+                                            device=dev)
+            clip_scorer.model.requires_grad_(False)
+        t0 = time.perf_counter()
+        metrics = run_validation(pipe, clip_scorer, val_prompts, (tok1, tok2, tok_r), sampler,
+                                 config.seed, max(config.sample.batch_size, 1),
+                                 os.path.join(out_dir, f"val-{step}"))
+        # the means are host floats: the device work is done
+        metrics["time/validation_s"] = time.perf_counter() - t0
+        metrics_logger.log_metrics(metrics, step)
 
     out_dir = run_dir(config, sampler)
     metrics_logger = MetricLogger(out_dir)
@@ -184,6 +275,8 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
                 global_step += 1
                 metrics_logger.log_metrics({**m, **timer.summary()}, global_step)
                 history.append(m)
+                if config.validation_steps and global_step % config.validation_steps == 0:
+                    validate(global_step)
                 if config.checkpointing_steps and (
                         global_step % config.checkpointing_steps == 0 or global_step == 1):
                     # the state after the whole epoch, under the update's step

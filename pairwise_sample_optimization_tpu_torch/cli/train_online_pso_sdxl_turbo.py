@@ -21,7 +21,6 @@ TINY_OVERRIDES = (
     "tiny_model=True", "sample.resolution=16", "sample.batch_size=2",
     "sample.num_batches_per_epoch=1", "train.batch_size=2",
     "train.gradient_accumulation_steps=1", "train.lora_rank=4", "mixed_precision=no",
-    "validation_steps=0",
 )
 
 

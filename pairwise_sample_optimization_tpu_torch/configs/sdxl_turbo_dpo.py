@@ -7,8 +7,8 @@ and ``cli.online_runner.check_config`` refuses a non-default value:
 ``param_dtype``, ``mesh.*`` beyond one device, ``mesh.fsdp``,
 ``offload_aux_during_update``, ``use_wandb``, ``fast_init``,
 ``profile_dir``, ``use_lora=False``, ``train.int8_ref_pass``,
-``train.use_8bit_adam``, ``train.optimizer_state_dtype``, the
-``kernels.*`` options and non-empty ``pretrained.*_dir``.
+``train.use_8bit_adam``, ``train.optimizer_state_dtype`` and the
+``kernels.*`` options.
 """
 
 from . import Config
@@ -42,13 +42,17 @@ def get_config() -> Config:
     c.use_lora = True
     c.use_wandb = False
 
-    # ---- validation (not ported: a validation step that would fire raises) ----
+    # ---- validation: 4-step images of the first val_max_prompts prompts of
+    # val_dataset (a local prompts file, else the built-in set; "hf:" sources
+    # are not ported) every validation_steps updates ----
     c.val_dataset = "pickapic_test_unique"
     c.val_split_name = "test_unique"
     c.val_max_prompts = 500
     c.validation_steps = 100
 
-    # ---- pretrained (empty: architecture-true random weights from seed) ----
+    # ---- pretrained: a local diffusers checkpoint dir (unet/, vae/,
+    # text_encoder/, text_encoder_2/), a separate VAE (dir or file) and an HF
+    # CLIPModel for PickScore; empty: architecture-true random weights ----
     c.pretrained = p = Config()
     p.model_dir = ""
     p.vae_dir = ""

@@ -3,6 +3,7 @@
 from .prompt_dataset import (PromptDataset, PromptLoader, imagereward_prompts_path,
                              training_prompts_path)
 from .tokenizer import DEFAULT_BPE_PATH, CLIPTokenizer, HashTokenizer, make_clip_tokenizers
+from .wordpiece import WordPieceTokenizer
 
 __all__ = [
     "CLIPTokenizer",
@@ -10,6 +11,7 @@ __all__ = [
     "HashTokenizer",
     "PromptDataset",
     "PromptLoader",
+    "WordPieceTokenizer",
     "imagereward_prompts_path",
     "make_clip_tokenizers",
     "training_prompts_path",

@@ -1,4 +1,5 @@
-"""SDXL UNet, VAE decoder and CLIP towers (NCHW, diffusers/HF keys)."""
+"""SDXL UNet, VAE decoder, CLIP towers and ImageReward's BLIP ViT and BERT
+(NCHW, diffusers/HF/timm keys)."""
 
 from .clip import (
     CLIPDualEncoder,
@@ -7,5 +8,7 @@ from .clip import (
     CLIPVisionConfig,
     CLIPVisionTower,
 )
+from .bert import BertConfig, BertEncoder
 from .unet import SDXLUNet, UNetConfig
 from .vae import AutoencoderKL, VAEConfig
+from .vit import ViT, ViTConfig

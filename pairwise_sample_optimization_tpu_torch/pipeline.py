@@ -18,11 +18,13 @@ pipeline takes token ids (``data.tokenizer`` makes them).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import NamedTuple, Optional
 
 import torch
 
+from .checkpoints.convert import load_torch_state_dict, load_weights, tower_weight_file
 from .device import resolve_device
 from .models.clip import CLIPTextConfig, CLIPTextTower, CLIPVisionConfig
 from .models.layers import init_random_
@@ -32,6 +34,9 @@ from .models.vae import AutoencoderKL, VAEConfig
 from .ops.schedules import distill_timesteps, make_alphas_cumprod, make_euler_ancestral_schedule
 from .rewards.pickscore import PickScoreScorer
 from .train.sampling import Trajectory, sample_dmd_trajectories, sample_turbo_trajectories
+from .utils import get_logger
+
+logger = get_logger("pso.pipeline")
 
 SAMPLERS = ("turbo", "dmd")
 
@@ -100,6 +105,42 @@ class SDXLPipeline:
         te2 = make(CLIPTextTower(t2cfg, device="meta"))
         scorer = PickScoreScorer.random(*pcfg, seed=seed + 1, device=dev) if with_scorer else None
         return cls(unet=unet, vae=vae, te1=te1, te2=te2, scorer=scorer, resolution=resolution)
+
+    @classmethod
+    def from_torch_dir(cls, model_dir: str, lora_rank: int = 32, dtype=torch.bfloat16,
+                       resolution: int = 512, tiny: bool = False, seed: int = 0,
+                       remat: str = "", device="cuda", with_scorer: bool = True
+                       ) -> "SDXLPipeline":
+        """A local diffusers checkpoint directory: ``unet/``, ``vae/``,
+        ``text_encoder/`` and ``text_encoder_2/``, each read from its first
+        ``.safetensors`` or ``.bin`` file in name order (the JAX package's
+        choice; a diffusers ``fp16`` variant sorts first), in any stored
+        dtype, straight onto ``device``.
+
+        The towers are built as :meth:`random` builds them (meta device,
+        then ``device``), then every frozen weight is replaced strictly
+        (``checkpoints.load_weights``) and cast to ``dtype``. The LoRA keeps
+        its fresh draw: down-projections gaussian with std 1/r, up zero, a
+        no-op adapter that still gets a gradient (what the JAX package's
+        ``reinit_lora_a`` restores after its zero fill). Read past: the VAE's
+        ``encoder.*`` and ``quant_conv.*`` (the port has no encoder) and
+        the text towers' ``position_ids``. A tower whose folder holds no
+        weight file keeps its random weights, with a warning. The PickScore
+        scorer (``with_scorer``) is random: its weights are not part of a
+        diffusers checkpoint."""
+        if not os.path.isdir(model_dir):
+            raise FileNotFoundError(f"model_dir {model_dir!r} is not a directory")
+        pipe = cls.random(lora_rank, dtype, resolution, tiny, seed, remat=remat, device=device,
+                          with_scorer=with_scorer)
+        for sub, module in (("unet", pipe.unet), ("vae", pipe.vae), ("text_encoder", pipe.te1),
+                            ("text_encoder_2", pipe.te2)):
+            path = tower_weight_file(os.path.join(model_dir, sub))
+            if path is None:
+                logger.warning("no weights under %s -- its tower stays random", sub)
+                continue
+            unused = load_weights(module, load_torch_state_dict(path, pipe.device))
+            logger.info("loaded %s from %s (%d keys read past)", sub, path, len(unused))
+        return pipe
 
     @torch.no_grad()
     def encode_prompt(self, input_ids_one, input_ids_two, reward_ids=None) -> dict:

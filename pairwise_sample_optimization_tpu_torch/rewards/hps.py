@@ -1,9 +1,9 @@
 """HPSv2 scorer: the CLIP-H architecture under the HPS_v2 preference weights.
 
 Counterpart of the JAX package's ``rewards/hps.py``: the dual-encoder
-cosine score of CLIP score. Loading the released ``HPS_v2_compressed.pt``
-(open_clip format) is not ported yet; the scorer runs with the weights it
-is given.
+cosine score of CLIP score. The released ``HPS_v2_compressed.pt`` is an
+open_clip state dict; ``checkpoints.clip_loader.load_clip_dual`` converts
+and loads it.
 """
 
 from __future__ import annotations

@@ -193,8 +193,8 @@ def update_iteration(pipe, ids, cuda_gen, gen, dmd=False):
 
 def eval_iteration(pipe, ids, seed):
     """One batch of the eval protocol: encode, DMD2 generation with one
-    generator per prompt, and the four scorers (random towers, the released
-    aesthetic MLP)."""
+    generator per prompt, and the five scorers (random towers, the released
+    aesthetic MLP; ImageReward on random WordPiece ids of its 35 tokens)."""
     import torch
 
     from pairwise_sample_optimization_tpu_torch.cli import evaluate_sdxl_dmd2 as ev
@@ -202,14 +202,21 @@ def eval_iteration(pipe, ids, seed):
     pipe.scorer = None
     scorers = ev.build_scorers(list(ev.SCORERS), False, seed, pipe.device,
                                aesthetic_mlp_path="packaged")
+    n = ids[0].shape[0]
+    wp = (torch.randint(1000, 30000, (n, 35), generator=torch.Generator().manual_seed(seed)
+                        ).to(pipe.device), torch.ones((n, 35), dtype=torch.long, device=pipe.device))
+
+    def score(name, s, images):
+        if name == "aesthetic":
+            return s.score(images)
+        return s.score(images, *wp) if name == "imagereward" else s.score(images, ids[2])
 
     @torch.no_grad()
     def iteration():
         cond = pipe.encode_prompt(*ids[:2])
-        gens = [ev.prompt_generator(seed, i, pipe.device) for i in range(ids[0].shape[0])]
+        gens = [ev.prompt_generator(seed, i, pipe.device) for i in range(n)]
         images = pipe.generate_dmd(cond, num_steps=4, sample_generators=gens)
-        return [s.score(images) if name == "aesthetic" else s.score(images, ids[2])
-                for name, s in scorers.items()]
+        return [score(name, s, images) for name, s in scorers.items()]
 
     return iteration
 

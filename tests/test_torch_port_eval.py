@@ -189,7 +189,7 @@ def test_generate_dmd_with_per_prompt_noise_matches_jax():
 
 def _run_eval(tmp_path, name, *extra):
     out = tmp_path / f"{name}.json"
-    summary = ev.main(["--tiny", "--device", "cpu", "--scorers", "pickscore,clip,hps,aesthetic",
+    summary = ev.main(["--tiny", "--device", "cpu", "--scorers", ",".join(ev.SCORERS),
                        "--aesthetic_mlp_path", "packaged", "--output_json", str(out), *extra])
     return summary, json.loads(out.read_text())
 
@@ -203,7 +203,7 @@ def test_eval_cli_scores_do_not_depend_on_the_batch_size(tmp_path):
     s2, j2 = _run_eval(tmp_path, "b2", "--prompts_json", str(prompts), "--batch_size", "2",
                        "--timing")
     assert set(j2) == {"n_prompts", "pickscore_mean", "clip_mean", "hps_mean", "aesthetic_mean",
-                       "timing", "per_prompt"}
+                       "imagereward_mean", "timing", "per_prompt"}
     assert j2["n_prompts"] == 3
     assert j2["per_prompt"]["prompts"] == ["a red fox", "an astronaut riding a horse",
                                            "a bowl of ramen"]
@@ -223,14 +223,92 @@ def test_eval_cli_warns_when_max_prompts_exceeds_the_source(tmp_path):
     assert out["n_prompts"] == 2 and len(out["per_prompt"]["aesthetic"]) == 2
 
 
-@pytest.mark.parametrize("flag", [
-    ["--model_dir", "/x"], ["--lora_path", "/x.safetensors"], ["--hps_path", "/x.pt"],
-    ["--hf_dataset", "yuvalkirstain/pickapic_v1_no_images"], ["--scorers", "imagereward"],
-    ["--offload_scorers"], ["--score_chunk", "8"], ["--gelu_exact"],
+@pytest.mark.parametrize("flag,error", [
+    (["--model_dir", "/x"], FileNotFoundError), (["--lora_path", "/x.safetensors"],
+                                                 FileNotFoundError),
+    (["--scorers", "hps", "--hps_path", "/x.pt"], FileNotFoundError),
+    (["--hf_dataset", "yuvalkirstain/pickapic_v1_no_images"], NotImplementedError),
+    (["--vae_decode_chunk", "1"], NotImplementedError),
+    (["--offload_scorers"], NotImplementedError), (["--score_chunk", "8"], NotImplementedError),
+    (["--gelu_exact"], NotImplementedError),
 ])
-def test_eval_cli_refuses_unported_options(flag):
-    with pytest.raises(NotImplementedError):
-        ev.main(["--tiny", "--device", "cpu", *flag])
+def test_eval_cli_refuses_unported_options(flag, error):
+    """The options still unported are refused; the ported weight flags
+    refuse a file that is not there."""
+    with pytest.raises(error):
+        ev.main(["--tiny", "--device", "cpu", "--max_prompts", "2", *flag])
+
+
+def _write_weights(tmp_path):
+    """The tiny eval's own random towers (``--seed 0``) written as the files
+    its weight flags take: a diffusers directory, HF ``CLIPModel`` files for
+    PickScore, CLIP and HPS, the CLIP-L tower, and a BLIP-layout ImageReward
+    checkpoint (token types zero, so the fold changes nothing). HPS comes
+    from another seed, so its scores must move."""
+    from pairwise_sample_optimization_tpu_torch.checkpoints import save_file
+
+    pipe = SDXLPipeline.random(tiny=True, resolution=RES, lora_rank=16, dtype=torch.float32,
+                               device="cpu", with_scorer=False)
+    frozen = lambda m: {k: v for k, v in m.state_dict().items() if ".lora." not in k}
+    for folder, module in (("unet", pipe.unet), ("vae", pipe.vae), ("text_encoder", pipe.te1),
+                           ("text_encoder_2", pipe.te2)):
+        (tmp_path / "sdxl" / folder).mkdir(parents=True)
+        save_file(frozen(module), str(tmp_path / "sdxl" / folder / "weights.safetensors"))
+    scorers = ev.build_scorers(list(ev.SCORERS), True, 0, "cpu")
+    other = ev.build_scorers(["hps"], True, 7, "cpu")["hps"]
+    paths = {}
+    for name, module in (("pickscore", scorers["pickscore"].model),
+                         ("clip", scorers["clip"].model), ("hps", other.model),
+                         ("aesthetic", scorers["aesthetic"].vision)):
+        paths[name] = str(tmp_path / f"{name}.safetensors")
+        save_file(module.state_dict(), paths[name])
+    ir = scorers["imagereward"]
+    blip = {**{"blip.visual_encoder." + k: v for k, v in ir.vit.state_dict().items()},
+            **{"blip.text_encoder." + k: v for k, v in ir.bert.state_dict().items()},
+            **{"mlp." + k: v for k, v in ir.mlp.state_dict().items()},
+            "blip.text_encoder.embeddings.token_type_embeddings.weight":
+                torch.zeros(2, ir.bert.config.hidden)}
+    paths["imagereward"] = str(tmp_path / "ImageReward.pt")
+    torch.save(blip, paths["imagereward"])
+    return paths
+
+
+def test_eval_cli_weight_flags_load_each_tower(tmp_path):
+    """Every weight flag at once, on files holding the tiny eval's own
+    random towers: the scores equal the run without flags, but HPS's (its
+    file holds another seed's tower)."""
+    paths = _write_weights(tmp_path)
+    common = ("--max_prompts", "3")
+    _, plain = _run_eval(tmp_path, "plain", *common)
+    _, loaded = _run_eval(tmp_path, "loaded", *common, "--model_dir", str(tmp_path / "sdxl"),
+                          "--pickscore_dir", paths["pickscore"], "--clip_dir", paths["clip"],
+                          "--hps_path", paths["hps"], "--aesthetic_clip_dir", paths["aesthetic"],
+                          "--imagereward_path", paths["imagereward"])
+    for name in ev.SCORERS:
+        got, want = np.array(loaded["per_prompt"][name]), np.array(plain["per_prompt"][name])
+        if name == "hps":
+            assert np.abs(got - want).max() > 1e-4
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def test_eval_cli_with_a_trained_lora_differs_from_without(tmp_path):
+    """``--lora_path`` of the adapter a tiny DMD2 run trains (one update at a
+    large learning rate) changes the scores."""
+    from pairwise_sample_optimization_tpu_torch.checkpoints import LORA_FILE
+    from pairwise_sample_optimization_tpu_torch.cli import online_runner
+    from pairwise_sample_optimization_tpu_torch.cli.train_online_pso_sdxl_dmd2 import build_config
+
+    config = build_config(True, [f"output_dir={tmp_path}", "run_name=t",
+                                 "train.learning_rate=0.05"])
+    online_runner.run_online_pso(config, sampler="dmd", num_epochs=1, device="cpu")
+    lora = f"{online_runner.run_dir(config, 'dmd')}/lora-1/{LORA_FILE}"
+    common = ("--max_prompts", "2", "--lora_rank", "4", "--scorers", "pickscore,imagereward")
+    _, base = _run_eval(tmp_path, "base", *common)
+    _, tuned = _run_eval(tmp_path, "tuned", *common, "--lora_path", lora)
+    for name in ("pickscore", "imagereward"):
+        assert np.abs(np.array(base["per_prompt"][name])
+                      - np.array(tuned["per_prompt"][name])).min() > 0, name
 
 
 def test_round_robin_shards_gather_back_in_order():
@@ -258,7 +336,10 @@ def test_chip_smoke_launch_counts_match_the_tiny_eval(tmp_path):
     prompts.write_text("a red fox\nan astronaut riding a horse\na bowl of ramen\n")
     with cs.ShapeRecorder() as rec:
         _run_eval(tmp_path, "c", "--prompts_json", str(prompts))
-    layers = [CLIPVisionConfig.tiny().layers] * 4
+    from pairwise_sample_optimization_tpu_torch.models import BertConfig, ViTConfig
+
+    layers = [CLIPVisionConfig.tiny().layers] * 4 + [ViTConfig.tiny().layers
+                                                     + BertConfig.tiny().layers]
     want = cs.expected_eval_launches(UNetConfig.tiny(), VAEConfig.tiny(), STEPS, 2, layers)
     got = {"flash_attn_fwd": sum(rec.attention.values()),
            "flash_attn_bwd_pre": sum(rec.attention_bwd.values()),
@@ -267,8 +348,10 @@ def test_chip_smoke_launch_counts_match_the_tiny_eval(tmp_path):
                                       if cs.bwd_needs_post(qs, ks[1])),
            "gn_stats": sum(rec.gn.values()), "gn_silu_norm": sum(rec.gn.values())}
     assert got == want
-    # the four vision towers (17 tokens: 16 patches and the class token)
-    assert rec.attention[((2, 17, 4, 8), (2, 17, 4, 8), torch.float32)] == 2 * 4 * 2
+    # the four CLIP vision towers and ImageReward's ViT (17 tokens: 16 patches
+    # and the class token), and BERT's cross-attention from its 35 tokens
+    assert rec.attention[((2, 17, 4, 8), (2, 17, 4, 8), torch.float32)] == 2 * 5 * 2
+    assert rec.attention[((2, 35, 4, 8), (2, 17, 4, 8), torch.float32)] == 2 * 2
 
 
 def test_reward_registry_matches_jax_and_refuses_the_jpeg_rewards():

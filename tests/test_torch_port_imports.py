@@ -88,11 +88,12 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from pairwise_sample_optimization_tpu_torch.models import (
-        AutoencoderKL, CLIPDualEncoder, CLIPTextConfig, CLIPTextTower, CLIPVisionConfig,
-        CLIPVisionTower, SDXLUNet, UNetConfig, VAEConfig)
+        AutoencoderKL, BertConfig, BertEncoder, CLIPDualEncoder, CLIPTextConfig, CLIPTextTower,
+        CLIPVisionConfig, CLIPVisionTower, SDXLUNet, UNetConfig, VAEConfig, ViT, ViTConfig)
     from pairwise_sample_optimization_tpu_torch.pipeline import SDXLPipeline
     from pairwise_sample_optimization_tpu_torch.rewards import (AestheticMLP, AestheticScorer,
                                                                 CLIPScorer, HPSScorer,
+                                                                ImageRewardScorer,
                                                                 PickScoreScorer)
 
     builders = [
@@ -107,6 +108,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         lambda **kw: HPSScorer.random(CLIPTextConfig.tiny(), CLIPVisionConfig.tiny(), **kw),
         lambda **kw: AestheticScorer.random(CLIPVisionConfig.tiny(), **kw),
         lambda **kw: AestheticMLP(16, **kw),
+        lambda **kw: ViT(ViTConfig.tiny(), **kw),
+        lambda **kw: BertEncoder(BertConfig.tiny(), **kw),
+        lambda **kw: ImageRewardScorer.random(ViTConfig.tiny(), BertConfig.tiny(), **kw),
     ]
     for build in builders:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -137,6 +141,31 @@ def test_dmd2_entry_points_default_to_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         evaluate_sdxl_dmd2.main(["--tiny", "--max_prompts", "2"])
     assert not any(tmp_path.iterdir())
+
+
+def test_generate_and_the_checkpoint_loaders_default_to_cuda(no_cuda, tmp_path):
+    """``cli/generate.py``, ``SDXLPipeline.from_torch_dir`` and the eval's
+    ``--model_dir`` take the card unless told otherwise; on the CPU when
+    asked, generate writes its PNGs."""
+    from pairwise_sample_optimization_tpu_torch.checkpoints import save_file
+    from pairwise_sample_optimization_tpu_torch.cli import evaluate_sdxl_dmd2, generate
+    from pairwise_sample_optimization_tpu_torch.pipeline import SDXLPipeline
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate.main(["--tiny", "--prompt", "a red fox", "--out", str(tmp_path / "g")])
+    assert not (tmp_path / "g").exists()
+    (tmp_path / "sdxl" / "vae").mkdir(parents=True)
+    vae = SDXLPipeline.random(tiny=True, device="cpu", with_scorer=False).vae
+    save_file(vae.state_dict(), str(tmp_path / "sdxl" / "vae" / "w.safetensors"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SDXLPipeline.from_torch_dir(str(tmp_path / "sdxl"), tiny=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_sdxl_dmd2.main(["--tiny", "--max_prompts", "1", "--model_dir",
+                                 str(tmp_path / "sdxl")])
+    SDXLPipeline.from_torch_dir(str(tmp_path / "sdxl"), tiny=True, device="cpu")
+    paths = generate.main(["--tiny", "--device", "cpu", "--prompt", "a red fox", "--out",
+                           str(tmp_path / "g")])
+    assert [Path(p).name for p in paths] == ["000.png"]
 
 
 class _FakeLib:
@@ -327,7 +356,10 @@ def _port_imports(path: Path):
 
 @pytest.mark.parametrize("entry", ["cli/train_online_pso_sdxl_dmd2.py",
                                    "cli/evaluate_sdxl_dmd2.py",
-                                   "checkpoints/scorer_loaders.py", "rewards/aesthetic.py"])
+                                   "checkpoints/scorer_loaders.py", "rewards/aesthetic.py",
+                                   "cli/generate.py", "cli/online_runner.py",
+                                   "checkpoints/clip_loader.py", "rewards/imagereward.py",
+                                   "data/wordpiece.py", "utils/png.py"])
 def test_new_entry_points_need_only_torch_numpy_and_the_stdlib(entry):
     """Every module the entry point reaches, through the port's own imports,
     imports nothing but the port, torch, numpy and the standard library."""
@@ -367,14 +399,18 @@ def test_packaged_assets_are_the_ports_own_copies():
 
 
 def test_safetensors_modules_are_covered_and_use_no_safetensors_package():
-    """The port writes and reads safetensors files itself: its two modules
-    for it are among those the import tests walk, and neither imports the
-    ``safetensors`` package (the card's machine has none)."""
+    """The port writes and reads safetensors files itself: its modules for
+    it (and for the checkpoints it reads and the PNGs it writes) are among
+    those the import tests walk, and none imports the ``safetensors``
+    package or PIL (the card's machine has neither)."""
     names = {str(p.relative_to(PKG)) for p in _modules()}
-    for mod in ("checkpoints/safetensors_io.py", "checkpoints/lora_safetensors.py"):
+    for mod in ("checkpoints/safetensors_io.py", "checkpoints/lora_safetensors.py",
+                "checkpoints/convert.py", "checkpoints/clip_loader.py",
+                "checkpoints/scorer_loaders.py", "utils/png.py"):
         assert mod in names
         tree = ast.parse((PKG / mod).read_text())
         imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
         imported += [n.module for n in ast.walk(tree)
                      if isinstance(n, ast.ImportFrom) and n.level == 0]
-        assert not any(m.split(".")[0] == "safetensors" for m in imported), (mod, imported)
+        assert not any(m.split(".")[0] in ("safetensors", "PIL") for m in imported), (mod,
+                                                                                      imported)

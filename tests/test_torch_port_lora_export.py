@@ -31,6 +31,16 @@ from pairwise_sample_optimization_tpu_torch.train import (PSOTrainState, lora_pa
 RANK = 4
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The shapes here are tiny: one intra-op thread is as fast, and does not
+    oversubscribe the CPU when test files run in parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def adapters():
     """A tiny JAX UNet's variables (random, LoRA A and B both non-zero) and

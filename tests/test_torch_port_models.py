@@ -1,10 +1,13 @@
 """Port models vs the JAX package's flax models, fp32 on the CPU.
 
-Each JAX tiny module is initialized from a seed, its params (and LoRA
-collection, with a non-zero B so the adapter does work) carried into the
-port with ``state_dict_from_jax`` and loaded with ``strict=True``; inputs
-are made with numpy and handed to both. Tolerance: ATOL 3e-5 / RTOL 2e-4,
-the bar of ``tests/test_torch_parity_blocks.py``.
+Each JAX tiny module gets params from a seed (the UNet's and the VAE's
+drawn with numpy in the flax tree's shapes, which is much faster than
+compiling their init; the CLIP towers' from flax's init), its params (and
+LoRA collection, with a non-zero B so the adapter does work) carried into
+the port with ``state_dict_from_jax`` and loaded with ``strict=True``;
+inputs are made with numpy and handed to both. Each JAX module's apply is
+jitted once per test module. Tolerance: ATOL 3e-5 / RTOL 2e-4, the bar of
+``tests/test_torch_parity_blocks.py``.
 """
 
 import jax
@@ -26,6 +29,29 @@ ATOL, RTOL = 3e-5, 2e-4
 
 def _close(got, want):
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=RTOL)
+
+
+def _random_params(shapes, seed):
+    """Params in a flax tree's shapes (``jax.eval_shape`` of the init):
+    kernels gaussian with std 1/sqrt(fan_in), norms identity, biases and
+    embeddings small, LoRA A gaussian with std 1/rank and B zero."""
+    r = np.random.default_rng(seed)
+
+    def leaf(path, a):
+        name, shape = path[-1].key, a.shape
+        if name == "scale":
+            return np.ones(shape, np.float32)
+        if name == "b":
+            return np.zeros(shape, np.float32)
+        if name == "a":
+            std = 1.0 / shape[-1]
+        elif name == "bias" or len(shape) < 2 or "embedding" in name:
+            std = 0.02
+        else:
+            std = 1.0 / np.sqrt(np.prod(shape[:-1]))
+        return (r.standard_normal(shape) * std).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
 def _nonzero_lora_b(lora, seed):
@@ -52,23 +78,23 @@ def unet_pair():
         r.standard_normal((3, 16)).astype(np.float32),
         np.tile(np.array([[512, 512, 0, 0, 512, 512]], np.float32), (3, 1)),
     )
-    variables = jax.jit(model.init)(jax.random.key(0), *map(jnp.asarray, inputs))
+    shapes = jax.eval_shape(model.init, jax.random.key(0), *map(jnp.asarray, inputs))
+    variables = _random_params(shapes, 0)
     variables = {"params": variables["params"], "lora": _nonzero_lora_b(variables["lora"], 1)}
     port = tunet.SDXLUNet(tunet.UNetConfig.tiny(lora_rank=4), device="cpu")
     port.load_state_dict(state_dict_from_jax(variables, "unet", n_levels=2), strict=True)
-    return model, variables, port, inputs
+    return jax.jit(model.apply), variables, port, inputs
 
 
 @pytest.mark.parametrize("scale", ["one", "zero", "per_sample"])
 def test_tiny_unet_matches_jax(unet_pair, scale):
-    model, variables, port, (x, t, ehs, pooled, tids) = unet_pair
+    apply, variables, port, (x, t, ehs, pooled, tids) = unet_pair
     ls_j, ls_t = {
         "one": (1.0, 1.0),
         "zero": (0.0, 0.0),
         "per_sample": (jnp.asarray([1.0, 0.0, 0.5]), torch.tensor([1.0, 0.0, 0.5])),
     }[scale]
-    want = jax.jit(model.apply)(variables, *map(jnp.asarray, (x, t, ehs, pooled, tids)),
-                                lora_scale=ls_j)
+    want = apply(variables, *map(jnp.asarray, (x, t, ehs, pooled, tids)), lora_scale=ls_j)
     with torch.no_grad():
         got = port(torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(t),
                    torch.from_numpy(ehs), torch.from_numpy(pooled), torch.from_numpy(tids),
@@ -92,8 +118,8 @@ def test_tiny_unet_lora_is_live_and_separate(unet_pair):
 def test_tiny_vae_decode_matches_jax():
     cfg = jvae.VAEConfig.tiny()
     model = jvae.AutoencoderKL(cfg)
-    variables = jax.jit(model.init)(jax.random.key(2), jnp.zeros((1, 16, 16, 3)),
-                                    jax.random.key(3))
+    variables = _random_params(jax.eval_shape(model.init, jax.random.key(2),
+                                              jnp.zeros((1, 16, 16, 3)), jax.random.key(3)), 2)
     port = tvae.AutoencoderKL(tvae.VAEConfig.tiny(), device="cpu")
     port.load_state_dict(state_dict_from_jax(variables["params"], "vae"), strict=True)
     z = np.random.default_rng(4).standard_normal((2, 8, 8, 4)).astype(np.float32) * 0.5

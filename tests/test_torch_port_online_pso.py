@@ -27,7 +27,7 @@ from pairwise_sample_optimization_tpu.models import unet as junet
 from pairwise_sample_optimization_tpu.ops.euler_ancestral import turbo_logprob as j_turbo_logprob
 from pairwise_sample_optimization_tpu.train import online_pso as jpso
 from pairwise_sample_optimization_tpu.train import train_state as jts
-from pairwise_sample_optimization_tpu_torch.checkpoints import state_dict_from_jax
+from pairwise_sample_optimization_tpu_torch.checkpoints import save_train_state, state_dict_from_jax
 from pairwise_sample_optimization_tpu_torch.cli import online_runner
 from pairwise_sample_optimization_tpu_torch.cli.train_online_pso_sdxl_turbo import (build_config,
                                                                                     main)
@@ -388,7 +388,7 @@ def test_config_overrides_keep_types():
 @pytest.mark.parametrize("override,error", [
     ("mesh.fsdp=True", NotImplementedError), ("use_wandb=True", NotImplementedError),
     ("train.int8_ref_pass=True", NotImplementedError),
-    ("pretrained.model_dir=/x", NotImplementedError),
+    ("pretrained.model_dir=/x", FileNotFoundError),
     ("activation_checkpoint=dots", NotImplementedError),
     ("activation_checkpoint=fulll", ValueError), ("use_lora=False", NotImplementedError),
     ("param_dtype=bfloat16", NotImplementedError),
@@ -401,13 +401,92 @@ def test_runner_refuses_unported_knobs(tmp_path, override, error):
 
 
 def test_runner_refuses_a_run_where_validation_would_fire(tmp_path):
-    config = build_config(True, [f"output_dir={tmp_path}", "validation_steps=2"])
-    with pytest.raises(NotImplementedError, match="validation"):
+    """Validation is ported; its HF datasets source is not: a run where
+    validation would fire on an ``hf:`` source is refused before any work,
+    one where it would not fire is not."""
+    config = build_config(True, [f"output_dir={tmp_path}", "validation_steps=2",
+                                 "val_dataset=hf:yuvalkirstain/pickapic_v1_no_images"])
+    with pytest.raises(NotImplementedError, match="val_dataset"):
         online_runner.run_online_pso(config, num_epochs=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="validation"):  # the DMD2 sampler too
+    with pytest.raises(NotImplementedError, match="val_dataset"):  # the DMD2 sampler too
         online_runner.run_online_pso(config, sampler="dmd", num_epochs=2, device="cpu")
+    assert not any(tmp_path.iterdir())
     with pytest.raises(ValueError, match="unknown sampler"):
         online_runner.run_online_pso(config, sampler="ddim", num_epochs=1, device="cpu")
+    _, history, _ = online_runner.run_online_pso(config, num_epochs=1, device="cpu")
+    assert len(history) == 1
+
+
+@pytest.mark.parametrize("sampler", ["turbo", "dmd"])
+def test_validation_logs_finite_scores_and_writes_pngs(tmp_path, sampler):
+    """A tiny run with ``validation_steps = 1`` on three prompts at batch 2
+    (the last chunk padded): ``val/pickscore`` and ``val/clip_score`` are
+    logged at the step, finite and the means of the scorers' per-prompt
+    scores, and ``val-1/`` holds the first (up to five) images as PNGs."""
+    config = build_config(True, [f"output_dir={tmp_path}", "run_name=v", "validation_steps=1",
+                                 "val_max_prompts=3"])
+    _, _, pipe = online_runner.run_online_pso(config, sampler=sampler, num_epochs=1,
+                                              device="cpu")
+    rows = [json.loads(r) for r in (tmp_path / "v" / "metrics.jsonl").read_text().splitlines()]
+    val = [r for r in rows if "val/pickscore" in r]
+    assert len(val) == 1 and val[0]["step"] == 1
+    assert all(math.isfinite(val[0][k]) for k in ("val/pickscore", "val/clip_score",
+                                                  "time/validation_s"))
+    assert sorted(p.name for p in (tmp_path / "v" / "val-1").iterdir()) == ["0.png", "1.png",
+                                                                              "2.png"]
+    # the same numbers from run_validation on the trained pipeline, and the
+    # CLIP scorer (same architecture, its own seed) differs from PickScore
+    s = pipe.scorer.model
+    clip = online_runner.CLIPScorer.random(s.text_config, s.vision_config, seed=config.seed + 2,
+                                           device="cpu")
+    again = online_runner.run_validation(
+        pipe, clip, online_runner.validation_prompts(config),
+        ttok.make_clip_tokenizers(vocab_size=pipe.te1.config.vocab_size, with_reward=True),
+        sampler, config.seed, config.sample.batch_size)
+    assert again["val/pickscore"] == pytest.approx(val[0]["val/pickscore"], rel=1e-5)
+    assert again["val/clip_score"] == pytest.approx(val[0]["val/clip_score"], rel=1e-5)
+    assert again["val/pickscore"] != again["val/clip_score"]
+
+
+def test_default_validation_steps_fire_at_step_100(tmp_path):
+    """A default-length run is no longer refused: resumed at step 99 with the
+    default ``validation_steps`` (100), the next update validates on the
+    built-in prompts (``val_dataset``'s default names no local file)."""
+    config = build_config(True, [f"output_dir={tmp_path}", "run_name=d", "val_max_prompts=2"])
+    assert config.validation_steps == 100 and config.val_dataset == "pickapic_test_unique"
+    config.validation_steps = 0
+    state, _, _ = online_runner.run_online_pso(config, num_epochs=1, device="cpu")
+    state.step = 99
+    save_train_state(str(tmp_path / "d"), 99, state, {"epoch": 0})
+    config.validation_steps, config.resume_from = 100, str(tmp_path / "d")
+    state, _, _ = online_runner.run_online_pso(config, num_epochs=1, device="cpu")
+    assert state.step == 100
+    rows = [json.loads(r) for r in (tmp_path / "d" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows if "val/pickscore" in r] == [100]
+    assert len(list((tmp_path / "d" / "val-100").glob("*.png"))) == 2
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (5, 7), (16, 33)])
+def test_png_writer_decodes_with_pil_to_the_same_pixels(tmp_path, hw):
+    """The stdlib PNG writer against PIL (used only here); images in [-1, 1]
+    become uint8 as the JAX runner saves them: (x + 1) * 127.5, clipped,
+    truncated."""
+    from PIL import Image
+
+    from pairwise_sample_optimization_tpu_torch.utils.png import save_pngs, to_uint8, write_png
+
+    rgb = np.random.default_rng(hw[1]).integers(0, 256, hw + (3,)).astype(np.uint8)
+    write_png(str(tmp_path / "a.png"), rgb)
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "a.png")), rgb)
+    images = np.random.default_rng(1).uniform(-1.2, 1.2, (2,) + hw + (3,)).astype(np.float32)
+    want = ((images + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
+    np.testing.assert_array_equal(to_uint8(torch.from_numpy(images)), want)
+    paths = save_pngs(torch.from_numpy(images), str(tmp_path / "out"), first=3)
+    assert [p.rsplit("/", 1)[1] for p in paths] == ["3.png", "4.png"]
+    for path, w in zip(paths, want):
+        np.testing.assert_array_equal(np.asarray(Image.open(path)), w)
+    with pytest.raises(ValueError):
+        write_png(str(tmp_path / "b.png"), rgb.astype(np.float32))
 
 
 def test_runner_tiny_epoch_logs_saves_and_resumes(tmp_path):
@@ -439,25 +518,28 @@ def test_cli_tiny_cpu_run(tmp_path):
 def test_chip_smoke_launch_counts_match_the_tiny_loop(tmp_path):
     """The launch counts chip_smoke.py expects of the online loop equal the
     kernel-wrapper calls the loop makes (counted here on the CPU, where the
-    wrappers take their plain versions), with remat on and off and with the
-    reference pass fused or not."""
+    wrappers take their plain versions), with remat on and off, with the
+    reference pass fused or not, and with a validation of three prompts."""
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    for extra in ([], ["train.fuse_ref_pass=True"], ["activation_checkpoint="]):
+    for extra in ([], ["train.fuse_ref_pass=True"], ["activation_checkpoint="],
+                  ["validation_steps=1", "val_max_prompts=3"]):
         config = build_config(True, [f"output_dir={tmp_path}", "run_name=c"] + extra)
         with cs.ShapeRecorder() as rec:  # one pair batch, one update of 1 x T microbatches
             _, _, pipe = online_runner.run_online_pso(config, num_epochs=1, device="cpu")
         want = cs.expected_launches(pipe, STEPS)
         upd = cs.expected_update_launches(pipe.unet.config, T, config.train.fuse_ref_pass,
                                           2 * config.train.batch_size, pipe.latent_hw)
+        val = cs.expected_validation_launches(pipe, 3, config.sample.batch_size,
+                                              int(config.validation_steps == 1))
         got = {"flash_attn_fwd": sum(rec.attention.values()),
                "flash_attn_bwd_pre": sum(rec.attention_bwd.values()),
                "flash_attn_bwd": sum(rec.attention_bwd.values()),
                "flash_attn_bwd_post": sum(n for (qs, ks, _), n in rec.attention_bwd.items()
                                           if cs.bwd_needs_post(qs, ks[1])),
                "gn_stats": sum(rec.gn.values()), "gn_silu_norm": sum(rec.gn.values())}
-        assert got == {k: want[k] + upd[k] for k in want}, extra
+        assert got == {k: want[k] + upd[k] + val[k] for k in want}, extra
         # the backward's shapes the count formula derives from the config are
         # the ones the loop handed the backward
         derived = collections.Counter()
