@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of online PSO (serving, updates, eval) on one NVIDIA H100.
+"""Drive the PyTorch port of PSO (serving, online updates, eval, DreamBooth) on one NVIDIA H100.
 
     python3 chip_smoke.py [--seed N]
 
@@ -70,7 +70,27 @@ PyTorch. In order:
    launches a batch among them), scores finite, and the first two prompts
    run again at batch 1 must score the same within ``TOL["eval_batch"]``.
    Prints prompts/min and peak memory;
-8. one phase per kernel at every shape steps 5-7 gave it (recorded during
+8. DreamBooth PSO through its entry point,
+   ``cli.train_pso_sdxl_turbo_dreambooth.main``, at full width and 512^2
+   (random weights, bf16 towers, fp32 LoRA rank 16, remat "full") on four
+   instance PNGs of non-square sizes the script writes with the port's PNG
+   writer (so the reader, the bicubic resize and the random crops run on
+   real files): run A, the reference workload's shape (``pso_db``,
+   ``euler_edm``, batch 1, 4 accumulation steps, 4 self-generated
+   negatives, checkpoints and a 25-prompt validation every 2 steps) to
+   step 2, then resumed from ``latest`` to step 3; run B (``pso`` with its
+   reference pass fused at policy batch 8, ``edm``, prior preservation
+   with 4 class images generated into the class directory as PNGs and read
+   back, 2 accumulation steps), one step. Launch counts as
+   ``expected_dreambooth_launches`` implies (VAE encoder calls, the
+   negatives', class images' and validation's generations, the updates),
+   losses finite, the resumed run starting at step 2, the LoRA moved and
+   the frozen UNet unchanged, run B's first loss minus its prior term log 2
+   within 1e-3, ``lora-2`` / ``lora-3`` equal to their checkpoints'
+   adapters, 25 PNGs under ``gen_2/``. Prints s per optimizer step (steady
+   steps, synchronized), the negatives' and the encodes' s, the
+   validation's s and peak memory;
+9. one phase per kernel at every shape steps 5-8 gave it (recorded during
    those runs) in bf16, plus one fp32 case and, for the attention kernels,
    the bf16 ragged lengths of ``RAGGED`` (and, for the forward, of
    ``RAGGED_FWD`` at head dims 80 and 512; 0 launches): the kernel against
@@ -101,8 +121,8 @@ PyTorch. In order:
    bf16 at the ``RAGGED`` shapes. The plain attention forward runs over
    slices of the batch where its logits would pass 1 GiB (the VAE's 16384
    tokens). GroupNorm rows report the share of the limit used;
-9. prints the card line again, the ``{"kernels": [...]}`` line (launches:
-   the sum over the runs of steps 5-7), then, last, the device line.
+10. prints the card line again, the ``{"kernels": [...]}`` line (launches:
+   the sum over the runs of steps 5-8), then, last, the device line.
 
 Any failure raises, and the script exits non-zero. It also exits non-zero,
 printing no result, where CUDA or the port's package is missing. The full
@@ -445,12 +465,14 @@ def bwd_needs_post(q_shape, skv, sms=132):
     return bool(dq_rows or kv_rows)
 
 
-def expected_update_launches(ucfg, n_micro, fuse_ref_pass, batch, latent_hw, sms=132):
+def expected_update_launches(ucfg, n_micro, fuse_ref_pass, batch, latent_hw, sms=132,
+                             reference=True):
     """Launches of one optimizer update of ``n_micro`` microbatches with a
     policy pass at ``batch``. Per microbatch: the policy forward (with
-    grad), its recompute under remat "full" and, unless fused into the
-    policy call (one call at twice the batch), the reference forward (no
-    grad); per attention call in the backward the pre kernel and the
+    grad), its recompute under remat "full" and, where there is a reference
+    pass (``reference``; DreamBooth's ``pso_db`` has none) and it is not
+    fused into the policy call (one call at twice the batch), the reference
+    forward (no grad); per attention call in the backward the pre kernel and the
     backward kernel, and the post kernel where that call's lengths give an
     accumulator (``bwd_needs_post`` on a card of ``sms`` SMs). Under remat
     the ResnetBlocks that run before the first attention are not
@@ -460,13 +482,65 @@ def expected_update_launches(ucfg, n_micro, fuse_ref_pass, batch, latent_hw, sms
     shapes = attention_shapes(ucfg, batch * (2 if fuse_ref_pass else 1), latent_hw)
     assert len(shapes) == attn, (len(shapes), attn)
     remat = ucfg.remat == "full"
-    passes = 1 + (0 if fuse_ref_pass else 1)
+    passes = 1 + (0 if fuse_ref_pass or not reference else 1)
     k1 = attn * (passes + remat)
     k45 = gn * passes + (2 * (resnets - grad_free) if remat else 0)
     post = sum(bwd_needs_post(q, skv, sms) for q, skv in shapes)
     return {"flash_attn_fwd": n_micro * k1, "flash_attn_bwd_pre": n_micro * attn,
             "flash_attn_bwd": n_micro * attn, "flash_attn_bwd_post": n_micro * post,
             "gn_stats": n_micro * k45, "gn_silu_norm": n_micro * k45}
+
+
+DB_VIEWS = 8  # random crops kept per instance image (``DreamBoothDataset``'s aug_pool)
+DB_VALIDATION_PROMPTS = 25
+
+
+def expected_encode_launches(vcfg):
+    """Launches of one VAE encoder call: its mid-block attention (d = 512) and
+    its GroupNorm+SiLU calls (two per ResnetBlock and ``conv_norm_out``; the
+    attention's GroupNorm has no SiLU and takes no kernel)."""
+    resnets = len(vcfg.block_out_channels) * vcfg.layers_per_block + 2
+    gn = 2 * resnets + 1
+    return {"flash_attn_fwd": 1, "flash_attn_bwd_pre": 0, "flash_attn_bwd": 0,
+            "flash_attn_bwd_post": 0, "gn_stats": gn, "gn_silu_norm": gn}
+
+
+def expected_dreambooth_launches(pipe, args, instance_images, steps, first_step=0,
+                                 class_images_before=0, sms=132):
+    """Launches of one ``cli.train_pso_sdxl_turbo_dreambooth`` run (``args``
+    as its ``parse_args`` gives them) of ``steps`` optimizer steps from
+    ``first_step``, on a directory of ``instance_images`` images and a class
+    directory that held ``class_images_before``: VAE encoder calls of
+    ``sample_batch_size`` images (the instance views: ``DB_VIEWS`` random
+    crops per image unless center-cropped, twice with flips, times
+    ``repeats``; the negatives; the class images), 4-step generations (the
+    negatives and the missing class images in batches of
+    ``sample_batch_size``, one per validation prompt) and per step one
+    update of ``gradient_accumulation_steps`` microbatches with a policy
+    pass at twice the win half (the batch, doubled by prior preservation),
+    ``pso``'s reference fused into it, ``pso_db`` without one."""
+    ucfg, vcfg = pipe.unet.config, pipe.vae.config
+    bs = max(1, args.sample_batch_size)
+    calls = lambda n, batch: -(-n // batch) if n > 0 else 0
+    views = (instance_images * args.repeats * (1 if args.center_crop else DB_VIEWS)
+             * (2 if args.random_flip else 1))
+    encodes = calls(views, bs) + calls(args.num_negatives, bs)
+    generations = calls(args.num_negatives, min(bs, args.num_negatives))
+    prior = bool(args.with_prior_preservation and args.class_data_dir)
+    if prior:
+        missing = args.num_class_images - class_images_before
+        generations += calls(missing, min(bs, max(missing, 1)))
+        encodes += calls(max(class_images_before, args.num_class_images), bs)
+    if not args.skip_validation and args.validation_steps:
+        generations += DB_VALIDATION_PROMPTS * sum(
+            (s + 1) % args.validation_steps == 0 for s in range(first_step, first_step + steps))
+    pso = args.loss_type == "pso"
+    upd = expected_update_launches(ucfg, args.gradient_accumulation_steps, pso,
+                                   2 * args.train_batch_size * (2 if prior else 1),
+                                   pipe.latent_hw, sms, reference=pso)
+    gen = _generation_launches(ucfg, vcfg, 4, [])
+    enc = expected_encode_launches(vcfg)
+    return {k: encodes * enc[k] + generations * gen[k] + steps * upd[k] for k in gen}
 
 
 class ShapeRecorder:
@@ -1024,6 +1098,177 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
 
 
 # ---------------------------------------------------------------------- #
+# DreamBooth PSO (instance PNGs, self-generated negatives, LoRA updates)
+# ---------------------------------------------------------------------- #
+
+DB_IMAGES = ((600, 520), (520, 640), (560, 600), (640, 576))  # (h, w) of the instance PNGs
+
+
+def _instance_image(h, w, rng):
+    """A smooth colour field with noise, uint8 (random content the resize
+    and crops act on)."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    phase = rng.uniform(0, 6.3, 3)
+    base = np.stack([np.sin(6 * xx + p) + np.cos(5 * yy - p) for p in phase], -1)
+    return np.clip(127.5 + 60 * base + rng.normal(0, 8, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def dreambooth_slice(seed, recorder):
+    """``cli.train_pso_sdxl_turbo_dreambooth.main`` at full width and 512^2
+    (random weights from ``seed``, bf16 towers, fp32 LoRA rank 16, remat
+    "full") on four instance PNGs of non-square sizes written by the port's
+    writer, shapes recorded into ``recorder``. Run A (the reference
+    workload's shape: ``pso_db``, ``euler_edm``, batch 1, 4 accumulation
+    steps, 4 negatives, checkpoints and validation every 2 steps with one
+    image per prompt) to step 2, then again with ``--resume_from_checkpoint
+    latest`` to step 3; run B (``pso``, ``edm``, prior preservation with 4
+    class images generated into the class directory, 2 accumulation steps)
+    one step. Checks: launch counts as ``expected_dreambooth_launches``
+    says, finite losses, run A2 starting at step 2, the LoRA moved and the
+    frozen UNet unchanged (against a rebuild from the seed), run B's first
+    loss minus ``prior_loss_weight`` x its lose loss at log 2 (a fresh
+    adapter: policy = reference), ``lora-2`` and ``lora-3`` equal to the
+    adapters ``checkpoint-2`` and ``checkpoint-3`` restore, 25 validation
+    PNGs under ``gen_2/``, four class PNGs written."""
+    import numpy as np
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.checkpoints import (LORA_FILE, load_file,
+                                                                    restore_train_state)
+    from pairwise_sample_optimization_tpu_torch.cli import train_pso_sdxl_turbo_dreambooth as db
+    from pairwise_sample_optimization_tpu_torch.models.layers import init_random_
+    from pairwise_sample_optimization_tpu_torch.models.unet import SDXLUNet
+    from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
+    from pairwise_sample_optimization_tpu_torch.train import (PSOTrainState, lora_parameters,
+                                                              make_optimizer)
+    from pairwise_sample_optimization_tpu_torch.utils.png import read_png, write_png
+
+    root = RUN_DIR / "dreambooth"
+    shutil.rmtree(root, ignore_errors=True)
+    inst = root / "instance"
+    inst.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    for i, (h, w) in enumerate(DB_IMAGES):
+        write_png(str(inst / f"{i}.png"), _instance_image(h, w, rng))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    common = ["--device", "cuda", "--seed", str(seed), "--instance_data_dir", str(inst),
+              "--instance_prompt", "a photo of sks dog", "--class_prompt", "a photo of dog",
+              "--rank", "16", "--train_batch_size", "1", "--gradient_checkpointing",
+              "--num_negatives", "4", "--sample_batch_size", "4", "--checkpointing_steps", "2",
+              "--validation_steps", "2", "--num_validation_images", "1"]
+    run_a = common + ["--output_dir", str(root / "a"), "--loss_type", "pso_db",
+                      "--scheduler_space", "euler_edm", "--gradient_accumulation_steps", "4"]
+    run_b = common + ["--output_dir", str(root / "b"), "--loss_type", "pso",
+                      "--scheduler_space", "edm", "--with_prior_preservation", "--class_data_dir",
+                      str(root / "class"), "--num_class_images", "4",
+                      "--gradient_accumulation_steps", "2", "--max_train_steps", "1"]
+
+    def run(name, argv, first_step):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        with recorder:
+            state, history, pipe = db.main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts, peak = dict(kernel_lib.launch_counts), torch.cuda.max_memory_allocated()
+        args = db.parse_args(argv)
+        want = expected_dreambooth_launches(pipe, args, len(DB_IMAGES), len(history), first_step,
+                                            sms=sms)
+        if counts != want:
+            raise AssertionError(f"dreambooth {name} launch counts {counts} != expected {want}")
+        if state.step - len(history) != first_step or not history:
+            raise AssertionError(f"dreambooth {name} ran steps {state.step - len(history) + 1}.."
+                                 f"{state.step}, expected from {first_step + 1}")
+        for m in history:
+            if not all(math.isfinite(m[k]) for k in ("loss", "win_loss", "lose_loss")):
+                raise AssertionError(f"dreambooth {name}: non-finite metrics {m}")
+        out = Path(args.output_dir)
+        rows = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+        setup = next(r for r in reversed(rows) if "time/encode_s" in r)
+        return {"history": history, "launches": counts, "expected_launches": want,
+                "wall_s": wall_s, "peak_bytes": peak, "setup_s": {
+                    k[5:-2]: v for k, v in setup.items() if k.startswith("time/")},
+                "validation_s": [r["time/validation_s"] for r in rows
+                                 if "time/validation_s" in r]}, state, pipe
+
+    a1, _, pipe = run("A1", run_a + ["--max_train_steps", "2"], 0)
+    del pipe
+    torch.cuda.empty_cache()
+    a2, state, pipe = run("A2", run_a + ["--max_train_steps", "3",
+                                         "--resume_from_checkpoint", "latest"], 2)
+    # frozen UNet weights unchanged and LoRA moved, against a rebuild from the
+    # seed (the UNet is the first tower SDXLPipeline.random draws)
+    ref = SDXLUNet(pipe.unet.config, device="meta").to_empty(device="cuda")
+    init_random_(ref, torch.Generator(device="cuda").manual_seed(seed))
+    frozen, lora = _frozen_and_lora(pipe.unet)
+    frozen0, lora0 = _frozen_and_lora(ref)
+    changed = [k for k in frozen if not torch.equal(frozen[k], frozen0[k])]
+    lora_moved = max(float((lora[k].float() - lora0[k].float()).abs().max()) for k in lora)
+    if changed or lora_moved == 0:
+        raise AssertionError(f"dreambooth: frozen UNet weights changed {changed[:5]} or LoRA did "
+                             f"not move (max|delta| {lora_moved})")
+    # each lora-<step> file holds the adapter its checkpoint restores
+    lora_ref = lora_parameters(ref)
+    restored = PSOTrainState.create(lora_ref, make_optimizer(lora_ref))
+    exports = {}
+    for step in (2, 3):
+        extra = restore_train_state(str(root / "a" / f"checkpoint-{step}"), restored)
+        exported = load_file(str(root / "a" / f"lora-{step}" / LORA_FILE))
+        want_lora = {"unet." + k: v.detach().float().cpu() for k, v in restored.lora.items()}
+        if extra.get("step") != step or set(exported) != set(want_lora) or any(
+                not torch.equal(exported[k], want_lora[k]) for k in want_lora):
+            raise AssertionError(f"dreambooth lora-{step} is not checkpoint-{step}'s adapter")
+        exports[step] = len(exported)
+    if any(not torch.equal(restored.lora[k], state.lora[k]) for k in state.lora):
+        raise AssertionError("dreambooth: checkpoint-3 does not hold the final adapter")
+    pngs = sorted((root / "a" / "gen_2").glob("p_*/img_*.png"))
+    if len(pngs) != DB_VALIDATION_PROMPTS or any(read_png(str(p)).shape != (512, 512, 3)
+                                                 for p in pngs):
+        raise AssertionError(f"gen_2/ holds {len(pngs)} validation PNGs")
+    del pipe, state, ref, restored, frozen, frozen0, lora, lora0, lora_ref
+    torch.cuda.empty_cache()
+    b, _, pipe = run("B", run_b, 0)
+    del pipe
+    torch.cuda.empty_cache()
+    first = b["history"][0]
+    prior_w = db.parse_args(run_b).prior_loss_weight
+    if abs(first["loss"] - prior_w * first["lose_loss"] - math.log(2.0)) > 1e-3:
+        raise AssertionError(f"dreambooth B first loss {first} - {prior_w} x lose_loss != log 2")
+    class_pngs = sorted((root / "class").glob("class-*.png"))
+    if len(class_pngs) != 4:
+        raise AssertionError(f"class directory holds {[p.name for p in class_pngs]}")
+    steady = [m["time/step_s"] for m in a1["history"][1:] + a2["history"]]
+    launches = {k: a1["launches"][k] + a2["launches"][k] + b["launches"][k] for k in KERNELS}
+    summary = {
+        "instance_images": [list(hw) for hw in DB_IMAGES], "resolution": 512, "lora_rank": 16,
+        "run_a1": a1, "run_a2": a2, "run_b": b, "launches": launches,
+        "s_per_step_steady": statistics.median(steady), "steady_steps_s": steady,
+        "negatives_s": a1["setup_s"].get("negatives"), "encode_s": a1["setup_s"].get("encode"),
+        "validation_s": a1["validation_s"][0], "lora_max_abs_delta": lora_moved,
+        "lora_exports": exports, "validation_pngs": len(pngs),
+        "peak_bytes": max(r["peak_bytes"] for r in (a1, a2, b)),
+    }
+    log(f"dreambooth (512^2, 4 instance PNGs): run A pso_db/euler_edm ga 4 policy batch 2: "
+        f"{summary['s_per_step_steady']:.3f} s per optimizer step (steady steps "
+        f"{[round(x, 3) for x in steady]}; first {a1['history'][0]['time/step_s']:.3f} s), "
+        f"negatives {summary['negatives_s']:.3f} s (4 images), encode {summary['encode_s']:.3f} s "
+        f"({len(DB_IMAGES) * DB_VIEWS} views + 4 negatives), validation "
+        f"{summary['validation_s']:.3f} s (25 images), losses "
+        f"{[round(m['loss'], 5) for m in a1['history'] + a2['history']]}, A2 resumed at step 2; "
+        f"run B pso/edm prior ga 2 policy batch 8 (fused): {b['history'][0]['time/step_s']:.3f} s, "
+        f"loss {first['loss']:.6f} = log 2 + {prior_w} x {first['lose_loss']:.6f}, class images "
+        f"{b['setup_s'].get('class_images', 0):.3f} s; peak {summary['peak_bytes'] / 2**30:.2f} "
+        f"GiB; LoRA max|delta| {lora_moved:.3e}, frozen unchanged; lora-2/3 equal their "
+        f"checkpoints; launches {launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    return summary
+
+
+# ---------------------------------------------------------------------- #
 # kernel phases
 # ---------------------------------------------------------------------- #
 
@@ -1433,8 +1678,9 @@ def main(argv=None) -> int:
     train_summary, metrics_jsonl = train_slice(args.seed, "turbo", recorder)
     dmd_summary, dmd_metrics_jsonl = train_slice(args.seed, "dmd", recorder)
     eval_summary = eval_slice(args.seed, recorder)
+    db_summary = dreambooth_slice(args.seed, recorder)
     paths = {"turbo_loop": train_summary["launches"], "dmd_loop": dmd_summary["launches"],
-             "dmd_eval": eval_summary["launches"]}
+             "dmd_eval": eval_summary["launches"], "dreambooth": db_summary["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     bwd_rows, bwd_whole, run_to_run = attention_bwd_phase(recorder.attention_bwd, args.seed)
     rows = {**attention_phase(recorder.attention, args.seed), **bwd_rows,
@@ -1445,6 +1691,7 @@ def main(argv=None) -> int:
     record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": build_s, "small_reference": small, "slice": slice_summary,
               "train": train_summary, "dmd_train": dmd_summary, "eval": eval_summary,
+              "dreambooth": db_summary,
               "launches_by_path": paths, "function_check": function_errs, "kernels": kernels,
               "backward": bwd_whole, "backward_run_to_run": run_to_run,
               "seconds": time.perf_counter() - t_start}

@@ -127,9 +127,8 @@ def state_dict_from_jax(params: Mapping, which: str, n_levels: int | None = None
                         lora: Mapping | None = None) -> Dict[str, torch.Tensor]:
     """flax params (+ ``lora`` collection) -> the port's state dict (fp32 as
     given). ``params`` may also be a variables dict holding ``params`` and
-    ``lora``. For ``which="vae"`` only the decoder and ``post_quant_conv``
-    are carried (the port has no encoder yet). ``n_levels`` is the UNet's
-    number of resolution levels (3 for SDXL). ``which`` names the tower:
+    ``lora``. ``n_levels`` is the UNet's number of resolution levels (3 for
+    SDXL). ``which`` names the tower:
     ``clip_vision`` serves any ``CLIPVisionTower`` (the aesthetic scorer's
     CLIP-L/14 too), ``clip_dual`` a ``CLIPDualEncoder`` (PickScore, CLIP
     score, HPS: its ``text`` and ``vision`` subtrees and ``logit_scale``),
@@ -144,8 +143,6 @@ def state_dict_from_jax(params: Mapping, which: str, n_levels: int | None = None
     name_map = _name_map(which, n_levels)
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _leaves(params):
-        if which == "vae" and path[0] in ("encoder", "quant_conv"):
-            continue
         key, kind = name_map(path)
         out[key] = torch.from_numpy(np.array(_to_torch(arr, kind), order="C"))
     for path, arr in _leaves(lora or {}):

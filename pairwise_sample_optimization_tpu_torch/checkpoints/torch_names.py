@@ -73,6 +73,12 @@ def unet_param_map(path: Tuple[str, ...], n_levels: int = 3) -> Tuple[str, str]:
 
 
 def _vae_block(path0: str) -> str:
+    m = re.fullmatch(r"down_(\d+)_resnet_(\d+)", path0)
+    if m:
+        return f"down_blocks.{m.group(1)}.resnets.{m.group(2)}"
+    m = re.fullmatch(r"down_(\d+)_downsample", path0)
+    if m:
+        return f"down_blocks.{m.group(1)}.downsamplers.0"
     m = re.fullmatch(r"up_(\d+)_resnet_(\d+)", path0)
     if m:
         return f"up_blocks.{m.group(1)}.resnets.{m.group(2)}"
@@ -88,12 +94,12 @@ def _vae_block(path0: str) -> str:
 
 
 def vae_param_map(path: Tuple[str, ...]) -> Tuple[str, str]:
-    """Decoder / post_quant_conv paths only (the encoder is not ported)."""
+    """Encoder, quant_conv, post_quant_conv and decoder paths."""
     *mods, leaf = path
-    if mods[0] == "post_quant_conv":
+    if mods[0] in ("quant_conv", "post_quant_conv"):
         head, rest = mods[0], _inner(tuple(mods[1:]))
-    elif mods[0] == "decoder":
-        head, rest = "decoder." + _vae_block(mods[1]), _inner(tuple(mods[2:]))
+    elif mods[0] in ("encoder", "decoder"):
+        head, rest = mods[0] + "." + _vae_block(mods[1]), _inner(tuple(mods[2:]))
     else:
         raise KeyError(f"VAE module {mods[0]!r} is not part of the port")
     suffix, kind = _leaf(leaf, path[-2] if len(path) > 1 else "")

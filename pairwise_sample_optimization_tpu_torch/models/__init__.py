@@ -1,4 +1,4 @@
-"""SDXL UNet, VAE decoder, CLIP towers and ImageReward's BLIP ViT and BERT
+"""SDXL UNet, VAE, CLIP towers and ImageReward's BLIP ViT and BERT
 (NCHW, diffusers/HF/timm keys)."""
 
 from .clip import (

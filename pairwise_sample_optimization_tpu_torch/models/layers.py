@@ -241,14 +241,18 @@ class ResnetBlock(nn.Module):
 
 
 class Downsample(nn.Module):
-    """Stride-2 3x3 conv with symmetric padding (the UNet's Downsample2D)."""
+    """Stride-2 3x3 conv (diffusers Downsample2D). The UNet pads by one on
+    every side; the VAE encoder (``asymmetric=True``) pads only the bottom
+    and right by one (diffusers' ``padding=0`` and ``F.pad(x, (0, 1, 0, 1))``)."""
 
-    def __init__(self, channels: int, dtype=None):
+    def __init__(self, channels: int, dtype=None, asymmetric: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1, dtype=dtype)
+        self.asymmetric = asymmetric
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0 if asymmetric else 1,
+                              dtype=dtype)
 
     def forward(self, x):
-        return self.conv(x)
+        return self.conv(F.pad(x, (0, 1, 0, 1)) if self.asymmetric else x)
 
 
 class Upsample(nn.Module):

@@ -42,6 +42,18 @@ def make_alphas_cumprod(cfg: NoiseScheduleConfig = NoiseScheduleConfig()) -> np.
     return np.cumprod(1.0 - _betas(cfg)).astype(np.float32)
 
 
+def make_karras_sigmas(num_train_timesteps: int = 1000, sigma_min: float = 0.002,
+                       sigma_max: float = 80.0, rho: float = 7.0) -> np.ndarray:
+    """(T,) Karras et al. (2022) sigma ramp in float32, ascending with the
+    index, so ``sigmas[t]`` pairs with timestep ``t`` as the VE table of
+    :func:`make_alphas_cumprod` does (diffusers' ``EDMEulerScheduler`` stores
+    the same values descending). Computed in float64, then cast."""
+    ramp = np.linspace(0.0, 1.0, num_train_timesteps, dtype=np.float64)
+    min_inv_rho = sigma_min ** (1.0 / rho)
+    max_inv_rho = sigma_max ** (1.0 / rho)
+    return ((min_inv_rho + ramp * (max_inv_rho - min_inv_rho)) ** rho).astype(np.float32)
+
+
 def distill_timesteps(num_steps: int, num_train_timesteps: int = 1000) -> np.ndarray:
     """DMD2 fixed timestep lattice, descending: e.g. n=4 -> [999,749,499,249]."""
     step_ratio = num_train_timesteps // num_steps

@@ -1,4 +1,4 @@
-"""SDXL pipeline: text encoders, LoRA UNet, VAE decoder and PickScore.
+"""SDXL pipeline: text encoders, LoRA UNet, VAE and PickScore.
 
 Counterpart of the JAX package's ``pipeline.py`` for the serving half of
 the online-PSO loop, the composite that ``bench.py`` times:
@@ -122,9 +122,9 @@ class SDXLPipeline:
         (``checkpoints.load_weights``) and cast to ``dtype``. The LoRA keeps
         its fresh draw: down-projections gaussian with std 1/r, up zero, a
         no-op adapter that still gets a gradient (what the JAX package's
-        ``reinit_lora_a`` restores after its zero fill). Read past: the VAE's
-        ``encoder.*`` and ``quant_conv.*`` (the port has no encoder) and
-        the text towers' ``position_ids``. A tower whose folder holds no
+        ``reinit_lora_a`` restores after its zero fill). Every VAE key is
+        read, the encoder's and ``quant_conv`` too; read past: the text
+        towers' ``position_ids``. A tower whose folder holds no
         weight file keeps its random weights, with a warning. The PickScore
         scorer (``with_scorer``) is random: its weights are not part of a
         diffusers checkpoint."""
@@ -165,6 +165,25 @@ class SDXLPipeline:
         """Scaled latents (B, h, w, 4) -> images (B, H, W, 3) in [-1, 1], fp32."""
         z = latents.permute(0, 3, 1, 2).contiguous()
         return self.vae.decode(z).permute(0, 2, 3, 1).float()
+
+    @torch.no_grad()
+    def encode_images(self, images, chunk: int = 0):
+        """Images (N, H, W, 3) in [-1, 1] (a tensor or array, on any device)
+        -> the VAE's latent moments (mean, logvar), each (N, h, w, 4) fp32 on
+        the VAE's device, encoded ``chunk`` images at a time (0: all at
+        once). GroupNorm normalizes each sample on its own, so the chunks
+        give what one call would."""
+        images = torch.as_tensor(images)
+        dev = next(self.vae.parameters()).device
+        n = images.shape[0]
+        step = chunk if chunk > 0 else max(n, 1)
+        means, logvars = [], []
+        for i in range(0, n, step):
+            x = images[i:i + step].to(dev, torch.float32).permute(0, 3, 1, 2)
+            mean, logvar = self.vae.encode(x.contiguous())
+            means.append(mean.permute(0, 2, 3, 1))
+            logvars.append(logvar.permute(0, 2, 3, 1))
+        return torch.cat(means), torch.cat(logvars)
 
     def rollout(self, cond, generator=None, num_steps: int = 4, lora_scale=1.0,
                 init_noise=None, step_noise=None, sampler: str = "turbo",

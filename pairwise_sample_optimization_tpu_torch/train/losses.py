@@ -1,13 +1,15 @@
 """PSO preference construction and the pairwise loss.
 
-Counterpart of the JAX package's ``train/losses.py`` (the DreamBooth loss
-waits for the DreamBooth slice):
+Counterpart of the JAX package's ``train/losses.py``:
 
 - ``sample_compare``: per-sample random reward axis, ties go to
   trajectory 1;
 - ``pareto_compare``: strict dominance, ties give a zero row (no gradient);
 - ``pso_pairwise_loss``: -log sigmoid(beta * log(clamp(pi / pi_ref)) * pref),
-  mean over the batch, with the three clamp modes.
+  mean over the batch, with the three clamp modes;
+- ``dreambooth_pso_loss``: the offline (DreamBooth) objective on per-sample
+  denoising losses, logistic (``pso``) or hinge (``pso_db``), plus the prior
+  term.
 
 A preference row is the sign each trajectory's log-ratio carries in the
 loss: [-1, +1] prefers trajectory 1, [+1, -1] trajectory 0.
@@ -78,3 +80,29 @@ def pso_pairwise_loss(logp_0, ref_logp_0, logp_1, ref_logp_1, prefer, beta: floa
         raise ValueError(f"unknown clamp_mode {clamp_mode}")
     inner = beta * d0 * prefer[:, 0] + beta * d1 * prefer[:, 1]
     return -F.logsigmoid(inner).mean()
+
+
+def dreambooth_pso_loss(model_losses_w, model_losses_l, ref_losses_w, ref_losses_l,
+                        beta: float, loss_type: str = "pso", neg_defactor: float = 1.0,
+                        prior_loss_weight: float = 0.0):
+    """(B,) denoising losses of the winners (instance images) and losers
+    (self-generated), the policy's and (for ``pso``) the frozen reference's
+    -> (loss, logits); ``logits > 0`` is the implicit-preference accuracy.
+
+    ``pso``: -log sigmoid(beta (ref_diff - model_diff)); ``pso_db``:
+    relu(1 - beta (-model_diff)), where diff = loss_w - neg_defactor loss_l.
+    A ``prior_loss_weight`` > 0 adds that weight times mean(model_losses_l)."""
+    model_diff = model_losses_w - neg_defactor * model_losses_l
+    if loss_type == "pso":
+        if ref_losses_w is None or ref_losses_l is None:
+            raise ValueError("loss_type 'pso' needs reference losses")
+        logits = (ref_losses_w - neg_defactor * ref_losses_l) - model_diff
+        loss = -F.logsigmoid(beta * logits).mean()
+    elif loss_type == "pso_db":
+        logits = -model_diff
+        loss = F.relu(1.0 - beta * logits).mean()
+    else:
+        raise ValueError(f"unknown loss_type {loss_type}")
+    if prior_loss_weight > 0.0:
+        loss = loss + prior_loss_weight * model_losses_l.mean()
+    return loss, logits

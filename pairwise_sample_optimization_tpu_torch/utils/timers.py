@@ -1,6 +1,6 @@
 """Wall time per named phase (sample / train). A phase on a CUDA device
 ends with ``torch.cuda.synchronize()``, so its time covers the device work
-it queued."""
+it queued. ``totals`` sums each phase's times, ``last`` holds its latest."""
 
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ class PhaseTimer:
         self.device = device
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        self.last: Dict[str, float] = {}
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -26,7 +27,8 @@ class PhaseTimer:
         finally:
             if self.device is not None and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            self.totals[name] += time.perf_counter() - t0
+            self.last[name] = time.perf_counter() - t0
+            self.totals[name] += self.last[name]
             self.counts[name] += 1
 
     def summary(self) -> Dict[str, float]:
@@ -35,3 +37,4 @@ class PhaseTimer:
     def reset(self):
         self.totals.clear()
         self.counts.clear()
+        self.last.clear()

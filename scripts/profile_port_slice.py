@@ -2,7 +2,7 @@
 """Where the time of one serving-slice iteration, or of one online-PSO
 update, goes on the card.
 
-    python3 scripts/profile_port_slice.py [--seed N] [--update | --eval] [--dmd]
+    python3 scripts/profile_port_slice.py [--seed N] [--update | --eval | --dreambooth] [--dmd]
 
 Builds the full-width SDXL-Turbo slice of the PyTorch port (the
 configuration ``chip_smoke.py`` drives: 4 prompts, 8 trajectories, 4
@@ -18,6 +18,11 @@ pass at batch 2, remat "full", a grad-free reference pass) on 4 pairs.
 With ``--eval`` the iteration is one batch of ``cli.evaluate_sdxl_dmd2``
 at its defaults: 2 prompts, DMD2 at 1024^2 with per-prompt generators,
 scored by PickScore, CLIP score, HPS and the aesthetic scorer.
+With ``--dreambooth`` the iteration is one optimizer step of DreamBooth
+PSO at the reference workload's shape (``pso_db``, ``euler_edm``, batch 1,
+4 accumulation steps, the policy pass at batch 2, remat "full", LoRA rank
+16, 512^2) on latents drawn as the CLI draws them (from VAE moments,
+here of random images).
 It prints:
 
 - the wall-clock ms of an unprofiled iteration (host clock, ends in a
@@ -32,8 +37,9 @@ It prints:
 Needs one CUDA card; writes the same summary to
 ``chiprun_out/profile_port_slice.json``.
 With ``--update`` the file is ``profile_port_update.json`` beside it, with
-``--eval`` ``profile_port_eval.json``; with ``--dmd`` ``_dmd`` comes
-before ``.json``.
+``--eval`` ``profile_port_eval.json``, with ``--dreambooth``
+``profile_port_dreambooth.json``; with ``--dmd`` ``_dmd`` comes before
+``.json``.
 """
 
 from __future__ import annotations
@@ -77,8 +83,10 @@ def main(argv=None) -> int:
     ap.add_argument("--update", action="store_true", help="profile one optimizer update")
     ap.add_argument("--eval", action="store_true", help="profile one eval batch (SDXL-DMD2)")
     ap.add_argument("--dmd", action="store_true", help="SDXL-DMD2 at 1024^2 instead of Turbo")
+    ap.add_argument("--dreambooth", action="store_true",
+                    help="profile one DreamBooth PSO optimizer step (SDXL-Turbo, 512^2)")
     args = ap.parse_args(argv)
-    args.dmd = args.dmd or args.eval
+    args.dmd = (args.dmd or args.eval) and not args.dreambooth
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -94,11 +102,13 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
     kernel_lib.build()
-    rank, resolution, prompts = (16, 1024, 2) if args.dmd else (32, 512, 4)
+    rank, resolution, prompts = ((16, 1024, 2) if args.dmd else (16, 512, 4) if args.dreambooth
+                                 else (32, 512, 4))
     sampler = "dmd" if args.dmd else "turbo"
     pipe = SDXLPipeline.random(lora_rank=rank, dtype=torch.bfloat16, resolution=resolution,
                                seed=args.seed, lora_b_std=1.0 / rank,
-                               remat="full" if args.update else "", device="cuda")
+                               remat="full" if args.update or args.dreambooth else "",
+                               device="cuda", with_scorer=not args.dreambooth)
     gen = torch.Generator().manual_seed(args.seed)
     ids = [torch.randint(1, 49407, (prompts, 77), generator=gen).cuda() for _ in range(3)]
     cuda_gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -111,6 +121,8 @@ def main(argv=None) -> int:
         iteration = update_iteration(pipe, ids, cuda_gen, gen, args.dmd)
     elif args.eval:
         iteration = eval_iteration(pipe, ids, args.seed)
+    elif args.dreambooth:
+        iteration = dreambooth_iteration(pipe, ids, args.seed)
 
     def wall(fn):
         torch.cuda.synchronize()
@@ -157,7 +169,8 @@ def main(argv=None) -> int:
         print(f"  {ms:9.2f} ms  {name[:110]}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    kind = "update" if args.update else "eval" if args.eval else "slice"
+    kind = ("update" if args.update else "eval" if args.eval else
+            "dreambooth" if args.dreambooth else "slice")
     name = f"profile_port_{kind}" + ("_dmd.json" if args.dmd else ".json")
     (out / name).write_text(json.dumps({"iteration": kind, **summary}, indent=1))
     return 0
@@ -189,6 +202,53 @@ def update_iteration(pipe, ids, cuda_gen, gen, dmd=False):
         (ocfg.grad_accum, ocfg.train_batch_size) + trees[0][k].shape[1:]) for k in trees[0]}
     batch, cond = split([p[0] for p in parts]), split([p[1] for p in parts])
     return lambda: trainer.update(state, batch, cond, gen)
+
+
+def dreambooth_iteration(pipe, ids, seed, ga=4):
+    """One DreamBooth PSO optimizer step as the CLI takes it: 4 instance and
+    4 negative VAE moments (of random images) drawn from with a generator,
+    the lattice indices and the noise from it too, then the trainer's
+    update of ``ga`` microbatches."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.models.sdxl_text import compute_time_ids
+    from pairwise_sample_optimization_tpu_torch.train import (DreamBoothPSOConfig,
+                                                              DreamBoothPSOTrainer,
+                                                              PSOTrainState, lora_parameters,
+                                                              make_optimizer)
+    from pairwise_sample_optimization_tpu_torch.train.dreambooth_pso import (
+        sample_lattice_timesteps)
+
+    for module in (pipe.vae, pipe.te1, pipe.te2):
+        module.requires_grad_(False)
+    trainer = DreamBoothPSOTrainer(DreamBoothPSOConfig(grad_accum=ga), pipe)
+    lora = lora_parameters(pipe.unet)
+    state = PSOTrainState.create(lora, make_optimizer(lora, learning_rate=2e-4,
+                                                      weight_decay=1e-4))
+    dev, res = pipe.device, pipe.resolution
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pool = [pipe.encode_images(torch.rand((4, res, res, 3), generator=gen, device=dev) * 2 - 1,
+                               chunk=4) for _ in range(2)]  # instance and negative moments
+    cond = {k: v[:1] for k, v in pipe.encode_prompt(ids[0][:1], ids[1][:1]).items()
+            if k != "reward_ids"}
+    scaling = pipe.vae.config.scaling_factor
+
+    def draw(mean, logvar):
+        idx = torch.randint(0, mean.shape[0], (ga,), generator=gen, device=dev)
+        z = mean[idx] + torch.exp(0.5 * logvar[idx]) * torch.randn(
+            mean[idx].shape, generator=gen, device=dev)
+        return (z * scaling)[:, None]
+
+    def iteration():
+        batch = {"instance_latents": draw(*pool[0]), "negative_latents": draw(*pool[1]),
+                 "cond": {k: v.expand(ga, *v.shape) for k, v in cond.items()},
+                 "time_ids_win": compute_time_ids(ga, res, device=dev)[:, None],
+                 "time_ids_lose": compute_time_ids(ga, res, device=dev)[:, None]}
+        idx = sample_lattice_timesteps(ga, 1000, 4, gen, dev).reshape(ga, 1)
+        noise = torch.randn(batch["instance_latents"].shape, generator=gen, device=dev)
+        return trainer.update(state, batch, idx, noise)
+
+    return iteration
 
 
 def eval_iteration(pipe, ids, seed):

@@ -143,6 +143,22 @@ def test_dmd2_entry_points_default_to_cuda(no_cuda, tmp_path):
     assert not any(tmp_path.iterdir())
 
 
+def test_dreambooth_entry_point_defaults_to_cuda(no_cuda, tmp_path):
+    """The DreamBooth CLI takes the card unless ``--device cpu`` is given,
+    and raises before it writes anything where there is none."""
+    import numpy as np
+
+    from pairwise_sample_optimization_tpu_torch.cli import train_pso_sdxl_turbo_dreambooth as db
+    from pairwise_sample_optimization_tpu_torch.utils.png import write_png
+
+    (tmp_path / "instance").mkdir()
+    write_png(str(tmp_path / "instance" / "0.png"), np.zeros((40, 36, 3), np.uint8))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        db.main(["--tiny", "--instance_data_dir", str(tmp_path / "instance"),
+                 "--instance_prompt", "a sks dog", "--output_dir", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
 def test_generate_and_the_checkpoint_loaders_default_to_cuda(no_cuda, tmp_path):
     """``cli/generate.py``, ``SDXLPipeline.from_torch_dir`` and the eval's
     ``--model_dir`` take the card unless told otherwise; on the CPU when
@@ -359,7 +375,9 @@ def _port_imports(path: Path):
                                    "checkpoints/scorer_loaders.py", "rewards/aesthetic.py",
                                    "cli/generate.py", "cli/online_runner.py",
                                    "checkpoints/clip_loader.py", "rewards/imagereward.py",
-                                   "data/wordpiece.py", "utils/png.py"])
+                                   "data/wordpiece.py", "utils/png.py",
+                                   "cli/train_pso_sdxl_turbo_dreambooth.py", "data/dreambooth.py",
+                                   "train/dreambooth_pso.py", "train/db_validation.py"])
 def test_new_entry_points_need_only_torch_numpy_and_the_stdlib(entry):
     """Every module the entry point reaches, through the port's own imports,
     imports nothing but the port, torch, numpy and the standard library."""

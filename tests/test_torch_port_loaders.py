@@ -235,8 +235,14 @@ def test_from_torch_dir_is_strict_and_reads_past_extra_keys(diffusers_dir, tmp_p
         SDXLPipeline.from_torch_dir(str(tmp_path / "missing"), **kw)
     vae = load_torch_state_dict(str(diffusers_dir / "vae" / "diffusion_pytorch_model.safetensors"))
     tp = SDXLPipeline.random(**kw)
-    unused = load_weights(tp.vae, vae)
-    assert unused and all(k.startswith(("encoder.", "quant_conv.")) for k in unused)
+    # the VAE's encoder and quant_conv are ported: every key of the file is
+    # read, and only a key the module has no place for is read past
+    unused = load_weights(tp.vae, {**vae, "extra.weight": torch.zeros(1)})
+    assert unused == ["extra.weight"]
+    own = tp.vae.state_dict()
+    assert any(k.startswith("encoder.") for k in vae) and "quant_conv.weight" in vae
+    assert all(torch.equal(own[k], v) for k, v in vae.items() if k.startswith(("encoder.",
+                                                                              "quant_conv.")))
     key = next(k for k in vae if k.startswith("decoder."))
     with pytest.raises(KeyError, match="missing"):
         load_weights(tp.vae, {k: v for k, v in vae.items() if k != key})
