@@ -87,7 +87,22 @@ PyTorch. In order:
    losses finite, the resumed run starting at step 2, the LoRA moved and
    the frozen UNet unchanged, run B's first loss minus its prior term log 2
    within 1e-3, ``lora-2`` / ``lora-3`` equal to their checkpoints'
-   adapters, 25 PNGs under ``gen_2/``. Prints s per optimizer step (steady
+   adapters, 25 PNGs under ``gen_2/``. Run C (``pso`` with DoRA adapters,
+   so its reference pass is a forward of its own at LoRA scale 0,
+   text-encoder LoRA, Prodigy, the kohya export; 2 accumulation steps, 2
+   steps, a 25-prompt validation at step 2): launch counts, its first loss
+   minus the prior term log 2 within 1e-3, every adapter and DoRA magnitude
+   moved and every frozen weight (UNet and text encoders) bit-equal to a
+   rebuild, Prodigy's d finite and at least d0, ``lora-2`` holding the
+   ``unet.`` / ``text_encoder.`` / ``text_encoder_2.`` tensors of
+   ``checkpoint-2``, the kohya file's keys the diffusers file's mapped
+   (``.alpha`` 16); each optimizer's step (fp32 AdamW, bf16 first moments,
+   8-bit AdamW, Prodigy) timed over run C's adapters and held against the
+   same two steps on the CPU (int8 state and scales bit-equal, parameters
+   within 1e-6), and a ``pso``
+   microbatch timed with DoRA on and off. Run D (``pso_db``, the 8-bit
+   AdamW in two groups, text-encoder LoRA), one step: launch counts, int8
+   moments on the card, a finite loss. Prints s per optimizer step (steady
    steps, synchronized), the negatives' and the encodes' s, the
    validation's s and peak memory;
 9. one phase per kernel at every shape steps 5-8 gave it (recorded during
@@ -466,7 +481,7 @@ def bwd_needs_post(q_shape, skv, sms=132):
 
 
 def expected_update_launches(ucfg, n_micro, fuse_ref_pass, batch, latent_hw, sms=132,
-                             reference=True):
+                             reference=True, trained_cond=False):
     """Launches of one optimizer update of ``n_micro`` microbatches with a
     policy pass at ``batch``. Per microbatch: the policy forward (with
     grad), its recompute under remat "full" and, where there is a reference
@@ -477,8 +492,12 @@ def expected_update_launches(ucfg, n_micro, fuse_ref_pass, batch, latent_hw, sms
     accumulator (``bwd_needs_post`` on a card of ``sms`` SMs). Under remat
     the ResnetBlocks that run before the first attention are not
     recomputed: nothing in them depends on the LoRA, so they save nothing
-    for the backward. The GroupNorm+SiLU backward is the plain version."""
+    for the backward, unless the conditioning itself is trained
+    (``trained_cond``: the text encoders' LoRA reaches every ResnetBlock
+    through the pooled embedding's time embedding). The GroupNorm+SiLU
+    backward is the plain version."""
     attn, gn, resnets, grad_free = _unet_counts(ucfg)
+    grad_free = 0 if trained_cond else grad_free
     shapes = attention_shapes(ucfg, batch * (2 if fuse_ref_pass else 1), latent_hw)
     assert len(shapes) == attn, (len(shapes), attn)
     remat = ucfg.remat == "full"
@@ -518,7 +537,9 @@ def expected_dreambooth_launches(pipe, args, instance_images, steps, first_step=
     ``sample_batch_size``, one per validation prompt) and per step one
     update of ``gradient_accumulation_steps`` microbatches with a policy
     pass at twice the win half (the batch, doubled by prior preservation),
-    ``pso``'s reference fused into it, ``pso_db`` without one."""
+    ``pso``'s reference fused into it (a forward of its own with
+    ``--use_dora``), ``pso_db`` without one. The text encoders (with or
+    without their LoRA) are causal and take no kernel."""
     ucfg, vcfg = pipe.unet.config, pipe.vae.config
     bs = max(1, args.sample_batch_size)
     calls = lambda n, batch: -(-n // batch) if n > 0 else 0
@@ -535,9 +556,11 @@ def expected_dreambooth_launches(pipe, args, instance_images, steps, first_step=
         generations += DB_VALIDATION_PROMPTS * sum(
             (s + 1) % args.validation_steps == 0 for s in range(first_step, first_step + steps))
     pso = args.loss_type == "pso"
-    upd = expected_update_launches(ucfg, args.gradient_accumulation_steps, pso,
+    upd = expected_update_launches(ucfg, args.gradient_accumulation_steps,
+                                   pso and not args.use_dora,
                                    2 * args.train_batch_size * (2 if prior else 1),
-                                   pipe.latent_hw, sms, reference=pso)
+                                   pipe.latent_hw, sms, reference=pso,
+                                   trained_cond=args.train_text_encoder)
     gen = _generation_launches(ucfg, vcfg, 4, [])
     enc = expected_encode_launches(vcfg)
     return {k: encodes * enc[k] + generations * gen[k] + steps * upd[k] for k in gen}
@@ -1115,6 +1138,140 @@ def _instance_image(h, w, rng):
     return np.clip(127.5 + 60 * base + rng.normal(0, 8, (h, w, 3)), 0, 255).astype(np.uint8)
 
 
+def optimizer_cuda_vs_cpu(make, lora, grads, steps=2):
+    """Two steps of the optimizer ``make(params)`` builds over copies of
+    ``lora`` on the card and on the CPU, with the same gradients scaled to a
+    global norm of 0.5 (below every clip, so both devices step on the same
+    bits). The CPU is the reference (its square root is the fp64 one rounded
+    to fp32): every int8 payload and its scales must be bit-equal, and the
+    parameters must agree within 1e-6. Returns the parameters' largest
+    difference and, for each state tensor, whether it is bit-equal."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.train.train_state import global_norm
+
+    norm = float(global_norm(grads.values()))
+    on_grads = {k: g * (0.5 / norm) for k, g in grads.items()}
+    off_grads = {k: g.cpu() for k, g in on_grads.items()}
+    on = {k: torch.nn.Parameter(v.detach().clone()) for k, v in lora.items()}
+    off = {k: torch.nn.Parameter(v.detach().cpu()) for k, v in lora.items()}
+    tx_on, tx_off = make(on), make(off)
+    for _ in range(steps):
+        tx_on.step(on, on_grads)
+        tx_off.step(off, off_grads)
+    equal = {}
+    for name in tx_on.state_names:
+        a, b = getattr(tx_on, name), getattr(tx_off, name)
+        equal[name] = bool(a.device.type == "cuda" and torch.equal(a.cpu(), b))
+    err = max(float((on[k].detach().cpu() - off[k].detach()).abs().max()) for k in on)
+    int8_state = [n for n in tx_on.state_names if n.startswith(("mu_", "nu_"))]
+    if err > 1e-6 or not all(equal[n] for n in int8_state):
+        raise AssertionError(f"{type(tx_on).__name__} on the card vs the CPU: params differ by "
+                             f"{err}, state bit-equal {equal}")
+    return {"param_max_abs_err": err, "state_bit_equal": equal}
+
+
+def optimizer_step_times(lora, seed, steps=10):
+    """Each DreamBooth optimizer (``FlatAdamW`` with fp32 and with bf16
+    first moments, ``Adam8bit``, ``Prodigy``; the CLI's settings, the UNet
+    and the text encoders in two groups where the CLI makes two) over fresh
+    copies of ``lora``'s tensors with random gradients: the median
+    synchronized wall ms of a step after 2 warm-up steps, the device ms of a
+    step (``timed_ms``, the host's enqueueing hidden), and its agreement
+    with the same steps on the CPU (``optimizer_cuda_vs_cpu``)."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.train import make_optimizer
+    from pairwise_sample_optimization_tpu_torch.train.prodigy import Prodigy
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    grads = {k: torch.randn(v.shape, generator=gen, device="cuda") * 1e-3
+             for k, v in lora.items()}
+
+    def groups(ps):
+        te = {k: p for k, p in ps.items() if k.startswith(("te1.", "te2."))}
+        return [{"params": {k: p for k, p in ps.items() if k not in te}, "lr": 2e-4,
+                 "weight_decay": 1e-4}, {"params": te, "lr": 5e-5, "weight_decay": 1e-2}]
+
+    makers = {"adamw_fp32": lambda ps: make_optimizer(groups(ps), max_grad_norm=1.0),
+              "adamw_bf16_mu": lambda ps: make_optimizer(groups(ps), max_grad_norm=1.0,
+                                                         state_dtype="bfloat16"),
+              "adam8bit": lambda ps: make_optimizer(groups(ps), max_grad_norm=1.0,
+                                                    use_8bit=True),
+              "prodigy": lambda ps: Prodigy(ps, learning_rate=1.0, weight_decay=1e-4,
+                                            use_bias_correction=True, safeguard_warmup=True)}
+    out = {"tensors": len(lora), "elements": sum(p.numel() for p in lora.values())}
+    for name, make in makers.items():
+        agreement = optimizer_cuda_vs_cpu(make, lora, grads)
+        params = {k: torch.nn.Parameter(v.detach().clone()) for k, v in lora.items()}
+        tx = make(params)
+        step = lambda: tx.step(params, grads)
+        for _ in range(2):
+            step()
+        walls = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"wall_ms": statistics.median(walls),
+                     "device_ms": timed_ms(step, reps=5, inner=5), "cuda_vs_cpu": agreement}
+        del tx, params
+    return out
+
+
+def dora_overhead(pipe, seed, reps=4):
+    """Synchronized wall ms of one ``pso`` microbatch (policy forward and
+    backward, the static-0 reference forward) at 512^2, batch 1 per half,
+    with the UNet's DoRA on and off (the same modules: ``use_dora`` turned
+    off for the off runs), in turns on, off, off, on, ..."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.models.layers import LoRALinear
+    from pairwise_sample_optimization_tpu_torch.train import (DreamBoothPSOConfig,
+                                                              DreamBoothPSOTrainer)
+    from pairwise_sample_optimization_tpu_torch.train.dreambooth_pso import (
+        sample_lattice_timesteps)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    hw = pipe.latent_hw
+    lat = lambda: torch.randn((1, hw, hw, 4), generator=gen, device="cuda")
+    vocab = pipe.te1.config.vocab_size
+    ids = torch.randint(1, vocab - 1, (1, 77), generator=gen, device="cuda")
+    ids[:, 10] = vocab - 1  # the end token: the highest id
+    cond = {k: v for k, v in pipe.encode_prompt(ids, ids).items() if k != "reward_ids"}
+    micro = {"instance_latents": lat(), "negative_latents": lat(), "cond": cond}
+    trainer = DreamBoothPSOTrainer(DreamBoothPSOConfig(loss_type="pso", fuse_ref_pass=False),
+                                   pipe)
+    idx = sample_lattice_timesteps(1, 1000, 4, gen, "cuda")
+    noise = lat()
+    dora = [m for m in pipe.unet.modules() if isinstance(m, LoRALinear) and m.use_dora]
+
+    def run(on):
+        for m in dora:
+            m.use_dora = on
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.microbatch_loss(micro, idx, noise)
+        loss.backward()
+        torch.cuda.synchronize()
+        pipe.unet.zero_grad(set_to_none=True)
+        return (time.perf_counter() - t0) * 1e3
+
+    run(True)
+    run(False)
+    times = {True: [], False: []}
+    for i in range(reps):
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            times[on].append(run(on))
+    for m in dora:
+        m.use_dora = True
+    on, off = statistics.median(times[True]), statistics.median(times[False])
+    return {"dora_layers": len(dora), "microbatch_ms_dora": on, "microbatch_ms_lora": off,
+            "overhead_ms": on - off, "runs_ms": {"dora": times[True], "lora": times[False]}}
+
+
 def dreambooth_slice(seed, recorder):
     """``cli.train_pso_sdxl_turbo_dreambooth.main`` at full width and 512^2
     (random weights from ``seed``, bf16 towers, fp32 LoRA rank 16, remat
@@ -1131,18 +1288,36 @@ def dreambooth_slice(seed, recorder):
     loss minus ``prior_loss_weight`` x its lose loss at log 2 (a fresh
     adapter: policy = reference), ``lora-2`` and ``lora-3`` equal to the
     adapters ``checkpoint-2`` and ``checkpoint-3`` restore, 25 validation
-    PNGs under ``gen_2/``, four class PNGs written."""
+    PNGs under ``gen_2/``, four class PNGs written. Run C (``pso`` with DoRA,
+    so its reference pass is a forward of its own, text-encoder LoRA at
+    lr 5e-5, Prodigy at lr 1.0, the kohya export, 2 accumulation steps, no
+    prior) two steps with a validation at step 2: launch counts, its first
+    loss minus the prior term at log 2 (DoRA and the text encoders' LoRA
+    start as no-ops), the UNet's and both text encoders' adapters and DoRA
+    magnitudes moved, every frozen weight bit-equal to a rebuild, Prodigy's
+    d finite and at least d0, ``lora-2`` holding the ``unet.``,
+    ``text_encoder.`` and ``text_encoder_2.`` tensors ``checkpoint-2``
+    holds, the kohya file's keys the diffusers file's mapped with ``.alpha``
+    16. Then each optimizer's step time over run C's adapters and its steps
+    on the card against the same steps on the CPU
+    (``optimizer_step_times``) and the DoRA overhead of a microbatch
+    (``dora_overhead``). Run D (``pso_db``, the 8-bit AdamW, text-encoder
+    LoRA at lr 5e-5 and weight decay 1e-2, 2 accumulation steps) one step:
+    launch counts, int8 moments on the card, two parameter groups, a
+    finite loss."""
     import numpy as np
     import torch
 
-    from pairwise_sample_optimization_tpu_torch.checkpoints import (LORA_FILE, load_file,
-                                                                    restore_train_state)
+    from pairwise_sample_optimization_tpu_torch.checkpoints import (KOHYA_FILE, LORA_FILE,
+                                                                    load_file, restore_train_state)
     from pairwise_sample_optimization_tpu_torch.cli import train_pso_sdxl_turbo_dreambooth as db
     from pairwise_sample_optimization_tpu_torch.models.layers import init_random_
     from pairwise_sample_optimization_tpu_torch.models.unet import SDXLUNet
     from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
+    from pairwise_sample_optimization_tpu_torch.pipeline import SDXLPipeline
     from pairwise_sample_optimization_tpu_torch.train import (PSOTrainState, lora_parameters,
                                                               make_optimizer)
+    from pairwise_sample_optimization_tpu_torch.train.prodigy import D0
     from pairwise_sample_optimization_tpu_torch.utils.png import read_png, write_png
 
     root = RUN_DIR / "dreambooth"
@@ -1195,8 +1370,8 @@ def dreambooth_slice(seed, recorder):
                 "validation_s": [r["time/validation_s"] for r in rows
                                  if "time/validation_s" in r]}, state, pipe
 
-    a1, _, pipe = run("A1", run_a + ["--max_train_steps", "2"], 0)
-    del pipe
+    a1, state, pipe = run("A1", run_a + ["--max_train_steps", "2"], 0)
+    del pipe, state  # each run's adapters and optimizer state go before the next run
     torch.cuda.empty_cache()
     a2, state, pipe = run("A2", run_a + ["--max_train_steps", "3",
                                          "--resume_from_checkpoint", "latest"], 2)
@@ -1231,8 +1406,8 @@ def dreambooth_slice(seed, recorder):
         raise AssertionError(f"gen_2/ holds {len(pngs)} validation PNGs")
     del pipe, state, ref, restored, frozen, frozen0, lora, lora0, lora_ref
     torch.cuda.empty_cache()
-    b, _, pipe = run("B", run_b, 0)
-    del pipe
+    b, state, pipe = run("B", run_b, 0)
+    del pipe, state
     torch.cuda.empty_cache()
     first = b["history"][0]
     prior_w = db.parse_args(run_b).prior_loss_weight
@@ -1241,16 +1416,99 @@ def dreambooth_slice(seed, recorder):
     class_pngs = sorted((root / "class").glob("class-*.png"))
     if len(class_pngs) != 4:
         raise AssertionError(f"class directory holds {[p.name for p in class_pngs]}")
+
+    run_c = common + ["--output_dir", str(root / "c"), "--loss_type", "pso", "--use_dora",
+                      "--train_text_encoder", "--text_encoder_lr", "5e-5", "--optimizer",
+                      "prodigy", "--learning_rate", "1.0", "--output_kohya_format",
+                      "--gradient_accumulation_steps", "2", "--max_train_steps", "2"]
+    c, state, pipe = run("C", run_c, 0)
+    first = c["history"][0]
+    if abs(first["loss"] - prior_w * first["lose_loss"] - math.log(2.0)) > 1e-3:
+        raise AssertionError(f"dreambooth C first loss {first} - {prior_w} x lose_loss != log 2")
+    ref = SDXLPipeline.random(16, torch.bfloat16, 512, seed=seed, remat="full", device="cuda",
+                              with_scorer=False, te_lora_rank=16, use_dora=True)
+    moved, changed = {}, []
+    for which in ("unet", "te1", "te2"):  # state_dict() holds the towers' tensors: none kept
+        (frozen, lora), (frozen0, lora0) = (_frozen_and_lora(getattr(p, which))
+                                            for p in (pipe, ref))
+        changed += [f"{which}.{k}" for k in frozen if not torch.equal(frozen[k], frozen0[k])]
+        for leaf in ("down.weight", "up.weight", "magnitude"):
+            moved[f"{which}.{leaf}"] = max(float((lora[k].float() - lora0[k].float()).abs().max())
+                                           for k in lora if k.endswith(".lora." + leaf))
+    del frozen, lora, frozen0, lora0
+    d, d0 = float(state.tx.d), float(torch.tensor(D0))  # D0 as the fp32 d holds it
+    if changed or min(moved.values()) == 0 or not (math.isfinite(d) and d >= d0):
+        raise AssertionError(f"dreambooth C: frozen weights changed {changed[:5]}, adapters "
+                             f"moved {moved}, prodigy d {d}")
+    blob = torch.load(root / "c" / "checkpoint-2" / "state.pt", map_location="cpu",
+                      weights_only=True)
+    prefix = {"te1": "text_encoder.", "te2": "text_encoder_2."}
+    want_lora = {}
+    for k, v in blob["lora"].items():
+        which, rest = k.split(".", 1) if k.startswith(("te1.", "te2.")) else ("unet", k)
+        rest = rest.replace(".lora.magnitude", ".lora_magnitude_vector")
+        want_lora[prefix.get(which, "unet.") + rest] = v.float()
+    diffusers = load_file(str(root / "c" / "lora-2" / LORA_FILE))
+    if blob["step"] != 2 or set(diffusers) != set(want_lora) or any(
+            not torch.equal(diffusers[k], want_lora[k]) for k in want_lora):
+        raise AssertionError("dreambooth C: lora-2 is not checkpoint-2's adapters")
+    kohya = load_file(str(root / "c" / "lora-2" / KOHYA_FILE))
+    kohya_prefix = {"unet.": "lora_unet_", "text_encoder.": "lora_te1_",
+                    "text_encoder_2.": "lora_te2_"}
+    kohya_suffix = {".lora.down.weight": ".lora_down.weight", ".lora.up.weight": ".lora_up.weight",
+                    ".lora_magnitude_vector": ".dora_scale"}
+    mapped = set()
+    for k in diffusers:
+        head = next(h for h in sorted(kohya_prefix, key=len, reverse=True) if k.startswith(h))
+        tail = next(t for t in kohya_suffix if k.endswith(t))
+        site = kohya_prefix[head] + k[len(head):-len(tail)].replace(".", "_")
+        mapped.add(site + kohya_suffix[tail])
+        if tail == ".lora.down.weight":
+            mapped.add(site + ".alpha")
+    alphas = [float(v) for k, v in kohya.items() if k.endswith(".alpha")]
+    if set(kohya) != mapped or set(alphas) != {16.0}:
+        raise AssertionError(f"dreambooth C: kohya keys {len(kohya)} vs {len(mapped)} mapped, "
+                             f"alphas {set(alphas)}")
+    if {k.split(".")[0] for k in diffusers} != {"unet", "text_encoder", "text_encoder_2"}:
+        raise AssertionError("dreambooth C: lora-2 lacks a tower's adapter")
+    c_pngs = len(sorted((root / "c" / "gen_2").glob("p_*/img_*.png")))
+    if c_pngs != DB_VALIDATION_PROMPTS:
+        raise AssertionError(f"dreambooth C: gen_2/ holds {c_pngs} validation PNGs")
+    del ref
+    torch.cuda.empty_cache()
+    opt_times = optimizer_step_times(state.lora, seed)
+    overhead = dora_overhead(pipe, seed)
+    del pipe, state
+    torch.cuda.empty_cache()
+
+    run_d = common + ["--output_dir", str(root / "d"), "--loss_type", "pso_db", "--use_8bit_adam",
+                      "--train_text_encoder", "--text_encoder_lr", "5e-5",
+                      "--adam_weight_decay_text_encoder", "1e-2", "--gradient_accumulation_steps",
+                      "2", "--max_train_steps", "1", "--skip_validation"]
+    dd, state, pipe = run("D", run_d, 0)
+    tx = state.tx
+    if (type(tx).__name__ != "Adam8bit" or tx.mu_q.dtype != torch.int8
+            or tx.mu_q.device.type != "cuda" or len(tx.group_slices) != 2
+            or not math.isfinite(dd["history"][0]["loss"])):
+        raise AssertionError(f"dreambooth D: optimizer {type(tx).__name__} groups "
+                             f"{len(getattr(tx, 'group_slices', []))} loss {dd['history']}")
+    d_moments = {"mu_q": [tx.mu_q.dtype.__repr__(), list(tx.mu_q.shape)],
+                 "groups": [(end - start, lr, wd) for start, end, lr, wd, _ in tx.group_slices]}
+    del pipe, state, tx
+    torch.cuda.empty_cache()
     steady = [m["time/step_s"] for m in a1["history"][1:] + a2["history"]]
-    launches = {k: a1["launches"][k] + a2["launches"][k] + b["launches"][k] for k in KERNELS}
+    launches = {k: sum(r["launches"][k] for r in (a1, a2, b, c, dd)) for k in KERNELS}
     summary = {
         "instance_images": [list(hw) for hw in DB_IMAGES], "resolution": 512, "lora_rank": 16,
-        "run_a1": a1, "run_a2": a2, "run_b": b, "launches": launches,
+        "run_a1": a1, "run_a2": a2, "run_b": b, "run_c": c, "run_d": dd, "launches": launches,
         "s_per_step_steady": statistics.median(steady), "steady_steps_s": steady,
         "negatives_s": a1["setup_s"].get("negatives"), "encode_s": a1["setup_s"].get("encode"),
         "validation_s": a1["validation_s"][0], "lora_max_abs_delta": lora_moved,
         "lora_exports": exports, "validation_pngs": len(pngs),
         "peak_bytes": max(r["peak_bytes"] for r in (a1, a2, b)),
+        "run_c_checks": {"adapters_moved": moved, "prodigy_d": d, "lora_files": len(diffusers),
+                         "kohya_keys": len(kohya), "validation_pngs": c_pngs},
+        "run_d_optimizer": d_moments, "optimizer_step": opt_times, "dora": overhead,
     }
     log(f"dreambooth (512^2, 4 instance PNGs): run A pso_db/euler_edm ga 4 policy batch 2: "
         f"{summary['s_per_step_steady']:.3f} s per optimizer step (steady steps "
@@ -1264,6 +1522,22 @@ def dreambooth_slice(seed, recorder):
         f"{b['setup_s'].get('class_images', 0):.3f} s; peak {summary['peak_bytes'] / 2**30:.2f} "
         f"GiB; LoRA max|delta| {lora_moved:.3e}, frozen unchanged; lora-2/3 equal their "
         f"checkpoints; launches {launches}")
+    c_steps = [m["time/step_s"] for m in c["history"]]
+    log(f"dreambooth run C (pso, DoRA, text-encoder LoRA, prodigy, kohya; ga 2, policy batch 2 "
+        f"+ a reference forward): s per step {[round(x, 3) for x in c_steps]}, losses "
+        f"{[round(m['loss'], 6) for m in c['history']]}, validation "
+        f"{c['validation_s'][0]:.3f} s, peak {c['peak_bytes'] / 2**30:.2f} GiB, prodigy d "
+        f"{d:.3e}, adapters moved {moved}, {len(diffusers)} diffusers / {len(kohya)} kohya "
+        f"tensors; run D (pso_db, 8-bit AdamW, 2 groups, text-encoder LoRA): "
+        f"{dd['history'][0]['time/step_s']:.3f} s, loss {dd['history'][0]['loss']:.6f}, peak "
+        f"{dd['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"optimizer step over run C's {opt_times['tensors']} adapter tensors "
+        f"({opt_times['elements']} elements), wall / device ms: " + ", ".join(
+            f"{k} {v['wall_ms']:.3f} / {v['device_ms']:.3f}" for k, v in opt_times.items()
+            if isinstance(v, dict)))
+    log(f"DoRA overhead of a pso microbatch ({overhead['dora_layers']} DoRA layers): "
+        f"{overhead['microbatch_ms_dora']:.1f} ms with DoRA, {overhead['microbatch_ms_lora']:.1f} "
+        f"ms without, {overhead['overhead_ms']:.1f} ms")
     shutil.rmtree(root, ignore_errors=True)
     return summary
 

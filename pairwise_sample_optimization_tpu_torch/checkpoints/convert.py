@@ -12,7 +12,9 @@ arrays (optionally with its ``lora`` collection) and returns the port's
 Layout changes: a linear kernel (in, out) becomes a weight (out, in); a
 conv kernel (kh, kw, in, out) becomes (out, in, kh, kw). LoRA leaves
 ``a`` (in, r) and ``b`` (r, out) become ``<site>.lora.down.weight`` (r, in)
-and ``<site>.lora.up.weight`` (out, r), the diffusers LoRA layout.
+and ``<site>.lora.up.weight`` (out, r), the diffusers LoRA layout, and a DoRA
+``magnitude`` (out,) becomes ``<site>.lora.magnitude``; the UNet's and the
+CLIP text towers' adapters alike.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from .torch_names import (
     vae_param_map,
 )
 
-_LORA_SUFFIX = {"a": "lora.down.weight", "b": "lora.up.weight"}
+_LORA_SUFFIX = {"a": "lora.down.weight", "b": "lora.up.weight", "magnitude": "lora.magnitude"}
 _WEIGHT_FILES = (".safetensors", ".bin", ".pt")
 
 
@@ -78,7 +80,8 @@ def tower_weight_file(path: str):
 def load_weights(module: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> List[str]:
     """Copy ``sd`` into ``module`` (cast to each parameter's dtype and
     device), strictly: every key of the module but its LoRA adapter's must
-    be in ``sd`` with its shape. The adapter keeps its values. Returns the
+    be in ``sd`` with its shape. The adapter (LoRA and DoRA magnitudes) keeps
+    its values. Returns the
     keys of ``sd`` the module has no place for (read past, as the JAX
     package's ``torch_to_flax`` reports them)."""
     own = module.state_dict()

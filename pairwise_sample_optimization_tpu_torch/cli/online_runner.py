@@ -60,7 +60,6 @@ _UNPORTED = {
     "param_dtype": ("float32",), "offload_aux_during_update": (False,),
     "use_wandb": (False,), "fast_init": (False,),
     "profile_dir": ("",), "use_lora": (True,), "train.int8_ref_pass": (False,),
-    "train.use_8bit_adam": (False,), "train.optimizer_state_dtype": ("", "float32"),
     "kernels.subpixel_upsample": (False,), "kernels.int8_vae_decode": (False,),
     "kernels.int8_smooth_alpha": (0.0,), "kernels.gelu_exact": (False,),
 }

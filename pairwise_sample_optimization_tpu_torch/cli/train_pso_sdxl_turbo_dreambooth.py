@@ -12,40 +12,63 @@ prompt at step 0 (4-step Turbo, ``--sample_batch_size`` at a time, trimmed to
 ``--num_negatives``). Instance, negative and class images are encoded once
 into VAE moments (``--sample_batch_size`` images a call); each step draws
 latents mean + exp(logvar / 2) n, times the VAE's scaling factor, for the
-picks numpy's ``default_rng(seed + start_step)`` makes, as the JAX CLI
-does. The lattice indices, the noise and the latent draws of step s come
-from a ``torch.Generator`` on the device seeded from (seed, s).
+picks of numpy's ``default_rng`` seeded from (seed, s) at step s; the
+lattice indices, the noise and the latent draws of step s come from a
+``torch.Generator`` on the device seeded from (seed, s). Every draw of a
+step is a function of the seed and the step, so a run resumed from a
+checkpoint continues as the uninterrupted run would have. This departs
+from the JAX CLI on purpose: it seeds one ``default_rng(seed + start_step)``
+per run, so for the same seed the port picks other instances and
+negatives than the JAX CLI does, and a resumed JAX run draws other picks
+than its uninterrupted run.
 
 - ``--with_prior_preservation`` with ``--class_data_dir``: class images are
   generated into the directory as PNGs until it holds
   ``--num_class_images``; they join the win half with the class prompt;
 - steps: ``--max_train_steps``, else ``--num_train_epochs`` times
   ceil(instance images x ``--repeats`` / (batch x accumulation));
-- the optimizer: AdamW with global-norm clipping at ``--max_grad_norm``
-  and the six diffusers schedules (``--lr_scheduler``), ``--scale_lr`` at a
-  world size of 1;
+- adapters: LoRA of ``--rank`` on the UNet's attention projections;
+  ``--use_dora`` makes them DoRA (a trainable magnitude per output; the
+  ``pso`` reference pass then runs as its own forward at a static LoRA
+  scale of 0); ``--train_text_encoder`` also trains a LoRA (DoRA) of the
+  same rank on both text encoders' attention projections, the prompts
+  encoded anew with gradients in every microbatch, at
+  ``--text_encoder_lr`` with ``--adam_weight_decay_text_encoder``;
+- the optimizer (``make_dreambooth_optimizer``, the JAX CLI's
+  ``_make_optimizer``): one global-norm clip at ``--max_grad_norm`` over
+  every trained tensor, then AdamW (``--use_8bit_adam``: the 8-bit one),
+  the UNet and the text encoders in two groups when their learning rates
+  or weight decays differ, with the six diffusers schedules
+  (``--lr_scheduler``); or ``--optimizer prodigy`` over all of them at
+  ``--learning_rate`` (the text encoders' lr is overridden), a
+  non-constant schedule multiplying its update; ``--scale_lr`` at a world
+  size of 1;
 - checkpoints every ``--checkpointing_steps`` and at the last step:
   ``checkpoint-<step>/`` (the train state) and
-  ``lora-<step>/pytorch_lora_weights.safetensors`` (diffusers layout),
+  ``lora-<step>/pytorch_lora_weights.safetensors`` (diffusers layout, every
+  trained adapter; ``--output_kohya_format`` adds
+  ``pytorch_lora_weights_kohya.safetensors``),
   ``--checkpoints_total_limit`` of them kept; ``--resume_from_checkpoint
   DIR|latest``;
 - validation every ``--validation_steps``: the 25 fixed prompts,
-  ``--num_validation_images`` each, under ``gen_<step>/p_XXX/``;
+  ``--num_validation_images`` each, under ``gen_<step>/p_XXX/``, encoded
+  through the live text-encoder adapters;
 - ``--gradient_checkpointing`` rematerializes every UNet block;
 - ``--tiny``: the toy models at 32x32 (unless ``--resolution`` is given),
   fp32, a CPU run of seconds. Otherwise SDXL-Turbo's widths in bf16 with an
   fp32 LoRA, from ``--pretrained_model_dir`` (a local diffusers
   checkpoint) or random weights from ``--seed``.
 
-Refused before any model is built, with ``NotImplementedError``: ``--use_dora``,
-``--optimizer prodigy``, ``--use_8bit_adam``, ``--train_text_encoder``,
-``--output_kohya_format``, ``--use_wandb``, ``--fast_init`` and a
-``--gradient_checkpointing_mode`` other than ``full``; JPEG, WebP and BMP
-files in the instance or class directory (the port reads PNG). The
+Refused before any model is built, with ``NotImplementedError``:
+``--use_wandb``, ``--fast_init`` and a ``--gradient_checkpointing_mode``
+other than ``full``; JPEG, WebP and BMP files in the instance or class
+directory (the port reads PNG). The
 JAX CLI's parity-inert flags (``--snr_gamma``, ``--gamma_pso``,
 ``--neg_generate_freq``) are accepted and do nothing, as there.
 
-``main`` returns ``(state, history, pipeline)``: history holds each step's
+The train state's LoRA parameters keep the UNet's names; the text
+encoders' are prefixed ``te1.`` / ``te2.``. ``main`` returns
+``(state, history, pipeline)``: history holds each step's
 metrics (``loss``, ``win_loss``, ``lose_loss``, ``implicit_acc`` and its
 synchronized wall time ``time/step_s``). ``metrics.jsonl`` gets the metrics
 of the first step and every tenth, the set-up times (``time/encode_s``,
@@ -61,8 +84,9 @@ import os
 import numpy as np
 import torch
 
-from ..checkpoints import (LORA_FILE, export_lora_safetensors, latest_checkpoint,
-                           prune_checkpoints, restore_train_state, save_train_state)
+from ..checkpoints import (KOHYA_FILE, LORA_FILE, export_kohya_lora_safetensors,
+                           export_sdxl_lora_safetensors, latest_checkpoint, prune_checkpoints,
+                           restore_train_state, save_train_state)
 from ..data import make_clip_tokenizers
 from ..data.dreambooth import DreamBoothDataset, image_files
 from ..device import resolve_device
@@ -72,6 +96,7 @@ from ..train import (DreamBoothPSOConfig, DreamBoothPSOTrainer, PSOTrainState, l
                      make_lr_schedule, make_optimizer)
 from ..train.db_validation import dreambooth_validation_prompts, run_dreambooth_validation
 from ..train.dreambooth_pso import sample_lattice_timesteps
+from ..train.prodigy import Prodigy
 from ..utils import MetricLogger, PhaseTimer, get_logger
 from ..utils.png import save_pngs
 
@@ -102,13 +127,14 @@ def parse_args(argv=None):
     p.add_argument("--scale_lr", action="store_true",
                    help="scale the lr by accumulation x batch x world size (1)")
     p.add_argument("--text_encoder_lr", type=float, default=5e-6)
-    p.add_argument("--train_text_encoder", action="store_true", help="not ported (refused)")
+    p.add_argument("--train_text_encoder", action="store_true",
+                   help="also train a LoRA on both text encoders")
     p.add_argument("--max_grad_norm", type=float, default=1.0)
     p.add_argument("--max_train_steps", type=int, default=None,
                    help="default: num_train_epochs x steps per epoch")
     p.add_argument("--num_train_epochs", type=int, default=1)
     p.add_argument("--rank", type=int, default=16, help="LoRA rank")
-    p.add_argument("--use_dora", action="store_true", help="not ported (refused)")
+    p.add_argument("--use_dora", action="store_true", help="weight-decomposed LoRA (DoRA)")
     p.add_argument("--gradient_checkpointing", action="store_true",
                    help="rematerialize every UNet block in the backward")
     p.add_argument("--gradient_checkpointing_mode", default="full",
@@ -116,14 +142,15 @@ def parse_args(argv=None):
                    help="only 'full' is ported")
     p.add_argument("--seed", type=int, default=0)
     # optimizer
-    p.add_argument("--optimizer", default="AdamW", help='"AdamW" ("prodigy" is not ported)')
-    p.add_argument("--use_8bit_adam", action="store_true", help="not ported (refused)")
+    p.add_argument("--optimizer", default="AdamW", help='"AdamW" or "prodigy" (any case)')
+    p.add_argument("--use_8bit_adam", action="store_true",
+                   help="AdamW with block-quantized int8 moments")
     p.add_argument("--adam_beta1", type=float, default=0.9)
     p.add_argument("--adam_beta2", type=float, default=0.999)
     p.add_argument("--adam_epsilon", type=float, default=1e-8)
     p.add_argument("--adam_weight_decay", type=float, default=1e-4)
     p.add_argument("--adam_weight_decay_text_encoder", type=float, default=1e-3)
-    p.add_argument("--prodigy_beta3", type=float, default=None)
+    p.add_argument("--prodigy_beta3", type=float, default=None, help="default sqrt(beta2)")
     p.add_argument("--prodigy_decouple", type=lambda s: s.lower() != "false", default=True)
     p.add_argument("--prodigy_use_bias_correction", type=lambda s: s.lower() != "false",
                    default=True)
@@ -171,7 +198,8 @@ def parse_args(argv=None):
                    help="the object prompt list (else the live-subject list)")
     p.add_argument("--skip_validation", action="store_true")
     p.add_argument("--use_wandb", action="store_true", help="not ported (refused)")
-    p.add_argument("--output_kohya_format", action="store_true", help="not ported (refused)")
+    p.add_argument("--output_kohya_format", action="store_true",
+                   help="also export the LoRA in kohya-ss's layout")
     p.add_argument("--tiny", action="store_true", help="toy models (CPU runs)")
     p.add_argument("--fast_init", action="store_true", help="not ported (refused)")
     p.add_argument("--device", default="cuda")
@@ -184,12 +212,7 @@ def parse_args(argv=None):
 
 def check_args(args) -> None:
     """Refuse what the port does not implement, naming the flag."""
-    refused = [("--use_dora", args.use_dora, "DoRA adapters"),
-               ("--optimizer prodigy", args.optimizer.lower() == "prodigy", "Prodigy"),
-               ("--use_8bit_adam", args.use_8bit_adam, "8-bit AdamW"),
-               ("--train_text_encoder", args.train_text_encoder, "text-encoder LoRA training"),
-               ("--output_kohya_format", args.output_kohya_format, "the kohya LoRA export"),
-               ("--use_wandb", args.use_wandb, "wandb logging"),
+    refused = [("--use_wandb", args.use_wandb, "wandb logging"),
                ("--fast_init", args.fast_init, "zero-filled weights"),
                (f"--gradient_checkpointing_mode {args.gradient_checkpointing_mode}",
                 args.gradient_checkpointing_mode != "full", "selective remat modes")]
@@ -198,6 +221,49 @@ def check_args(args) -> None:
             raise NotImplementedError(f"{flag} is not ported yet ({what}; ROADMAP Queue 1)")
     if args.optimizer.lower() not in ("adamw", "prodigy"):
         raise ValueError(f"Unsupported optimizer {args.optimizer!r}: choose AdamW or prodigy")
+
+
+def make_dreambooth_optimizer(args, lora, total_steps: int):
+    """The optimizer of the JAX CLI's ``_make_optimizer`` for ``lora`` (the
+    train state's parameters by name; the text encoders' under ``te1.`` /
+    ``te2.``): Prodigy over all of them, or AdamW (8-bit with
+    ``--use_8bit_adam``) in one group, or two (the UNet; the text encoders)
+    when the text encoders' learning rate or weight decay differ; one
+    global-norm clip over every tensor."""
+    lr, te_lr = args.learning_rate, args.text_encoder_lr
+    if args.scale_lr:
+        scale = args.gradient_accumulation_steps * args.train_batch_size
+        lr, te_lr = lr * scale, te_lr * scale
+    sched = lambda base: make_lr_schedule(args.lr_scheduler, base, args.lr_warmup_steps,
+                                          total_steps, num_cycles=args.lr_num_cycles,
+                                          power=args.lr_power)
+    if args.optimizer.lower() == "prodigy":
+        if args.use_8bit_adam:
+            logger.warning("--use_8bit_adam has no effect with prodigy")
+        if lr <= 0.1:
+            logger.warning("prodigy usually wants --learning_rate around 1.0 (got %g)", lr)
+        if args.train_text_encoder and te_lr != lr:
+            logger.warning("prodigy: overriding --text_encoder_lr to --learning_rate")
+        return Prodigy(lora, learning_rate=lr, betas=(args.adam_beta1, args.adam_beta2),
+                       beta3=args.prodigy_beta3, eps=args.adam_epsilon,
+                       weight_decay=args.adam_weight_decay, decouple=args.prodigy_decouple,
+                       use_bias_correction=args.prodigy_use_bias_correction,
+                       safeguard_warmup=args.prodigy_safeguard_warmup,
+                       max_grad_norm=args.max_grad_norm,
+                       schedule=None if args.lr_scheduler == "constant" else sched(lr))
+    te = lambda k: k.startswith(("te1.", "te2."))
+    groups = [{"params": {k: p for k, p in lora.items() if not te(k)}, "lr": lr,
+               "weight_decay": args.adam_weight_decay, "schedule": sched(lr)}]
+    te_params = {k: p for k, p in lora.items() if te(k)}
+    if te_params:
+        if te_lr != lr or args.adam_weight_decay_text_encoder != args.adam_weight_decay:
+            groups.append({"params": te_params, "lr": te_lr, "schedule": sched(te_lr),
+                           "weight_decay": args.adam_weight_decay_text_encoder})
+        else:
+            groups[0]["params"].update(te_params)
+    return make_optimizer(groups, beta1=args.adam_beta1, beta2=args.adam_beta2,
+                          eps=args.adam_epsilon, max_grad_norm=args.max_grad_norm,
+                          use_8bit=args.use_8bit_adam)
 
 
 def _step_seed(seed: int, step: int) -> int:
@@ -222,7 +288,8 @@ def main(argv=None):
     # ---- pipeline ----
     kw = dict(lora_rank=args.rank, dtype=torch.float32 if args.tiny else torch.bfloat16,
               resolution=resolution, tiny=args.tiny, seed=args.seed,
-              remat="full" if args.gradient_checkpointing else "", device=dev, with_scorer=False)
+              remat="full" if args.gradient_checkpointing else "", device=dev, with_scorer=False,
+              te_lora_rank=args.rank if args.train_text_encoder else 0, use_dora=args.use_dora)
     if args.pretrained_model_dir:
         pipe = SDXLPipeline.from_torch_dir(args.pretrained_model_dir, **kw)
     else:
@@ -231,6 +298,12 @@ def main(argv=None):
     for module in (pipe.vae, pipe.te1, pipe.te2):
         module.requires_grad_(False)
     lora = lora_parameters(pipe.unet)
+    adapters = {"unet": pipe.unet}
+    if args.train_text_encoder:
+        adapters.update(te1=pipe.te1, te2=pipe.te2)
+        for which in ("te1", "te2"):
+            lora.update({f"{which}.{k}": p
+                         for k, p in lora_parameters(adapters[which]).items()})
     tok1, tok2 = make_clip_tokenizers(args.bpe_path, pipe.te1.config.vocab_size)
 
     def encode_text(prompts):
@@ -298,17 +371,12 @@ def main(argv=None):
                               scheduler_space=args.scheduler_space,
                               prediction_type=args.prediction_type,
                               descending_table=not args.direct_timestep_indexing,
-                              grad_accum=args.gradient_accumulation_steps)
+                              grad_accum=args.gradient_accumulation_steps,
+                              train_text_encoder=args.train_text_encoder,
+                              # DoRA cannot ride the per-sample-scale fusion
+                              fuse_ref_pass=not args.use_dora)
     trainer = DreamBoothPSOTrainer(cfg, pipe)
-    lr = args.learning_rate
-    if args.scale_lr:
-        lr *= args.gradient_accumulation_steps * args.train_batch_size
-    schedule = make_lr_schedule(args.lr_scheduler, lr, args.lr_warmup_steps, total_steps,
-                                num_cycles=args.lr_num_cycles, power=args.lr_power)
-    tx = make_optimizer(lora, learning_rate=lr, beta1=args.adam_beta1, beta2=args.adam_beta2,
-                        eps=args.adam_epsilon, weight_decay=args.adam_weight_decay,
-                        max_grad_norm=args.max_grad_norm, schedule=schedule)
-    state = PSOTrainState.create(lora, tx)
+    state = PSOTrainState.create(lora, make_dreambooth_optimizer(args, lora, total_steps))
     start_step = 0
     if args.resume_from_checkpoint:
         path = (latest_checkpoint(args.output_dir) if args.resume_from_checkpoint == "latest"
@@ -323,7 +391,11 @@ def main(argv=None):
     ga, b = args.gradient_accumulation_steps, args.train_batch_size
     prompts = [args.instance_prompt] * b + ([class_prompt] * b if use_prior else [])
     b_eff = len(prompts)
-    inst_cond = encode_text(prompts)
+    if args.train_text_encoder:  # encoded in every microbatch, through the live adapters
+        inst_ids = {"input_ids_one": torch.as_tensor(tok1(prompts), dtype=torch.long, device=dev),
+                    "input_ids_two": torch.as_tensor(tok2(prompts), dtype=torch.long, device=dev)}
+    else:
+        inst_cond = encode_text(prompts)
     scaling = pipe.vae.config.scaling_factor
 
     def draw_latents(mean, logvar, idx, gen):
@@ -343,26 +415,28 @@ def main(argv=None):
     class_name = args.class_name or (class_prompt.split()[-1] if class_prompt else "thing")
     val_prompts = dreambooth_validation_prompts(args.unique_token, class_name, args.is_object)
 
-    def val_generate(prompt, gen, n):
+    def val_generate(prompt, gen, n):  # the text encoders' live adapters, when trained
         return pipe.generate(encode_text([prompt] * n), gen, num_steps=4)
 
     def save_all(step1):
         path = save_train_state(args.output_dir, step1, state, {"step": step1})
         lora_dir = os.path.join(args.output_dir, f"lora-{step1}")
         os.makedirs(lora_dir, exist_ok=True)
-        export_lora_safetensors(pipe.unet, os.path.join(lora_dir, LORA_FILE))
+        export_sdxl_lora_safetensors(adapters, os.path.join(lora_dir, LORA_FILE))
+        if args.output_kohya_format:
+            export_kohya_lora_safetensors(adapters, os.path.join(lora_dir, KOHYA_FILE))
         if args.checkpoints_total_limit:
             prune_checkpoints(args.output_dir, int(args.checkpoints_total_limit))
         logger.info("saved %s and %s", path, lora_dir)
 
     mlog.log_metrics({f"time/{k}_s": v for k, v in timer.totals.items()}, start_step)
     history = []
-    rng = np.random.default_rng(args.seed + start_step)
     n_draw, n_neg = ga * b, ga * b_eff
     try:
         for step in range(start_step, total_steps):
             with timer.phase("step"):
                 gen = torch.Generator(device=dev).manual_seed(_step_seed(args.seed, step))
+                rng = np.random.default_rng([args.seed, step, 4])
                 inst_idx = rng.choice(len(dataset), n_draw, replace=len(dataset) < n_draw)
                 neg_idx = rng.choice(args.num_negatives, n_neg,
                                      replace=args.num_negatives < n_neg)
@@ -381,10 +455,13 @@ def main(argv=None):
                     "instance_latents": win_lat,
                     "negative_latents": per_micro(draw_latents(neg_mean, neg_logvar, neg_idx,
                                                                gen)),
-                    "cond": {k: v.expand(ga, *v.shape) for k, v in inst_cond.items()},
                     "time_ids_win": time_ids_win,
                     "time_ids_lose": per_micro(compute_time_ids(n_neg, resolution, device=dev)),
                 }
+                if args.train_text_encoder:
+                    batch.update({k: v.expand(ga, *v.shape) for k, v in inst_ids.items()})
+                else:
+                    batch["cond"] = {k: v.expand(ga, *v.shape) for k, v in inst_cond.items()}
                 idx = sample_lattice_timesteps(ga * b_eff, cfg.num_train_timesteps,
                                                cfg.distill_train_timesteps, gen,
                                                dev).reshape(ga, b_eff)

@@ -6,8 +6,7 @@ Knobs the port does not implement yet are kept so launch scripts parse,
 and ``cli.online_runner.check_config`` refuses a non-default value:
 ``param_dtype``, ``mesh.*`` beyond one device, ``mesh.fsdp``,
 ``offload_aux_during_update``, ``use_wandb``, ``fast_init``,
-``profile_dir``, ``use_lora=False``, ``train.int8_ref_pass``,
-``train.use_8bit_adam``, ``train.optimizer_state_dtype`` and the
+``profile_dir``, ``use_lora=False``, ``train.int8_ref_pass`` and the
 ``kernels.*`` options.
 """
 
@@ -90,7 +89,8 @@ def get_config() -> Config:
     t.beta = 50.0
     t.eps = 0.1
     t.clamp_mode = "ratio"  # "ratio" (reference parity) | "logratio" | "none"
-    t.optimizer_state_dtype = ""  # only "" (fp32) is ported
+    t.optimizer_state_dtype = ""  # "" (fp32) | "bfloat16" (bf16 first moments)
+    # block-quantized int8-moment AdamW (takes precedence over the state dtype)
     t.use_8bit_adam = False
     # fuse policy and reference passes into one 4x-batch call with a
     # per-sample LoRA scale (False: a separate grad-free reference pass)

@@ -35,6 +35,10 @@ class CLIPTextConfig:
     act: str = "quick_gelu"  # or "gelu"
     norm_eps: float = 1e-5
     projection_dim: Optional[int] = None  # None = no text_projection
+    # LoRA (and DoRA) on every layer's q/k/v/out projections: the DreamBooth
+    # text-encoder training (--train_text_encoder)
+    lora_rank: int = 0
+    lora_use_dora: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @staticmethod
@@ -95,13 +99,11 @@ def _act(name: str, x):
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, width: int, heads: int, dtype):
+    def __init__(self, width: int, heads: int, dtype, lora_rank: int = 0, use_dora: bool = False):
         super().__init__()
         self.heads = heads
-        self.q_proj = LoRALinear(width, width, dtype=dtype)
-        self.k_proj = LoRALinear(width, width, dtype=dtype)
-        self.v_proj = LoRALinear(width, width, dtype=dtype)
-        self.out_proj = LoRALinear(width, width, dtype=dtype)
+        lin = lambda: LoRALinear(width, width, dtype=dtype, lora_rank=lora_rank, use_dora=use_dora)
+        self.q_proj, self.k_proj, self.v_proj, self.out_proj = lin(), lin(), lin(), lin()
 
     def forward(self, x, causal: bool):
         b, s, w = x.shape
@@ -123,10 +125,11 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, width: int, heads: int, act: str, eps: float, dtype):
+    def __init__(self, width: int, heads: int, act: str, eps: float, dtype, lora_rank: int = 0,
+                 use_dora: bool = False):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(width, eps=eps, dtype=dtype)
-        self.self_attn = CLIPAttention(width, heads, dtype)
+        self.self_attn = CLIPAttention(width, heads, dtype, lora_rank, use_dora)
         self.layer_norm2 = nn.LayerNorm(width, eps=eps, dtype=dtype)
         self.mlp = CLIPMLP(width, act, dtype)
 
@@ -136,10 +139,10 @@ class CLIPEncoderLayer(nn.Module):
 
 
 class CLIPEncoder(nn.Module):
-    def __init__(self, width, heads, act, eps, n_layers, dtype):
+    def __init__(self, width, heads, act, eps, n_layers, dtype, lora_rank=0, use_dora=False):
         super().__init__()
-        self.layers = nn.ModuleList([CLIPEncoderLayer(width, heads, act, eps, dtype)
-                                     for _ in range(n_layers)])
+        self.layers = nn.ModuleList([CLIPEncoderLayer(width, heads, act, eps, dtype, lora_rank,
+                                                      use_dora) for _ in range(n_layers)])
 
 
 class CLIPTextEmbeddings(nn.Module):
@@ -158,7 +161,7 @@ class CLIPTextTransformer(nn.Module):
         super().__init__()
         self.embeddings = CLIPTextEmbeddings(cfg)
         self.encoder = CLIPEncoder(cfg.width, cfg.heads, cfg.act, cfg.norm_eps, cfg.layers,
-                                   cfg.dtype)
+                                   cfg.dtype, cfg.lora_rank, cfg.lora_use_dora)
         self.final_layer_norm = nn.LayerNorm(cfg.width, eps=cfg.norm_eps, dtype=cfg.dtype)
 
     def forward(self, input_ids):

@@ -32,10 +32,13 @@ def gelu_approximate(dtype: torch.dtype) -> str:
 
 
 class _LoRAPair(nn.Module):
-    def __init__(self, in_features: int, out_features: int, rank: int, dtype):
+    def __init__(self, in_features: int, out_features: int, rank: int, dtype,
+                 use_dora: bool = False):
         super().__init__()
         self.down = nn.Linear(in_features, rank, bias=False, dtype=dtype)
         self.up = nn.Linear(rank, out_features, bias=False, dtype=dtype)
+        if use_dora:
+            self.magnitude = nn.Parameter(torch.ones(out_features, dtype=dtype))
 
 
 class LoRALinear(nn.Linear):
@@ -45,31 +48,79 @@ class LoRALinear(nn.Linear):
     Python 0 skips the adapter (the frozen-reference pass does no dead
     work). A starts gaussian with std 1/r and B at zero (peft's
     ``init_lora_weights='gaussian'``).
+
+    ``use_dora`` (weight-decomposed LoRA, peft's ``use_dora``): a trainable
+    fp32 per-output magnitude ``lora.magnitude`` (created as the row norms
+    of W) rescales the merged weight to unit row norms,
+    y = (x W^T + s x (A B)) * m / ||W + s (A B)^T||_row + b with
+    s = lora_scale * alpha / r, the norm in fp32 and detached (peft's
+    semantics). It needs a scalar ``lora_scale``; a static 0 skips the
+    magnitude too.
     """
 
     def __init__(self, in_features, out_features, bias=True, lora_rank=0, lora_alpha=None,
-                 dtype=None, lora_dtype=torch.float32):
+                 dtype=None, lora_dtype=torch.float32, use_dora=False):
         super().__init__(in_features, out_features, bias=bias, dtype=dtype)
         self.lora_rank = lora_rank
+        self.use_dora = bool(use_dora and lora_rank)
         if lora_rank:
             alpha = lora_alpha if lora_alpha is not None else lora_rank
             self.lora_scaling = alpha / lora_rank
-            self.lora = _LoRAPair(in_features, out_features, lora_rank, lora_dtype)
+            self.lora = _LoRAPair(in_features, out_features, lora_rank, lora_dtype, self.use_dora)
             nn.init.normal_(self.lora.down.weight, std=1.0 / lora_rank)
             nn.init.zeros_(self.lora.up.weight)
+            self.refresh_dora_magnitude_()
+
+    @torch.no_grad()
+    def refresh_dora_magnitude_(self):
+        """Set the DoRA magnitude to the row norms of the frozen weight W
+        it holds now (a no-op without DoRA)."""
+        if self.use_dora:
+            self.lora.magnitude.copy_(torch.linalg.vector_norm(self.weight.float(), dim=1))
 
     def forward(self, x, lora_scale=1.0):
         x = x.to(self.weight.dtype)
         y = F.linear(x, self.weight, self.bias)
         static_zero = isinstance(lora_scale, (int, float)) and lora_scale == 0
-        if self.lora_rank and not static_zero:
-            delta = F.linear(F.linear(x, self.lora.down.weight.to(x.dtype)),
-                             self.lora.up.weight.to(x.dtype))
-            if isinstance(lora_scale, torch.Tensor) and lora_scale.ndim >= 1:
-                lora_scale = lora_scale.to(x.dtype).reshape(
-                    lora_scale.shape + (1,) * (delta.ndim - lora_scale.ndim))
-            y = y + delta * (lora_scale * self.lora_scaling)
-        return y
+        if not self.lora_rank or static_zero:
+            return y
+        per_sample = isinstance(lora_scale, torch.Tensor) and lora_scale.ndim >= 1
+        if self.use_dora and per_sample:
+            raise ValueError("use_dora needs a scalar lora_scale (the magnitude normalization "
+                             "acts on the weight; a per-sample scale cannot express it)")
+        delta = F.linear(F.linear(x, self.lora.down.weight.to(x.dtype)),
+                         self.lora.up.weight.to(x.dtype))
+        if self.use_dora:
+            return self._dora(y, delta, lora_scale)
+        if per_sample:
+            lora_scale = lora_scale.to(x.dtype).reshape(
+                lora_scale.shape + (1,) * (delta.ndim - lora_scale.ndim))
+        return y + delta * (lora_scale * self.lora_scaling)
+
+    def _dora(self, y, delta, lora_scale):
+        scale = lora_scale * self.lora_scaling
+        with torch.no_grad():
+            up, down = self.lora.up.weight.float(), self.lora.down.weight.float()
+            if isinstance(scale, torch.Tensor):
+                merged = self.weight.float() + scale.float() * (up @ down)
+            else:
+                merged = torch.addmm(self.weight.float(), up, down, alpha=float(scale))
+            row_norm = torch.linalg.vector_norm(merged, dim=1).clamp_min(1e-9)
+        # y = x W^T + b: the magnitude scales x W'^T only (the bias is taken
+        # off and put back in the compute dtype, as the JAX layer does)
+        base = y - self.bias.to(y.dtype) if self.bias is not None else y
+        out = (base + delta * scale) * (self.lora.magnitude.float() / row_norm).to(y.dtype)
+        return out + self.bias.to(out.dtype) if self.bias is not None else out
+
+
+@torch.no_grad()
+def refresh_dora_magnitudes_(module: nn.Module) -> nn.Module:
+    """Every DoRA magnitude in ``module`` set to its frozen weight's row
+    norms: after new base weights are in, the adapter is a no-op again."""
+    for m in module.modules():
+        if isinstance(m, LoRALinear):
+            m.refresh_dora_magnitude_()
+    return module
 
 
 def timestep_embedding(timesteps, dim: int, flip_sin_to_cos: bool = True,
@@ -120,12 +171,13 @@ class Attention(nn.Module):
     """
 
     def __init__(self, query_dim: int, heads: int, head_dim: int, context_dim=None,
-                 lora_rank: int = 0, dtype=None):
+                 lora_rank: int = 0, dtype=None, use_dora: bool = False):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim = heads, head_dim
         kv_dim = context_dim or query_dim
-        lin = lambda i, o, bias: LoRALinear(i, o, bias=bias, lora_rank=lora_rank, dtype=dtype)
+        lin = lambda i, o, bias: LoRALinear(i, o, bias=bias, lora_rank=lora_rank, dtype=dtype,
+                                            use_dora=use_dora)
         self.to_q = lin(query_dim, inner, False)
         self.to_k = lin(kv_dim, inner, False)
         self.to_v = lin(kv_dim, inner, False)
@@ -170,14 +222,15 @@ class BasicTransformerBlock(nn.Module):
     """Pre-LN self-attn -> cross-attn -> GEGLU FF block (LayerNorm eps 1e-5)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int,
-                 lora_rank: int = 0, dtype=None):
+                 lora_rank: int = 0, dtype=None, use_dora: bool = False):
         super().__init__()
         ln = lambda: nn.LayerNorm(dim, eps=1e-5, dtype=dtype)
         self.norm1 = ln()
-        self.attn1 = Attention(dim, heads, head_dim, lora_rank=lora_rank, dtype=dtype)
+        self.attn1 = Attention(dim, heads, head_dim, lora_rank=lora_rank, dtype=dtype,
+                               use_dora=use_dora)
         self.norm2 = ln()
         self.attn2 = Attention(dim, heads, head_dim, context_dim, lora_rank=lora_rank,
-                               dtype=dtype)
+                               dtype=dtype, use_dora=use_dora)
         self.norm3 = ln()
         self.ff = GEGLUFeedForward(dim, dtype=dtype)
 
@@ -192,12 +245,13 @@ class SpatialTransformer(nn.Module):
     proj, residual (diffusers Transformer2DModel, use_linear_projection)."""
 
     def __init__(self, channels: int, depth: int, heads: int, head_dim: int, context_dim: int,
-                 lora_rank: int = 0, groups: int = 32, dtype=None):
+                 lora_rank: int = 0, groups: int = 32, dtype=None, use_dora: bool = False):
         super().__init__()
         self.norm = GroupNorm(channels, groups, eps=1e-6, dtype=dtype)
         self.proj_in = nn.Linear(channels, channels, dtype=dtype)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(channels, heads, head_dim, context_dim, lora_rank, dtype)
+            BasicTransformerBlock(channels, heads, head_dim, context_dim, lora_rank, dtype,
+                                  use_dora)
             for _ in range(depth)
         ])
         self.proj_out = nn.Linear(channels, channels, dtype=dtype)
@@ -274,7 +328,8 @@ def init_random_(module: nn.Module, generator: torch.Generator, lora_b_std: floa
     default bound) with zero biases, norms are identity, embeddings are
     gaussian with std 0.02. Those keep full-depth bf16 activations finite.
     LoRA ``down`` is gaussian with std 1/r; ``up`` is gaussian with std
-    ``lora_b_std`` (0 leaves the adapter a no-op, as a fresh peft adapter).
+    ``lora_b_std`` (0 leaves the adapter a no-op, as a fresh peft adapter);
+    DoRA magnitudes are the drawn weights' row norms.
     A module with other parameters initializes them in ``init_extra_``.
     """
     adapters = set()
@@ -301,3 +356,4 @@ def init_random_(module: nn.Module, generator: torch.Generator, lora_b_std: floa
             m.weight.normal_(0.0, 0.02, generator=generator)
         if hasattr(m, "init_extra_"):
             m.init_extra_(generator)
+    refresh_dora_magnitudes_(module)

@@ -55,6 +55,7 @@ class UNetConfig:
     num_time_ids: int = 6
     norm_groups: int = 32
     lora_rank: int = 0
+    lora_use_dora: bool = False  # DoRA on the adapted projections (peft's use_dora)
     # "full": checkpoint every ResnetBlock and SpatialTransformer; "" / "none": off
     remat: str = ""
     dtype: torch.dtype = torch.bfloat16
@@ -116,7 +117,7 @@ class SDXLUNet(nn.Module):
         def transformer(depth, ch):
             return SpatialTransformer(ch, depth, ch // cfg.head_dim, cfg.head_dim,
                                       cfg.cross_attention_dim, cfg.lora_rank,
-                                      cfg.norm_groups, dtype=dt)
+                                      cfg.norm_groups, dtype=dt, use_dora=cfg.lora_use_dora)
 
         self.time_embedding = TimestepEmbedMLP(chs[0], temb, dtype=dt)
         self.add_embedding = TimestepEmbedMLP(cfg.add_embed_input_dim, temb, dtype=dt)

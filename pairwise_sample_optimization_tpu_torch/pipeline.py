@@ -27,7 +27,7 @@ import torch
 from .checkpoints.convert import load_torch_state_dict, load_weights, tower_weight_file
 from .device import resolve_device
 from .models.clip import CLIPTextConfig, CLIPTextTower, CLIPVisionConfig
-from .models.layers import init_random_
+from .models.layers import init_random_, refresh_dora_magnitudes_
 from .models.sdxl_text import compute_time_ids, encode_sdxl_prompt
 from .models.unet import SDXLUNet, UNetConfig
 from .models.vae import AutoencoderKL, VAEConfig
@@ -68,7 +68,8 @@ class SDXLPipeline:
     @classmethod
     def random(cls, lora_rank: int = 32, dtype=torch.bfloat16, resolution: int = 512,
                tiny: bool = False, seed: int = 0, lora_b_std: float = 0.0,
-               remat: str = "", device="cuda", with_scorer: bool = True) -> "SDXLPipeline":
+               remat: str = "", device="cuda", with_scorer: bool = True,
+               te_lora_rank: int = 0, use_dora: bool = False) -> "SDXLPipeline":
         """Architecture-true random weights made from ``seed``, built on
         ``device`` directly: each tower is constructed on the meta device,
         materialized there with ``to_empty`` and filled by
@@ -76,7 +77,10 @@ class SDXLPipeline:
         is fp32, its B gaussian with std ``lora_b_std`` (0 = a fresh no-op
         adapter). ``tiny`` gives the CPU-test configuration; ``remat`` is the
         UNet's activation checkpointing (``UNetConfig.remat``);
-        ``with_scorer=False`` leaves out the PickScore scorer."""
+        ``with_scorer=False`` leaves out the PickScore scorer.
+        ``te_lora_rank`` puts a LoRA of that rank on both text encoders'
+        attention projections (DreamBooth's text-encoder training);
+        ``use_dora`` makes every adapter (UNet and text encoders) DoRA."""
         dev = resolve_device(device)
         if tiny:
             ucfg = UNetConfig.tiny(lora_rank=lora_rank, dtype=dtype, remat=remat)
@@ -92,6 +96,9 @@ class SDXLPipeline:
             t1cfg = CLIPTextConfig.sdxl_te1(dtype)
             t2cfg = CLIPTextConfig.sdxl_te2(dtype)
             pcfg = (CLIPTextConfig.vit_h14(dtype), CLIPVisionConfig.vit_h14(dtype))
+        ucfg = dataclasses.replace(ucfg, lora_use_dora=use_dora)
+        t1cfg, t2cfg = (dataclasses.replace(c, lora_rank=te_lora_rank, lora_use_dora=use_dora)
+                        for c in (t1cfg, t2cfg))
         gen = torch.Generator(device=dev).manual_seed(seed)
 
         def make(module):
@@ -109,8 +116,8 @@ class SDXLPipeline:
     @classmethod
     def from_torch_dir(cls, model_dir: str, lora_rank: int = 32, dtype=torch.bfloat16,
                        resolution: int = 512, tiny: bool = False, seed: int = 0,
-                       remat: str = "", device="cuda", with_scorer: bool = True
-                       ) -> "SDXLPipeline":
+                       remat: str = "", device="cuda", with_scorer: bool = True,
+                       te_lora_rank: int = 0, use_dora: bool = False) -> "SDXLPipeline":
         """A local diffusers checkpoint directory: ``unet/``, ``vae/``,
         ``text_encoder/`` and ``text_encoder_2/``, each read from its first
         ``.safetensors`` or ``.bin`` file in name order (the JAX package's
@@ -122,7 +129,9 @@ class SDXLPipeline:
         (``checkpoints.load_weights``) and cast to ``dtype``. The LoRA keeps
         its fresh draw: down-projections gaussian with std 1/r, up zero, a
         no-op adapter that still gets a gradient (what the JAX package's
-        ``reinit_lora_a`` restores after its zero fill). Every VAE key is
+        ``reinit_lora_a`` restores after its zero fill); DoRA magnitudes are
+        set anew from the loaded weights, so the adapter is a no-op at step 0
+        (the JAX package's ``refresh_dora_magnitudes``). Every VAE key is
         read, the encoder's and ``quant_conv`` too; read past: the text
         towers' ``position_ids``. A tower whose folder holds no
         weight file keeps its random weights, with a warning. The PickScore
@@ -131,7 +140,7 @@ class SDXLPipeline:
         if not os.path.isdir(model_dir):
             raise FileNotFoundError(f"model_dir {model_dir!r} is not a directory")
         pipe = cls.random(lora_rank, dtype, resolution, tiny, seed, remat=remat, device=device,
-                          with_scorer=with_scorer)
+                          with_scorer=with_scorer, te_lora_rank=te_lora_rank, use_dora=use_dora)
         for sub, module in (("unet", pipe.unet), ("vae", pipe.vae), ("text_encoder", pipe.te1),
                             ("text_encoder_2", pipe.te2)):
             path = tower_weight_file(os.path.join(model_dir, sub))
@@ -139,6 +148,7 @@ class SDXLPipeline:
                 logger.warning("no weights under %s -- its tower stays random", sub)
                 continue
             unused = load_weights(module, load_torch_state_dict(path, pipe.device))
+            refresh_dora_magnitudes_(module)
             logger.info("loaded %s from %s (%d keys read past)", sub, path, len(unused))
         return pipe
 
@@ -147,7 +157,12 @@ class SDXLPipeline:
         """Token ids (B, 77) for each text encoder -> conditioning dict:
         ``embeds`` (B, 77, 2048), ``pooled`` (B, 1280), ``time_ids`` (B, 6)
         and ``reward_ids`` (the scorer's token ids; ``input_ids_one`` when
-        not given)."""
+        not given). No gradients; see :meth:`encode_prompt_train`."""
+        return self.encode_prompt_train(input_ids_one, input_ids_two, reward_ids)
+
+    def encode_prompt_train(self, input_ids_one, input_ids_two, reward_ids=None) -> dict:
+        """:meth:`encode_prompt` with gradients flowing into the text
+        encoders' trainable adapters (DreamBooth's text-encoder LoRA)."""
         embeds, pooled = encode_sdxl_prompt(self.te1, self.te2, input_ids_one, input_ids_two)
         time_ids = compute_time_ids(embeds.shape[0], self.resolution, device=embeds.device)
         return {"embeds": embeds, "pooled": pooled, "time_ids": time_ids,

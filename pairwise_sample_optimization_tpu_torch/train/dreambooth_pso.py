@@ -3,7 +3,7 @@ model generated for the class prompt lose; a Diffusion-DPO-style loss on
 the difference of their denoising losses.
 
 Counterpart of the JAX package's ``train/dreambooth_pso.py`` for the
-UNet's LoRA:
+UNet's LoRA (or DoRA) and, with ``train_text_encoder``, the text encoders':
 
 - the win and lose halves share their timesteps and their noise;
 - the timesteps are the distilled lattice ``stride * (u mod 4) + stride - 1``
@@ -20,14 +20,18 @@ UNet's LoRA:
 - per-sample weighted MSE, ``losses.dreambooth_pso_loss`` (``pso`` needs
   the frozen reference: one fused call at twice the batch with per-sample
   LoRA scales [1, 1, 0, 0], or a separate grad-free call at a static scale
-  of 0);
+  of 0, the form DoRA needs);
+- ``train_text_encoder``: each microbatch encodes its prompts from token ids
+  (``input_ids_one`` / ``input_ids_two``) through the text encoders' live
+  adapters, with gradients. The ``pso`` reference pass takes that same
+  conditioning (the JAX package's choice): only its UNet runs at scale 0;
 - ``grad_accum`` microbatches: their gradients summed, divided by
   ``grad_accum``, then one optimizer step.
 
 Randomness is explicit: :meth:`DreamBoothPSOTrainer.update` takes each
 microbatch's lattice indices and noise (:func:`sample_lattice_timesteps`
 and ``torch.randn`` draw them from a generator; a test hands in the JAX
-package's draws). Text-encoder LoRA training is not ported.
+package's draws).
 """
 
 from __future__ import annotations
@@ -69,9 +73,6 @@ class DreamBoothPSOConfig:
             raise ValueError(f"unknown prediction_type {self.prediction_type!r}")
         if self.loss_type not in ("pso", "pso_db"):
             raise ValueError(f"unknown loss_type {self.loss_type!r}")
-        if self.train_text_encoder:
-            raise NotImplementedError("text-encoder LoRA training is not ported yet "
-                                      "(ROADMAP Queue 1 item 8)")
 
 
 def make_sigma_table(cfg: NoiseScheduleConfig = NoiseScheduleConfig()) -> np.ndarray:
@@ -92,8 +93,9 @@ def sample_lattice_timesteps(batch: int, num_train_timesteps: int, lattice_point
 
 
 class DreamBoothPSOTrainer:
-    """The update for one pipeline (``pipeline.SDXLPipeline``; only its
-    ``unet_eps`` is used)."""
+    """The update for one pipeline (``pipeline.SDXLPipeline``: its
+    ``unet_eps``, and its ``encode_prompt_train`` with
+    ``train_text_encoder``)."""
 
     def __init__(self, config: DreamBoothPSOConfig, pipeline,
                  schedule_config: NoiseScheduleConfig = NoiseScheduleConfig()):
@@ -165,13 +167,19 @@ class DreamBoothPSOTrainer:
 
     def microbatch_loss(self, micro: dict, idx, noise_half):
         """(loss, aux) of one microbatch: ``micro`` holds ``instance_latents``
-        and ``negative_latents`` (b, h, w, c), ``cond`` (the win half's
-        conditioning, b rows) and optionally ``time_ids_win`` /
-        ``time_ids_lose`` (b, 6); ``idx`` (b,) lattice indices, ``noise_half``
-        (b, h, w, c) shared by both halves."""
+        and ``negative_latents`` (b, h, w, c), the win half's conditioning (b
+        rows): ``cond``, or with ``train_text_encoder`` its token ids
+        ``input_ids_one`` / ``input_ids_two`` (b, 77), and optionally
+        ``time_ids_win`` / ``time_ids_lose`` (b, 6); ``idx`` (b,) lattice
+        indices, ``noise_half`` (b, h, w, c) shared by both halves."""
         cfg = self.config
         latents2 = torch.cat([micro["instance_latents"], micro["negative_latents"]]).float()
-        cond2 = {k: torch.cat([v, v]) for k, v in micro["cond"].items()}
+        if cfg.train_text_encoder:
+            enc = self.pipe.encode_prompt_train(micro["input_ids_one"], micro["input_ids_two"])
+            cond = {k: enc[k] for k in ("embeds", "pooled", "time_ids")}
+        else:
+            cond = micro["cond"]
+        cond2 = {k: torch.cat([v, v]) for k, v in cond.items()}
         if "time_ids_win" in micro:
             cond2["time_ids"] = torch.cat([micro["time_ids_win"], micro["time_ids_lose"]])
         t_eff = (cfg.num_train_timesteps - 1 - idx) if cfg.descending_table else idx
@@ -205,9 +213,9 @@ class DreamBoothPSOTrainer:
 
     def update(self, state: PSOTrainState, batch: dict, idx, noise) -> Dict[str, float]:
         """One optimizer step over ``grad_accum`` microbatches. Every leaf of
-        ``batch`` (``instance_latents``, ``negative_latents``, ``cond``'s,
-        ``time_ids_win`` / ``time_ids_lose``), ``idx`` (ga, b) and ``noise``
-        (ga, b, h, w, c) has a leading microbatch axis. The gradients of the
+        ``batch`` (``instance_latents``, ``negative_latents``, ``cond``'s or
+        the token ids, ``time_ids_win`` / ``time_ids_lose``), ``idx`` (ga, b)
+        and ``noise`` (ga, b, h, w, c) has a leading microbatch axis. The gradients of the
         microbatch losses are summed and divided by ``grad_accum``; the
         metrics are means over the microbatches."""
         ga = self.config.grad_accum

@@ -1,25 +1,38 @@
-"""LoRA-only train state, optimizer and learning-rate schedules.
+"""LoRA-only train state, optimizers and learning-rate schedules.
 
 Counterpart of the JAX package's ``train/train_state.py``. The trainable
-set is the UNet's LoRA adapter (``*.lora.down.weight`` / ``*.lora.up.weight``,
-fp32); every other weight is frozen (``requires_grad=False``).
+set is the LoRA adapter (``*.lora.down.weight`` / ``*.lora.up.weight`` and
+DoRA's ``*.lora.magnitude``, fp32); every other weight is frozen
+(``requires_grad=False``).
 
-``make_optimizer`` is optax's ``chain(clip_by_global_norm, adamw)``:
-gradients are scaled by ``max_norm / norm`` only when ``norm >= max_norm``
-(``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6`` instead),
-then ``torch.optim.AdamW`` steps, whose update equals optax's adamw
-(decoupled decay on the pre-step weights, eps outside the square root).
-The optimizer updates the LoRA parameters in place.
+``make_optimizer`` is optax's ``chain(clip_by_global_norm, adamw)`` over
+one group of parameters or several (each with its own learning rate,
+weight decay and schedule), every one over flat buffers
+(``flat_optim.FlatOptimizer``: gradients scaled by ``max_norm / norm``
+only when ``norm >= max_norm``):
+
+- by default ``flat_optim.FlatAdamW`` with fp32 moments;
+- ``state_dtype="bfloat16"``: the first moment stored in bf16, optax's
+  ``adamw(mu_dtype=bfloat16)``;
+- ``use_8bit``: the block-quantized int8-moment AdamW
+  (``quantized_adam.Adam8bit``).
+
+``prodigy.Prodigy`` is the DreamBooth CLI's other optimizer. Every one
+updates the LoRA parameters in place and has ``state_dict`` /
+``load_state_dict``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
+
+from .flat_optim import FlatAdamW, FlatOptimizer
+from .quantized_adam import Adam8bit
 
 LR_SCHEDULES = ("constant", "constant_with_warmup", "linear", "cosine", "cosine_with_restarts",
                 "polynomial")
@@ -76,58 +89,44 @@ def make_lr_schedule(name: str, learning_rate: float, warmup_steps: int = 0,
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
-class ClippedAdamW:
-    """Global-norm clipping (optax semantics) followed by AdamW, with an
-    optional ``LambdaLR`` schedule stepped once per update."""
-
-    def __init__(self, params: Dict[str, nn.Parameter], learning_rate: float, betas, eps: float,
-                 weight_decay: float, max_grad_norm: float,
-                 schedule: Optional[Callable[[int], float]] = None):
-        self.max_grad_norm = max_grad_norm
-        self.adamw = torch.optim.AdamW(list(params.values()), lr=learning_rate, betas=betas,
-                                       eps=eps, weight_decay=weight_decay)
-        self.scheduler = (torch.optim.lr_scheduler.LambdaLR(self.adamw, schedule)
-                          if schedule is not None else None)
-
-    def step(self, params: Dict[str, nn.Parameter], grads: Dict[str, torch.Tensor]) -> None:
-        norm = global_norm(grads.values())
-        clip = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
-                           self.max_grad_norm / norm)
-        for name, p in params.items():
-            p.grad = (grads[name] * clip).to(p.dtype)
-        self.adamw.step()
-        self.adamw.zero_grad(set_to_none=True)
-        if self.scheduler is not None:
-            self.scheduler.step()
-
-    def state_dict(self) -> dict:
-        return {"adamw": self.adamw.state_dict(),
-                "scheduler": self.scheduler.state_dict() if self.scheduler else None}
-
-    def load_state_dict(self, state: dict) -> None:
-        self.adamw.load_state_dict(state["adamw"])
-        if self.scheduler is not None:
-            self.scheduler.load_state_dict(state["scheduler"])
+def param_groups(params: Union[Mapping[str, nn.Parameter], Sequence[dict]],
+                 learning_rate: float, weight_decay: float) -> List[dict]:
+    """``{name: parameter}`` (one group) or ``[{"params": {...}, "lr": ...,
+    "weight_decay": ..., "schedule": ...}, ...]`` -> groups with every key
+    set (a group without ``lr`` / ``weight_decay`` takes the given ones; a
+    group's ``schedule``, the factor of its learning rate, defaults to
+    the optimizer's)."""
+    groups = [{"params": params}] if isinstance(params, Mapping) else list(params)
+    return [{"params": dict(g["params"]), "lr": g.get("lr", learning_rate),
+             "weight_decay": g.get("weight_decay", weight_decay),
+             "schedule": g.get("schedule")} for g in groups]
 
 
-def make_optimizer(params: Dict[str, nn.Parameter], learning_rate: float = 1e-5,
-                   beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
-                   weight_decay: float = 1e-6, max_grad_norm: float = 1.0,
+def make_optimizer(params: Union[Mapping[str, nn.Parameter], Sequence[dict]],
+                   learning_rate: float = 1e-5, beta1: float = 0.9, beta2: float = 0.999,
+                   eps: float = 1e-8, weight_decay: float = 1e-6, max_grad_norm: float = 1.0,
                    state_dtype: Optional[str] = None,
                    schedule: Optional[Callable[[int], float]] = None,
-                   use_8bit: bool = False) -> ClippedAdamW:
-    """AdamW with global-norm clipping (reference hyperparameters).
-    ``schedule`` is a factor from :func:`make_lr_schedule`."""
+                   use_8bit: bool = False):
+    """AdamW with global-norm clipping (reference hyperparameters) over
+    ``params`` (see :func:`param_groups`). ``schedule`` is a factor from
+    :func:`make_lr_schedule`. ``use_8bit`` (first) picks the 8-bit AdamW,
+    ``state_dtype="bfloat16"`` bf16 first moments; otherwise fp32 moments."""
+    groups = param_groups(params, learning_rate, weight_decay)
+    betas = (beta1, beta2)
     if use_8bit:
-        raise NotImplementedError("8-bit AdamW is not ported yet")
-    if state_dtype not in (None, "", "float32"):
-        raise NotImplementedError(f"optimizer state dtype {state_dtype!r} is not ported yet; "
-                                  "moments are fp32")
-    return ClippedAdamW(params, learning_rate, (beta1, beta2), eps, weight_decay, max_grad_norm,
-                        schedule)
+        return Adam8bit(groups, betas, eps, max_grad_norm, schedule)
+    if state_dtype in (None, "", "float32", torch.float32):
+        mu_dtype = torch.float32
+    elif state_dtype in ("bfloat16", torch.bfloat16):
+        mu_dtype = torch.bfloat16
+    else:
+        raise ValueError(f"optimizer state dtype {state_dtype!r}: use '' (fp32) or 'bfloat16'")
+    return FlatAdamW(groups, betas, eps, max_grad_norm, schedule, mu_dtype=mu_dtype)
 
 
 @dataclasses.dataclass
@@ -137,10 +136,10 @@ class PSOTrainState:
 
     step: int
     lora: Dict[str, nn.Parameter]
-    tx: ClippedAdamW
+    tx: FlatOptimizer
 
     @classmethod
-    def create(cls, lora: Dict[str, nn.Parameter], tx: ClippedAdamW) -> "PSOTrainState":
+    def create(cls, lora: Dict[str, nn.Parameter], tx) -> "PSOTrainState":
         return cls(step=0, lora=lora, tx=tx)
 
     def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> None:

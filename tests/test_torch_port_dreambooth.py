@@ -456,9 +456,7 @@ def test_cli_tiny_run_validates_checkpoints_resumes_and_exports_the_jax_layout(t
     assert all(torch.equal(first["unet." + k], v.detach()) for k, v in restored.lora.items())
 
 
-REFUSED_FLAGS = (["--use_dora"], ["--optimizer", "prodigy"], ["--use_8bit_adam"],
-                 ["--train_text_encoder"], ["--output_kohya_format"], ["--use_wandb"],
-                 ["--fast_init"], ["--gradient_checkpointing_mode", "lowres"])
+REFUSED_FLAGS = (["--use_wandb"], ["--fast_init"], ["--gradient_checkpointing_mode", "lowres"])
 
 
 def test_cli_refuses_unported_flags_before_building_a_model(tmp_path, monkeypatch):
@@ -498,8 +496,12 @@ def test_chip_smoke_launch_counts_match_the_tiny_dreambooth_runs(tmp_path):
     """The launch counts chip_smoke.py expects of a DreamBooth CLI run equal
     the kernel-wrapper calls the run makes (counted here on the CPU, where
     the wrappers take their plain versions): the pso_db run with remat, a
-    validation and a resume, and the pso run with prior preservation (class
-    images generated) and the fused reference pass."""
+    validation and a resume, the pso run with prior preservation (class
+    images generated) and the fused reference pass, and the pso run with
+    DoRA (its reference pass a forward of its own) and text-encoder LoRA
+    (the causal text towers take no kernel; under remat every ResnetBlock
+    is recomputed, the trained conditioning reaching them all), with a
+    validation."""
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
@@ -511,7 +513,12 @@ def test_chip_smoke_launch_counts_match_the_tiny_dreambooth_runs(tmp_path):
                     "--resume_from_checkpoint", "latest"]),
             ("b", ["--max_train_steps", "1", "--loss_type", "pso", "--scheduler_space", "edm",
                    "--with_prior_preservation", "--class_data_dir", str(tmp_path / "class"),
-                   "--num_class_images", "3", "--center_crop", "--skip_validation"])]
+                   "--num_class_images", "3", "--center_crop", "--skip_validation"]),
+            ("c", ["--max_train_steps", "1", "--loss_type", "pso", "--use_dora",
+                   "--train_text_encoder", "--optimizer", "prodigy", "--learning_rate", "1.0",
+                   "--gradient_checkpointing",
+                   "--validation_steps", "1", "--num_validation_images", "1",
+                   "--output_dir", str(tmp_path / "out_c")])]
     for name, extra in runs:
         argv = _cli(tmp_path, *extra)
         with cs.ShapeRecorder() as rec:

@@ -377,7 +377,9 @@ def _port_imports(path: Path):
                                    "checkpoints/clip_loader.py", "rewards/imagereward.py",
                                    "data/wordpiece.py", "utils/png.py",
                                    "cli/train_pso_sdxl_turbo_dreambooth.py", "data/dreambooth.py",
-                                   "train/dreambooth_pso.py", "train/db_validation.py"])
+                                   "train/dreambooth_pso.py", "train/db_validation.py",
+                                   "train/prodigy.py", "train/quantized_adam.py",
+                                   "train/flat_optim.py"])
 def test_new_entry_points_need_only_torch_numpy_and_the_stdlib(entry):
     """Every module the entry point reaches, through the port's own imports,
     imports nothing but the port, torch, numpy and the standard library."""

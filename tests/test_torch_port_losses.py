@@ -14,6 +14,7 @@ import torch
 
 from pairwise_sample_optimization_tpu.train import losses as jl
 from pairwise_sample_optimization_tpu.train import train_state as jts
+from pairwise_sample_optimization_tpu_torch.checkpoints.train_state_io import restore_train_state
 from pairwise_sample_optimization_tpu_torch.train import losses as tl
 from pairwise_sample_optimization_tpu_torch.train import train_state as tts
 
@@ -125,11 +126,14 @@ def test_global_norm_matches_optax():
 
 
 def test_unported_optimizer_knobs_raise():
+    """The 8-bit AdamW and bf16 first moments are ported (held against the
+    JAX package in ``test_torch_port_db_options.py``); a state dtype the JAX
+    package does not have still raises."""
     p = {"a": torch.nn.Parameter(torch.zeros(2))}
-    with pytest.raises(NotImplementedError, match="8-bit"):
-        tts.make_optimizer(p, use_8bit=True)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tts.make_optimizer(p, state_dtype="bfloat16")
+    assert type(tts.make_optimizer(p, use_8bit=True)).__name__ == "Adam8bit"
+    assert tts.make_optimizer(p, state_dtype="bfloat16").mu.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="float16"):
+        tts.make_optimizer(p, state_dtype="float16")
 
 
 @pytest.mark.parametrize("name", tts.LR_SCHEDULES)
@@ -147,6 +151,58 @@ def test_lr_schedule_drives_the_optimizer_as_lambda_lr():
     opt = tts.make_optimizer(p, learning_rate=1e-2, schedule=factor)
     seen = []
     for _ in range(4):
-        seen.append(opt.adamw.param_groups[0]["lr"])
+        seen.append(opt.group_lrs(opt.count)[0])  # the rate of the update about to run
         opt.step(p, {"a": torch.ones(3)})
     _close(np.array(seen), 1e-2 * np.array([factor(s) for s in range(4)]), atol=1e-12)
+
+
+def test_fp32_adamw_resumes_a_torch_optim_adamw_checkpoint(tmp_path):
+    """Train-state checkpoints from before the fp32 AdamW went flat hold
+    ``{"adamw": torch.optim.AdamW state, "scheduler": LambdaLR state}``.
+    One is written here as that optimizer wrote it (two groups, optax's
+    clip engaged on one step, a schedule); ``restore_train_state`` reads it
+    into ``make_optimizer``'s ``FlatAdamW``, and the next two steps equal
+    those of the ``torch.optim.AdamW`` run going on."""
+    r = np.random.default_rng(5)
+    shapes = {"a.lora.down.weight": (4, 3), "a.lora.up.weight": (5,), "c.lora.down.weight": (7,)}
+    init = {k: r.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (r.standard_normal(s) * scale).astype(np.float32) for k, s in shapes.items()}
+             for scale in (1e-2, 10.0, 0.1, 1e-2, 3.0)]
+    factor = tts.make_lr_schedule("linear", 1e-2, warmup_steps=2, total_steps=8)
+    old = {k: torch.nn.Parameter(_t(v)) for k, v in init.items()}
+    adamw = torch.optim.AdamW([{"params": [old["a.lora.down.weight"], old["a.lora.up.weight"]],
+                                "lr": 1e-2, "weight_decay": 1e-2},
+                               {"params": [old["c.lora.down.weight"]], "lr": 3e-3,
+                                "weight_decay": 0.0}], lr=1e-2, betas=(0.9, 0.999), eps=1e-8)
+    sched = torch.optim.lr_scheduler.LambdaLR(adamw, [factor, factor])
+
+    def old_step(g):
+        norm = tts.global_norm([_t(v) for v in g.values()])
+        clip = torch.where(norm < 1.0, torch.ones_like(norm), 1.0 / norm)
+        for k, p in old.items():
+            p.grad = _t(g[k]) * clip
+        adamw.step()
+        adamw.zero_grad(set_to_none=True)
+        sched.step()
+
+    for g in grads[:3]:
+        old_step(g)
+    ckpt = tmp_path / "checkpoint-3"
+    ckpt.mkdir()
+    torch.save({"step": 3, "lora": {k: p.detach().clone() for k, p in old.items()},
+                "optimizer": {"adamw": adamw.state_dict(), "scheduler": sched.state_dict()},
+                "extra": {"epoch": 0}}, ckpt / "state.pt")
+
+    new = {k: torch.nn.Parameter(torch.zeros(s)) for k, s in shapes.items()}
+    groups = [{"params": {k: new[k] for k in ("a.lora.down.weight", "a.lora.up.weight")},
+               "lr": 1e-2, "weight_decay": 1e-2},
+              {"params": {"c.lora.down.weight": new["c.lora.down.weight"]}, "lr": 3e-3,
+               "weight_decay": 0.0}]
+    state = tts.PSOTrainState.create(new, tts.make_optimizer(groups, schedule=factor))
+    assert restore_train_state(str(ckpt), state) == {"epoch": 0}
+    assert type(state.tx).__name__ == "FlatAdamW" and state.tx.count == state.step == 3
+    for g in grads[3:]:
+        old_step(g)
+        state.apply_gradients({k: _t(v) for k, v in g.items()})
+    for k in shapes:
+        _close(new[k], old[k].detach(), atol=1e-6, rtol=1e-5)

@@ -202,6 +202,42 @@ def test_update_matches_jax_update_impl(setup, adapter):
         _close(state.lora[k], v)
 
 
+def test_update_with_8bit_adam_matches_jax_and_the_runner_takes_it(setup, tmp_path):
+    """The first update with the 8-bit AdamW (``train.use_8bit_adam``)
+    against the JAX update with ``make_optimizer(use_8bit=True)`` (the int8
+    state is held bit for bit in ``test_torch_port_db_options.py``); then a
+    tiny runner epoch builds that optimizer,
+    and the bf16-moment knob passes the runner's check."""
+    variables = _with_lora_b(setup["variables"], 0.05)
+    samples, cond = setup["samples"], setup["cond"]
+    jt = setup["jtrainer"]
+    tx8 = jts.make_optimizer(**HP, use_8bit=True)
+    jtrainer = jpso.OnlinePSOTrainer(jt.config, jt.unet_apply, tx8, donate=False)
+    jbatch = {k: jnp.asarray(v.numpy()) for k, v in _per_update(samples).items()}
+    jcond = {k: jnp.asarray(v.numpy()) for k, v in _per_update(cond).items()}
+    jnew, jm = jtrainer._update(jts.PSOTrainState.create(variables["lora"], tx8),
+                                variables["params"], jbatch, jcond, jax.random.key(5))
+    unet = _port_unet(variables)
+    trainer = OnlinePSOTrainer(
+        OnlinePSOConfig(num_steps=STEPS, train_batch_size=BS, grad_accum=GA), SDXLPipeline(
+            unet=unet, vae=None, te1=None, te2=None))
+    lora = lora_parameters(unet)
+    state = PSOTrainState.create(lora, make_optimizer(lora, **HP, use_8bit=True))
+    m = trainer.update(state, _per_update(samples), _per_update(cond))
+    for key in ("loss", "grad_norm"):
+        _close(np.float32(m[key]), jm[key])
+    want = _lora_as_port(jnew.lora)
+    for k, v in want.items():
+        _close(state.lora[k], v)
+    assert state.tx.mu_q.dtype == torch.int8 and int(jnew.opt_state[1].count) == 1
+
+    config = build_config(True, [f"output_dir={tmp_path}", "train.use_8bit_adam=True"])
+    state, history, _ = online_runner.run_online_pso(config, num_epochs=1, device="cpu")
+    assert type(state.tx).__name__ == "Adam8bit" and math.isfinite(history[0]["loss"])
+    online_runner.check_config(build_config(True, ["train.optimizer_state_dtype=bfloat16"]),
+                               "turbo")
+
+
 def test_remat_on_and_off_give_the_same_update(setup):
     samples, cond = setup["samples"], setup["cond"]
     variables = _with_lora_b(setup["variables"], 0.05)
