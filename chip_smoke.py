@@ -68,8 +68,11 @@ PyTorch. In order:
    on a WordPiece vocabulary the script writes); launch counts as implied
    (ImageReward's 24 ViT self-attention and 12 BERT cross-attention
    launches a batch among them), scores finite, and the first two prompts
-   run again at batch 1 must score the same within ``TOL["eval_batch"]``.
-   Prints prompts/min and peak memory;
+   run again at batch 1 must score the same within ``TOL["eval_batch"]``,
+   and the 8 prompts again with ``--score_chunk 4 --offload_scorers
+   --vae_decode_chunk 1`` must score bit for bit as the first run (at
+   1024^2 the default decodes one image a call too). Prints prompts/min and
+   peak memory;
 8. DreamBooth PSO through its entry point,
    ``cli.train_pso_sdxl_turbo_dreambooth.main``, at full width and 512^2
    (random weights, bf16 towers, fp32 LoRA rank 16, remat "full") on four
@@ -105,7 +108,23 @@ PyTorch. In order:
    moments on the card, a finite loss. Prints s per optimizer step (steady
    steps, synchronized), the negatives' and the encodes' s, the
    validation's s and peak memory;
-9. one phase per kernel at every shape steps 5-8 gave it (recorded during
+9. the remat modes (``remat_phase``): one Turbo update microbatch at full
+   width, 512^2, policy batch 8, under "full" (twice: the spread of the two
+   sets the tolerance), "", "resnets", "dots", "lowres" and "lowres_dots":
+   launch counts as each mode implies, peak memory, CUDA-event and wall ms
+   (medians of ``REMAT_REPS``), each LoRA gradient tensor within a relative
+   difference of ``REMAT_TOL_FACTOR`` x the largest between the two "full"
+   runs of the first "full" run's, the loss likewise;
+10. full finetuning (``full_finetune_slice``): ``run_online_pso`` with
+   ``use_lora=False``, fp32 masters and ``offload_aux_during_update`` for 2
+   epochs of 2 pairs at 512^2, then 1 epoch without the offload: launch
+   counts, the first loss log 2, every weight with a gradient moved, the
+   frozen reference copy bit-equal to the seed's weights, the VAE, scorer
+   and text encoders in pinned host memory during each update and back
+   after it, the second epoch sampled by the updated weights; peaks with
+   and without the offload, update and offload seconds. No whole-UNet
+   checkpoint is written (~31 GB);
+11. one phase per kernel at every shape steps 5-10 gave it (recorded during
    those runs) in bf16, plus one fp32 case and, for the attention kernels,
    the bf16 ragged lengths of ``RAGGED`` (and, for the forward, of
    ``RAGGED_FWD`` at head dims 80 and 512; 0 launches): the kernel against
@@ -135,9 +154,10 @@ PyTorch. In order:
    as a strided view and with a strided last dim (copied first), and in
    bf16 at the ``RAGGED`` shapes. The plain attention forward runs over
    slices of the batch where its logits would pass 1 GiB (the VAE's 16384
-   tokens). GroupNorm rows report the share of the limit used;
-10. prints the card line again, the ``{"kernels": [...]}`` line (launches:
-   the sum over the runs of steps 5-8), then, last, the device line.
+   tokens). GroupNorm rows report the share of the limit used. The
+   attention forward's times are also printed per head dim;
+12. prints the card line again, the ``{"kernels": [...]}`` line (launches:
+   the sum over the runs of steps 5-10), then, last, the device line.
 
 Any failure raises, and the script exits non-zero. It also exits non-zero,
 printing no result, where CUDA or the port's package is missing. The full
@@ -405,23 +425,46 @@ def small_reference(seed):
 
 
 def _unet_counts(ucfg):
-    """(attention calls, GroupNorm+SiLU calls, ResnetBlocks, ResnetBlocks
-    that run before the first attention) of one UNet forward."""
+    """(attention calls, GroupNorm+SiLU calls) of one UNet forward."""
     n, lpb, depths = len(ucfg.block_out_channels), ucfg.layers_per_block, ucfg.transformer_layers
     blocks = sum(d * (2 * lpb + 1) for d in depths) + depths[-1]
     resnets = n * (2 * lpb + 1) + 2
+    return 2 * blocks, 2 * resnets + 1
+
+
+def _remat_recomputed(ucfg, trained_cond=False):
+    """(attention calls, ResnetBlocks) of one UNet pass that its backward
+    runs again under ``ucfg.remat``, level by level as
+    ``models.unet.remat_at`` decides (the mid block at the lowest level):
+    every rematerialized block whose output needs a gradient. With a LoRA
+    the ResnetBlocks before the first attention need none (nothing in them
+    depends on the adapter), unless the conditioning is trained or the
+    UNet's own weights are (``trained_cond``)."""
+    from pairwise_sample_optimization_tpu_torch.models.unet import remat_at
+
+    n, lpb, depths = len(ucfg.block_out_channels), ucfg.layers_per_block, ucfg.transformer_layers
     first = next(i for i, d in enumerate(depths) if d)
-    return 2 * blocks, 2 * resnets + 1, resnets, first * lpb + 1
+    attn = resnets = 0
+    for level in range(n):
+        r_res, r_attn, _ = remat_at(ucfg.remat, level, n)
+        mid = level == n - 1
+        blocks = depths[level] * (2 * lpb + 1) + (depths[-1] if mid else 0)
+        level_resnets = 2 * lpb + 1 + (2 if mid else 0)
+        grad_free = 0 if trained_cond else (lpb if level < first else int(level == first))
+        attn += r_attn * 2 * blocks
+        resnets += r_res * (level_resnets - grad_free)
+    return attn, resnets
 
 
-def _generation_launches(ucfg, vcfg, steps, vision_layers):
+def _generation_launches(ucfg, vcfg, steps, vision_layers, decodes=1):
     """Launches of ``steps`` UNet forwards (Turbo's steps, or DMD2's S - 1
-    transitions and the final x0 prediction), one VAE decode (its
-    mid-block attention) and vision towers of ``vision_layers`` layers."""
-    attn, gn_unet, _, _ = _unet_counts(ucfg)
+    transitions and the final x0 prediction), ``decodes`` VAE decoder calls
+    (each one mid-block attention) and vision towers of ``vision_layers``
+    layers."""
+    attn, gn_unet = _unet_counts(ucfg)
     vae_resnets = 2 + len(vcfg.block_out_channels) * (vcfg.layers_per_block + 1)
-    k1 = steps * attn + 1 + sum(vision_layers)
-    gn = steps * gn_unet + 2 * vae_resnets + 1
+    k1 = steps * attn + decodes + sum(vision_layers)
+    gn = steps * gn_unet + decodes * (2 * vae_resnets + 1)
     return {"flash_attn_fwd": k1, "flash_attn_bwd_pre": 0, "flash_attn_bwd": 0,
             "flash_attn_bwd_post": 0, "gn_stats": gn, "gn_silu_norm": gn}
 
@@ -444,15 +487,16 @@ def expected_validation_launches(pipe, n_prompts, batch, validations=1):
             _generation_launches(pipe.unet.config, pipe.vae.config, 4, [layers, layers]).items()}
 
 
-def expected_eval_launches(ucfg, vcfg, steps, batches, vision_layers):
+def expected_eval_launches(ucfg, vcfg, steps, batches, vision_layers, decodes=1):
     """Launches of an eval run of ``batches`` batches: per batch one DMD2
-    generation (``steps`` UNet forwards, one VAE decode) and the scorers'
+    generation (``steps`` UNet forwards, ``decodes`` VAE decoder calls: the
+    batch over ``--vae_decode_chunk``) and the scorers'
     vision towers (``vision_layers``: one entry per scorer, its non-causal
     attention calls: ImageReward's are its ViT's layers and its BERT's
     cross-attention layers). The CLIP text towers are causal and BERT's
     self-attention is masked: neither takes a kernel."""
     return {k: batches * v for k, v in
-            _generation_launches(ucfg, vcfg, steps, vision_layers).items()}
+            _generation_launches(ucfg, vcfg, steps, vision_layers, decodes).items()}
 
 
 def attention_shapes(ucfg, batch, latent_hw, text_len=77):
@@ -484,26 +528,27 @@ def expected_update_launches(ucfg, n_micro, fuse_ref_pass, batch, latent_hw, sms
                              reference=True, trained_cond=False):
     """Launches of one optimizer update of ``n_micro`` microbatches with a
     policy pass at ``batch``. Per microbatch: the policy forward (with
-    grad), its recompute under remat "full" and, where there is a reference
-    pass (``reference``; DreamBooth's ``pso_db`` has none) and it is not
-    fused into the policy call (one call at twice the batch), the reference
-    forward (no grad); per attention call in the backward the pre kernel and the
-    backward kernel, and the post kernel where that call's lengths give an
-    accumulator (``bwd_needs_post`` on a card of ``sms`` SMs). Under remat
-    the ResnetBlocks that run before the first attention are not
-    recomputed: nothing in them depends on the LoRA, so they save nothing
-    for the backward, unless the conditioning itself is trained
-    (``trained_cond``: the text encoders' LoRA reaches every ResnetBlock
-    through the pooled embedding's time embedding). The GroupNorm+SiLU
-    backward is the plain version."""
-    attn, gn, resnets, grad_free = _unet_counts(ucfg)
-    grad_free = 0 if trained_cond else grad_free
+    grad), what its backward recomputes under ``ucfg.remat``
+    (:func:`_remat_recomputed`: a SpatialTransformer's attention calls, a
+    ResnetBlock's two GroupNorm+SiLU calls; "dots" saves weight products
+    only, so it re-runs the kernels as "full" does) and, where there is a
+    reference pass (``reference``; DreamBooth's ``pso_db`` has none) and it
+    is not fused into the policy call (one call at twice the batch), the
+    reference forward (no grad); per attention call in the backward the pre
+    kernel and the backward kernel, and the post kernel where that call's
+    lengths give an accumulator (``bwd_needs_post`` on a card of ``sms``
+    SMs). ``trained_cond``: the conditioning is trained (the text encoders'
+    LoRA reaches every ResnetBlock through the pooled embedding's time
+    embedding) or the UNet's own weights are (full finetuning), so every
+    rematerialized ResnetBlock is recomputed. The GroupNorm+SiLU backward is
+    the plain version."""
+    attn, gn = _unet_counts(ucfg)
+    re_attn, re_resnets = _remat_recomputed(ucfg, trained_cond)
     shapes = attention_shapes(ucfg, batch * (2 if fuse_ref_pass else 1), latent_hw)
     assert len(shapes) == attn, (len(shapes), attn)
-    remat = ucfg.remat == "full"
     passes = 1 + (0 if fuse_ref_pass or not reference else 1)
-    k1 = attn * (passes + remat)
-    k45 = gn * passes + (2 * (resnets - grad_free) if remat else 0)
+    k1 = attn * passes + re_attn
+    k45 = gn * passes + 2 * re_resnets
     post = sum(bwd_needs_post(q, skv, sms) for q, skv in shapes)
     return {"flash_attn_fwd": n_micro * k1, "flash_attn_bwd_pre": n_micro * attn,
             "flash_attn_bwd": n_micro * attn, "flash_attn_bwd_post": n_micro * post,
@@ -1012,6 +1057,316 @@ def train_slice(seed, sampler, recorder):
 
 
 # ---------------------------------------------------------------------- #
+# the memory options: remat modes, full finetuning with the aux offload
+# ---------------------------------------------------------------------- #
+
+REMAT_PAIRS = 4  # pairs of the remat phase's microbatch: policy batch 8, the Turbo loop's
+REMAT_TOL_FACTOR = 4  # gradients of a mode vs "full": 4x the spread of two "full" runs
+REMAT_REPS = 3  # timed runs of each mode's microbatch (median)
+FULL_FT = {"sample.batch_size": 2, "sample.num_batches_per_epoch": 1, "train.batch_size": 1,
+           "train.gradient_accumulation_steps": 2}  # 2 pairs an epoch, 1 update, policy batch 2
+
+
+def remat_phase(seed, recorder):
+    """One update microbatch of the Turbo loop (``OnlinePSOTrainer._micro_loss``
+    and its backward: the policy forward and backward, the reference
+    forward) at full SDXL-Turbo width, 512^2, bf16 towers, fp32 LoRA rank 32
+    with a non-zero B, on 4 pairs the pipeline sampled itself (policy batch
+    8), under each remat mode of ``models.unet.REMAT_MODES``: "full" twice
+    first (the spread of the two sets the tolerance: the backward's dQ sums
+    come in no fixed order), then "", "resnets", "dots", "lowres" and
+    "lowres_dots". Per mode: the launch counts (zeroed just before, read just
+    after) equal to ``expected_update_launches`` of the mode, the peak
+    memory (``max_memory_allocated`` after ``reset_peak_memory_stats``),
+    then ``REMAT_REPS`` runs timed with CUDA events around each and on the
+    host clock (medians); the loss and each LoRA gradient tensor against the
+    first "full" run's: the tensor's relative difference ||g - g_full|| /
+    ||g_full|| within ``REMAT_TOL_FACTOR`` times the largest relative
+    difference of any tensor between the two "full" runs (1e-6 at least),
+    the loss within ``REMAT_TOL_FACTOR`` times the two runs' difference plus
+    1e-6 of |loss|. One tolerance for every tensor: the backward's sums
+    land in another order each run, and a tensor whose sums happened to
+    land alike in the two "full" runs is no more exact than the others."""
+    import dataclasses
+
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
+    from pairwise_sample_optimization_tpu_torch.pipeline import SDXLPipeline
+    from pairwise_sample_optimization_tpu_torch.train import (OnlinePSOConfig, OnlinePSOTrainer,
+                                                              lora_parameters)
+
+    pipe = SDXLPipeline.random(lora_rank=32, dtype=torch.bfloat16, resolution=512, seed=seed,
+                               lora_b_std=1.0 / 32, device="cuda")
+    for m in (pipe.vae, pipe.te1, pipe.te2, pipe.scorer.model):
+        m.requires_grad_(False)
+    lora = lora_parameters(pipe.unet)
+    trainer = OnlinePSOTrainer(OnlinePSOConfig(), pipe)
+    gen = torch.Generator().manual_seed(seed + 11)
+    b = REMAT_PAIRS
+    vocab = pipe.te1.config.vocab_size
+    ids = [torch.randint(1, vocab - 1, (b, 77), generator=gen).to(pipe.device) for _ in range(3)]
+    cond = pipe.encode_prompt(*ids)
+    samples, _ = trainer.sample_pairs(cond, torch.Generator(device=pipe.device).manual_seed(seed))
+    micro = {k: samples[k][:, :, 0] for k in ("input_latents", "latents", "next_latents")}
+    micro.update({k: samples[k][:, 0] for k in ("step_indices", "timesteps")})
+    micro["rewards"] = samples["rewards"]
+    c = {k: cond[k] for k in ("embeds", "pooled", "time_ids")}
+    axis = torch.zeros(b, dtype=torch.long)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    base_cfg = pipe.unet.config
+
+    def microbatch():
+        for p in lora.values():
+            p.grad = None
+        loss, _ = trainer._micro_loss(micro, c, axis=axis)
+        loss.backward()
+        return loss.detach()
+
+    rows, ref, spread, launches = [], None, None, {k: 0 for k in KERNELS}
+    for mode in ("full", "full", "", "resnets", "dots", "lowres", "lowres_dots"):
+        pipe.unet.config = dataclasses.replace(base_cfg, remat=mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resting = torch.cuda.memory_allocated()
+        kernel_lib.reset_launch_counts()
+        with recorder:
+            loss = microbatch()
+        torch.cuda.synchronize()
+        counts, peak = dict(kernel_lib.launch_counts), torch.cuda.max_memory_allocated()
+        want = expected_update_launches(pipe.unet.config, 1, False, 2 * b, pipe.latent_hw, sms)
+        if counts != want:
+            raise AssertionError(f"remat {mode!r}: launch counts {counts} != expected {want}")
+        for k in launches:
+            launches[k] += counts[k]
+        grads = {k: p.grad for k, p in lora.items()}
+        event_ms, wall_ms = [], []
+        for _ in range(REMAT_REPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            microbatch()
+            end.record()
+            end.synchronize()
+            event_ms.append(start.elapsed_time(end))
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+        row = {"mode": mode, "loss": float(loss), "peak_bytes": peak,
+               "activation_peak_bytes": peak - resting, "launches": counts,
+               "event_ms": statistics.median(event_ms), "wall_ms": statistics.median(wall_ms),
+               "event_ms_runs": event_ms}
+        rel = lambda: {k: float((grads[k] - g).norm() / g.norm().clamp_min(1e-30))
+                       for k, g in ref[1].items()}
+        if ref is None:
+            ref = (float(loss), grads)
+        elif spread is None:  # the second "full" run: the run-to-run spread
+            d = rel()
+            spread = {"loss": abs(float(loss) - ref[0]), "grad_rel": max(d.values())}
+            row["spread"] = {"loss": spread["loss"], "grad_rel_max": max(d.values()),
+                             "grad_rel_median": statistics.median(d.values()),
+                             "bit_equal_tensors": sum(x == 0 for x in d.values())}
+        else:
+            d = rel()
+            limit = max(REMAT_TOL_FACTOR * spread["grad_rel"], 1e-6)
+            worst = max(d, key=d.get)
+            if d[worst] > limit:
+                raise AssertionError(f"remat {mode!r}: {worst} ||g - g_full|| / ||g_full|| "
+                                     f"{d[worst]:.3e} > {limit:.3e} ({REMAT_TOL_FACTOR} x the two "
+                                     f"full runs' {spread['grad_rel']:.3e})")
+            if abs(float(loss) - ref[0]) > REMAT_TOL_FACTOR * spread["loss"] + 1e-6 * abs(ref[0]):
+                raise AssertionError(f"remat {mode!r}: loss {float(loss)} vs full {ref[0]}")
+            row["grad_rel"] = {"max": d[worst], "median": statistics.median(d.values()),
+                               "limit": limit}
+        rows.append(row)
+        del grads
+        log(f"remat {mode or 'off'!r}: peak {peak / 2**30:.2f} GiB (activations "
+            f"{row['activation_peak_bytes'] / 2**30:.2f}), microbatch {row['event_ms']:.1f} ms "
+            f"(events, median of {[round(x, 1) for x in event_ms]}) / {row['wall_ms']:.1f} ms "
+            f"wall, loss {row['loss']:.6f}, launches {counts}"
+            + (f"; LoRA grads vs full's ||g - g_full|| / ||g_full|| max "
+               f"{row['grad_rel']['max']:.2e}, median {row['grad_rel']['median']:.2e} (limit "
+               f"{row['grad_rel']['limit']:.2e})" if "grad_rel" in row else "")
+            + (f"; two full runs: ||g1 - g2|| / ||g1|| max {row['spread']['grad_rel_max']:.2e}, "
+               f"median {row['spread']['grad_rel_median']:.2e}, "
+               f"{row['spread']['bit_equal_tensors']} of {len(ref[1])} tensors bit-equal; loss "
+               f"{spread['loss']:.2e}" if "spread" in row else ""))
+    pipe.unet.config = base_cfg
+    del pipe, trainer, lora, samples, micro, cond, ref
+    torch.cuda.empty_cache()
+    return {"pairs": b, "policy_batch": 2 * b, "rows": rows, "tol_factor": REMAT_TOL_FACTOR,
+            "launches": launches}
+
+
+class _UpdateWatch:
+    """Observes a run of ``run_online_pso`` through ``OnlinePSOTrainer``'s
+    ``sample_pairs`` and ``train_epoch`` (patched for the ``with`` block,
+    each calling the original): at each sampling, how far the live UNet's
+    weights are from the frozen reference copy; at each update, whether the
+    VAE, the scorer and both text encoders are in pinned host memory, the
+    memory allocated when it starts, its peak and its seconds."""
+
+    def __enter__(self):
+        from pairwise_sample_optimization_tpu_torch.train import OnlinePSOTrainer
+
+        self.cls, self.orig = OnlinePSOTrainer, (OnlinePSOTrainer.sample_pairs,
+                                                 OnlinePSOTrainer.train_epoch)
+        self.samplings, self.updates = [], []
+        sample, train = self.orig
+        watch = self
+
+        def sample_pairs(trainer, *args, **kwargs):
+            watch.samplings.append(watch.distance(trainer.pipe))
+            return sample(trainer, *args, **kwargs)
+
+        def train_epoch(trainer, *args, **kwargs):
+            import torch
+
+            pipe = trainer.pipe
+            aux = [p for m in (pipe.vae, pipe.te1, pipe.te2, pipe.scorer.model)
+                   for p in m.parameters()]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            entry = {"aux_on_host": all(p.device.type == "cpu" and p.is_pinned() for p in aux),
+                     "aux_bytes": sum(p.numel() * p.element_size() for p in aux),
+                     "allocated_bytes": torch.cuda.memory_allocated()}
+            t0 = time.perf_counter()
+            out = train(trainer, *args, **kwargs)
+            torch.cuda.synchronize()
+            entry.update({"s": time.perf_counter() - t0,
+                          "peak_bytes": torch.cuda.max_memory_allocated()})
+            watch.updates.append(entry)
+            return out
+
+        OnlinePSOTrainer.sample_pairs, OnlinePSOTrainer.train_epoch = sample_pairs, train_epoch
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.sample_pairs, self.cls.train_epoch = self.orig
+
+    @staticmethod
+    def distance(pipe):
+        """max |w - reference| over the UNet's weights."""
+        ref = dict(pipe.reference_unet.named_parameters())
+        return max(float((p.detach().float() - ref[k].float()).abs().max())
+                   for k, p in pipe.unet.named_parameters())
+
+
+def full_finetune_slice(seed, recorder):
+    """The Turbo loop at full width training every UNet weight through
+    ``run_online_pso`` (``use_lora=False``, ``param_dtype="float32"``: fp32
+    masters computing in bf16, the per-tensor AdamW, a frozen bf16 reference
+    copy), ``offload_aux_during_update=True``, 2 epochs of 2 pairs (one
+    update of 2 x 3 microbatches at policy batch 2 each), no validation and
+    ``checkpointing_steps=0`` (a whole-UNet state is ~31 GB: the card writes
+    none). Launch counts as implied (zeroed before, read after), the first
+    loss log 2 within 1e-3, every UNet weight with a gradient in the last
+    update moved, the reference copy bit-equal to a rebuild from the seed,
+    the VAE, scorer and text encoders in pinned host memory during each
+    update and back on the card after, the second epoch sampled by weights
+    the first update moved. Then one epoch without the offload, for its
+    peak. Prints peaks, update seconds and the offload's seconds."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.cli.online_runner import run_dir, run_online_pso
+    from pairwise_sample_optimization_tpu_torch.configs import sdxl_turbo_dpo
+    from pairwise_sample_optimization_tpu_torch.models.layers import init_random_
+    from pairwise_sample_optimization_tpu_torch.models.unet import SDXLUNet
+    from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
+
+    def run(offload, epochs):
+        config = sdxl_turbo_dpo.get_config()
+        config.seed, config.output_dir = seed, str(RUN_DIR)
+        config.run_name = "online_full"
+        for key, value in {**FULL_FT, "use_lora": False, "param_dtype": "float32",
+                           "offload_aux_during_update": offload, "checkpointing_steps": 0,
+                           "validation_steps": 0}.items():
+            config.override(f"{key}={value}")
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        with recorder, _UpdateWatch() as watch:
+            state, history, pipe = run_online_pso(config, num_epochs=epochs, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernel_lib.launch_counts)
+        t_cfg, s_cfg = config.train, config.sample
+        n_micro = t_cfg.gradient_accumulation_steps * t_cfg.distilled_train_steps
+        gen = expected_launches(pipe, s_cfg.num_steps)
+        upd = expected_update_launches(pipe.unet.config, n_micro, False, 2 * t_cfg.batch_size,
+                                       pipe.latent_hw,
+                                       torch.cuda.get_device_properties(0).multi_processor_count,
+                                       trained_cond=True)
+        want = {k: epochs * (gen[k] + upd[k]) for k in gen}
+        if counts != want:
+            raise AssertionError(f"full finetuning launch counts {counts} != expected {want}")
+        metrics = [json.loads(r) for r in
+                   (Path(run_dir(config)) / "metrics.jsonl").read_text().splitlines()]
+        return config, state, history, pipe, watch, counts, wall, metrics
+
+    config, state, history, pipe, watch, counts, wall, metrics = run(True, 2)
+    unet_params = dict(pipe.unet.named_parameters())
+    if set(state.lora) != set(unet_params) or any(state.lora[k] is not p
+                                                  for k, p in unet_params.items()):
+        raise AssertionError("the train state does not hold the UNet's own weights")
+    if abs(history[0]["loss"] - math.log(2.0)) > 1e-3 or not all(
+            math.isfinite(m[k]) for m in history for k in ("loss", "grad_norm")):
+        raise AssertionError(f"full finetuning metrics {history}")
+    ref = dict(pipe.reference_unet.named_parameters())
+    with_grad = [k for k, p in unet_params.items() if p.grad is not None and p.grad.any()]
+    unmoved = [k for k in with_grad if torch.equal(unet_params[k].float(), ref[k].float())]
+    if unmoved or len(with_grad) < len(unet_params) // 2:
+        raise AssertionError(f"{len(with_grad)} of {len(unet_params)} weights with a gradient, "
+                             f"unmoved: {unmoved[:5]}")
+    rebuilt = SDXLUNet(pipe.reference_unet.config, device="meta").to_empty(device=pipe.device)
+    init_random_(rebuilt, torch.Generator(device=pipe.device).manual_seed(seed))
+    changed = [k for k, v in rebuilt.state_dict().items()
+               if not torch.equal(v, pipe.reference_unet.state_dict()[k])]
+    if changed:
+        raise AssertionError(f"the reference copy changed: {changed[:5]}")
+    del rebuilt
+    aux = [p for m in (pipe.vae, pipe.te1, pipe.te2, pipe.scorer.model) for p in m.parameters()]
+    if not all(u["aux_on_host"] for u in watch.updates) or any(p.device != pipe.device
+                                                                for p in aux):
+        raise AssertionError(f"aux towers not on the host during the updates {watch.updates} "
+                             "or not back on the card after")
+    if len(watch.samplings) != 2 or watch.samplings[0] != 0 or not watch.samplings[1] > 0:
+        raise AssertionError(f"sampling weights' distance from the reference {watch.samplings}: "
+                             "the second epoch must sample the updated weights")
+    offload_s = [m.get("time/offload_s", 0) + m.get("time/reload_s", 0)
+                 for m in metrics if "loss" in m]
+    summary = {"pairs_per_epoch": 2, "epochs": 2, "policy_batch": 2, "history": history,
+               "launches": counts, "wall_s": wall, "updates": watch.updates,
+               "sampling_distance": watch.samplings, "weights": len(unet_params),
+               "weights_with_grad": len(with_grad),
+               "trained_elements": sum(p.numel() for p in unet_params.values()),
+               "offload_bytes": metrics[-1].get("offload_bytes"), "offload_s": offload_s}
+    del state, pipe, unet_params, ref, aux, history
+    torch.cuda.empty_cache()
+    _, state, _, pipe, watch_off, counts_off, wall_off, _ = run(False, 1)
+    summary["no_offload"] = {"updates": watch_off.updates, "wall_s": wall_off,
+                             "launches": counts_off}
+    summary["launches"] = {k: counts[k] + counts_off[k] for k in counts}
+    del state, pipe
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    gib = lambda n: n / 2**30
+    u, u0 = watch.updates, watch_off.updates
+    log(f"full finetuning (Turbo 512^2, {summary['trained_elements']} trained elements in "
+        f"{summary['weights']} tensors, fp32 masters, per-tensor AdamW, 2 epochs of 2 pairs): "
+        f"losses {[round(m['loss'], 6) for m in summary['history']]}; update "
+        f"{[round(x['s'], 3) for x in u]} s with the aux offload (peak "
+        f"{[round(gib(x['peak_bytes']), 2) for x in u]} GiB, allocated at its start "
+        f"{[round(gib(x['allocated_bytes']), 2) for x in u]} GiB, {gib(u[0]['aux_bytes']):.2f} "
+        f"GiB of towers on the host, moves {[round(x, 3) for x in offload_s]} s), without "
+        f"{[round(x['s'], 3) for x in u0]} s (peak {[round(gib(x['peak_bytes']), 2) for x in u0]} "
+        f"GiB, allocated at its start {[round(gib(x['allocated_bytes']), 2) for x in u0]} GiB); "
+        f"{len(with_grad)} weights with a gradient all moved, the reference copy bit-equal to "
+        f"the seed's, sampling distance from it {watch.samplings}; launches {summary['launches']}")
+    return summary
+
+
+# ---------------------------------------------------------------------- #
 # the PickaPic eval protocol (SDXL-DMD2 at 1024^2, four scorers)
 # ---------------------------------------------------------------------- #
 
@@ -1042,7 +1397,13 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
     recorded into ``recorder``; then the first two prompts again at batch 1,
     whose per-prompt scores must equal the batch-2 run's within
     ``TOL["eval_batch"]`` (each prompt's noise depends on its index only;
-    what differs is bf16 rounding in kernels chosen by batch size)."""
+    what differs is bf16 rounding in kernels chosen by batch size). Last, the
+    first run again with ``--score_chunk 4 --offload_scorers
+    --vae_decode_chunk 1``: every scorer in pinned host memory but for its
+    turn on a chunk of 4 prompts, the images of two batches buffered, one
+    image a VAE call (what the default does at 1024^2): its scores must
+    equal the first run's bit for bit. Launch counts as implied (one VAE
+    decoder call per image at 1024^2)."""
     import contextlib
 
     import torch
@@ -1062,8 +1423,8 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
     layers = ([CLIPVisionConfig.vit_h14().layers] * 3 + [CLIPVisionConfig.vit_l14().layers]
               + [vit.layers + bert.layers])
 
-    def run(n, bs, rec):
-        path = out / f"eval_b{bs}.json"
+    def run(n, bs, rec, extra=(), name=None):
+        path = out / f"{name or f'eval_b{bs}'}.json"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernel_lib.reset_launch_counts()
@@ -1072,11 +1433,13 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
             ev.main(["--device", "cuda", "--seed", str(seed), "--prompts_json", "imagereward",
                      "--max_prompts", str(n), "--batch_size", str(bs), "--scorers",
                      ",".join(ev.SCORERS), "--aesthetic_mlp_path", "packaged",
-                     "--wordpiece_vocab", str(vocab), "--timing", "--output_json", str(path)])
+                     "--wordpiece_vocab", str(vocab), "--timing", "--output_json", str(path),
+                     *extra])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts, peak = dict(kernel_lib.launch_counts), torch.cuda.max_memory_allocated()
-        want = expected_eval_launches(UNetConfig.sdxl(), VAEConfig.sdxl(), 4, -(-n // bs), layers)
+        want = expected_eval_launches(UNetConfig.sdxl(), VAEConfig.sdxl(), 4, -(-n // bs), layers,
+                                      decodes=bs)
         if counts != want:
             raise AssertionError(f"eval launch counts {counts} != expected {want}")
         result = json.loads(path.read_text())
@@ -1100,6 +1463,12 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
         got, want = torch.tensor(per_prompt[name][:2]), torch.tensor(solo_scores[name])
         errs[name] = check_close(f"eval {name} batch 2 vs batch 1", got, want, TOL["eval_batch"])
         used[name] = tolerance_used(got, want, TOL["eval_batch"])
+    chunked = run(prompts, 2, recorder, ["--score_chunk", "4", "--offload_scorers",
+                                         "--vae_decode_chunk", "1"], "eval_chunked")
+    for name in ev.SCORERS:
+        if chunked["result"]["per_prompt"][name] != per_prompt[name]:
+            raise AssertionError(f"eval {name}: chunked and offloaded scores "
+                                 f"{chunked['result']['per_prompt'][name]} != {per_prompt[name]}")
     timing = main_run["result"]["timing"]
     summary = {
         "prompts": prompts, "batch_size": 2, "resolution": 1024, "scorers": list(ev.SCORERS),
@@ -1109,6 +1478,11 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
         "batch1_tolerance_used": used, "timing": timing, "launches": main_run["launches"],
         "peak_bytes": main_run["peak_bytes"], "wall_s": main_run["wall_s"],
         "batch1_run": {k: solo[k] for k in ("launches", "peak_bytes", "wall_s")},
+        "chunked_run": {"args": "--score_chunk 4 --offload_scorers --vae_decode_chunk 1",
+                        "timing": chunked["result"]["timing"], "scores_bit_equal": True,
+                        **{k: chunked[k] for k in ("launches", "peak_bytes", "wall_s")}},
+        "launches_all_runs": {k: main_run["launches"][k] + chunked["launches"][k]
+                              for k in main_run["launches"]},
     }
     log(f"eval (DMD2 at 1024^2, {prompts} ImageReward prompts at batch 2, five scorers): "
         f"{timing['prompts_per_min']:.2f} prompts/min (steady batches {timing['steady_batch_s']:.3f} "
@@ -1116,6 +1490,11 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
         f"{main_run['peak_bytes'] / 2**30:.2f} GiB; means {summary['means']}; launches "
         f"{main_run['launches']}; first two prompts at batch 1: max|diff| "
         + ", ".join(f"{k} {v:.2e} (share of limit {used[k]:.3f})" for k, v in errs.items()))
+    ct = chunked["result"]["timing"]
+    log(f"eval with --score_chunk 4 --offload_scorers --vae_decode_chunk 1: "
+        f"{ct['prompts_per_min']:.2f} prompts/min (steady chunks {ct['steady_batch_s']:.3f} s, "
+        f"staging {ct['stage_s']}), peak {chunked['peak_bytes'] / 2**30:.2f} GiB; scores "
+        f"bit-equal to the default run's; launches {chunked['launches']}")
     torch.cuda.empty_cache()
     return summary
 
@@ -1890,24 +2269,39 @@ def gn_phase(shapes, seed):
     return {"gn_stats": stats_rows, "gn_silu_norm": norm_rows}
 
 
-def summarize(name, rows, launches):
-    """One kernel's line entry: times and bound as launch-weighted means per
-    launch over the main path's shape mix; max_abs_err over every case."""
-    src, replaces = KERNELS[name]
+def _means(rows):
+    """Launch-weighted means per launch of the rows' times and bounds, and
+    which of bytes and operations bounds most of that bound time."""
     on_path = [r for r in rows if r["launches"]]
     total = sum(r["launches"] for r in on_path)
     mean = lambda key: (sum(r[key] * r["launches"] for r in on_path) / total
                         if all(r[key] is not None for r in on_path) else None)
     bytes_share = sum(r["launches"] * r["bound_ms"] for r in on_path if r["bound_by"] == "bytes")
-    return {
-        "name": name, "route": "cuda", "source": src, "replaces": replaces,
-        "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
-        "bound_by": "bytes" if bytes_share * 2 >= sum(r["launches"] * r["bound_ms"]
-                                                      for r in on_path) else "operations",
-        "library_ms": mean("library_ms"),
-        "shapes": rows,
-    }
+    return {"ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+            "bound_by": "bytes" if bytes_share * 2 >= sum(r["launches"] * r["bound_ms"]
+                                                          for r in on_path) else "operations",
+            "library_ms": mean("library_ms")}
+
+
+def summarize(name, rows, launches):
+    """One kernel's line entry: times and bound as launch-weighted means per
+    launch over the main path's shape mix (the attention forward's also by
+    head dim); max_abs_err over every case."""
+    src, replaces = KERNELS[name]
+    out = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+           "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
+           **_means(rows), "shapes": rows}
+    if name == "flash_attn_fwd":
+        dims = sorted({r["shape"]["q"][-1] for r in rows if r["launches"]})
+        out["by_head_dim"] = {d: {"launches": sum(r["launches"] for r in rows
+                                                  if r["shape"]["q"][-1] == d),
+                                  **_means([r for r in rows if r["shape"]["q"][-1] == d])}
+                              for d in dims}
+        for d, m in out["by_head_dim"].items():
+            log(f"flash_attn_fwd at d = {d}: {m['launches']} launches, {m['ms']:.4f} ms vs "
+                f"bound {m['bound_ms']:.4f} ({m['bound_by']}), plain {m['plain_ms']:.4f}, "
+                f"sdpa {m['library_ms']:.4f} (launch-weighted means)")
+    return out
 
 
 def main(argv=None) -> int:
@@ -1953,8 +2347,12 @@ def main(argv=None) -> int:
     dmd_summary, dmd_metrics_jsonl = train_slice(args.seed, "dmd", recorder)
     eval_summary = eval_slice(args.seed, recorder)
     db_summary = dreambooth_slice(args.seed, recorder)
+    remat_summary = remat_phase(args.seed, recorder)
+    full_summary = full_finetune_slice(args.seed, recorder)
     paths = {"turbo_loop": train_summary["launches"], "dmd_loop": dmd_summary["launches"],
-             "dmd_eval": eval_summary["launches"], "dreambooth": db_summary["launches"]}
+             "dmd_eval": eval_summary["launches_all_runs"],
+             "dreambooth": db_summary["launches"], "remat": remat_summary["launches"],
+             "full_finetune": full_summary["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     bwd_rows, bwd_whole, run_to_run = attention_bwd_phase(recorder.attention_bwd, args.seed)
     rows = {**attention_phase(recorder.attention, args.seed), **bwd_rows,
@@ -1965,7 +2363,7 @@ def main(argv=None) -> int:
     record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": build_s, "small_reference": small, "slice": slice_summary,
               "train": train_summary, "dmd_train": dmd_summary, "eval": eval_summary,
-              "dreambooth": db_summary,
+              "dreambooth": db_summary, "remat": remat_summary, "full_finetune": full_summary,
               "launches_by_path": paths, "function_check": function_errs, "kernels": kernels,
               "backward": bwd_whole, "backward_run_to_run": run_to_run,
               "seconds": time.perf_counter() - t_start}
@@ -1976,8 +2374,8 @@ def main(argv=None) -> int:
     (out / "dmd_train_metrics.jsonl").write_text(dmd_metrics_jsonl)
     log(f"chip_smoke done in {record['seconds']:.1f} s; launches by path {paths}")
     log(card.splitlines()[0])
-    print(json.dumps({"kernels": [{k: v for k, v in kern.items() if k != "shapes"}
-                                  for kern in kernels]}))
+    print(json.dumps({"kernels": [{k: v for k, v in kern.items()
+                                   if k not in ("shapes", "by_head_dim")} for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

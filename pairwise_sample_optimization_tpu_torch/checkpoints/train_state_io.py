@@ -1,7 +1,9 @@
 """Train-state checkpoints with resume: ``<base>/checkpoint-<step>/state.pt``
-holds the update count, the LoRA ``state_dict``, the optimizer's
-``state_dict`` and an extra dict (the epoch), written with ``torch.save``.
-The counterpart of the JAX package's ``checkpoints/orbax_io.py``.
+holds the update count, the trained tensors by name under ``lora`` (the
+LoRA adapter, or every UNet weight under full finetuning, as the JAX train
+state's ``lora`` field), the optimizer's ``state_dict`` and an extra dict
+(the epoch), written with ``torch.save``. The counterpart of the JAX
+package's ``checkpoints/orbax_io.py``.
 """
 
 from __future__ import annotations
@@ -45,12 +47,13 @@ def save_train_state(base_dir: str, step: int, state, extra: Optional[dict] = No
 
 
 def restore_train_state(path: str, state) -> dict:
-    """Load a checkpoint directory into the live ``state`` (LoRA weights in
+    """Load a checkpoint directory into the live ``state`` (trained tensors in
     place, optimizer state, step). Returns the saved extra dict."""
     blob = torch.load(os.path.join(path, _STATE_FILE), map_location="cpu", weights_only=True)
     missing = set(state.lora) ^ set(blob["lora"])
     if missing:
-        raise KeyError(f"checkpoint and state disagree on LoRA keys: {sorted(missing)[:5]}")
+        raise KeyError(f"checkpoint and state disagree on the trained tensors' names "
+                       f"(a LoRA state and a whole-UNet one?): {sorted(missing)[:5]}")
     with torch.no_grad():
         for k, p in state.lora.items():
             p.copy_(blob["lora"][k])

@@ -5,7 +5,8 @@
         [--model_dir DIR] [--lora_path pytorch_lora_weights.safetensors] \
         [--scorers pickscore,clip,hps,aesthetic,imagereward] [--aesthetic_mlp_path packaged] \
         [--pickscore_dir D] [--clip_dir D] [--hps_path F] [--aesthetic_clip_dir D] \
-        [--imagereward_path F] [--wordpiece_vocab vocab.txt] [--output_json FILE] [--timing]
+        [--imagereward_path F] [--wordpiece_vocab vocab.txt] [--output_json FILE] [--timing] \
+        [--offload_scorers] [--score_chunk N] [--vae_decode_chunk N] [--gelu_exact]
 
 Counterpart of the JAX package's ``cli/evaluate_sdxl_dmd2.py``: 4-step DMD2
 generation on the fixed lattice [999, 749, 499, 249] at guidance 0, one
@@ -31,10 +32,17 @@ with a warning. ``--tiny`` selects the toy models at 32x32 (a CPU run of
 seconds; ImageReward with a vocabulary of letters); the device is CUDA
 unless ``--device cpu`` is given.
 
-Not ported yet, and refused when asked for: HF datasets
-(``--hf_dataset``), the JAX package's scorer offload and chunking
-(``--offload_scorers``, ``--score_chunk``, ``--vae_decode_chunk``) and
-``--gelu_exact``.
+Memory options, as the JAX package's: ``--score_chunk N`` generates N
+prompts (rounded up to whole batches) before the scorers run over them,
+each scorer once a chunk, the images buffered on the device meanwhile (at
+most ``SCORE_CHUNK_CAP_BYTES`` of fp32 images: a larger chunk is refused);
+``--offload_scorers`` keeps every scorer in pinned host memory but for its
+own turn on a chunk; ``--vae_decode_chunk N`` decodes N images a VAE call
+(-1: one at a time at 1024^2 and above, else the whole batch);
+``--gelu_exact`` takes the exact erf GELU in bf16 too. None of them changes
+a score: the images, the scorers' batches and their arithmetic are the same.
+
+Not ported yet, and refused when asked for: HF datasets (``--hf_dataset``).
 """
 
 from __future__ import annotations
@@ -55,18 +63,22 @@ from ..data import PromptDataset, WordPieceTokenizer, make_clip_tokenizers
 from ..device import resolve_device
 from ..models.bert import BertConfig
 from ..models.clip import CLIPTextConfig, CLIPVisionConfig
+from ..models.layers import set_gelu_exact
 from ..models.vit import ViTConfig
 from ..pipeline import SDXLPipeline
 from ..rewards import (AestheticScorer, CLIPScorer, HPSScorer, ImageRewardScorer,
                        PickScoreScorer)
 from ..utils import get_logger
+from ..utils.offload import HostOffload
 
 logger = get_logger("pso.eval")
 
 SCORERS = ("pickscore", "clip", "hps", "aesthetic", "imagereward")
 # flag -> its default; any other value is refused until the port has it
-_UNPORTED = {"hf_dataset": "", "offload_scorers": False, "score_chunk": 0,
-             "vae_decode_chunk": -1, "gelu_exact": False}
+_UNPORTED = {"hf_dataset": ""}
+# the most the fp32 images that --score_chunk buffers may take (85 prompts at 1024^2)
+SCORE_CHUNK_CAP_BYTES = 2**30
+_SCORER_MODULES = ("model", "vision", "vit", "bert", "mlp")
 # the toy ImageReward's vocabulary (--tiny), the JAX package's
 TINY_WORDPIECE = ["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + [chr(c) for c in range(97, 123)]
 
@@ -107,13 +119,36 @@ def parse_args(argv=None):
     p.add_argument("--timing", action="store_true",
                    help="per-batch generation and scoring wall time, each phase ending in a "
                         "device synchronize, and prompts/min")
+    p.add_argument("--offload_scorers", action="store_true",
+                   help="keep every scorer in pinned host memory but for its own scoring "
+                        "calls (the scores do not change)")
+    p.add_argument("--score_chunk", type=int, default=0,
+                   help="generate N prompts (whole batches) before each scorer runs over them "
+                        "once (0: every batch), the images buffered on the device: at most "
+                        f"{SCORE_CHUNK_CAP_BYTES / 2**30:g} GiB of fp32 images (N x 3 x H x W x "
+                        "4 bytes; 85 prompts at 1024^2), a larger N is refused")
+    p.add_argument("--vae_decode_chunk", type=int, default=-1,
+                   help="decode N images a VAE call (-1: 1 at 1024^2 and above, else all)")
+    p.add_argument("--gelu_exact", action="store_true",
+                   help="the exact erf GELU in bf16 too (strict parity with erf scorers)")
     # not ported yet: parsed so launch scripts parse, refused unless default
     p.add_argument("--hf_dataset", default="", help="not ported yet")
-    p.add_argument("--offload_scorers", action="store_true", help="not ported yet")
-    p.add_argument("--gelu_exact", action="store_true", help="not ported yet")
-    p.add_argument("--score_chunk", type=int, default=0, help="not ported yet")
-    p.add_argument("--vae_decode_chunk", type=int, default=-1, help="not ported yet")
     return p.parse_args(argv)
+
+
+def score_chunk(args, resolution: int) -> int:
+    """Prompts a scoring chunk holds: ``--score_chunk`` rounded up to whole
+    batches (0: one batch), refused where its fp32 images would pass
+    ``SCORE_CHUNK_CAP_BYTES``."""
+    bs = args.batch_size
+    chunk = -(-args.score_chunk // bs) * bs if args.score_chunk > 0 else bs
+    nbytes = chunk * 3 * resolution * resolution * 4
+    if args.score_chunk > 0 and nbytes > SCORE_CHUNK_CAP_BYTES:
+        raise ValueError(f"--score_chunk {args.score_chunk} would buffer {nbytes / 2**30:.2f} GiB "
+                         f"of {resolution}^2 fp32 images; the cap is "
+                         f"{SCORE_CHUNK_CAP_BYTES / 2**30:g} GiB "
+                         f"({SCORE_CHUNK_CAP_BYTES // (3 * resolution * resolution * 4)} prompts)")
+    return chunk
 
 
 def check_args(args) -> list:
@@ -194,10 +229,14 @@ def build_scorers(wanted, tiny: bool, seed: int, device, clip_max_size: bool = F
             load[name](scorers[name], weights[name])
             logger.info("loaded the %s weights from %s", name, weights[name])
     for s in scorers.values():
-        for name in ("model", "vision", "vit", "bert", "mlp"):
-            if hasattr(s, name):
-                getattr(s, name).requires_grad_(False)
+        for module in scorer_modules(s):
+            module.requires_grad_(False)
     return scorers
+
+
+def scorer_modules(scorer) -> list:
+    """The scorer's towers and heads."""
+    return [getattr(scorer, n) for n in _SCORER_MODULES if hasattr(scorer, n)]
 
 
 def imagereward_tokenizer(tiny: bool, vocab_path: str):
@@ -210,15 +249,19 @@ def imagereward_tokenizer(tiny: bool, vocab_path: str):
     return None
 
 
-def _timing_summary(timing):
-    # the first batch carries every first-call setup; steady state = the rest
+def _timing_summary(timing, chunk: int):
+    # the first scoring chunk (a batch unless --score_chunk) carries every
+    # first-call setup; steady state = the rest
     steady = lambda xs: xs[1:] or xs
-    batches, prompts = steady(timing["batch_s"]), steady(timing["batch_prompts"])
+    chunks, prompts = steady(timing["batch_s"]), steady(timing["batch_prompts"])
     return {
         "first_batch_s": timing["batch_s"][0],
-        "steady_batch_s": float(np.mean(batches)),
-        "prompts_per_min": 60.0 * float(np.sum(prompts)) / float(np.sum(batches)),
+        "steady_batch_s": float(np.mean(chunks)),
+        "score_chunk": chunk,
+        "prompts_per_min": 60.0 * float(np.sum(prompts)) / float(np.sum(chunks)),
         "gen_s": float(np.mean(steady(timing["gen_s"]))),
+        "stage_s": {n: float(np.mean(steady(v))) if v else 0.0
+                    for n, v in timing["stage_s"].items()},
         "score_s": {n: float(np.mean(steady(v))) for n, v in timing["score_s"].items()},
     }
 
@@ -229,6 +272,8 @@ def main(argv=None):
     wanted = check_args(args)
     dev = resolve_device(args.device)
     resolution = args.resolution or (32 if args.tiny else 1024)
+    chunk = score_chunk(args, resolution)
+    set_gelu_exact(args.gelu_exact)
 
     # ---- prompts, sharded round-robin with the pad math ----
     dataset = PromptDataset(args.prompts_json or None, caption_key=args.caption_column,
@@ -255,6 +300,8 @@ def main(argv=None):
     if args.lora_path:
         import_lora_safetensors(args.lora_path, pipe.unet)
         logger.info("loaded the PSO LoRA from %s", args.lora_path)
+    pipe.decode_chunk = (args.vae_decode_chunk if args.vae_decode_chunk >= 0 else
+                         int(resolution >= 1024 and not args.tiny))
     for module in (pipe.unet, pipe.vae, pipe.te1, pipe.te2):
         module.requires_grad_(False)
     ir_tok = imagereward_tokenizer(args.tiny, args.wordpiece_vocab)
@@ -272,44 +319,64 @@ def main(argv=None):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    # ---- generation + scoring, each prompt's noise keyed by its global index ----
+    # --offload_scorers: each scorer on the host but for its turn on a chunk
+    offloads = {n: HostOffload(scorer_modules(s)) for n, s in scorers.items()}
+    if args.offload_scorers:
+        for o in offloads.values():
+            o.to_host()
+
+    # ---- generation + scoring, each prompt's noise keyed by its global index;
+    # a chunk's batches are generated first, then each scorer runs over them ----
     results = {name: [] for name in scorers}
     timing = None
     if args.timing:
         timing = {"batch_s": [], "batch_prompts": [], "gen_s": [],
-                  "score_s": {n: [] for n in scorers}}
+                  "stage_s": {n: [] for n in scorers}, "score_s": {n: [] for n in scorers}}
     bs = args.batch_size
     ids = lambda tok, batch: torch.as_tensor(tok(batch), dtype=torch.long, device=dev)
     with torch.no_grad():
-        for start in range(0, per, bs):
-            batch = shard[start:start + bs]
-            batch = batch + [batch[-1]] * (bs - len(batch))
-            t_batch = time.perf_counter()
-            cond = pipe.encode_prompt(ids(tok1, batch), ids(tok2, batch))
-            gens = [prompt_generator(args.seed, rank + world * (start + j), dev)
-                    for j in range(bs)]
-            images = pipe.generate_dmd(cond, num_steps=args.num_steps, sample_generators=gens)
-            if timing is not None:
-                sync()
-                timing["gen_s"].append(time.perf_counter() - t_batch)
-            reward_ids = ids(tok_r, batch)
+        for cstart in range(0, per, chunk):
+            t_chunk = time.perf_counter()
+            buffered = []  # per batch: (images, prompts)
+            for start in range(cstart, min(cstart + chunk, per), bs):
+                batch = shard[start:start + bs]
+                batch = batch + [batch[-1]] * (bs - len(batch))
+                t_gen = time.perf_counter()
+                cond = pipe.encode_prompt(ids(tok1, batch), ids(tok2, batch))
+                gens = [prompt_generator(args.seed, rank + world * (start + j), dev)
+                        for j in range(bs)]
+                buffered.append((pipe.generate_dmd(cond, num_steps=args.num_steps,
+                                                   sample_generators=gens), batch))
+                if timing is not None:
+                    sync()
+                    timing["gen_s"].append(time.perf_counter() - t_gen)
             for name, scorer in scorers.items():
+                t_stage = time.perf_counter()
+                if args.offload_scorers:
+                    offloads[name].to_device()
+                    if timing is not None:
+                        sync()
+                        timing["stage_s"][name].append(time.perf_counter() - t_stage)
                 t_score = time.perf_counter()
-                if name == "aesthetic":
-                    s = scorer.score(images)
-                elif name == "imagereward":
-                    s = scorer.score(images, *(torch.as_tensor(a, dtype=torch.long, device=dev)
-                                               for a in ir_tok(batch)))
-                else:
-                    s = scorer.score(images, reward_ids)
-                results[name].append(s.float().cpu().numpy())
+                for images, batch in buffered:
+                    if name == "aesthetic":
+                        s = scorer.score(images)
+                    elif name == "imagereward":
+                        s = scorer.score(images, *(torch.as_tensor(a, dtype=torch.long,
+                                                                   device=dev)
+                                                   for a in ir_tok(batch)))
+                    else:
+                        s = scorer.score(images, ids(tok_r, batch))
+                    results[name].append(s.float().cpu().numpy())
                 if timing is not None:
                     timing["score_s"][name].append(time.perf_counter() - t_score)
+                if args.offload_scorers:
+                    offloads[name].to_host()
             if timing is not None:
-                timing["batch_s"].append(time.perf_counter() - t_batch)
-                timing["batch_prompts"].append(min(bs, per - start))  # pads not counted
-            done = min(start + bs, per)
-            if done % (10 * bs) < bs or done == per:
+                timing["batch_s"].append(time.perf_counter() - t_chunk)
+                timing["batch_prompts"].append(min(chunk, per - cstart))  # pads not counted
+            done = min(cstart + chunk, per)
+            if chunk > bs or done % (10 * bs) < bs or done == per:
                 logger.info("[%d/%d] prompts evaluated", done, per)
 
     # ---- gather (one process: the shard itself) -> dataset order -> means ----
@@ -320,7 +387,7 @@ def main(argv=None):
         per_prompt[name] = [float(x) for x in gathered]
         summary[f"{name}_mean"] = float(np.mean(gathered))
         logger.info("%s on eval set: %.8f", name, summary[f"{name}_mean"])
-    timing_summary = _timing_summary(timing) if timing and timing["batch_s"] else None
+    timing_summary = _timing_summary(timing, chunk) if timing and timing["batch_s"] else None
     if timing_summary:
         logger.info("timing: %s", timing_summary)
 

@@ -25,10 +25,32 @@ The DMD2 sampler (``sampler="dmd"``) takes strict-dominance preference
 (``compare="pareto"``) and ``sample.shared_noise``, as the JAX runner
 does; the Turbo sampler per-sample random-axis preference.
 
+Memory options, as the JAX runner takes them:
+
+- ``use_lora=False``: full finetuning. Every UNet weight is trained (in
+  fp32 masters under ``param_dtype="float32"``, computing in the
+  ``mixed_precision`` dtype), by the per-tensor AdamW
+  (``train.foreach_adamw``); the reference pass runs a separate frozen copy
+  in the compute dtype (``pipeline.reference_unet``), unfused; sampling and
+  validation run the live weights; checkpoints hold the whole UNet and no
+  LoRA file is written;
+- ``param_dtype="bfloat16"``: the UNet's weights stored in bf16 (trained
+  or not), cast to the compute dtype at use; ``"float32"`` keeps fp32
+  masters for a fully trained UNet. The other towers, and a frozen UNet
+  under ``"float32"``, are stored in the compute dtype (with bf16 compute,
+  what a cast at use would give);
+- ``offload_aux_during_update``: the VAE, the PickScore scorer and both
+  text encoders wait in pinned host memory while the update runs
+  (``utils.offload.HostOffload``; ``time/offload_s`` and ``time/reload_s``
+  log the moves, ``offload_bytes`` their size);
+- ``activation_checkpoint``: any of ``models.unet.REMAT_MODES``;
+- ``vae_decode_chunk``: latents a VAE decoder call (0: the whole batch);
+- ``kernels.gelu_exact``: the exact erf GELU in bf16 too.
+
 Not ported yet, and refused when asked for (by :func:`check_config`, and
 an ``hf:`` validation source by :func:`run_online_pso` where validation
 would fire): the HF datasets validation source, meshes beyond one device,
-and the JAX package's memory and int8 options.
+and the JAX package's int8 options.
 """
 
 from __future__ import annotations
@@ -45,11 +67,14 @@ from ..checkpoints import (LORA_FILE, export_lora_safetensors, latest_checkpoint
                            restore_train_state, save_train_state, tower_weight_file)
 from ..data import PromptDataset, PromptLoader, make_clip_tokenizers
 from ..device import resolve_device
+from ..models.layers import set_gelu_exact
+from ..models.unet import frozen_copy
 from ..pipeline import SAMPLERS, SDXLPipeline
 from ..rewards import CLIPScorer
-from ..train import (OnlinePSOConfig, OnlinePSOTrainer, PSOTrainState, lora_parameters,
-                     make_optimizer)
+from ..train import (OnlinePSOConfig, OnlinePSOTrainer, PSOTrainState, all_parameters,
+                     lora_parameters, make_optimizer)
 from ..utils import MetricLogger, PhaseTimer, get_logger
+from ..utils.offload import HostOffload
 from ..utils.png import save_pngs
 
 logger = get_logger("pso.online")
@@ -57,12 +82,12 @@ logger = get_logger("pso.online")
 # knob -> its default; any other value is refused until the port has it
 _UNPORTED = {
     "mesh.data": (-1, 1), "mesh.model": (1,), "mesh.fsdp": (False,),
-    "param_dtype": ("float32",), "offload_aux_during_update": (False,),
     "use_wandb": (False,), "fast_init": (False,),
-    "profile_dir": ("",), "use_lora": (True,), "train.int8_ref_pass": (False,),
+    "profile_dir": ("",), "train.int8_ref_pass": (False,),
     "kernels.subpixel_upsample": (False,), "kernels.int8_vae_decode": (False,),
-    "kernels.int8_smooth_alpha": (0.0,), "kernels.gelu_exact": (False,),
+    "kernels.int8_smooth_alpha": (0.0,),
 }
+PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 VAL_IMAGES = 5  # validation images saved per validation, as the JAX runner saves
 
 
@@ -82,6 +107,11 @@ def check_config(config, sampler: str) -> None:
         if _get(config, key) not in allowed:
             raise NotImplementedError(f"{key}={_get(config, key)!r} is not ported yet "
                                       f"(allowed: {allowed})")
+    if config.param_dtype not in PARAM_DTYPES:
+        raise ValueError(f"param_dtype={config.param_dtype!r}: use one of {list(PARAM_DTYPES)}")
+    if not config.use_lora and config.train.use_8bit_adam:
+        raise NotImplementedError("use_lora=False with train.use_8bit_adam: the 8-bit AdamW "
+                                  "is not ported for full finetuning")
     if config.train.distilled_train_steps != config.sample.num_steps - 1:
         raise ValueError(f"train.distilled_train_steps ({config.train.distilled_train_steps}) "
                          f"must equal sample.num_steps - 1 ({config.sample.num_steps - 1})")
@@ -101,8 +131,14 @@ def build_pipeline(config, dtype, tiny: bool, dev) -> SDXLPipeline:
     separate VAE and the PickScore weights where given, random from the
     seed otherwise."""
     p = config.pretrained
-    kw = dict(lora_rank=config.train.lora_rank, dtype=dtype, resolution=config.sample.resolution,
-              tiny=tiny, seed=config.seed, remat=config.activation_checkpoint, device=dev)
+    # the UNet's weights in param_dtype where they are trained or bf16 is asked
+    # for; the other towers (and a frozen fp32 UNet) are stored in the compute
+    # dtype, which gives the numbers a cast at use would
+    unet_dtype = (PARAM_DTYPES[config.param_dtype]
+                  if not config.use_lora or config.param_dtype == "bfloat16" else None)
+    kw = dict(lora_rank=config.train.lora_rank if config.use_lora else 0, dtype=dtype,
+              resolution=config.sample.resolution, tiny=tiny, seed=config.seed,
+              remat=config.activation_checkpoint, device=dev, unet_param_dtype=unet_dtype)
     if p.model_dir:
         pipe = SDXLPipeline.from_torch_dir(p.model_dir, **kw)
     else:
@@ -117,6 +153,7 @@ def build_pipeline(config, dtype, tiny: bool, dev) -> SDXLPipeline:
     if p.pickscore_dir:
         load_clip_dual(p.pickscore_dir, pipe.scorer.model)
         logger.info("loaded PickScore weights from %s", p.pickscore_dir)
+    pipe.decode_chunk = int(config.vae_decode_chunk)
     return pipe
 
 
@@ -167,17 +204,22 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
     """Run ``num_epochs`` epochs (default ``config.num_epochs``) from the
     start or from the checkpoint under ``config.resume_from``, writing to
     :func:`run_dir`. Returns (state, metrics history: one dict per update,
-    the pipeline whose UNet carries the trained adapter)."""
+    the pipeline whose UNet carries the trained adapter, or the trained
+    weights and the frozen reference copy under full finetuning)."""
     check_config(config, sampler)
     dev = resolve_device(device)
     dtype = torch.bfloat16 if config.mixed_precision == "bf16" else torch.float32
     tiny = bool(config.tiny_model)
     epochs = config.num_epochs if num_epochs is None else num_epochs
+    full_ft = not config.use_lora
+    set_gelu_exact(config.kernels.gelu_exact)
 
     # ---- models ----
     pipe = build_pipeline(config, dtype, tiny, dev)
-    for module in (pipe.vae, pipe.te1, pipe.te2, pipe.scorer.model):
+    aux = (pipe.vae, pipe.te1, pipe.te2, pipe.scorer.model)
+    for module in aux:
         module.requires_grad_(False)
+    offload = HostOffload(aux) if config.offload_aux_during_update else None
     tok1, tok2, tok_r = make_clip_tokenizers(
         config.pretrained.bpe_path, vocab_size=pipe.te1.config.vocab_size, with_reward=True)
     loader = PromptLoader(PromptDataset(config.prompt_json or None), config.sample.batch_size,
@@ -193,16 +235,20 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
         clamp_mode=config.train.clamp_mode,
         shared_noise=bool(config.sample.get("shared_noise", True)),
         num_train_timesteps=config.train.distilled_train_steps,
-        fuse_ref_pass=bool(config.train.fuse_ref_pass))
+        # policy and reference run different weights under full finetuning
+        fuse_ref_pass=bool(config.train.fuse_ref_pass) and not full_ft,
+        full_finetune=full_ft)
+    if full_ft:
+        pipe.reference_unet = frozen_copy(pipe.unet)
     trainer = OnlinePSOTrainer(ocfg, pipe)
-    lora = lora_parameters(pipe.unet)
-    tx = make_optimizer(lora, learning_rate=config.train.learning_rate,
+    trainable = all_parameters(pipe.unet) if full_ft else lora_parameters(pipe.unet)
+    tx = make_optimizer(trainable, learning_rate=config.train.learning_rate,
                         beta1=config.train.adam_beta1, beta2=config.train.adam_beta2,
                         eps=config.train.adam_epsilon, weight_decay=config.train.adam_weight_decay,
                         max_grad_norm=config.train.max_grad_norm,
                         state_dtype=config.train.optimizer_state_dtype,
-                        use_8bit=config.train.use_8bit_adam)
-    state = PSOTrainState.create(lora, tx)
+                        use_8bit=config.train.use_8bit_adam, per_tensor=full_ft)
+    state = PSOTrainState.create(trainable, tx)
     start_epoch = 0
     if config.resume_from:
         ckpt = latest_checkpoint(config.resume_from)
@@ -268,11 +314,19 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
 
             # ---------------- training ----------------
             global_step = state.step
+            moves = {}
+            if offload is not None:
+                with timer.phase("offload"):
+                    offload.to_host()
             with timer.phase("train"):
                 state, step_metrics = trainer.train_epoch(state, samples, cond, shuffle_gen)
+            if offload is not None:
+                with timer.phase("reload"):
+                    offload.to_device()
+                moves = {"offload_bytes": offload.nbytes()}
             for m in step_metrics:
                 global_step += 1
-                metrics_logger.log_metrics({**m, **timer.summary()}, global_step)
+                metrics_logger.log_metrics({**m, **moves, **timer.summary()}, global_step)
                 history.append(m)
                 if config.validation_steps and global_step % config.validation_steps == 0:
                     validate(global_step)
@@ -281,11 +335,12 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
                     # the state after the whole epoch, under the update's step
                     # number, as the JAX runner saves it
                     path = save_train_state(out_dir, global_step, state, {"epoch": epoch})
-                    lora_dir = os.path.join(out_dir, f"lora-{global_step}")
-                    os.makedirs(lora_dir, exist_ok=True)
-                    export_lora_safetensors(pipe.unet, os.path.join(lora_dir, LORA_FILE))
+                    if not full_ft:  # the adapter for diffusers beside it
+                        lora_dir = os.path.join(out_dir, f"lora-{global_step}")
+                        os.makedirs(lora_dir, exist_ok=True)
+                        export_lora_safetensors(pipe.unet, os.path.join(lora_dir, LORA_FILE))
                     prune_checkpoints(out_dir, int(config.num_checkpoint_limit))
-                    logger.info("saved state to %s and the LoRA to %s", path, lora_dir)
+                    logger.info("saved state to %s", path)
             timer.reset()
     finally:
         metrics_logger.close()

@@ -53,16 +53,17 @@ than its uninterrupted run.
 - validation every ``--validation_steps``: the 25 fixed prompts,
   ``--num_validation_images`` each, under ``gen_<step>/p_XXX/``, encoded
   through the live text-encoder adapters;
-- ``--gradient_checkpointing`` rematerializes every UNet block;
+- ``--gradient_checkpointing`` rematerializes UNet blocks in the backward,
+  as ``--gradient_checkpointing_mode`` says (``full``, or a selective mode
+  of ``models/unet.py``);
 - ``--tiny``: the toy models at 32x32 (unless ``--resolution`` is given),
   fp32, a CPU run of seconds. Otherwise SDXL-Turbo's widths in bf16 with an
   fp32 LoRA, from ``--pretrained_model_dir`` (a local diffusers
   checkpoint) or random weights from ``--seed``.
 
 Refused before any model is built, with ``NotImplementedError``:
-``--use_wandb``, ``--fast_init`` and a ``--gradient_checkpointing_mode``
-other than ``full``; JPEG, WebP and BMP files in the instance or class
-directory (the port reads PNG). The
+``--use_wandb`` and ``--fast_init``; JPEG, WebP and BMP files in the
+instance or class directory (the port reads PNG). The
 JAX CLI's parity-inert flags (``--snr_gamma``, ``--gamma_pso``,
 ``--neg_generate_freq``) are accepted and do nothing, as there.
 
@@ -139,7 +140,7 @@ def parse_args(argv=None):
                    help="rematerialize every UNet block in the backward")
     p.add_argument("--gradient_checkpointing_mode", default="full",
                    choices=["full", "resnets", "dots", "lowres", "lowres_dots"],
-                   help="only 'full' is ported")
+                   help="the remat mode under --gradient_checkpointing (models/unet.py)")
     p.add_argument("--seed", type=int, default=0)
     # optimizer
     p.add_argument("--optimizer", default="AdamW", help='"AdamW" or "prodigy" (any case)')
@@ -213,9 +214,7 @@ def parse_args(argv=None):
 def check_args(args) -> None:
     """Refuse what the port does not implement, naming the flag."""
     refused = [("--use_wandb", args.use_wandb, "wandb logging"),
-               ("--fast_init", args.fast_init, "zero-filled weights"),
-               (f"--gradient_checkpointing_mode {args.gradient_checkpointing_mode}",
-                args.gradient_checkpointing_mode != "full", "selective remat modes")]
+               ("--fast_init", args.fast_init, "zero-filled weights")]
     for flag, asked, what in refused:
         if asked:
             raise NotImplementedError(f"{flag} is not ported yet ({what}; ROADMAP Queue 1)")
@@ -288,7 +287,8 @@ def main(argv=None):
     # ---- pipeline ----
     kw = dict(lora_rank=args.rank, dtype=torch.float32 if args.tiny else torch.bfloat16,
               resolution=resolution, tiny=args.tiny, seed=args.seed,
-              remat="full" if args.gradient_checkpointing else "", device=dev, with_scorer=False,
+              remat=args.gradient_checkpointing_mode if args.gradient_checkpointing else "",
+              device=dev, with_scorer=False,
               te_lora_rank=args.rank if args.train_text_encoder else 0, use_dora=args.use_dora)
     if args.pretrained_model_dir:
         pipe = SDXLPipeline.from_torch_dir(args.pretrained_model_dir, **kw)

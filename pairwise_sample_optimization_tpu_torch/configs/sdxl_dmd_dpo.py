@@ -2,13 +2,11 @@
 on top of ``sdxl_turbo_dpo``: 1024^2, the fixed 4-step lattice
 [999, 749, 499, 249], strict-dominance preference, LoRA rank 16.
 
-Left out, as the Turbo config leaves them out: the JAX package's TPU
-routing and memory knobs ``kernels.fused_groupnorm`` (on CUDA the port
-always takes its GroupNorm+SiLU kernels), ``kernels.subpixel_upsample``
-and ``vae_decode_chunk``. The subpixel upsample is a rewrite of the same
-function as nearest-neighbour upsample + conv (JAX ``ops/upsample.py``),
-and the chunked decode decodes the same images in pieces, so leaving both
-off changes no number.
+Left out, as the Turbo config leaves it out: the JAX package's TPU
+routing knob ``kernels.fused_groupnorm`` (on CUDA the port always takes its
+GroupNorm+SiLU kernels). ``kernels.subpixel_upsample`` stays refused: it is
+a rewrite of the same function as nearest-neighbour upsample + conv (JAX
+``ops/upsample.py``). ``vae_decode_chunk`` is 0, as the JAX config sets it.
 """
 
 from . import Config, sdxl_turbo_dpo
@@ -27,4 +25,5 @@ def get_config() -> Config:
     # the reference's quirk: each transition's noise is one draw shared by
     # the batch (per trajectory side of a pair, see train/online_pso.py)
     config.sample.shared_noise = True
+    config.vae_decode_chunk = 0
     return config

@@ -2,12 +2,14 @@
 ``configs/sdxl_turbo_dpo.py`` knob tree, without its TPU kernel-routing
 knobs (on CUDA the port always takes its kernels).
 
-Knobs the port does not implement yet are kept so launch scripts parse,
-and ``cli.online_runner.check_config`` refuses a non-default value:
-``param_dtype``, ``mesh.*`` beyond one device, ``mesh.fsdp``,
-``offload_aux_during_update``, ``use_wandb``, ``fast_init``,
-``profile_dir``, ``use_lora=False``, ``train.int8_ref_pass`` and the
-``kernels.*`` options.
+The memory knobs are the JAX package's: ``use_lora=False`` (full
+finetuning), ``param_dtype``, ``activation_checkpoint`` (every remat mode),
+``offload_aux_during_update``, ``vae_decode_chunk`` and
+``kernels.gelu_exact``. Knobs the port does not implement yet are kept so
+launch scripts parse, and ``cli.online_runner.check_config`` refuses a
+non-default value: ``mesh.*`` beyond one device, ``mesh.fsdp``,
+``use_wandb``, ``fast_init``, ``profile_dir``, ``train.int8_ref_pass`` and
+the int8 and subpixel ``kernels.*`` options.
 """
 
 from . import Config
@@ -24,21 +26,25 @@ def get_config() -> Config:
     c.num_epochs = 10000
     c.checkpointing_steps = 100
     c.num_checkpoint_limit = 10
-    # compute and storage dtype of the frozen towers; LoRA and Adam state stay fp32
+    # compute dtype of the towers; LoRA and Adam state stay fp32
     c.mixed_precision = "bf16"  # "bf16" | "no"
-    # storage dtype of the frozen towers in the JAX package; the port stores
-    # them in the compute dtype (mixed_precision), and refuses "bfloat16"
+    # storage dtype of the UNet's weights: "float32" keeps fp32 masters of a
+    # fully trained UNet (use_lora=False), "bfloat16" stores it in bf16; the
+    # other towers are stored in the compute dtype
     c.param_dtype = "float32"
-    # UNet activation checkpointing: "full" | "" or "none" (off); the
-    # selective modes ("resnets", "dots", "lowres", "lowres_dots") are not
-    # ported and the UNet refuses them
+    # UNet activation checkpointing: "full" | "resnets" | "dots" | "lowres" |
+    # "lowres_dots" | "" or "none" (off); see models/unet.py
     c.activation_checkpoint = "full"
+    # the VAE, the scorer and the text encoders in pinned host memory while
+    # the update runs
     c.offload_aux_during_update = False
+    # latents a VAE decoder call (0: the whole batch)
+    c.vae_decode_chunk = 0
     c.tiny_model = False  # toy 2-level models end to end (CPU tests)
     c.fast_init = False
     c.profile_dir = ""
     c.resume_from = ""  # run dir or exact checkpoint-<step> dir
-    c.use_lora = True
+    c.use_lora = True  # False: train every UNet weight (full finetuning)
     c.use_wandb = False
 
     # ---- validation: 4-step images of the first val_max_prompts prompts of
@@ -97,12 +103,13 @@ def get_config() -> Config:
     t.fuse_ref_pass = False
     t.int8_ref_pass = False
 
-    # ---- kernel options of the JAX package (none ported) ----
+    # ---- kernel options of the JAX package (the int8 and subpixel ones not
+    # ported) ----
     c.kernels = k = Config()
     k.subpixel_upsample = False
     k.int8_vae_decode = False
     k.int8_smooth_alpha = 0.0
-    k.gelu_exact = False
+    k.gelu_exact = False  # the exact erf GELU in bf16 too
 
     # ---- data ----
     # training prompts: a JSON list of {caption: ...}, a .txt, "4k" for the

@@ -8,8 +8,15 @@ seams that reach the CUDA kernels.
 LoRA stays apart from the frozen weights: ``LoRALinear`` is an
 ``nn.Linear`` (frozen ``weight``/``bias``) with an fp32 adapter under
 ``lora.down``/``lora.up`` (diffusers LoRA key layout). The frozen
-reference model of DPO is ``lora_scale=0`` on the same module, never a
-copy.
+reference model of LoRA training is ``lora_scale=0`` on the same module,
+never a copy.
+
+The weighted layers (``Linear``, ``Conv2d``, ``LayerNorm``, ``GroupNorm``,
+``LoRALinear``) compute in their ``compute_dtype`` whatever dtype their
+weights are stored in: a weight stored in another dtype is cast at use, as
+the JAX package casts its fp32 params to the compute dtype. It is None (the
+weights' own dtype) until ``set_compute_dtype`` sets it, as a UNet whose
+trained weights are fp32 masters needs.
 """
 
 from __future__ import annotations
@@ -25,10 +32,61 @@ from ..ops.group_norm import group_norm
 from ..ops.upsample import upsample2x_conv3x3
 
 
+_GELU_FORCE_EXACT = False
+
+
+def set_gelu_exact(force: bool) -> None:
+    """Force the exact erf GELU in every dtype, process-wide (the
+    ``kernels.gelu_exact`` config knob and the eval's ``--gelu_exact``;
+    the JAX package's ``set_gelu_exact``). Runs set it when they start."""
+    global _GELU_FORCE_EXACT
+    _GELU_FORCE_EXACT = bool(force)
+
+
 def gelu_approximate(dtype: torch.dtype) -> str:
     """GELU flavor by compute dtype, the JAX package's rule: exact erf in
-    fp32, the tanh approximation in bf16."""
-    return "tanh" if dtype == torch.bfloat16 else "none"
+    fp32, the tanh approximation in bf16, unless :func:`set_gelu_exact`
+    forces erf."""
+    return "tanh" if dtype == torch.bfloat16 and not _GELU_FORCE_EXACT else "none"
+
+
+def at_use(t, dtype):
+    """``t`` in ``dtype`` (None: as stored), cast only where it differs."""
+    return t if t is None or dtype is None or t.dtype == dtype else t.to(dtype)
+
+
+class CastAtUse:
+    """A weighted layer whose ``weight`` and ``bias`` are cast to
+    ``compute_dtype`` at use (None: used as stored)."""
+
+    compute_dtype = None
+
+    def weights_at_use(self):
+        return at_use(self.weight, self.compute_dtype), at_use(self.bias, self.compute_dtype)
+
+
+class Linear(CastAtUse, nn.Linear):
+    def forward(self, x):
+        return F.linear(x, *self.weights_at_use())
+
+
+class Conv2d(CastAtUse, nn.Conv2d):
+    def forward(self, x):
+        return self._conv_forward(x, *self.weights_at_use())
+
+
+class LayerNorm(CastAtUse, nn.LayerNorm):
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape, *self.weights_at_use(), self.eps)
+
+
+def set_compute_dtype(module: nn.Module, dtype) -> nn.Module:
+    """Every weighted layer of ``module`` computes in ``dtype`` from now on,
+    whatever dtype its weights are stored in."""
+    for m in module.modules():
+        if isinstance(m, CastAtUse):
+            m.compute_dtype = dtype
+    return module
 
 
 class _LoRAPair(nn.Module):
@@ -41,7 +99,7 @@ class _LoRAPair(nn.Module):
             self.magnitude = nn.Parameter(torch.ones(out_features, dtype=dtype))
 
 
-class LoRALinear(nn.Linear):
+class LoRALinear(CastAtUse, nn.Linear):
     """y = x W^T + b + lora_scale * (alpha / r) * (x A) B.
 
     ``lora_scale`` is a Python number or a per-sample (B,) tensor; a static
@@ -79,8 +137,8 @@ class LoRALinear(nn.Linear):
             self.lora.magnitude.copy_(torch.linalg.vector_norm(self.weight.float(), dim=1))
 
     def forward(self, x, lora_scale=1.0):
-        x = x.to(self.weight.dtype)
-        y = F.linear(x, self.weight, self.bias)
+        x = x.to(self.compute_dtype or self.weight.dtype)
+        y = F.linear(x, *self.weights_at_use())
         static_zero = isinstance(lora_scale, (int, float)) and lora_scale == 0
         if not self.lora_rank or static_zero:
             return y
@@ -143,14 +201,15 @@ class TimestepEmbedMLP(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int, dtype=None):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, out_dim, dtype=dtype)
-        self.linear_2 = nn.Linear(out_dim, out_dim, dtype=dtype)
+        self.linear_1 = Linear(in_dim, out_dim, dtype=dtype)
+        self.linear_2 = Linear(out_dim, out_dim, dtype=dtype)
 
     def forward(self, x):
-        return self.linear_2(F.silu(self.linear_1(x.to(self.linear_1.weight.dtype))))
+        l1 = self.linear_1
+        return self.linear_2(F.silu(l1(x.to(l1.compute_dtype or l1.weight.dtype))))
 
 
-class GroupNorm(nn.Module):
+class GroupNorm(CastAtUse, nn.Module):
     """Parameterized NCHW group norm dispatching through ops.group_norm."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5, act=None,
@@ -161,7 +220,7 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, dtype=dtype))
 
     def forward(self, x):
-        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, act=self.act)
+        return group_norm(x, *self.weights_at_use(), self.num_groups, self.eps, act=self.act)
 
 
 class Attention(nn.Module):
@@ -196,7 +255,7 @@ class Attention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int, dtype=None):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2, dtype=dtype)
+        self.proj = Linear(dim, inner * 2, dtype=dtype)
 
     def forward(self, x):
         hidden, gate = self.proj(x).chunk(2, dim=-1)
@@ -210,7 +269,7 @@ class GEGLUFeedForward(nn.Module):
         super().__init__()
         inner = dim * mult
         self.net = nn.ModuleList([GEGLU(dim, inner, dtype), nn.Dropout(0.0),
-                                  nn.Linear(inner, dim, dtype=dtype)])
+                                  Linear(inner, dim, dtype=dtype)])
 
     def forward(self, x):
         for layer in self.net:
@@ -224,7 +283,7 @@ class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int,
                  lora_rank: int = 0, dtype=None, use_dora: bool = False):
         super().__init__()
-        ln = lambda: nn.LayerNorm(dim, eps=1e-5, dtype=dtype)
+        ln = lambda: LayerNorm(dim, eps=1e-5, dtype=dtype)
         self.norm1 = ln()
         self.attn1 = Attention(dim, heads, head_dim, lora_rank=lora_rank, dtype=dtype,
                                use_dora=use_dora)
@@ -248,13 +307,13 @@ class SpatialTransformer(nn.Module):
                  lora_rank: int = 0, groups: int = 32, dtype=None, use_dora: bool = False):
         super().__init__()
         self.norm = GroupNorm(channels, groups, eps=1e-6, dtype=dtype)
-        self.proj_in = nn.Linear(channels, channels, dtype=dtype)
+        self.proj_in = Linear(channels, channels, dtype=dtype)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, heads, head_dim, context_dim, lora_rank, dtype,
                                   use_dora)
             for _ in range(depth)
         ])
-        self.proj_out = nn.Linear(channels, channels, dtype=dtype)
+        self.proj_out = Linear(channels, channels, dtype=dtype)
 
     def forward(self, x, context, lora_scale=1.0):
         b, c, h, w = x.shape
@@ -276,12 +335,12 @@ class ResnetBlock(nn.Module):
                  groups: int = 32, eps: float = 1e-5, dtype=None):
         super().__init__()
         self.norm1 = GroupNorm(in_channels, groups, eps, act="silu", dtype=dtype)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1, dtype=dtype)
-        self.time_emb_proj = (nn.Linear(temb_channels, out_channels, dtype=dtype)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, dtype=dtype)
+        self.time_emb_proj = (Linear(temb_channels, out_channels, dtype=dtype)
                               if temb_channels else None)
         self.norm2 = GroupNorm(out_channels, groups, eps, act="silu", dtype=dtype)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1, dtype=dtype)
-        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1, dtype=dtype)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, dtype=dtype)
+        self.conv_shortcut = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
                               if in_channels != out_channels else None)
 
     def forward(self, x, temb=None):
@@ -302,8 +361,8 @@ class Downsample(nn.Module):
     def __init__(self, channels: int, dtype=None, asymmetric: bool = False):
         super().__init__()
         self.asymmetric = asymmetric
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0 if asymmetric else 1,
-                              dtype=dtype)
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=0 if asymmetric else 1,
+                           dtype=dtype)
 
     def forward(self, x):
         return self.conv(F.pad(x, (0, 1, 0, 1)) if self.asymmetric else x)
@@ -314,10 +373,10 @@ class Upsample(nn.Module):
 
     def __init__(self, channels: int, dtype=None):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1, dtype=dtype)
+        self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype)
 
     def forward(self, x):
-        return upsample2x_conv3x3(x, self.conv.weight, self.conv.bias)
+        return upsample2x_conv3x3(x, *self.conv.weights_at_use())
 
 
 @torch.no_grad()

@@ -13,29 +13,53 @@ the timestep embedding. ``state_dict`` keys are diffusers'
 on). ``lora_scale`` reaches every attention q/k/v/out projection; the DPO
 reference model is ``lora_scale=0`` on the same module.
 
-``UNetConfig.remat`` is the JAX package's remat knob: ``"full"`` wraps
-every ResnetBlock and SpatialTransformer in ``torch.utils.checkpoint``
-(non-reentrant) while gradients are on, as ``nn.remat`` wraps them there;
-``""`` / ``"none"`` turns it off. The selective modes are not ported.
+``UNetConfig.remat`` is the JAX package's remat knob, decided per level
+by :func:`remat_at` (the mid block and the up path's first stage share the
+lowest level's decision). A rematerialized ResnetBlock or
+SpatialTransformer runs under non-reentrant ``torch.utils.checkpoint``
+while gradients are on, as ``nn.remat`` wraps it there:
+
+- ``"full"``: every ResnetBlock and SpatialTransformer, nothing saved;
+- ``"resnets"``: only the ResnetBlocks (the attention activations are kept);
+- ``"dots"``: every block, saving the outputs of the weight products
+  (``aten.mm`` / ``aten.addmm``: no batch dims, JAX's
+  ``dots_with_no_batch_dims_saveable``) and recomputing everything else:
+  batched products, convolutions, elementwise work and the attention and
+  GroupNorm kernels (whose outputs are made by ``torch.empty`` and written
+  through ``ctypes``, so they are never taken from a cache);
+- ``"lowres"``: full remat except at the lowest-resolution level and the
+  mid block, which keep everything;
+- ``"lowres_dots"``: full remat at the higher levels, ``dots`` at the
+  lowest level and the mid block;
+- ``""`` / ``"none"``: off.
+
+``set_param_dtype`` stores the weights in another dtype than the one the
+UNet computes in (fp32 masters for full finetuning; they are cast to
+``config.dtype`` at use); :func:`frozen_copy` is the separate frozen
+reference that full finetuning compares against.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from .layers import (
+    Conv2d,
     Downsample,
     GroupNorm,
     ResnetBlock,
     SpatialTransformer,
     TimestepEmbedMLP,
     Upsample,
+    set_compute_dtype,
     timestep_embedding,
 )
 
@@ -56,7 +80,7 @@ class UNetConfig:
     norm_groups: int = 32
     lora_rank: int = 0
     lora_use_dora: bool = False  # DoRA on the adapted projections (peft's use_dora)
-    # "full": checkpoint every ResnetBlock and SpatialTransformer; "" / "none": off
+    # "" / "none" (off), "full", or a selective mode of REMAT_MODES (see remat_at)
     remat: str = ""
     dtype: torch.dtype = torch.bfloat16
 
@@ -91,7 +115,28 @@ class UNetConfig:
         )
 
 
-SELECTIVE_REMAT_MODES = ("resnets", "dots", "lowres", "lowres_dots")
+REMAT_MODES = ("", "none", "full", "resnets", "dots", "lowres", "lowres_dots")
+# the weight products, whose outputs the "dots" policy saves
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def remat_at(mode: str, level: int, n_levels: int) -> Tuple[bool, bool, bool]:
+    """(remat the ResnetBlocks, remat the SpatialTransformers, under the dots
+    policy) at ``level`` of ``n_levels`` (the mid block is the lowest
+    level): the JAX package's ``_mode_at``."""
+    if mode in ("", "none"):
+        return False, False, False
+    lowres = level == n_levels - 1
+    return {"full": (True, True, False), "resnets": (True, False, False),
+            "dots": (True, True, True), "lowres": (not lowres, not lowres, False),
+            "lowres_dots": (True, True, lowres)}[mode]
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
 
 class SDXLUNet(nn.Module):
@@ -101,10 +146,8 @@ class SDXLUNet(nn.Module):
             self._build(config)
 
     def _build(self, cfg: UNetConfig):
-        if cfg.remat in SELECTIVE_REMAT_MODES:
-            raise NotImplementedError(f"remat={cfg.remat!r} is not ported; use 'full' or ''")
-        if cfg.remat not in ("", "none", "full"):
-            raise ValueError(f"unknown remat mode {cfg.remat!r}")
+        if cfg.remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {cfg.remat!r}; have {REMAT_MODES}")
         self.config = cfg
         dt = cfg.dtype
         chs = cfg.block_out_channels
@@ -121,7 +164,7 @@ class SDXLUNet(nn.Module):
 
         self.time_embedding = TimestepEmbedMLP(chs[0], temb, dtype=dt)
         self.add_embedding = TimestepEmbedMLP(cfg.add_embed_input_dim, temb, dtype=dt)
-        self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1, dtype=dt)
+        self.conv_in = Conv2d(cfg.in_channels, chs[0], 3, padding=1, dtype=dt)
 
         skip_chs = [chs[0]]
         h_ch = chs[0]
@@ -165,7 +208,7 @@ class SDXLUNet(nn.Module):
             self.up_blocks.append(blk)
 
         self.conv_norm_out = GroupNorm(chs[0], cfg.norm_groups, act="silu", dtype=dt)
-        self.conv_out = nn.Conv2d(chs[0], cfg.out_channels, 3, padding=1, dtype=dt)
+        self.conv_out = Conv2d(chs[0], cfg.out_channels, 3, padding=1, dtype=dt)
 
     def forward(self, sample, timesteps, encoder_hidden_states, pooled_text_embeds,
                 add_time_ids, lora_scale=1.0):
@@ -181,36 +224,60 @@ class SDXLUNet(nn.Module):
         temb = temb + self.add_embedding(add.to(dt))
         context = encoder_hidden_states.to(dt)
 
-        remat = cfg.remat == "full" and torch.is_grad_enabled()
+        n = len(cfg.block_out_channels)
+        grad = torch.is_grad_enabled()
 
-        def run(block, *args):
-            if remat:
-                return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
-            return block(*args)
+        def run(block, level, *args):
+            r_res, r_attn, dots = remat_at(cfg.remat, level, n)
+            if not grad or not (r_attn if isinstance(block, SpatialTransformer) else r_res):
+                return block(*args)
+            kw = {"context_fn": _DOTS_CONTEXT} if dots else {}
+            return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
         h = self.conv_in(sample.to(dt))
         skips = [h]
-        for blk in self.down_blocks:
+        for level, blk in enumerate(self.down_blocks):
             for i, res in enumerate(blk.resnets):
-                h = run(res, h, temb)
+                h = run(res, level, h, temb)
                 if hasattr(blk, "attentions"):
-                    h = run(blk.attentions[i], h, context, lora_scale)
+                    h = run(blk.attentions[i], level, h, context, lora_scale)
                 skips.append(h)
             if hasattr(blk, "downsamplers"):
                 h = blk.downsamplers[0](h)
                 skips.append(h)
 
-        h = run(self.mid_block.resnets[0], h, temb)
-        h = run(self.mid_block.attentions[0], h, context, lora_scale)
-        h = run(self.mid_block.resnets[1], h, temb)
+        h = run(self.mid_block.resnets[0], n - 1, h, temb)
+        h = run(self.mid_block.attentions[0], n - 1, h, context, lora_scale)
+        h = run(self.mid_block.resnets[1], n - 1, h, temb)
 
-        for blk in self.up_blocks:
+        for rev, blk in enumerate(self.up_blocks):
             for i, res in enumerate(blk.resnets):
-                h = run(res, torch.cat([h, skips.pop()], dim=1), temb)
+                h = run(res, n - 1 - rev, torch.cat([h, skips.pop()], dim=1), temb)
                 if hasattr(blk, "attentions"):
-                    h = run(blk.attentions[i], h, context, lora_scale)
+                    h = run(blk.attentions[i], n - 1 - rev, h, context, lora_scale)
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h)
 
         h = self.conv_out(self.conv_norm_out(h))
         return h.float()
+
+    def set_param_dtype(self, dtype: torch.dtype) -> "SDXLUNet":
+        """Store every weight but the LoRA adapter's in ``dtype``, computing
+        in ``config.dtype`` all the same: a weight in another dtype is cast
+        at use."""
+        for name, p in self.named_parameters():
+            if ".lora." not in name and p.dtype != dtype:
+                p.data = p.data.to(dtype)
+        return set_compute_dtype(self, self.config.dtype)
+
+
+@torch.no_grad()
+def frozen_copy(unet: SDXLUNet) -> SDXLUNet:
+    """A separate copy of ``unet``'s weights in its compute dtype, without
+    LoRA and without gradients: full finetuning's frozen reference, equal to
+    the trained UNet at step 0 (a weight cast at use gives what the copy
+    stores)."""
+    cfg = dataclasses.replace(unet.config, lora_rank=0, remat="")
+    ref = SDXLUNet(cfg, device="meta").to_empty(device=unet.conv_in.weight.device)
+    ref.load_state_dict({k: v for k, v in unet.state_dict().items() if ".lora." not in k})
+    return ref.requires_grad_(False).eval()

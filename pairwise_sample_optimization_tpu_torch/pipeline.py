@@ -13,6 +13,12 @@ Public functions keep the JAX layouts: latents (B, h, w, 4), images
 (B, H, W, 3) in [-1, 1], trajectories with (S, B, ...) step axes. The
 NHWC <-> NCHW permute happens at the UNet and VAE call boundaries. The
 pipeline takes token ids (``data.tokenizer`` makes them).
+
+``decode_chunk`` (0: the whole batch) decodes that many latents a call, as
+the JAX package's ``decode_chunk``: it bounds the VAE decoder's activation
+memory at 1024^2. ``reference_unet`` is full finetuning's frozen reference
+copy (``models.unet.frozen_copy``); without one the reference is
+``lora_scale=0`` on ``unet``.
 """
 
 from __future__ import annotations
@@ -56,6 +62,8 @@ class SDXLPipeline:
     te2: CLIPTextTower
     scorer: Optional[PickScoreScorer] = None
     resolution: int = 512
+    decode_chunk: int = 0
+    reference_unet: Optional[SDXLUNet] = None
 
     @property
     def device(self) -> torch.device:
@@ -69,7 +77,8 @@ class SDXLPipeline:
     def random(cls, lora_rank: int = 32, dtype=torch.bfloat16, resolution: int = 512,
                tiny: bool = False, seed: int = 0, lora_b_std: float = 0.0,
                remat: str = "", device="cuda", with_scorer: bool = True,
-               te_lora_rank: int = 0, use_dora: bool = False) -> "SDXLPipeline":
+               te_lora_rank: int = 0, use_dora: bool = False,
+               unet_param_dtype: Optional[torch.dtype] = None) -> "SDXLPipeline":
         """Architecture-true random weights made from ``seed``, built on
         ``device`` directly: each tower is constructed on the meta device,
         materialized there with ``to_empty`` and filled by
@@ -80,7 +89,10 @@ class SDXLPipeline:
         ``with_scorer=False`` leaves out the PickScore scorer.
         ``te_lora_rank`` puts a LoRA of that rank on both text encoders'
         attention projections (DreamBooth's text-encoder training);
-        ``use_dora`` makes every adapter (UNet and text encoders) DoRA."""
+        ``use_dora`` makes every adapter (UNet and text encoders) DoRA.
+        ``unet_param_dtype`` stores the UNet's weights in that dtype (its
+        draws are made in ``dtype`` first), computing in ``dtype``
+        (``SDXLUNet.set_param_dtype``; None: stored in ``dtype``)."""
         dev = resolve_device(device)
         if tiny:
             ucfg = UNetConfig.tiny(lora_rank=lora_rank, dtype=dtype, remat=remat)
@@ -107,6 +119,8 @@ class SDXLPipeline:
             return module.eval()
 
         unet = make(SDXLUNet(ucfg, device="meta"))
+        if unet_param_dtype not in (None, dtype):
+            unet.set_param_dtype(unet_param_dtype)
         vae = make(AutoencoderKL(vcfg, device="meta"))
         te1 = make(CLIPTextTower(t1cfg, device="meta"))
         te2 = make(CLIPTextTower(t2cfg, device="meta"))
@@ -117,7 +131,8 @@ class SDXLPipeline:
     def from_torch_dir(cls, model_dir: str, lora_rank: int = 32, dtype=torch.bfloat16,
                        resolution: int = 512, tiny: bool = False, seed: int = 0,
                        remat: str = "", device="cuda", with_scorer: bool = True,
-                       te_lora_rank: int = 0, use_dora: bool = False) -> "SDXLPipeline":
+                       te_lora_rank: int = 0, use_dora: bool = False,
+                       unet_param_dtype: Optional[torch.dtype] = None) -> "SDXLPipeline":
         """A local diffusers checkpoint directory: ``unet/``, ``vae/``,
         ``text_encoder/`` and ``text_encoder_2/``, each read from its first
         ``.safetensors`` or ``.bin`` file in name order (the JAX package's
@@ -134,13 +149,15 @@ class SDXLPipeline:
         (the JAX package's ``refresh_dora_magnitudes``). Every VAE key is
         read, the encoder's and ``quant_conv`` too; read past: the text
         towers' ``position_ids``. A tower whose folder holds no
-        weight file keeps its random weights, with a warning. The PickScore
+        weight file keeps its random weights, with a warning. The UNet's
+        weights are read into ``unet_param_dtype`` where it is given. The PickScore
         scorer (``with_scorer``) is random: its weights are not part of a
         diffusers checkpoint."""
         if not os.path.isdir(model_dir):
             raise FileNotFoundError(f"model_dir {model_dir!r} is not a directory")
         pipe = cls.random(lora_rank, dtype, resolution, tiny, seed, remat=remat, device=device,
-                          with_scorer=with_scorer, te_lora_rank=te_lora_rank, use_dora=use_dora)
+                          with_scorer=with_scorer, te_lora_rank=te_lora_rank, use_dora=use_dora,
+                          unet_param_dtype=unet_param_dtype)
         for sub, module in (("unet", pipe.unet), ("vae", pipe.vae), ("text_encoder", pipe.te1),
                             ("text_encoder_2", pipe.te2)):
             path = tower_weight_file(os.path.join(model_dir, sub))
@@ -168,16 +185,28 @@ class SDXLPipeline:
         return {"embeds": embeds, "pooled": pooled, "time_ids": time_ids,
                 "reward_ids": input_ids_one if reward_ids is None else reward_ids}
 
-    def unet_eps(self, x, t, cond, lora_scale=1.0):
-        """x (B, h, w, 4) -> eps (B, h, w, 4) fp32."""
+    def unet_eps(self, x, t, cond, lora_scale=1.0, unet=None):
+        """x (B, h, w, 4) -> eps (B, h, w, 4) fp32, through ``unet`` (default:
+        the pipeline's)."""
         # contiguous NCHW: a permuted view would make the convs keep the
         # channels-last layout, which the GroupNorm+SiLU kernels do not take
-        eps = self.unet(x.permute(0, 3, 1, 2).contiguous(), t, cond["embeds"], cond["pooled"],
-                        cond["time_ids"], lora_scale=lora_scale)
+        eps = (unet or self.unet)(x.permute(0, 3, 1, 2).contiguous(), t, cond["embeds"],
+                                  cond["pooled"], cond["time_ids"], lora_scale=lora_scale)
         return eps.permute(0, 2, 3, 1)
 
     def decode(self, latents):
-        """Scaled latents (B, h, w, 4) -> images (B, H, W, 3) in [-1, 1], fp32."""
+        """Scaled latents (B, h, w, 4) -> images (B, H, W, 3) in [-1, 1], fp32,
+        ``decode_chunk`` latents a call (0: all at once); a batch that
+        ``decode_chunk`` does not divide is refused, as the JAX package
+        asserts."""
+        n, chunk = latents.shape[0], self.decode_chunk
+        if chunk and n > chunk:
+            if n % chunk:
+                raise ValueError(f"decode_chunk {chunk} does not divide the batch of {n}")
+            return torch.cat([self._decode(latents[i:i + chunk]) for i in range(0, n, chunk)])
+        return self._decode(latents)
+
+    def _decode(self, latents):
         z = latents.permute(0, 3, 1, 2).contiguous()
         return self.vae.decode(z).permute(0, 2, 3, 1).float()
 

@@ -15,7 +15,10 @@ and DMD2 samplers, as eager PyTorch:
   the frozen reference pass (``lora_scale=0``; under ``no_grad`` by
   default, or fused into one 4b-batch call with a per-sample scale and a
   detached reference half), recomputes the transition log-probs and
-  backpropagates loss / n_micro into the LoRA gradients.
+  backpropagates loss / n_micro into the LoRA gradients. Under
+  ``full_finetune`` (the reference's ``use_lora=False``) the policy is the
+  whole trained UNet and the reference pass runs the pipeline's separate
+  frozen copy (``pipeline.reference_unet``), unfused.
 
 DMD2 (``sampler="dmd"``) samples on the fixed lattice
 (``ops.schedules.distill_timesteps``) with DDPM re-noise transitions, and
@@ -78,8 +81,6 @@ class OnlinePSOConfig:
             raise ValueError("int8_ref_pass needs fuse_ref_pass=False")
         if self.sampler not in ("turbo", "dmd"):
             raise ValueError(f"unknown sampler {self.sampler!r}")
-        if self.full_finetune:
-            raise NotImplementedError("full finetuning is not ported yet (LoRA only)")
         if self.int8_ref_pass:
             raise NotImplementedError("the int8 reference pass is not ported yet")
         if self.compare not in ("sample", "pareto"):
@@ -101,6 +102,9 @@ class OnlinePSOTrainer:
     needs its VAE and PickScore scorer."""
 
     def __init__(self, config: OnlinePSOConfig, pipeline):
+        if config.full_finetune and pipeline.reference_unet is None:
+            raise ValueError("full_finetune needs the pipeline's frozen reference copy "
+                             "(pipeline.reference_unet = models.unet.frozen_copy(unet))")
         self.config = config
         self.pipe = pipeline
         if config.sampler == "turbo":
@@ -216,8 +220,9 @@ class OnlinePSOTrainer:
             eps_ref = eps_ref.detach()
         else:
             eps_pol = self.pipe.unet_eps(inp, t2, cond2, 1.0)
+            ref = self.pipe.reference_unet if cfg.full_finetune else None
             with torch.no_grad():
-                eps_ref = self.pipe.unet_eps(inp, t2, cond2, 0.0)
+                eps_ref = self.pipe.unet_eps(inp, t2, cond2, 0.0, unet=ref)
 
         lp_0, lp_1 = self._recompute_logprob(eps_pol, s2, t2, x_t, x_prev).chunk(2)
         ref_0, ref_1 = self._recompute_logprob(eps_ref, s2, t2, x_t, x_prev).chunk(2)

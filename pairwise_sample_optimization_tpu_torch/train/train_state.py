@@ -1,9 +1,10 @@
-"""LoRA-only train state, optimizers and learning-rate schedules.
+"""Train state, optimizers and learning-rate schedules.
 
 Counterpart of the JAX package's ``train/train_state.py``. The trainable
 set is the LoRA adapter (``*.lora.down.weight`` / ``*.lora.up.weight`` and
-DoRA's ``*.lora.magnitude``, fp32); every other weight is frozen
-(``requires_grad=False``).
+DoRA's ``*.lora.magnitude``, fp32; :func:`lora_parameters`, every other
+weight frozen with ``requires_grad=False``) or, under full finetuning,
+every weight of the UNet (:func:`all_parameters`).
 
 ``make_optimizer`` is optax's ``chain(clip_by_global_norm, adamw)`` over
 one group of parameters or several (each with its own learning rate,
@@ -15,7 +16,10 @@ only when ``norm >= max_norm``):
 - ``state_dtype="bfloat16"``: the first moment stored in bf16, optax's
   ``adamw(mu_dtype=bfloat16)``;
 - ``use_8bit``: the block-quantized int8-moment AdamW
-  (``quantized_adam.Adam8bit``).
+  (``quantized_adam.Adam8bit``);
+- ``per_tensor``: ``foreach_adamw.ForeachAdamW``, the same AdamW on each
+  tensor in place, for the whole UNet (no flat copies of its 2.57 G
+  elements).
 
 ``prodigy.Prodigy`` is the DreamBooth CLI's other optimizer. Every one
 updates the LoRA parameters in place and has ``state_dict`` /
@@ -32,6 +36,7 @@ import torch
 import torch.nn as nn
 
 from .flat_optim import FlatAdamW, FlatOptimizer
+from .foreach_adamw import ForeachAdamW, global_norm
 from .quantized_adam import Adam8bit
 
 LR_SCHEDULES = ("constant", "constant_with_warmup", "linear", "cosine", "cosine_with_restarts",
@@ -48,6 +53,11 @@ def lora_parameters(module: nn.Module) -> Dict[str, nn.Parameter]:
         if trainable:
             out[name] = p
     return out
+
+
+def all_parameters(module: nn.Module) -> Dict[str, nn.Parameter]:
+    """Every parameter of the module by name, trainable (full finetuning)."""
+    return {name: p.requires_grad_(True) for name, p in module.named_parameters()}
 
 
 def make_lr_schedule(name: str, learning_rate: float, warmup_steps: int = 0,
@@ -87,12 +97,6 @@ def make_lr_schedule(name: str, learning_rate: float, warmup_steps: int = 0,
     return factor
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
-
-
 def param_groups(params: Union[Mapping[str, nn.Parameter], Sequence[dict]],
                  learning_rate: float, weight_decay: float) -> List[dict]:
     """``{name: parameter}`` (one group) or ``[{"params": {...}, "lr": ...,
@@ -111,13 +115,18 @@ def make_optimizer(params: Union[Mapping[str, nn.Parameter], Sequence[dict]],
                    eps: float = 1e-8, weight_decay: float = 1e-6, max_grad_norm: float = 1.0,
                    state_dtype: Optional[str] = None,
                    schedule: Optional[Callable[[int], float]] = None,
-                   use_8bit: bool = False):
+                   use_8bit: bool = False, per_tensor: bool = False):
     """AdamW with global-norm clipping (reference hyperparameters) over
     ``params`` (see :func:`param_groups`). ``schedule`` is a factor from
     :func:`make_lr_schedule`. ``use_8bit`` (first) picks the 8-bit AdamW,
-    ``state_dtype="bfloat16"`` bf16 first moments; otherwise fp32 moments."""
+    ``state_dtype="bfloat16"`` bf16 first moments; otherwise fp32 moments.
+    ``per_tensor`` updates each tensor in place (``ForeachAdamW``, for the
+    whole UNet) instead of through flat buffers."""
     groups = param_groups(params, learning_rate, weight_decay)
     betas = (beta1, beta2)
+    if use_8bit and per_tensor:
+        raise NotImplementedError("the 8-bit AdamW keeps flat buffers; full finetuning takes "
+                                  "AdamW with fp32 or bf16 first moments")
     if use_8bit:
         return Adam8bit(groups, betas, eps, max_grad_norm, schedule)
     if state_dtype in (None, "", "float32", torch.float32):
@@ -126,23 +135,25 @@ def make_optimizer(params: Union[Mapping[str, nn.Parameter], Sequence[dict]],
         mu_dtype = torch.bfloat16
     else:
         raise ValueError(f"optimizer state dtype {state_dtype!r}: use '' (fp32) or 'bfloat16'")
-    return FlatAdamW(groups, betas, eps, max_grad_norm, schedule, mu_dtype=mu_dtype)
+    cls = ForeachAdamW if per_tensor else FlatAdamW
+    return cls(groups, betas, eps, max_grad_norm, schedule, mu_dtype=mu_dtype)
 
 
 @dataclasses.dataclass
 class PSOTrainState:
-    """Update count, the trainable LoRA parameters (by name) and their
-    optimizer."""
+    """Update count, the trainable parameters by name (the LoRA adapter, or
+    every UNet weight under full finetuning: the JAX package's ``lora``
+    field either way) and their optimizer."""
 
     step: int
     lora: Dict[str, nn.Parameter]
-    tx: FlatOptimizer
+    tx: Union[FlatOptimizer, ForeachAdamW]
 
     @classmethod
     def create(cls, lora: Dict[str, nn.Parameter], tx) -> "PSOTrainState":
         return cls(step=0, lora=lora, tx=tx)
 
     def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> None:
-        """One optimizer step on the LoRA parameters, in place."""
+        """One optimizer step on the trainable parameters, in place."""
         self.tx.step(self.lora, grads)
         self.step += 1

@@ -334,7 +334,7 @@ def test_dmd_config_mirrors_jax():
                 "gradient_accumulation_steps", "fuse_ref_pass", "beta", "learning_rate"):
         assert c.train[key] == j.train[key], key
     assert c.run_name == "SDXL_DMD4_PS_lorarank16_lr1e-05_beta50.0"
-    assert "fused_groupnorm" not in c.kernels and "vae_decode_chunk" not in c
+    assert "fused_groupnorm" not in c.kernels and c.vae_decode_chunk == j.vae_decode_chunk == 0
 
 
 def test_dmd_cli_tiny_cpu_epoch(tmp_path):

@@ -214,6 +214,29 @@ def test_eval_cli_scores_do_not_depend_on_the_batch_size(tmp_path):
         assert s2[f"{name}_mean"] == pytest.approx(np.mean(j2["per_prompt"][name]))
 
 
+def test_eval_cli_chunked_and_offloaded_scores_equal_the_default(tmp_path):
+    """Five prompts at batch 2 with ``--score_chunk 3 --offload_scorers
+    --gelu_exact`` (a chunk of two batches, then one of a padded batch; the
+    scorers' moves are no-ops on the CPU; fp32 takes the exact GELU anyway):
+    every per-prompt score equals the run without them bit for bit (the JAX
+    package's ``--score_chunk`` promise), and the timing reports the chunk.
+    Both decode one image a VAE call (``--vae_decode_chunk 1``, the default
+    at 1024^2): the CPU's convolutions pick their kernels by batch size, so
+    a decode of 2 differs in the last bits (``test_torch_port_memory_options``)."""
+    prompts = tmp_path / "p.txt"
+    prompts.write_text("a red fox\nan astronaut\na bowl of ramen\na cat\na tree\n")
+    _, base = _run_eval(tmp_path, "base", "--prompts_json", str(prompts), "--vae_decode_chunk",
+                        "1")
+    _, chunked = _run_eval(tmp_path, "chunked", "--prompts_json", str(prompts), "--timing",
+                           "--score_chunk", "3", "--offload_scorers", "--vae_decode_chunk", "1",
+                           "--gelu_exact")
+    assert chunked["timing"]["score_chunk"] == 4 and set(chunked["timing"]["stage_s"]) == set(
+        ev.SCORERS)
+    for name in ev.SCORERS:
+        assert chunked["per_prompt"][name] == base["per_prompt"][name], name
+    ev.set_gelu_exact(False)
+
+
 def test_eval_cli_warns_when_max_prompts_exceeds_the_source(tmp_path):
     prompts = tmp_path / "p.txt"
     prompts.write_text("a red fox\na blue bird\n")
@@ -228,13 +251,17 @@ def test_eval_cli_warns_when_max_prompts_exceeds_the_source(tmp_path):
                                                  FileNotFoundError),
     (["--scorers", "hps", "--hps_path", "/x.pt"], FileNotFoundError),
     (["--hf_dataset", "yuvalkirstain/pickapic_v1_no_images"], NotImplementedError),
-    (["--vae_decode_chunk", "1"], NotImplementedError),
-    (["--offload_scorers"], NotImplementedError), (["--score_chunk", "8"], NotImplementedError),
-    (["--gelu_exact"], NotImplementedError),
+    (["--score_chunk", "90", "--resolution", "1024"], ValueError),
+    (["--score_chunk", "90000", "--batch_size", "4"], ValueError),
+    (["--vae_decode_chunk", "3", "--batch_size", "4"], ValueError),
+    (["--scorers", "pickscore,bogus"], ValueError),
 ])
 def test_eval_cli_refuses_unported_options(flag, error):
-    """The options still unported are refused; the ported weight flags
-    refuse a file that is not there."""
+    """The options still unported are refused, the ported weight flags
+    refuse a file that is not there, a ``--score_chunk`` whose buffered fp32
+    images pass ``SCORE_CHUNK_CAP_BYTES`` is refused (90 prompts at 1024^2;
+    90000 at the tiny 32^2), as is a decode chunk that does not divide the
+    batch."""
     with pytest.raises(error):
         ev.main(["--tiny", "--device", "cpu", "--max_prompts", "2", *flag])
 

@@ -425,9 +425,9 @@ def test_config_overrides_keep_types():
     ("mesh.fsdp=True", NotImplementedError), ("use_wandb=True", NotImplementedError),
     ("train.int8_ref_pass=True", NotImplementedError),
     ("pretrained.model_dir=/x", FileNotFoundError),
-    ("activation_checkpoint=dots", NotImplementedError),
-    ("activation_checkpoint=fulll", ValueError), ("use_lora=False", NotImplementedError),
-    ("param_dtype=bfloat16", NotImplementedError),
+    ("kernels.int8_vae_decode=True", NotImplementedError),
+    ("activation_checkpoint=fulll", ValueError), ("fast_init=True", NotImplementedError),
+    ("param_dtype=float16", ValueError),
 ])
 def test_runner_refuses_unported_knobs(tmp_path, override, error):
     config = build_config(True, [f"output_dir={tmp_path}", override])
@@ -551,14 +551,29 @@ def test_cli_tiny_cpu_run(tmp_path):
     assert any("loss" in json.loads(r) for r in rows)
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def _counted(cs, rec):
+    """The launches a card would count, from a ``ShapeRecorder``'s calls."""
+    bwd = sum(rec.attention_bwd.values())
+    return {"flash_attn_fwd": sum(rec.attention.values()), "flash_attn_bwd_pre": bwd,
+            "flash_attn_bwd": bwd,
+            "flash_attn_bwd_post": sum(n for (qs, ks, _), n in rec.attention_bwd.items()
+                                       if cs.bwd_needs_post(qs, ks[1])),
+            "gn_stats": sum(rec.gn.values()), "gn_silu_norm": sum(rec.gn.values())}
+
+
 def test_chip_smoke_launch_counts_match_the_tiny_loop(tmp_path):
     """The launch counts chip_smoke.py expects of the online loop equal the
     kernel-wrapper calls the loop makes (counted here on the CPU, where the
     wrappers take their plain versions), with remat on and off, with the
     reference pass fused or not, and with a validation of three prompts."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = _chip_smoke()
     for extra in ([], ["train.fuse_ref_pass=True"], ["activation_checkpoint="],
                   ["validation_steps=1", "val_max_prompts=3"]):
         config = build_config(True, [f"output_dir={tmp_path}", "run_name=c"] + extra)
@@ -569,13 +584,7 @@ def test_chip_smoke_launch_counts_match_the_tiny_loop(tmp_path):
                                           2 * config.train.batch_size, pipe.latent_hw)
         val = cs.expected_validation_launches(pipe, 3, config.sample.batch_size,
                                               int(config.validation_steps == 1))
-        got = {"flash_attn_fwd": sum(rec.attention.values()),
-               "flash_attn_bwd_pre": sum(rec.attention_bwd.values()),
-               "flash_attn_bwd": sum(rec.attention_bwd.values()),
-               "flash_attn_bwd_post": sum(n for (qs, ks, _), n in rec.attention_bwd.items()
-                                          if cs.bwd_needs_post(qs, ks[1])),
-               "gn_stats": sum(rec.gn.values()), "gn_silu_norm": sum(rec.gn.values())}
-        assert got == {k: want[k] + upd[k] + val[k] for k in want}, extra
+        assert _counted(cs, rec) == {k: want[k] + upd[k] + val[k] for k in want}, extra
         # the backward's shapes the count formula derives from the config are
         # the ones the loop handed the backward
         derived = collections.Counter()
@@ -587,10 +596,47 @@ def test_chip_smoke_launch_counts_match_the_tiny_loop(tmp_path):
                                     in rec.attention_bwd.items()}) == derived, extra
 
 
+@pytest.mark.parametrize("mode", ["", "full", "resnets", "dots", "lowres", "lowres_dots"])
+def test_update_launch_formula_holds_under_each_remat_mode(mode):
+    """``expected_update_launches`` under each remat mode against the kernel
+    wrapper calls of one tiny microbatch (policy forward and backward, the
+    reference forward) counted at the op seams on the CPU's plain path: with
+    a LoRA (the ResnetBlocks before the first attention need no recompute)
+    and with every UNet weight trained (full finetuning, the reference a
+    frozen copy: every rematerialized block is recomputed)."""
+    from pairwise_sample_optimization_tpu_torch.models.layers import init_random_
+    from pairwise_sample_optimization_tpu_torch.train import all_parameters
+
+    smoke = _chip_smoke()
+    r = np.random.default_rng(0)
+    t = lambda *s: torch.from_numpy(r.standard_normal(s).astype(np.float32))
+    bsz, hw = 2, 8
+    micro = {"input_latents": t(bsz, 2, hw, hw, 4), "latents": t(bsz, 2, hw, hw, 4),
+             "next_latents": t(bsz, 2, hw, hw, 4), "step_indices": torch.tensor([0, 1]),
+             "timesteps": torch.tensor([999, 749]), "rewards": t(bsz, 2, 1)}
+    cond = {"embeds": t(bsz, 5, 32), "pooled": t(bsz, 16),
+            "time_ids": torch.tensor([[512.0, 512, 0, 0, 512, 512]] * bsz)}
+    for full in (False, True):
+        unet = tunet.SDXLUNet(tunet.UNetConfig.tiny(lora_rank=0 if full else 2, remat=mode),
+                              device="cpu")
+        init_random_(unet, torch.Generator().manual_seed(1), lora_b_std=0.05)
+        pipe = SDXLPipeline(unet=unet, vae=None, te1=None, te2=None,
+                            reference_unet=tunet.frozen_copy(unet) if full else None)
+        (all_parameters if full else lora_parameters)(unet)
+        trainer = OnlinePSOTrainer(OnlinePSOConfig(full_finetune=full), pipe)
+        with smoke.ShapeRecorder() as rec:
+            loss, _ = trainer._micro_loss(micro, cond, axis=torch.zeros(bsz, dtype=torch.long))
+            loss.backward()
+        want = smoke.expected_update_launches(unet.config, 1, False, 2 * bsz, hw,
+                                              trained_cond=full)
+        assert _counted(smoke, rec) == want, (mode, full)
+
+
 def test_remat_modes_not_ported_raise():
-    with pytest.raises(NotImplementedError):
-        tunet.SDXLUNet(dataclasses.replace(tunet.UNetConfig.tiny(), remat="lowres"),
-                       device="cpu")
+    """Every mode of the JAX package builds (the selective ones are ported);
+    a mode it does not have raises."""
+    for mode in tunet.REMAT_MODES:
+        tunet.SDXLUNet(dataclasses.replace(tunet.UNetConfig.tiny(), remat=mode), device="cpu")
     with pytest.raises(ValueError):
         tunet.SDXLUNet(dataclasses.replace(tunet.UNetConfig.tiny(), remat="bogus"),
                        device="cpu")
@@ -599,8 +645,11 @@ def test_remat_modes_not_ported_raise():
 def test_trainer_config_refusals():
     with pytest.raises(ValueError, match="unknown sampler"):
         OnlinePSOConfig(sampler="ddim")
-    with pytest.raises(NotImplementedError):
-        OnlinePSOConfig(full_finetune=True)
+    with pytest.raises(ValueError, match="fuse_ref_pass"):
+        OnlinePSOConfig(full_finetune=True, fuse_ref_pass=True)
+    with pytest.raises(ValueError, match="reference copy"):  # full finetuning needs one
+        OnlinePSOTrainer(OnlinePSOConfig(full_finetune=True),
+                         SDXLPipeline(unet=None, vae=None, te1=None, te2=None))
     with pytest.raises(ValueError):
         OnlinePSOConfig(num_steps=1)
     with pytest.raises(ValueError):
