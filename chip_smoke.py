@@ -45,9 +45,12 @@ PyTorch. In order:
    restore, and the adapter exported beside it
    (``lora-1/pytorch_lora_weights.safetensors``, read back with the port's
    ``load_file``) must equal the LoRA that checkpoint restores. Validation
-   runs at step 2 (``validation_steps = 2``, ``val_max_prompts = 8``: two
-   chunks of 4 prompts, 4-step generation with the live adapter, PickScore
-   and a CLIP-H scorer): ``val/pickscore`` and ``val/clip_score`` must be
+   runs at step 2 (``validation_steps = 2``, ``val_max_prompts = 8`` of
+   ``val_dataset = hf:<FIXTURE>``, the ``test_unique`` split of a committed
+   ``save_to_disk`` export read by the port's Arrow reader, which must give
+   the first 8 packaged ImageReward prompts; two chunks of 4 prompts, 4-step
+   generation with the live adapter, PickScore and a CLIP-H scorer):
+   ``val/pickscore`` and ``val/clip_score`` must be
    logged and finite, and ``val-2/`` must hold five PNGs. The ``lora-1``
    file is imported (``import_lora_safetensors``) into a fresh UNet, whose
    adapter must equal checkpoint-1's, and ``cli.generate`` runs twice at
@@ -69,10 +72,12 @@ PyTorch. In order:
    (ImageReward's 24 ViT self-attention and 12 BERT cross-attention
    launches a batch among them), scores finite, and the first two prompts
    run again at batch 1 must score the same within ``TOL["eval_batch"]``,
-   and the 8 prompts again with ``--score_chunk 4 --offload_scorers
-   --vae_decode_chunk 1`` must score bit for bit as the first run (at
-   1024^2 the default decodes one image a call too). Prints prompts/min and
-   peak memory;
+   and the 8 prompts again, read from the committed ``save_to_disk``
+   export ``FIXTURE`` (``--hf_dataset``, its ``test_unique`` split: the
+   same 8 prompts, through the port's Arrow reader) with ``--score_chunk 4
+   --offload_scorers --vae_decode_chunk 1``, must score bit for bit as the
+   first run (at 1024^2 the default decodes one image a call too). Prints
+   prompts/min and peak memory;
 8. DreamBooth PSO through its entry point,
    ``cli.train_pso_sdxl_turbo_dreambooth.main``, at full width and 512^2
    (random weights, bf16 towers, fp32 LoRA rank 16, remat "full") on four
@@ -84,7 +89,8 @@ PyTorch. In order:
    step 2, then resumed from ``latest`` to step 3; run B (``pso`` with its
    reference pass fused at policy batch 8, ``edm``, prior preservation
    with 4 class images generated into the class directory as PNGs and read
-   back, 2 accumulation steps), one step. Launch counts as
+   back, 2 accumulation steps, ``--use_wandb`` with the import of wandb
+   blocked: a warning and ``metrics.jsonl``), one step. Launch counts as
    ``expected_dreambooth_launches`` implies (VAE encoder calls, the
    negatives', class images' and validation's generations, the updates),
    losses finite, the resumed run starting at step 2, the LoRA moved and
@@ -100,7 +106,8 @@ PyTorch. In order:
    ``unet.`` / ``text_encoder.`` / ``text_encoder_2.`` tensors of
    ``checkpoint-2``, the kohya file's keys the diffusers file's mapped
    (``.alpha`` 16); each optimizer's step (fp32 AdamW, bf16 first moments,
-   8-bit AdamW, Prodigy) timed over run C's adapters and held against the
+   8-bit AdamW, Prodigy, and full finetuning's per-tensor 8-bit AdamW)
+   timed over run C's adapters and held against the
    same two steps on the CPU (int8 state and scales bit-equal, parameters
    within 1e-6), and a ``pso``
    microbatch timed with DoRA on and off. Run D (``pso_db``, the 8-bit
@@ -117,13 +124,20 @@ PyTorch. In order:
    runs of the first "full" run's, the loss likewise;
 10. full finetuning (``full_finetune_slice``): ``run_online_pso`` with
    ``use_lora=False``, fp32 masters and ``offload_aux_during_update`` for 2
-   epochs of 2 pairs at 512^2, then 1 epoch without the offload: launch
-   counts, the first loss log 2, every weight with a gradient moved, the
-   frozen reference copy bit-equal to the seed's weights, the VAE, scorer
-   and text encoders in pinned host memory during each update and back
-   after it, the second epoch sampled by the updated weights; peaks with
-   and without the offload, update and offload seconds. No whole-UNet
-   checkpoint is written (~31 GB);
+   epochs of 2 pairs at 512^2 (run A, the per-tensor AdamW), the
+   whole-UNet train state (~31 GB) written after update 1, restored into a
+   fresh run bit for bit and resumed for one epoch at step 2, then deleted;
+   1 epoch without the offload; run C, 2 epochs with the per-tensor 8-bit
+   AdamW and ``profile_dir``, whose second epoch's trace must hold the
+   hand-written kernels' events. Runs A and C: launch counts, the first
+   loss log 2, every weight with a gradient moved, the frozen reference
+   copy bit-equal to the seed's weights, the VAE, scorer and text encoders
+   in pinned host memory during each update and back after it, the second
+   epoch sampled by the updated weights, the second update starting within
+   0.5 GiB of the first's allocated bytes (no gradients held over); peaks
+   with and without the offload, update and offload seconds, the
+   optimizers' resting bytes, the checkpoint's size, write and read
+   seconds and the host's peak resident memory;
 11. one phase per kernel at every shape steps 5-10 gave it (recorded during
    those runs) in bf16, plus one fp32 case and, for the attention kernels,
    the bf16 ragged lengths of ``RAGGED`` (and, for the forward, of
@@ -169,6 +183,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import logging
 import math
 import os
 import resource
@@ -200,7 +215,11 @@ TOL = {"attention": {"bf16": (5e-2, 1e-2), "fp32": (2e-3, 2e-3)},
        # the noise is the same, the kernels cuBLAS and cuDNN pick may not be
        "eval_batch": (1e-2, 1e-2)}
 EVAL_PROMPTS = 8  # packaged ImageReward prompts in the eval phase
-VALIDATION = {"validation_steps": 2, "val_max_prompts": 8}  # the Turbo loop's validation
+# a local HF datasets save_to_disk export: its test_unique split holds the first
+# 8 packaged ImageReward prompts (the Turbo loop's validation, the chunked eval)
+FIXTURE = ROOT / "tests" / "fixtures" / "pickapic_test_unique_export"
+VALIDATION = {"validation_steps": 2, "val_max_prompts": 8, "val_dataset": f"hf:{FIXTURE}",
+              "val_split_name": "test_unique"}  # the Turbo loop's validation
 # the diffusers checkpoint layout of the round trip: folder, file, pipeline tower
 TOWER_FILES = (("unet", "diffusion_pytorch_model.fp16.safetensors", "unet"),
                ("vae", "diffusion_pytorch_model.fp16.safetensors", "vae"),
@@ -911,9 +930,11 @@ def train_slice(seed, sampler, recorder):
     from pairwise_sample_optimization_tpu_torch.checkpoints import (LORA_FILE, latest_checkpoint,
                                                                     load_file,
                                                                     restore_train_state)
+    from pairwise_sample_optimization_tpu_torch.cli import online_runner
     from pairwise_sample_optimization_tpu_torch.cli.online_runner import (VAL_IMAGES, run_dir,
                                                                           run_online_pso)
     from pairwise_sample_optimization_tpu_torch.configs import sdxl_dmd_dpo, sdxl_turbo_dpo
+    from pairwise_sample_optimization_tpu_torch.data import PromptDataset
     from pairwise_sample_optimization_tpu_torch.models.layers import init_random_
     from pairwise_sample_optimization_tpu_torch.models.unet import SDXLUNet
     from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
@@ -932,13 +953,24 @@ def train_slice(seed, sampler, recorder):
     n_updates = pairs // (t_cfg.batch_size * t_cfg.gradient_accumulation_steps)
     n_micro = t_cfg.gradient_accumulation_steps * t_cfg.distilled_train_steps
 
+    val_prompts = []  # the prompts each validation ran
+    validate = online_runner.run_validation
+
+    def run_validation(pipe, clip_scorer, prompts, *args, **kwargs):
+        val_prompts.append(list(prompts))
+        return validate(pipe, clip_scorer, prompts, *args, **kwargs)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernel_lib.reset_launch_counts()
     t0 = time.perf_counter()
-    with recorder:
-        state, history, pipe = run_online_pso(config, sampler=sampler, num_epochs=1,
-                                              device="cuda")
+    online_runner.run_validation = run_validation
+    try:
+        with recorder:
+            state, history, pipe = run_online_pso(config, sampler=sampler, num_epochs=1,
+                                                  device="cuda")
+    finally:
+        online_runner.run_validation = validate
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = dict(kernel_lib.launch_counts)
@@ -1013,13 +1045,18 @@ def train_slice(seed, sampler, recorder):
         raise AssertionError(f"validation rows {val_rows}, expected {validations} finite")
     validation = None
     if validations:
+        want_prompts = PromptDataset("imagereward").prompts[:config.val_max_prompts]
+        if val_prompts != [want_prompts] * validations:
+            raise AssertionError(f"validation ran on {val_prompts}, not the first "
+                                 f"{config.val_max_prompts} captions of {config.val_dataset}")
         step = val_rows[0]["step"]
         pngs = sorted((out_dir / f"val-{step}").glob("*.png"))
         if len(pngs) != VAL_IMAGES or any(not p.read_bytes().startswith(b"\x89PNG")
                                           for p in pngs):
             raise AssertionError(f"val-{step}/ holds {[p.name for p in pngs]}")
         validation = {"rows": val_rows, "pngs": [p.name for p in pngs],
-                      "ms": val_rows[0]["time/validation_s"] * 1e3}
+                      "ms": val_rows[0]["time/validation_s"] * 1e3,
+                      "source": config.val_dataset, "split": config.val_split_name}
     lora_check = (lora_import_and_generate(lora_file, restored, pipe.unet.config, seed)
                   if sampler == "turbo" else None)
     sample_ms, train_ms = times["time/sample_s"] * 1e3, times["time/train_s"] * 1e3
@@ -1046,7 +1083,9 @@ def train_slice(seed, sampler, recorder):
         f"{[round(m['grad_norm'], 6) for m in history]}; launches {counts}; LoRA max|delta| "
         f"{lora_moved:.3e}, frozen unchanged; restored {summary['checkpoint']}; "
         f"lora-1/{LORA_FILE} ({len(exported)} tensors) equals its LoRA"
-        + (f"; validation at step {val_rows[0]['step']}: {validation['ms']:.1f} ms, "
+        + (f"; validation at step {val_rows[0]['step']} on the {config.val_split_name} split "
+           f"of {Path(config.val_dataset[3:]).name} (its {config.val_max_prompts} captions "
+           f"read by the port's Arrow reader): {validation['ms']:.1f} ms, "
            f"val/pickscore {val_rows[0]['val/pickscore']:.6f}, val/clip_score "
            f"{val_rows[0]['val/clip_score']:.6f}, {len(validation['pngs'])} PNGs"
            if validation else ""))
@@ -1065,6 +1104,9 @@ REMAT_TOL_FACTOR = 4  # gradients of a mode vs "full": 4x the spread of two "ful
 REMAT_REPS = 3  # timed runs of each mode's microbatch (median)
 FULL_FT = {"sample.batch_size": 2, "sample.num_batches_per_epoch": 1, "train.batch_size": 1,
            "train.gradient_accumulation_steps": 2}  # 2 pairs an epoch, 1 update, policy batch 2
+# how much more the second full-finetuning update may start with than the first
+# (the gradients of all 2.57 G weights, if held over, are 9.6 GiB)
+HELD_GRADS_LIMIT = 2**29
 
 
 def remat_phase(seed, recorder):
@@ -1198,19 +1240,24 @@ def remat_phase(seed, recorder):
 
 class _UpdateWatch:
     """Observes a run of ``run_online_pso`` through ``OnlinePSOTrainer``'s
-    ``sample_pairs`` and ``train_epoch`` (patched for the ``with`` block,
-    each calling the original): at each sampling, how far the live UNet's
-    weights are from the frozen reference copy; at each update, whether the
-    VAE, the scorer and both text encoders are in pinned host memory, the
-    memory allocated when it starts, its peak and its seconds."""
+    ``sample_pairs`` and ``train_epoch`` and ``PSOTrainState``'s
+    ``apply_gradients`` (patched for the ``with`` block, each calling the
+    original): at each sampling, how far the live UNet's weights are from
+    the frozen reference copy; at each update, whether the VAE, the scorer
+    and both text encoders are in pinned host memory, the memory allocated
+    when it starts, its peak and its seconds; at each optimizer step, the
+    trained tensors whose gradient is not all zero (the trainers release
+    the gradients after the step)."""
 
     def __enter__(self):
-        from pairwise_sample_optimization_tpu_torch.train import OnlinePSOTrainer
+        from pairwise_sample_optimization_tpu_torch.train import OnlinePSOTrainer, PSOTrainState
 
         self.cls, self.orig = OnlinePSOTrainer, (OnlinePSOTrainer.sample_pairs,
                                                  OnlinePSOTrainer.train_epoch)
-        self.samplings, self.updates = [], []
+        self.state_cls, self.orig_apply = PSOTrainState, PSOTrainState.apply_gradients
+        self.samplings, self.updates, self.with_grad = [], [], []
         sample, train = self.orig
+        apply = self.orig_apply
         watch = self
 
         def sample_pairs(trainer, *args, **kwargs):
@@ -1236,11 +1283,20 @@ class _UpdateWatch:
             watch.updates.append(entry)
             return out
 
+        def apply_gradients(state, grads):
+            import torch
+
+            nonzero = torch.stack([g.any() for g in grads.values()]).tolist()
+            watch.with_grad.append([k for k, nz in zip(grads, nonzero) if nz])
+            return apply(state, grads)
+
         OnlinePSOTrainer.sample_pairs, OnlinePSOTrainer.train_epoch = sample_pairs, train_epoch
+        PSOTrainState.apply_gradients = apply_gradients
         return self
 
     def __exit__(self, *exc):
         self.cls.sample_pairs, self.cls.train_epoch = self.orig
+        self.state_cls.apply_gradients = self.orig_apply
 
     @staticmethod
     def distance(pipe):
@@ -1250,42 +1306,168 @@ class _UpdateWatch:
                    for k, p in pipe.unet.named_parameters())
 
 
+_INT_OF_SIZE = {1: "int8", 2: "int16", 4: "int32", 8: "int64"}
+
+
+def state_fingerprints(state):
+    """{name: (sum, position-weighted sum)} of the bits of every trained
+    tensor and every optimizer state tensor (read as integers of the same
+    width, summed in int64): equal bits give equal pairs."""
+    import torch
+
+    tensors = {f"lora.{k}": v for k, v in state.lora.items()}
+    for name, value in state.tx.state_dict()["state"].items():
+        for i, t in enumerate(value if isinstance(value, (list, tuple)) else [value]):
+            tensors[f"tx.{name}.{i}"] = t
+    sums = []
+    for t in tensors.values():
+        w = t.detach().reshape(-1).view(getattr(torch, _INT_OF_SIZE[t.element_size()]))
+        w = w.to(torch.int64)
+        pos = torch.arange(1, w.numel() + 1, device=w.device, dtype=torch.int64)
+        sums.append(torch.stack([w.sum(), (w * pos).sum()]))
+    return dict(zip(tensors, map(tuple, torch.stack(sums).cpu().tolist())))
+
+
+def _mem_total_bytes():
+    with open("/proc/meminfo") as f:
+        return int(next(line for line in f if line.startswith("MemTotal:")).split()[1]) * 1024
+
+
+class _CheckpointWatch:
+    """Wraps the runner's ``save_train_state`` and ``restore_train_state``
+    (patched for the ``with`` block, each calling the original). A save
+    records the free disk and the host's MemTotal before it, the state's
+    fingerprints (:func:`state_fingerprints`), the write seconds, the host's
+    resident memory over the write, the file's size, and then the seconds
+    an ``fsync`` takes, after which the file is dropped from the page cache
+    (``POSIX_FADV_DONTNEED``) so that a restore reads it from the disk. A
+    restore records the read seconds (through the copies onto the card),
+    the host's memory over it and the restored state's fingerprints."""
+
+    def __enter__(self):
+        from pairwise_sample_optimization_tpu_torch.cli import online_runner
+
+        self.mod = online_runner
+        self.orig = (online_runner.save_train_state, online_runner.restore_train_state)
+        self.saves, self.restores = [], []
+        save, restore = self.orig
+        watch = self
+
+        def save_train_state(base_dir, step, state, extra=None):
+            import torch
+
+            entry = {"step": step, "disk_free_bytes": shutil.disk_usage(base_dir).free,
+                     "mem_total_bytes": _mem_total_bytes(),
+                     "fingerprints": state_fingerprints(state)}
+            torch.cuda.synchronize()
+            with HostPeak() as host:
+                t0 = time.perf_counter()
+                path = save(base_dir, step, state, extra)
+                entry["write_s"] = time.perf_counter() - t0
+            files = [p for p in Path(path).iterdir() if p.is_file()]
+            t0 = time.perf_counter()
+            for p in files:
+                fd = os.open(p, os.O_RDONLY)
+                try:
+                    os.fsync(fd)
+                    os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+                finally:
+                    os.close(fd)
+            entry.update({"fsync_s": time.perf_counter() - t0, "host": host.summary(),
+                          "bytes": sum(p.stat().st_size for p in files)})
+            watch.saves.append(entry)
+            return path
+
+        def restore_train_state(path, state):
+            import torch
+
+            torch.cuda.synchronize()
+            with HostPeak() as host:
+                t0 = time.perf_counter()
+                extra = restore(path, state)
+                torch.cuda.synchronize()
+                read_s = time.perf_counter() - t0
+            watch.restores.append({"read_s": read_s, "host": host.summary(),
+                                   "fingerprints": state_fingerprints(state), "step": state.step})
+            return extra
+
+        online_runner.save_train_state = save_train_state
+        online_runner.restore_train_state = restore_train_state
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.save_train_state, self.mod.restore_train_state = self.orig
+
+
+FULL_FT_CKPT_EVERY = 1000  # the runner writes step 1 and every this many: step 1 alone here
+
+
+def _trace_kernels(path):
+    """(file bytes, kernel events, names of the kernel events) of a Chrome
+    trace written by ``torch.profiler``."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return Path(path).stat().st_size, len(names), set(names)
+
+
 def full_finetune_slice(seed, recorder):
     """The Turbo loop at full width training every UNet weight through
     ``run_online_pso`` (``use_lora=False``, ``param_dtype="float32"``: fp32
-    masters computing in bf16, the per-tensor AdamW, a frozen bf16 reference
-    copy), ``offload_aux_during_update=True``, 2 epochs of 2 pairs (one
-    update of 2 x 3 microbatches at policy batch 2 each), no validation and
-    ``checkpointing_steps=0`` (a whole-UNet state is ~31 GB: the card writes
-    none). Launch counts as implied (zeroed before, read after), the first
-    loss log 2 within 1e-3, every UNet weight with a gradient in the last
-    update moved, the reference copy bit-equal to a rebuild from the seed,
+    masters computing in bf16, a frozen bf16 reference copy), 2 epochs of 2
+    pairs (one update of 2 x 3 microbatches at policy batch 2 each), no
+    validation:
+
+    - run A: the per-tensor AdamW, ``offload_aux_during_update=True``, the
+      whole-UNet train state written after update 1 (``checkpointing_steps``
+      ``FULL_FT_CKPT_EVERY``: step 1 alone). Then a fresh run restores it
+      (``resume_from``) and trains one epoch: every restored master and
+      moment bit-equal to what was saved (:func:`state_fingerprints` at the
+      save and after the restore), the step numbering continuing at 2. The
+      free disk and MemTotal before the write, the size, the write, fsync
+      and read seconds and the host's peak resident memory are printed; the
+      checkpoint is then deleted. Where the disk or the host could not hold
+      it, the round trip runs on run C's state instead;
+    - the same without the offload, 1 epoch, for its peak;
+    - run C: ``train.use_8bit_adam=True`` (the per-tensor 8-bit AdamW) with
+      the offload and ``profile_dir``: the trace of its second epoch must
+      hold the card's kernel events, K1's and the backward kernel's among
+      them; its size and kernel events are printed and it is deleted.
+
+    Runs A and C: launch counts as implied (zeroed before, read after), the
+    first loss log 2 within 1e-3, every UNet weight with a gradient in the
+    last update (recorded at the optimizer step) moved and at least half of
+    them with one, the reference copy bit-equal to a rebuild from the seed,
     the VAE, scorer and text encoders in pinned host memory during each
     update and back on the card after, the second epoch sampled by weights
-    the first update moved. Then one epoch without the offload, for its
-    peak. Prints peaks, update seconds and the offload's seconds."""
+    the first update moved, and the second update starting within
+    ``HELD_GRADS_LIMIT`` of the first's allocated bytes (the trainers release
+    the gradients after each update). Prints peaks, update seconds, the
+    optimizer's resting bytes and the offload's seconds."""
     import torch
 
     from pairwise_sample_optimization_tpu_torch.cli.online_runner import run_dir, run_online_pso
     from pairwise_sample_optimization_tpu_torch.configs import sdxl_turbo_dpo
     from pairwise_sample_optimization_tpu_torch.models.layers import init_random_
-    from pairwise_sample_optimization_tpu_torch.models.unet import SDXLUNet
+    from pairwise_sample_optimization_tpu_torch.models.unet import SDXLUNet, UNetConfig
     from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
 
-    def run(offload, epochs):
+    def run(offload, epochs, extra=(), resume=False, name="online_full"):
         config = sdxl_turbo_dpo.get_config()
         config.seed, config.output_dir = seed, str(RUN_DIR)
-        config.run_name = "online_full"
+        config.run_name = name
         for key, value in {**FULL_FT, "use_lora": False, "param_dtype": "float32",
                            "offload_aux_during_update": offload, "checkpointing_steps": 0,
-                           "validation_steps": 0}.items():
+                           "validation_steps": 0, **dict(extra)}.items():
             config.override(f"{key}={value}")
-        shutil.rmtree(RUN_DIR, ignore_errors=True)
+        if resume:
+            config.resume_from = run_dir(config)
+        else:
+            shutil.rmtree(RUN_DIR, ignore_errors=True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernel_lib.reset_launch_counts()
         t0 = time.perf_counter()
-        with recorder, _UpdateWatch() as watch:
+        with recorder, _UpdateWatch() as watch, _CheckpointWatch() as ckpt:
             state, history, pipe = run_online_pso(config, num_epochs=epochs, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1299,70 +1481,178 @@ def full_finetune_slice(seed, recorder):
                                        trained_cond=True)
         want = {k: epochs * (gen[k] + upd[k]) for k in gen}
         if counts != want:
-            raise AssertionError(f"full finetuning launch counts {counts} != expected {want}")
+            raise AssertionError(f"full finetuning {name} launch counts {counts} != expected "
+                                 f"{want}")
         metrics = [json.loads(r) for r in
                    (Path(run_dir(config)) / "metrics.jsonl").read_text().splitlines()]
-        return config, state, history, pipe, watch, counts, wall, metrics
+        return {"config": config, "state": state, "history": history, "pipe": pipe,
+                "watch": watch, "ckpt": ckpt, "counts": counts, "wall": wall,
+                "metrics": metrics}
 
-    config, state, history, pipe, watch, counts, wall, metrics = run(True, 2)
-    unet_params = dict(pipe.unet.named_parameters())
-    if set(state.lora) != set(unet_params) or any(state.lora[k] is not p
-                                                  for k, p in unet_params.items()):
-        raise AssertionError("the train state does not hold the UNet's own weights")
-    if abs(history[0]["loss"] - math.log(2.0)) > 1e-3 or not all(
-            math.isfinite(m[k]) for m in history for k in ("loss", "grad_norm")):
-        raise AssertionError(f"full finetuning metrics {history}")
-    ref = dict(pipe.reference_unet.named_parameters())
-    with_grad = [k for k, p in unet_params.items() if p.grad is not None and p.grad.any()]
-    unmoved = [k for k in with_grad if torch.equal(unet_params[k].float(), ref[k].float())]
-    if unmoved or len(with_grad) < len(unet_params) // 2:
-        raise AssertionError(f"{len(with_grad)} of {len(unet_params)} weights with a gradient, "
-                             f"unmoved: {unmoved[:5]}")
-    rebuilt = SDXLUNet(pipe.reference_unet.config, device="meta").to_empty(device=pipe.device)
-    init_random_(rebuilt, torch.Generator(device=pipe.device).manual_seed(seed))
-    changed = [k for k, v in rebuilt.state_dict().items()
-               if not torch.equal(v, pipe.reference_unet.state_dict()[k])]
-    if changed:
-        raise AssertionError(f"the reference copy changed: {changed[:5]}")
-    del rebuilt
-    aux = [p for m in (pipe.vae, pipe.te1, pipe.te2, pipe.scorer.model) for p in m.parameters()]
-    if not all(u["aux_on_host"] for u in watch.updates) or any(p.device != pipe.device
-                                                                for p in aux):
-        raise AssertionError(f"aux towers not on the host during the updates {watch.updates} "
-                             "or not back on the card after")
-    if len(watch.samplings) != 2 or watch.samplings[0] != 0 or not watch.samplings[1] > 0:
-        raise AssertionError(f"sampling weights' distance from the reference {watch.samplings}: "
-                             "the second epoch must sample the updated weights")
-    offload_s = [m.get("time/offload_s", 0) + m.get("time/reload_s", 0)
-                 for m in metrics if "loss" in m]
-    summary = {"pairs_per_epoch": 2, "epochs": 2, "policy_batch": 2, "history": history,
-               "launches": counts, "wall_s": wall, "updates": watch.updates,
-               "sampling_distance": watch.samplings, "weights": len(unet_params),
-               "weights_with_grad": len(with_grad),
-               "trained_elements": sum(p.numel() for p in unet_params.values()),
-               "offload_bytes": metrics[-1].get("offload_bytes"), "offload_s": offload_s}
-    del state, pipe, unet_params, ref, aux, history
+    def check(r, label):
+        """Run A's and C's checks (see the docstring); returns its summary."""
+        state, history, pipe, watch = r["state"], r["history"], r["pipe"], r["watch"]
+        unet_params = dict(pipe.unet.named_parameters())
+        if set(state.lora) != set(unet_params) or any(state.lora[k] is not p
+                                                      for k, p in unet_params.items()):
+            raise AssertionError(f"{label}: the train state does not hold the UNet's weights")
+        if abs(history[0]["loss"] - math.log(2.0)) > 1e-3 or not all(
+                math.isfinite(m[k]) for m in history for k in ("loss", "grad_norm")):
+            raise AssertionError(f"{label}: full finetuning metrics {history}")
+        if any(p.grad is not None for p in unet_params.values()):
+            raise AssertionError(f"{label}: gradients held after the last update")
+        ref = dict(pipe.reference_unet.named_parameters())
+        with_grad = watch.with_grad[-1]
+        unmoved = [k for k in with_grad if torch.equal(unet_params[k].float(), ref[k].float())]
+        if unmoved or len(with_grad) < len(unet_params) // 2:
+            raise AssertionError(f"{label}: {len(with_grad)} of {len(unet_params)} weights with "
+                                 f"a gradient, unmoved: {unmoved[:5]}")
+        rebuilt = SDXLUNet(pipe.reference_unet.config, device="meta").to_empty(
+            device=pipe.device)
+        init_random_(rebuilt, torch.Generator(device=pipe.device).manual_seed(seed))
+        changed = [k for k, v in rebuilt.state_dict().items()
+                   if not torch.equal(v, pipe.reference_unet.state_dict()[k])]
+        if changed:
+            raise AssertionError(f"{label}: the reference copy changed: {changed[:5]}")
+        del rebuilt
+        aux = [p for m in (pipe.vae, pipe.te1, pipe.te2, pipe.scorer.model)
+               for p in m.parameters()]
+        if not all(u["aux_on_host"] for u in watch.updates) or any(p.device != pipe.device
+                                                                    for p in aux):
+            raise AssertionError(f"{label}: aux towers not on the host during the updates "
+                                 f"{watch.updates} or not back on the card after")
+        if len(watch.samplings) != 2 or watch.samplings[0] != 0 or not watch.samplings[1] > 0:
+            raise AssertionError(f"{label}: sampling weights' distance from the reference "
+                                 f"{watch.samplings}: the second epoch must sample the updated "
+                                 "weights")
+        start = [u["allocated_bytes"] for u in watch.updates]
+        if start[1] - start[0] > HELD_GRADS_LIMIT:
+            raise AssertionError(f"{label}: the second update starts with {start[1]} bytes "
+                                 f"allocated, the first with {start[0]}: more than "
+                                 f"{HELD_GRADS_LIMIT} held over")
+        tx_tensors = [t for v in state.tx.state_dict()["state"].values()
+                      for t in (v if isinstance(v, (list, tuple)) else [v])]
+        return {"history": history, "launches": r["counts"], "wall_s": r["wall"],
+                "updates": watch.updates, "sampling_distance": watch.samplings,
+                "weights": len(unet_params), "weights_with_grad": len(with_grad),
+                "trained_elements": sum(p.numel() for p in unet_params.values()),
+                "optimizer": type(state.tx).__name__,
+                "optimizer_bytes": sum(t.numel() * t.element_size() for t in tx_tensors),
+                "offload_bytes": r["metrics"][-1].get("offload_bytes"),
+                "offload_s": [m.get("time/offload_s", 0) + m.get("time/reload_s", 0)
+                              for m in r["metrics"] if "loss" in m]}
+
+    def round_trip(r, summary, label, extra):
+        """Restore the checkpoint run ``r`` wrote into a fresh run and train one
+        epoch: fingerprints equal, step numbering continuing."""
+        (saved,) = r["ckpt"].saves
+        del r["state"], r["pipe"]
+        torch.cuda.empty_cache()
+        resumed = run(True, 1, extra, resume=True)
+        (restored,) = resumed["ckpt"].restores
+        differ = [k for k, v in saved["fingerprints"].items()
+                  if restored["fingerprints"].get(k) != v]
+        if differ or set(restored["fingerprints"]) != set(saved["fingerprints"]):
+            raise AssertionError(f"{label}: {len(differ)} restored tensors differ from the saved "
+                                 f"ones, e.g. {differ[:5]}")
+        steps = [m["step"] for m in resumed["metrics"] if "loss" in m]
+        if restored["step"] != 1 or resumed["state"].step != 2 or steps[-1:] != [2]:
+            raise AssertionError(f"{label}: restored at step {restored['step']}, resumed to "
+                                 f"{resumed['state'].step}, logged steps {steps}")
+        summary["checkpoint"] = {
+            "run": label, "tensors": len(saved["fingerprints"]), "bytes": saved["bytes"],
+            "disk_free_bytes": saved["disk_free_bytes"],
+            "mem_total_bytes": saved["mem_total_bytes"], "write_s": saved["write_s"],
+            "fsync_s": saved["fsync_s"], "read_s": restored["read_s"],
+            "host_write": saved["host"], "host_read": restored["host"],
+            "resumed_loss": resumed["history"][0]["loss"],
+            "uninterrupted_loss": summary["history"][1]["loss"],
+            "resumed_launches": resumed["counts"], "resumed_wall_s": resumed["wall"]}
+        del resumed
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    # the round trip needs the state on the disk once and in host memory once
+    # (the restore reads it whole): run A's fp32 masters and two fp32 moments
+    elements = sum(p.numel() for p in SDXLUNet(UNetConfig.sdxl(), device="meta").parameters())
+    RUN_DIR.mkdir(exist_ok=True)
+    free, mem_total = shutil.disk_usage(RUN_DIR).free, _mem_total_bytes()
+    trip_on_a = 12 * elements * 1.2 < min(free, mem_total / 2)
+    ckpt_extra = {"checkpointing_steps": FULL_FT_CKPT_EVERY}
+    a = run(True, 2, ckpt_extra if trip_on_a else {})
+    summary = check(a, "run A")
+    if trip_on_a:
+        round_trip(a, summary, "run A", ckpt_extra)
+    del a
     torch.cuda.empty_cache()
-    _, state, _, pipe, watch_off, counts_off, wall_off, _ = run(False, 1)
-    summary["no_offload"] = {"updates": watch_off.updates, "wall_s": wall_off,
-                             "launches": counts_off}
-    summary["launches"] = {k: counts[k] + counts_off[k] for k in counts}
-    del state, pipe
+    off = run(False, 1)
+    summary["no_offload"] = {"updates": off["watch"].updates, "wall_s": off["wall"],
+                             "launches": off["counts"]}
+    del off
+    torch.cuda.empty_cache()
+    trace_dir = RUN_DIR / "trace"
+    c_extra = {"train.use_8bit_adam": True, "profile_dir": str(trace_dir),
+               **({} if trip_on_a else ckpt_extra)}
+    c = run(True, 2, c_extra)
+    summary["run_c"] = check(c, "run C")
+    traces = sorted(p.name for p in trace_dir.iterdir())
+    if traces != ["epoch-1.json"]:
+        raise AssertionError(f"run C's profile_dir holds {traces}, not the second epoch's trace")
+    size, n_kernels, names = _trace_kernels(trace_dir / "epoch-1.json")
+    missing = [k for k in ("flash_fwd_kernel", "flash_bwd_pre_kernel", "flash_bwd_kernel_d64",
+                           "gn_stats_kernel", "gn_norm_silu_kernel")
+               if not any(k in n for n in names)]
+    if missing:
+        raise AssertionError(f"run C's trace ({n_kernels} kernel events) holds no {missing}")
+    summary["run_c"]["trace"] = {"bytes": size, "kernel_events": n_kernels,
+                                 "kernel_names": len(names)}
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    if not trip_on_a:
+        log(f"checkpoint round trip on run C: {free / 1e9:.1f} GB free on the disk, MemTotal "
+            f"{mem_total / 2**30:.1f} GiB cannot hold run A's ~{12 * elements / 1e9:.1f} GB")
+        round_trip(c, summary["run_c"], "run C", c_extra)
+    del c
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
+    runs = [summary, summary["no_offload"], summary["run_c"]]
+    trip = summary.get("checkpoint") or summary["run_c"]["checkpoint"]
+    summary["launches"] = {k: sum(x["launches"][k] for x in runs) + trip["resumed_launches"][k]
+                           for k in summary["launches"]}
+
     gib = lambda n: n / 2**30
-    u, u0 = watch.updates, watch_off.updates
+    u, u0, uc = summary["updates"], summary["no_offload"]["updates"], summary["run_c"]["updates"]
+    fmt = lambda xs, key: [round(gib(x[key]), 2) for x in xs]
     log(f"full finetuning (Turbo 512^2, {summary['trained_elements']} trained elements in "
-        f"{summary['weights']} tensors, fp32 masters, per-tensor AdamW, 2 epochs of 2 pairs): "
-        f"losses {[round(m['loss'], 6) for m in summary['history']]}; update "
-        f"{[round(x['s'], 3) for x in u]} s with the aux offload (peak "
-        f"{[round(gib(x['peak_bytes']), 2) for x in u]} GiB, allocated at its start "
-        f"{[round(gib(x['allocated_bytes']), 2) for x in u]} GiB, {gib(u[0]['aux_bytes']):.2f} "
-        f"GiB of towers on the host, moves {[round(x, 3) for x in offload_s]} s), without "
-        f"{[round(x['s'], 3) for x in u0]} s (peak {[round(gib(x['peak_bytes']), 2) for x in u0]} "
-        f"GiB, allocated at its start {[round(gib(x['allocated_bytes']), 2) for x in u0]} GiB); "
-        f"{len(with_grad)} weights with a gradient all moved, the reference copy bit-equal to "
-        f"the seed's, sampling distance from it {watch.samplings}; launches {summary['launches']}")
+        f"{summary['weights']} tensors, fp32 masters, 2 epochs of 2 pairs): run A (per-tensor "
+        f"AdamW) losses {[round(m['loss'], 6) for m in summary['history']]}; update "
+        f"{[round(x['s'], 3) for x in u]} s with the aux offload (peak {fmt(u, 'peak_bytes')} "
+        f"GiB, allocated at its start {fmt(u, 'allocated_bytes')} GiB, "
+        f"{gib(u[0]['aux_bytes']):.2f} GiB of towers on the host, moves "
+        f"{[round(x, 3) for x in summary['offload_s']]} s), without "
+        f"{[round(x['s'], 3) for x in u0]} s (peak {fmt(u0, 'peak_bytes')} GiB, allocated at "
+        f"its start {fmt(u0, 'allocated_bytes')} GiB); optimizer at rest "
+        f"{gib(summary['optimizer_bytes']):.2f} GiB; {summary['weights_with_grad']} weights with "
+        f"a gradient all moved, the reference copy bit-equal to the seed's, sampling distance "
+        f"from it {summary['sampling_distance']}")
+    rc = summary["run_c"]
+    log(f"full finetuning run C ({rc['optimizer']}, the aux offload): losses "
+        f"{[round(m['loss'], 6) for m in rc['history']]}; update {[round(x['s'], 3) for x in uc]}"
+        f" s (the second traced), peak {fmt(uc, 'peak_bytes')} GiB, allocated at its start "
+        f"{fmt(uc, 'allocated_bytes')} GiB; optimizer at rest {gib(rc['optimizer_bytes']):.2f} "
+        f"GiB; {rc['weights_with_grad']} weights with a gradient all moved, the reference "
+        f"bit-equal; trace of epoch 1 {rc['trace']['bytes'] / 1e6:.1f} MB, "
+        f"{rc['trace']['kernel_events']} kernel events ({rc['trace']['kernel_names']} names, "
+        f"K1's, the backward's and K4 / K5's among them), deleted")
+    hw, hr = trip["host_write"], trip["host_read"]
+    log(f"whole-UNet checkpoint round trip ({trip['run']}, {trip['tensors']} tensors, "
+        f"{trip['bytes'] / 1e9:.2f} GB; disk free before {trip['disk_free_bytes'] / 1e9:.1f} GB, "
+        f"MemTotal {gib(trip['mem_total_bytes']):.1f} GiB): write {trip['write_s']:.1f} s "
+        f"(+ fsync {trip['fsync_s']:.1f} s), read {trip['read_s']:.1f} s from the disk; host "
+        f"resident peak {gib(hw['resident_peak_bytes'] or 0):.2f} GiB writing, "
+        f"{gib(hr['resident_peak_bytes'] or 0):.2f} GiB reading; every master and moment "
+        f"bit-equal after the restore, resumed at step 2 (loss {trip['resumed_loss']:.6f}, "
+        f"uninterrupted {trip['uninterrupted_loss']:.6f}); deleted; launches "
+        f"{summary['launches']}")
     return summary
 
 
@@ -1423,14 +1713,14 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
     layers = ([CLIPVisionConfig.vit_h14().layers] * 3 + [CLIPVisionConfig.vit_l14().layers]
               + [vit.layers + bert.layers])
 
-    def run(n, bs, rec, extra=(), name=None):
+    def run(n, bs, rec, extra=(), name=None, source=("--prompts_json", "imagereward")):
         path = out / f"{name or f'eval_b{bs}'}.json"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernel_lib.reset_launch_counts()
         t0 = time.perf_counter()
         with rec or contextlib.nullcontext():
-            ev.main(["--device", "cuda", "--seed", str(seed), "--prompts_json", "imagereward",
+            ev.main(["--device", "cuda", "--seed", str(seed), *source,
                      "--max_prompts", str(n), "--batch_size", str(bs), "--scorers",
                      ",".join(ev.SCORERS), "--aesthetic_mlp_path", "packaged",
                      "--wordpiece_vocab", str(vocab), "--timing", "--output_json", str(path),
@@ -1464,7 +1754,8 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
         errs[name] = check_close(f"eval {name} batch 2 vs batch 1", got, want, TOL["eval_batch"])
         used[name] = tolerance_used(got, want, TOL["eval_batch"])
     chunked = run(prompts, 2, recorder, ["--score_chunk", "4", "--offload_scorers",
-                                         "--vae_decode_chunk", "1"], "eval_chunked")
+                                         "--vae_decode_chunk", "1"], "eval_chunked",
+                  ("--hf_dataset", str(FIXTURE), "--split", "test_unique"))
     for name in ev.SCORERS:
         if chunked["result"]["per_prompt"][name] != per_prompt[name]:
             raise AssertionError(f"eval {name}: chunked and offloaded scores "
@@ -1478,7 +1769,8 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
         "batch1_tolerance_used": used, "timing": timing, "launches": main_run["launches"],
         "peak_bytes": main_run["peak_bytes"], "wall_s": main_run["wall_s"],
         "batch1_run": {k: solo[k] for k in ("launches", "peak_bytes", "wall_s")},
-        "chunked_run": {"args": "--score_chunk 4 --offload_scorers --vae_decode_chunk 1",
+        "chunked_run": {"args": f"--hf_dataset {FIXTURE.relative_to(ROOT)} --split test_unique "
+                                "--score_chunk 4 --offload_scorers --vae_decode_chunk 1",
                         "timing": chunked["result"]["timing"], "scores_bit_equal": True,
                         **{k: chunked[k] for k in ("launches", "peak_bytes", "wall_s")}},
         "launches_all_runs": {k: main_run["launches"][k] + chunked["launches"][k]
@@ -1491,7 +1783,8 @@ def eval_slice(seed, recorder, prompts=EVAL_PROMPTS):
         f"{main_run['launches']}; first two prompts at batch 1: max|diff| "
         + ", ".join(f"{k} {v:.2e} (share of limit {used[k]:.3f})" for k, v in errs.items()))
     ct = chunked["result"]["timing"]
-    log(f"eval with --score_chunk 4 --offload_scorers --vae_decode_chunk 1: "
+    log(f"eval of the fixture's test_unique split (--hf_dataset) with --score_chunk 4 "
+        f"--offload_scorers --vae_decode_chunk 1: "
         f"{ct['prompts_per_min']:.2f} prompts/min (steady chunks {ct['steady_batch_s']:.3f} s, "
         f"staging {ct['stage_s']}), peak {chunked['peak_bytes'] / 2**30:.2f} GiB; scores "
         f"bit-equal to the default run's; launches {chunked['launches']}")
@@ -1517,6 +1810,17 @@ def _instance_image(h, w, rng):
     return np.clip(127.5 + 60 * base + rng.normal(0, 8, (h, w, 3)), 0, 255).astype(np.uint8)
 
 
+class _WarningLog(logging.Handler):
+    """The messages of the warnings logged while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
 def optimizer_cuda_vs_cpu(make, lora, grads, steps=2):
     """Two steps of the optimizer ``make(params)`` builds over copies of
     ``lora`` on the card and on the CPU, with the same gradients scaled to a
@@ -1539,9 +1843,10 @@ def optimizer_cuda_vs_cpu(make, lora, grads, steps=2):
         tx_on.step(on, on_grads)
         tx_off.step(off, off_grads)
     equal = {}
-    for name in tx_on.state_names:
+    for name in tx_on.state_names:  # a tensor, or one per chunk (the per-tensor 8-bit AdamW)
         a, b = getattr(tx_on, name), getattr(tx_off, name)
-        equal[name] = bool(a.device.type == "cuda" and torch.equal(a.cpu(), b))
+        pairs = zip(a, b) if isinstance(a, list) else [(a, b)]
+        equal[name] = all(x.device.type == "cuda" and torch.equal(x.cpu(), y) for x, y in pairs)
     err = max(float((on[k].detach().cpu() - off[k].detach()).abs().max()) for k in on)
     int8_state = [n for n in tx_on.state_names if n.startswith(("mu_", "nu_"))]
     if err > 1e-6 or not all(equal[n] for n in int8_state):
@@ -1553,7 +1858,8 @@ def optimizer_cuda_vs_cpu(make, lora, grads, steps=2):
 def optimizer_step_times(lora, seed, steps=10):
     """Each DreamBooth optimizer (``FlatAdamW`` with fp32 and with bf16
     first moments, ``Adam8bit``, ``Prodigy``; the CLI's settings, the UNet
-    and the text encoders in two groups where the CLI makes two) over fresh
+    and the text encoders in two groups where the CLI makes two), and full
+    finetuning's per-tensor 8-bit AdamW (``ForeachAdam8bit``), over fresh
     copies of ``lora``'s tensors with random gradients: the median
     synchronized wall ms of a step after 2 warm-up steps, the device ms of a
     step (``timed_ms``, the host's enqueueing hidden), and its agreement
@@ -1577,6 +1883,8 @@ def optimizer_step_times(lora, seed, steps=10):
                                                          state_dtype="bfloat16"),
               "adam8bit": lambda ps: make_optimizer(groups(ps), max_grad_norm=1.0,
                                                     use_8bit=True),
+              "adam8bit_per_tensor": lambda ps: make_optimizer(
+                  groups(ps), max_grad_norm=1.0, use_8bit=True, per_tensor=True),
               "prodigy": lambda ps: Prodigy(ps, learning_rate=1.0, weight_decay=1e-4,
                                             use_bias_correction=True, safeguard_warmup=True)}
     out = {"tensors": len(lora), "elements": sum(p.numel() for p in lora.values())}
@@ -1717,7 +2025,8 @@ def dreambooth_slice(seed, recorder):
     run_b = common + ["--output_dir", str(root / "b"), "--loss_type", "pso",
                       "--scheduler_space", "edm", "--with_prior_preservation", "--class_data_dir",
                       str(root / "class"), "--num_class_images", "4",
-                      "--gradient_accumulation_steps", "2", "--max_train_steps", "1"]
+                      "--gradient_accumulation_steps", "2", "--max_train_steps", "1",
+                      "--use_wandb"]
 
     def run(name, argv, first_step):
         torch.cuda.synchronize()
@@ -1785,8 +2094,26 @@ def dreambooth_slice(seed, recorder):
         raise AssertionError(f"gen_2/ holds {len(pngs)} validation PNGs")
     del pipe, state, ref, restored, frozen, frozen0, lora, lora0, lora_ref
     torch.cuda.empty_cache()
-    b, state, pipe = run("B", run_b, 0)
+    # run B asks for wandb with its import blocked (the card's machine may have
+    # wandb, and a wandb run would reach for the network): the CLI must warn and
+    # keep metrics.jsonl
+    warned = _WarningLog()
+    blocked, sys.modules["wandb"] = sys.modules.get("wandb"), None
+    logging.getLogger("pso").addHandler(warned)
+    try:
+        b, state, pipe = run("B", run_b, 0)
+    finally:
+        logging.getLogger("pso").removeHandler(warned)
+        if blocked is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = blocked
     del pipe, state
+    b["wandb_warning"] = [m for m in warned.messages if "wandb unavailable" in m]
+    rows_b = (root / "b" / "metrics.jsonl").read_text().splitlines()
+    if not b["wandb_warning"] or not any("loss" in json.loads(r) for r in rows_b):
+        raise AssertionError(f"dreambooth B --use_wandb without wandb: warnings {warned.messages}, "
+                             f"{len(rows_b)} JSONL rows")
     torch.cuda.empty_cache()
     first = b["history"][0]
     prior_w = db.parse_args(run_b).prior_loss_weight
@@ -1897,7 +2224,8 @@ def dreambooth_slice(seed, recorder):
         f"{summary['validation_s']:.3f} s (25 images), losses "
         f"{[round(m['loss'], 5) for m in a1['history'] + a2['history']]}, A2 resumed at step 2; "
         f"run B pso/edm prior ga 2 policy batch 8 (fused): {b['history'][0]['time/step_s']:.3f} s, "
-        f"loss {first['loss']:.6f} = log 2 + {prior_w} x {first['lose_loss']:.6f}, class images "
+        f"loss {first['loss']:.6f} = log 2 + {prior_w} x {first['lose_loss']:.6f}, --use_wandb "
+        f"with wandb blocked warned and kept metrics.jsonl, class images "
         f"{b['setup_s'].get('class_images', 0):.3f} s; peak {summary['peak_bytes'] / 2**30:.2f} "
         f"GiB; LoRA max|delta| {lora_moved:.3e}, frozen unchanged; lora-2/3 equal their "
         f"checkpoints; launches {launches}")

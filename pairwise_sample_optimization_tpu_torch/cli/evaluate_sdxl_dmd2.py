@@ -6,7 +6,8 @@
         [--scorers pickscore,clip,hps,aesthetic,imagereward] [--aesthetic_mlp_path packaged] \
         [--pickscore_dir D] [--clip_dir D] [--hps_path F] [--aesthetic_clip_dir D] \
         [--imagereward_path F] [--wordpiece_vocab vocab.txt] [--output_json FILE] [--timing] \
-        [--offload_scorers] [--score_chunk N] [--vae_decode_chunk N] [--gelu_exact]
+        [--offload_scorers] [--score_chunk N] [--vae_decode_chunk N] [--gelu_exact] \
+        [--hf_dataset SAVE_TO_DISK_DIR --split test_unique --caption_column caption]
 
 Counterpart of the JAX package's ``cli/evaluate_sdxl_dmd2.py``: 4-step DMD2
 generation on the fixed lattice [999, 749, 499, 249] at guidance 0, one
@@ -42,7 +43,10 @@ own turn on a chunk; ``--vae_decode_chunk N`` decodes N images a VAE call
 ``--gelu_exact`` takes the exact erf GELU in bf16 too. None of them changes
 a score: the images, the scorers' batches and their arithmetic are the same.
 
-Not ported yet, and refused when asked for: HF datasets (``--hf_dataset``).
+Prompts: ``--prompts_json`` (a JSON list or dict of splits, a ``.txt``, or a
+packaged set), or ``--hf_dataset``, the ``--caption_column`` of the
+``--split`` of a local HuggingFace ``datasets`` ``save_to_disk`` export
+(``data/arrow_disk.py``; a hub name needs the network and is refused).
 """
 
 from __future__ import annotations
@@ -74,8 +78,6 @@ from ..utils.offload import HostOffload
 logger = get_logger("pso.eval")
 
 SCORERS = ("pickscore", "clip", "hps", "aesthetic", "imagereward")
-# flag -> its default; any other value is refused until the port has it
-_UNPORTED = {"hf_dataset": ""}
 # the most the fp32 images that --score_chunk buffers may take (85 prompts at 1024^2)
 SCORE_CHUNK_CAP_BYTES = 2**30
 _SCORER_MODULES = ("model", "vision", "vit", "bert", "mlp")
@@ -92,6 +94,8 @@ def parse_args(argv=None):
     p.add_argument("--prompts_json", default="",
                    help='eval prompts: json, newline .txt, or a packaged set ("4k", '
                         '"imagereward"); "" = the built-in 16')
+    p.add_argument("--hf_dataset", default="",
+                   help="a local HF datasets save_to_disk dir (a hub name needs the network)")
     p.add_argument("--split", default="test_unique")
     p.add_argument("--caption_column", default="caption")
     p.add_argument("--max_prompts", type=int, default=0, help="0 = all")
@@ -131,8 +135,6 @@ def parse_args(argv=None):
                    help="decode N images a VAE call (-1: 1 at 1024^2 and above, else all)")
     p.add_argument("--gelu_exact", action="store_true",
                    help="the exact erf GELU in bf16 too (strict parity with erf scorers)")
-    # not ported yet: parsed so launch scripts parse, refused unless default
-    p.add_argument("--hf_dataset", default="", help="not ported yet")
     return p.parse_args(argv)
 
 
@@ -152,10 +154,7 @@ def score_chunk(args, resolution: int) -> int:
 
 
 def check_args(args) -> list:
-    """Refuse what the port does not implement; returns the scorer names."""
-    for flag, default in _UNPORTED.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(f"--{flag} is not ported yet")
+    """The scorer names; an unknown one is refused."""
     wanted = [s for s in args.scorers.split(",") if s]
     unknown = [s for s in wanted if s not in SCORERS]
     if unknown or not wanted:
@@ -277,7 +276,8 @@ def main(argv=None):
 
     # ---- prompts, sharded round-robin with the pad math ----
     dataset = PromptDataset(args.prompts_json or None, caption_key=args.caption_column,
-                            split=args.split if args.prompts_json else None)
+                            split=args.split if (args.hf_dataset or args.prompts_json) else None,
+                            hf_dataset=args.hf_dataset or None)
     prompts = dataset.prompts
     if args.max_prompts:
         if args.max_prompts > len(prompts):

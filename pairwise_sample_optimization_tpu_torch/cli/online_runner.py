@@ -30,8 +30,10 @@ Memory options, as the JAX runner takes them:
 - ``use_lora=False``: full finetuning. Every UNet weight is trained (in
   fp32 masters under ``param_dtype="float32"``, computing in the
   ``mixed_precision`` dtype), by the per-tensor AdamW
-  (``train.foreach_adamw``); the reference pass runs a separate frozen copy
-  in the compute dtype (``pipeline.reference_unet``), unfused; sampling and
+  (``train.foreach_adamw``; with ``train.use_8bit_adam`` the per-tensor
+  8-bit AdamW, ``train.quantized_adam.ForeachAdam8bit``); the reference
+  pass runs a separate frozen copy in the compute dtype
+  (``pipeline.reference_unet``), unfused; sampling and
   validation run the live weights; checkpoints hold the whole UNet and no
   LoRA file is written;
 - ``param_dtype="bfloat16"``: the UNet's weights stored in bf16 (trained
@@ -47,10 +49,16 @@ Memory options, as the JAX runner takes them:
 - ``vae_decode_chunk``: latents a VAE decoder call (0: the whole batch);
 - ``kernels.gelu_exact``: the exact erf GELU in bf16 too.
 
-Not ported yet, and refused when asked for (by :func:`check_config`, and
-an ``hf:`` validation source by :func:`run_online_pso` where validation
-would fire): the HF datasets validation source, meshes beyond one device,
-and the JAX package's int8 options.
+Validation prompts come from ``val_dataset``: ``hf:<dir>`` reads the
+``val_split_name`` split of a local ``datasets`` ``save_to_disk`` export
+(``data/arrow_disk.py``; a hub name needs the network and is refused where
+validation would fire). ``profile_dir`` traces the second epoch of the
+invocation, or the only one, with ``torch.profiler``
+(``<profile_dir>/epoch-<n>.json``); ``use_wandb`` logs to wandb too where
+it imports and starts, as the JAX runner does.
+
+Not ported yet, and refused when asked for (by :func:`check_config`):
+meshes beyond one device, ``fast_init`` and the JAX package's int8 options.
 """
 
 from __future__ import annotations
@@ -73,7 +81,7 @@ from ..pipeline import SAMPLERS, SDXLPipeline
 from ..rewards import CLIPScorer
 from ..train import (OnlinePSOConfig, OnlinePSOTrainer, PSOTrainState, all_parameters,
                      lora_parameters, make_optimizer)
-from ..utils import MetricLogger, PhaseTimer, get_logger
+from ..utils import MetricLogger, PhaseTimer, get_logger, profile_to
 from ..utils.offload import HostOffload
 from ..utils.png import save_pngs
 
@@ -82,8 +90,7 @@ logger = get_logger("pso.online")
 # knob -> its default; any other value is refused until the port has it
 _UNPORTED = {
     "mesh.data": (-1, 1), "mesh.model": (1,), "mesh.fsdp": (False,),
-    "use_wandb": (False,), "fast_init": (False,),
-    "profile_dir": ("",), "train.int8_ref_pass": (False,),
+    "fast_init": (False,), "train.int8_ref_pass": (False,),
     "kernels.subpixel_upsample": (False,), "kernels.int8_vae_decode": (False,),
     "kernels.int8_smooth_alpha": (0.0,),
 }
@@ -109,9 +116,6 @@ def check_config(config, sampler: str) -> None:
                                       f"(allowed: {allowed})")
     if config.param_dtype not in PARAM_DTYPES:
         raise ValueError(f"param_dtype={config.param_dtype!r}: use one of {list(PARAM_DTYPES)}")
-    if not config.use_lora and config.train.use_8bit_adam:
-        raise NotImplementedError("use_lora=False with train.use_8bit_adam: the 8-bit AdamW "
-                                  "is not ported for full finetuning")
     if config.train.distilled_train_steps != config.sample.num_steps - 1:
         raise ValueError(f"train.distilled_train_steps ({config.train.distilled_train_steps}) "
                          f"must equal sample.num_steps - 1 ({config.sample.num_steps - 1})")
@@ -158,13 +162,19 @@ def build_pipeline(config, dtype, tiny: bool, dev) -> SDXLPipeline:
 
 
 def validation_prompts(config):
-    """The first ``val_max_prompts`` prompts of ``val_dataset``: a local
-    prompts file where the path exists, else the built-in set."""
+    """The first ``val_max_prompts`` prompts of ``val_dataset``: the
+    ``val_split_name`` split of a local ``datasets`` export given as
+    ``hf:<save_to_disk dir>``, a local prompts file where the path exists,
+    else the built-in set (the JAX runner's order)."""
     src = str(config.val_dataset)
     if src.startswith("hf:"):
-        raise NotImplementedError(f"val_dataset={src!r}: the HF datasets source is not ported "
-                                  "yet (give a local prompts file)")
-    dataset = PromptDataset(src if os.path.exists(src) else None, split=config.val_split_name)
+        try:
+            dataset = PromptDataset(hf_dataset=src[3:], split=config.val_split_name)
+        except NotImplementedError as e:  # a hub name
+            raise NotImplementedError(f"val_dataset={src!r}: {e}") from None
+    else:
+        dataset = PromptDataset(src if os.path.exists(src) else None,
+                                split=config.val_split_name)
     return dataset.prompts[:config.val_max_prompts]
 
 
@@ -285,63 +295,69 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
         metrics_logger.log_metrics(metrics, step)
 
     out_dir = run_dir(config, sampler)
-    metrics_logger = MetricLogger(out_dir)
+    metrics_logger = MetricLogger(out_dir, config.run_name, use_wandb=config.use_wandb,
+                                  config=config.to_dict())
     timer = PhaseTimer(dev)
     history = []
+    # trace the second epoch of this invocation where there is one (the first
+    # pays the one-off costs), else the only one, as the JAX runner does
+    profile_epoch = start_epoch + (1 if epochs > 1 else 0)
     try:
         for epoch in range(start_epoch, start_epoch + epochs):
-            gen = torch.Generator(device=dev).manual_seed(_epoch_seed(config.seed, epoch, 0))
-            shuffle_gen = torch.Generator().manual_seed(_epoch_seed(config.seed, epoch, 1))
-            # ---------------- sampling ----------------
-            all_samples, all_cond = [], []
-            with timer.phase("sample"):
-                for b_idx, batch in enumerate(loader.epoch()):
-                    ids = [torch.as_tensor(batch[k], dtype=torch.long, device=dev)
-                           for k in ("input_ids_one", "input_ids_two", "reward_input_ids")]
-                    cond = pipe.encode_prompt(*ids)
-                    samples, _ = trainer.sample_pairs(cond, gen)
-                    all_samples.append(samples)
-                    all_cond.append({k: cond[k] for k in ("embeds", "pooled", "time_ids")})
-                    logger.info("epoch %d: sampled pair batch %d/%d", epoch, b_idx + 1,
-                                config.sample.num_batches_per_epoch)
-                    if b_idx + 1 == config.sample.num_batches_per_epoch:
-                        break
-            samples = {k: torch.cat([s[k] for s in all_samples]) for k in all_samples[0]}
-            cond = {k: torch.cat([c[k] for c in all_cond]) for k in all_cond[0]}
-            rewards = samples["rewards"].float()
-            metrics_logger.log_metrics({"epoch": epoch, "reward_mean": rewards.mean(),
-                                        "reward_std": rewards.std(unbiased=False)}, state.step)
+            with profile_to(config.profile_dir if epoch == profile_epoch else None, dev,
+                            f"epoch-{epoch}"):
+                gen = torch.Generator(device=dev).manual_seed(_epoch_seed(config.seed, epoch, 0))
+                shuffle_gen = torch.Generator().manual_seed(_epoch_seed(config.seed, epoch, 1))
+                # ---------------- sampling ----------------
+                all_samples, all_cond = [], []
+                with timer.phase("sample"):
+                    for b_idx, batch in enumerate(loader.epoch()):
+                        ids = [torch.as_tensor(batch[k], dtype=torch.long, device=dev)
+                               for k in ("input_ids_one", "input_ids_two", "reward_input_ids")]
+                        cond = pipe.encode_prompt(*ids)
+                        samples, _ = trainer.sample_pairs(cond, gen)
+                        all_samples.append(samples)
+                        all_cond.append({k: cond[k] for k in ("embeds", "pooled", "time_ids")})
+                        logger.info("epoch %d: sampled pair batch %d/%d", epoch, b_idx + 1,
+                                    config.sample.num_batches_per_epoch)
+                        if b_idx + 1 == config.sample.num_batches_per_epoch:
+                            break
+                samples = {k: torch.cat([s[k] for s in all_samples]) for k in all_samples[0]}
+                cond = {k: torch.cat([c[k] for c in all_cond]) for k in all_cond[0]}
+                rewards = samples["rewards"].float()
+                metrics_logger.log_metrics({"epoch": epoch, "reward_mean": rewards.mean(),
+                                            "reward_std": rewards.std(unbiased=False)}, state.step)
 
-            # ---------------- training ----------------
-            global_step = state.step
-            moves = {}
-            if offload is not None:
-                with timer.phase("offload"):
-                    offload.to_host()
-            with timer.phase("train"):
-                state, step_metrics = trainer.train_epoch(state, samples, cond, shuffle_gen)
-            if offload is not None:
-                with timer.phase("reload"):
-                    offload.to_device()
-                moves = {"offload_bytes": offload.nbytes()}
-            for m in step_metrics:
-                global_step += 1
-                metrics_logger.log_metrics({**m, **moves, **timer.summary()}, global_step)
-                history.append(m)
-                if config.validation_steps and global_step % config.validation_steps == 0:
-                    validate(global_step)
-                if config.checkpointing_steps and (
-                        global_step % config.checkpointing_steps == 0 or global_step == 1):
-                    # the state after the whole epoch, under the update's step
-                    # number, as the JAX runner saves it
-                    path = save_train_state(out_dir, global_step, state, {"epoch": epoch})
-                    if not full_ft:  # the adapter for diffusers beside it
-                        lora_dir = os.path.join(out_dir, f"lora-{global_step}")
-                        os.makedirs(lora_dir, exist_ok=True)
-                        export_lora_safetensors(pipe.unet, os.path.join(lora_dir, LORA_FILE))
-                    prune_checkpoints(out_dir, int(config.num_checkpoint_limit))
-                    logger.info("saved state to %s", path)
-            timer.reset()
+                # ---------------- training ----------------
+                global_step = state.step
+                moves = {}
+                if offload is not None:
+                    with timer.phase("offload"):
+                        offload.to_host()
+                with timer.phase("train"):
+                    state, step_metrics = trainer.train_epoch(state, samples, cond, shuffle_gen)
+                if offload is not None:
+                    with timer.phase("reload"):
+                        offload.to_device()
+                    moves = {"offload_bytes": offload.nbytes()}
+                for m in step_metrics:
+                    global_step += 1
+                    metrics_logger.log_metrics({**m, **moves, **timer.summary()}, global_step)
+                    history.append(m)
+                    if config.validation_steps and global_step % config.validation_steps == 0:
+                        validate(global_step)
+                    if config.checkpointing_steps and (
+                            global_step % config.checkpointing_steps == 0 or global_step == 1):
+                        # the state after the whole epoch, under the update's step
+                        # number, as the JAX runner saves it
+                        path = save_train_state(out_dir, global_step, state, {"epoch": epoch})
+                        if not full_ft:  # the adapter for diffusers beside it
+                            lora_dir = os.path.join(out_dir, f"lora-{global_step}")
+                            os.makedirs(lora_dir, exist_ok=True)
+                            export_lora_safetensors(pipe.unet, os.path.join(lora_dir, LORA_FILE))
+                        prune_checkpoints(out_dir, int(config.num_checkpoint_limit))
+                        logger.info("saved state to %s", path)
+                timer.reset()
     finally:
         metrics_logger.close()
     return state, history, pipe

@@ -61,8 +61,11 @@ than its uninterrupted run.
   fp32 LoRA, from ``--pretrained_model_dir`` (a local diffusers
   checkpoint) or random weights from ``--seed``.
 
+``--use_wandb`` logs to wandb too where it imports and starts (else a
+warning, and ``metrics.jsonl`` alone), as the JAX CLI does.
+
 Refused before any model is built, with ``NotImplementedError``:
-``--use_wandb`` and ``--fast_init``; JPEG, WebP and BMP files in the
+``--fast_init``; JPEG, WebP and BMP files in the
 instance or class directory (the port reads PNG). The
 JAX CLI's parity-inert flags (``--snr_gamma``, ``--gamma_pso``,
 ``--neg_generate_freq``) are accepted and do nothing, as there.
@@ -198,7 +201,7 @@ def parse_args(argv=None):
     p.add_argument("--is_object", action="store_true",
                    help="the object prompt list (else the live-subject list)")
     p.add_argument("--skip_validation", action="store_true")
-    p.add_argument("--use_wandb", action="store_true", help="not ported (refused)")
+    p.add_argument("--use_wandb", action="store_true")
     p.add_argument("--output_kohya_format", action="store_true",
                    help="also export the LoRA in kohya-ss's layout")
     p.add_argument("--tiny", action="store_true", help="toy models (CPU runs)")
@@ -213,11 +216,9 @@ def parse_args(argv=None):
 
 def check_args(args) -> None:
     """Refuse what the port does not implement, naming the flag."""
-    refused = [("--use_wandb", args.use_wandb, "wandb logging"),
-               ("--fast_init", args.fast_init, "zero-filled weights")]
-    for flag, asked, what in refused:
-        if asked:
-            raise NotImplementedError(f"{flag} is not ported yet ({what}; ROADMAP Queue 1)")
+    if args.fast_init:
+        raise NotImplementedError("--fast_init is not ported yet (zero-filled weights; "
+                                  "ROADMAP Queue 1)")
     if args.optimizer.lower() not in ("adamw", "prodigy"):
         raise ValueError(f"Unsupported optimizer {args.optimizer!r}: choose AdamW or prodigy")
 
@@ -281,7 +282,7 @@ def main(argv=None):
     dataset = DreamBoothDataset(args.instance_data_dir, args.instance_prompt, resolution,
                                 args.repeats, center_crop=args.center_crop,
                                 random_flip=args.random_flip, seed=args.seed)
-    mlog = MetricLogger(args.output_dir)
+    mlog = MetricLogger(args.output_dir, "dreambooth_pso", use_wandb=args.use_wandb)
     timer = PhaseTimer(dev)
 
     # ---- pipeline ----

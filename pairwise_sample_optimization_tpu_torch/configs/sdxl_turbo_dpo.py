@@ -5,11 +5,12 @@ knobs (on CUDA the port always takes its kernels).
 The memory knobs are the JAX package's: ``use_lora=False`` (full
 finetuning), ``param_dtype``, ``activation_checkpoint`` (every remat mode),
 ``offload_aux_during_update``, ``vae_decode_chunk`` and
-``kernels.gelu_exact``. Knobs the port does not implement yet are kept so
-launch scripts parse, and ``cli.online_runner.check_config`` refuses a
-non-default value: ``mesh.*`` beyond one device, ``mesh.fsdp``,
-``use_wandb``, ``fast_init``, ``profile_dir``, ``train.int8_ref_pass`` and
-the int8 and subpixel ``kernels.*`` options.
+``kernels.gelu_exact``; ``profile_dir`` (a ``torch.profiler`` trace of
+one epoch) and ``use_wandb`` run as there. Knobs the port does not
+implement yet are kept so launch scripts parse, and
+``cli.online_runner.check_config`` refuses a non-default value: ``mesh.*``
+beyond one device, ``mesh.fsdp``, ``fast_init``, ``train.int8_ref_pass``
+and the int8 and subpixel ``kernels.*`` options.
 """
 
 from . import Config
@@ -48,8 +49,8 @@ def get_config() -> Config:
     c.use_wandb = False
 
     # ---- validation: 4-step images of the first val_max_prompts prompts of
-    # val_dataset (a local prompts file, else the built-in set; "hf:" sources
-    # are not ported) every validation_steps updates ----
+    # val_dataset ("hf:<local save_to_disk dir>" with val_split_name, a local
+    # prompts file, else the built-in set) every validation_steps updates ----
     c.val_dataset = "pickapic_test_unique"
     c.val_split_name = "test_unique"
     c.val_max_prompts = 500

@@ -6,9 +6,10 @@ dict of splits), a newline-delimited ``.txt``, ``"4k"`` for the packaged
 4000 PickaPic training captions (``assets/4k_training_prompts.json``),
 ``"imagereward"`` for the packaged ImageReward benchmark prompts
 (``assets/imagereward_prompt.txt``), or nothing for the built-in 16-prompt
-set. The loader draws each epoch's
-order from ``numpy.random.default_rng(seed)``, as there, so both packages
-give the same batches for the same seed.
+set; or the string column of a local HuggingFace ``datasets`` export
+(``hf_dataset``: a ``save_to_disk`` directory, read by ``arrow_disk``).
+The loader draws each epoch's order from ``numpy.random.default_rng(seed)``,
+as there, so both packages give the same batches for the same seed.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import os
 from typing import Iterator, Optional
 
 import numpy as np
+
+from .arrow_disk import load_column
 
 _BUILTIN_PROMPTS = [
     "a photo of a corgi wearing sunglasses on a beach",
@@ -54,19 +57,32 @@ def imagereward_prompts_path() -> str:
 _PACKAGED = {"4k": training_prompts_path, "imagereward": imagereward_prompts_path}
 
 
+def _load_hf_prompts(source: str, split: Optional[str], caption_key: str):
+    """The ``caption_key`` column of the ``save_to_disk`` export at
+    ``source`` as strings (a null as ``"None"``), as the JAX package's
+    ``load_from_disk`` gives it."""
+    if not os.path.isdir(source):
+        raise NotImplementedError(f"hf_dataset={source!r} is not a local directory: a hub name "
+                                  "needs the network; pass a local save_to_disk export")
+    return [str(x) for x in load_column(source, caption_key, split)]
+
+
 class PromptDataset:
     def __init__(self, json_path: Optional[str] = None, caption_key: str = "caption",
                  split: Optional[str] = None, hf_dataset: Optional[str] = None):
-        """``split`` picks a named split when the JSON is a dict of splits;
-        a HuggingFace ``datasets`` source is not ported."""
-        if hf_dataset:
-            raise NotImplementedError("HuggingFace datasets sources are not ported yet; pass a "
-                                      "prompts JSON or .txt path")
+        """``split`` picks a named split when the JSON is a dict of splits.
+        ``hf_dataset`` is a local ``save_to_disk`` directory: a
+        ``DatasetDict`` needs ``split`` (else a ``KeyError`` listing its
+        splits), a single ``Dataset`` ignores it. The JAX package also takes
+        a hub name (``load_dataset``), which needs the network; the port
+        refuses one."""
         if json_path in _PACKAGED:
             json_path = _PACKAGED[json_path]()
-        if json_path and not os.path.exists(json_path):
+        if hf_dataset:
+            self.prompts = _load_hf_prompts(hf_dataset, split, caption_key)
+        elif json_path and not os.path.exists(json_path):
             raise FileNotFoundError(f"prompt json not found: {json_path!r}")
-        if json_path and json_path.endswith(".txt"):
+        elif json_path and json_path.endswith(".txt"):
             with open(json_path) as f:
                 self.prompts = [ln.strip() for ln in f if ln.strip()]
         elif json_path:

@@ -232,4 +232,7 @@ class DreamBoothPSOTrainer:
         grads = {name: (p.grad / ga if p.grad is not None else torch.zeros_like(p))
                  for name, p in state.lora.items()}
         state.apply_gradients(grads)
+        del grads  # read inside the optimizer's step: freed now, as JAX's die with the step
+        for p in state.lora.values():
+            p.grad = None
         return {k: float(v / ga) for k, v in sums.items()}

@@ -39,6 +39,35 @@ def global_norm(tensors, chunk: int = CHUNK) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def chunk_groups(groups: List[dict], schedule: Optional[Callable[[int], float]], chunk: int,
+                 block: int = 1):
+    """(names, parameters, chunks) of ``groups`` (``FlatOptimizer``'s
+    form): each chunk ``(tensor indices, lr, weight_decay, schedule)`` holds
+    consecutive tensors of one group, at most ``chunk`` elements with each
+    tensor padded to a multiple of ``block`` (or one larger tensor)."""
+    names: List[str] = []
+    params: List[nn.Parameter] = []
+    chunks = []
+    for g in groups:
+        idx, n = [], 0
+        for name, p in g["params"].items():
+            size = p.numel() + (-p.numel() % block)
+            if idx and n + size > chunk:
+                chunks.append((idx, float(g["lr"]), float(g["weight_decay"]),
+                               g.get("schedule") or schedule))
+                idx, n = [], 0
+            idx.append(len(params))
+            names.append(name)
+            params.append(p)
+            n += size
+        if idx:
+            chunks.append((idx, float(g["lr"]), float(g["weight_decay"]),
+                           g.get("schedule") or schedule))
+    if not params:
+        raise ValueError("no parameters to optimize")
+    return names, params, chunks
+
+
 class ForeachAdamW:
     """optax ``adamw`` per group after global-norm clipping, as
     ``FlatAdamW`` computes it, on the tensors in place. ``groups`` as
@@ -50,25 +79,7 @@ class ForeachAdamW:
         self.b1, self.b2 = betas
         self.eps, self.max_grad_norm = eps, max_grad_norm
         self.count = 0
-        self.names: List[str] = []
-        self.params: List[nn.Parameter] = []
-        self.chunks = []  # (tensor indices, lr, weight_decay, schedule)
-        for g in groups:
-            idx, n = [], 0
-            for name, p in g["params"].items():
-                if idx and n + p.numel() > chunk:
-                    self.chunks.append((idx, float(g["lr"]), float(g["weight_decay"]),
-                                        g.get("schedule") or schedule))
-                    idx, n = [], 0
-                idx.append(len(self.params))
-                self.names.append(name)
-                self.params.append(p)
-                n += p.numel()
-            if idx:
-                self.chunks.append((idx, float(g["lr"]), float(g["weight_decay"]),
-                                    g.get("schedule") or schedule))
-        if not self.params:
-            raise ValueError("no parameters to optimize")
+        self.names, self.params, self.chunks = chunk_groups(groups, schedule, chunk)
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
 

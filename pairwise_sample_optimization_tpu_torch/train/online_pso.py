@@ -268,6 +268,11 @@ class OnlinePSOTrainer:
                  for name, p in state.lora.items()}
         grad_norm = global_norm(grads.values())
         state.apply_gradients(grads)
+        # every optimizer has read or copied the gradients inside its step: free
+        # them now, not when the next update starts (JAX's die with the step)
+        del grads
+        for p in state.lora.values():
+            p.grad = None
         metrics = {"loss": loss_sum / n_micro, "ratio_win": ratio_sum / n_micro,
                    "grad_norm": grad_norm}
         return {k: float(v) for k, v in metrics.items()}

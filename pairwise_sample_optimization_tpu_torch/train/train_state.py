@@ -19,7 +19,7 @@ only when ``norm >= max_norm``):
   (``quantized_adam.Adam8bit``);
 - ``per_tensor``: ``foreach_adamw.ForeachAdamW``, the same AdamW on each
   tensor in place, for the whole UNet (no flat copies of its 2.57 G
-  elements).
+  elements), or with ``use_8bit`` ``quantized_adam.ForeachAdam8bit``.
 
 ``prodigy.Prodigy`` is the DreamBooth CLI's other optimizer. Every one
 updates the LoRA parameters in place and has ``state_dict`` /
@@ -37,7 +37,7 @@ import torch.nn as nn
 
 from .flat_optim import FlatAdamW, FlatOptimizer
 from .foreach_adamw import ForeachAdamW, global_norm
-from .quantized_adam import Adam8bit
+from .quantized_adam import Adam8bit, ForeachAdam8bit
 
 LR_SCHEDULES = ("constant", "constant_with_warmup", "linear", "cosine", "cosine_with_restarts",
                 "polynomial")
@@ -120,15 +120,14 @@ def make_optimizer(params: Union[Mapping[str, nn.Parameter], Sequence[dict]],
     ``params`` (see :func:`param_groups`). ``schedule`` is a factor from
     :func:`make_lr_schedule`. ``use_8bit`` (first) picks the 8-bit AdamW,
     ``state_dtype="bfloat16"`` bf16 first moments; otherwise fp32 moments.
-    ``per_tensor`` updates each tensor in place (``ForeachAdamW``, for the
-    whole UNet) instead of through flat buffers."""
+    ``per_tensor`` updates the tensors in place a chunk at a time
+    (``ForeachAdamW``, ``ForeachAdam8bit``: for the whole UNet) instead of
+    through flat buffers of all of them."""
     groups = param_groups(params, learning_rate, weight_decay)
     betas = (beta1, beta2)
-    if use_8bit and per_tensor:
-        raise NotImplementedError("the 8-bit AdamW keeps flat buffers; full finetuning takes "
-                                  "AdamW with fp32 or bf16 first moments")
     if use_8bit:
-        return Adam8bit(groups, betas, eps, max_grad_norm, schedule)
+        return (ForeachAdam8bit if per_tensor else Adam8bit)(groups, betas, eps, max_grad_norm,
+                                                             schedule)
     if state_dtype in (None, "", "float32", torch.float32):
         mu_dtype = torch.float32
     elif state_dtype in ("bfloat16", torch.bfloat16):
@@ -147,7 +146,7 @@ class PSOTrainState:
 
     step: int
     lora: Dict[str, nn.Parameter]
-    tx: Union[FlatOptimizer, ForeachAdamW]
+    tx: Union[FlatOptimizer, ForeachAdamW, ForeachAdam8bit]
 
     @classmethod
     def create(cls, lora: Dict[str, nn.Parameter], tx) -> "PSOTrainState":

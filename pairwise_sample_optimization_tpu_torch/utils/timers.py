@@ -1,10 +1,14 @@
 """Wall time per named phase (sample / train). A phase on a CUDA device
 ends with ``torch.cuda.synchronize()``, so its time covers the device work
-it queued. ``totals`` sums each phase's times, ``last`` holds its latest."""
+it queued. ``totals`` sums each phase's times, ``last`` holds its latest.
+
+``profile_to`` traces a block with ``torch.profiler`` into a Chrome trace
+file, as the JAX package's ``profile_to`` traces one with ``jax.profiler``."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
@@ -38,3 +42,25 @@ class PhaseTimer:
         self.totals.clear()
         self.counts.clear()
         self.last.clear()
+
+
+@contextlib.contextmanager
+def profile_to(log_dir: Optional[str], device: Optional[torch.device] = None,
+               name: str = "trace"):
+    """Trace this block when ``log_dir`` is set: the host's operators and,
+    on a CUDA ``device``, the card's kernels and copies, written to
+    ``<log_dir>/<name>.json`` (Chrome trace format) when the block ends."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(os.path.join(log_dir, f"{name}.json"))

@@ -456,7 +456,7 @@ def test_cli_tiny_run_validates_checkpoints_resumes_and_exports_the_jax_layout(t
     assert all(torch.equal(first["unet." + k], v.detach()) for k, v in restored.lora.items())
 
 
-REFUSED_FLAGS = (["--use_wandb"], ["--fast_init"])
+REFUSED_FLAGS = (["--fast_init"],)
 
 
 def test_cli_refuses_unported_flags_before_building_a_model(tmp_path, monkeypatch):

@@ -422,7 +422,7 @@ def test_config_overrides_keep_types():
 
 
 @pytest.mark.parametrize("override,error", [
-    ("mesh.fsdp=True", NotImplementedError), ("use_wandb=True", NotImplementedError),
+    ("mesh.fsdp=True", NotImplementedError), ("mesh.model=2", NotImplementedError),
     ("train.int8_ref_pass=True", NotImplementedError),
     ("pretrained.model_dir=/x", FileNotFoundError),
     ("kernels.int8_vae_decode=True", NotImplementedError),
@@ -437,9 +437,10 @@ def test_runner_refuses_unported_knobs(tmp_path, override, error):
 
 
 def test_runner_refuses_a_run_where_validation_would_fire(tmp_path):
-    """Validation is ported; its HF datasets source is not: a run where
-    validation would fire on an ``hf:`` source is refused before any work,
-    one where it would not fire is not."""
+    """An ``hf:`` validation source that is a hub name (not a local
+    ``save_to_disk`` directory) needs the network: a run where validation
+    would fire on one is refused before any work, one where it would not
+    fire is not."""
     config = build_config(True, [f"output_dir={tmp_path}", "validation_steps=2",
                                  "val_dataset=hf:yuvalkirstain/pickapic_v1_no_images"])
     with pytest.raises(NotImplementedError, match="val_dataset"):
