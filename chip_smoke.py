@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of PSO (serving, online updates, eval, DreamBooth) on one NVIDIA H100.
+"""Drive the PyTorch port of PSO (serving, training, eval, DreamBooth, data parallelism) on an H100.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --distributed-cards N   # step 11 alone, one rank a card, NCCL;
+                                                  # its record on one line before the last
 
 Run from the repository root on a machine with one CUDA card, ``nvcc`` and
 PyTorch. In order:
@@ -138,7 +140,23 @@ PyTorch. In order:
    with and without the offload, update and offload seconds, the
    optimizers' resting bytes, the checkpoint's size, write and read
    seconds and the host's peak resident memory;
-11. one phase per kernel at every shape steps 5-10 gave it (recorded during
+11. data parallelism (``distributed_slice``): two processes of this script
+   (``--distributed-worker``), both on the card, form a gloo group (NCCL
+   refuses two ranks on one device) and run the Turbo loop at full width
+   through ``run_online_pso``, 2 prompts a rank and one update of 2 x 3
+   microbatches of policy batch 2 over the global 4 pairs: the ranks' LoRA
+   bit-identical after it, their prompts different, the first loss log 2
+   within 1e-3 on both, each rank's launch counts the formula's at its own
+   batch, rank 0 alone writing the metrics, the checkpoint and the LoRA
+   file; then ``train_epoch`` of the small fp32 pipeline of step 3 at world
+   2 over the halves of a seeded sample set must agree with world 1 over
+   the whole set to 2e-3; then NCCL at world 1 (through the launch
+   contract) on CUDA tensors of the LoRA gradients' sizes: the mean, the
+   gather and the broadcast bit-equal to their inputs. A rank that fails or
+   does not end in time fails the phase. Prints per rank the sample and
+   update ms, the all-reduce's, gather's and broadcast's ms and bytes, the
+   peak memory, and the most memory the card held at once;
+12. one phase per kernel at every shape steps 5-11 gave it (recorded during
    those runs) in bf16, plus one fp32 case and, for the attention kernels,
    the bf16 ragged lengths of ``RAGGED`` (and, for the forward, of
    ``RAGGED_FWD`` at head dims 80 and 512; 0 launches): the kernel against
@@ -170,8 +188,8 @@ PyTorch. In order:
    slices of the batch where its logits would pass 1 GiB (the VAE's 16384
    tokens). GroupNorm rows report the share of the limit used. The
    attention forward's times are also printed per head dim;
-12. prints the card line again, the ``{"kernels": [...]}`` line (launches:
-   the sum over the runs of steps 5-10), then, last, the device line.
+13. prints the card line again, the ``{"kernels": [...]}`` line (launches:
+   the sum over the runs of steps 5-11), then, last, the device line.
 
 Any failure raises, and the script exits non-zero. It also exits non-zero,
 printing no result, where CUDA or the port's package is missing. The full
@@ -374,16 +392,16 @@ def bound(bytes_moved, ops, kind):
 # ---------------------------------------------------------------------- #
 
 
-def small_reference(seed):
+def small_modules(seed):
+    """The small fp32 towers (UNet, VAE, two text towers, PickScore) whose
+    attention head dim the kernel takes (64), random from ``seed`` on the
+    CPU, and the generator after their draws."""
     import torch
 
     from pairwise_sample_optimization_tpu_torch.models import (
         AutoencoderKL, CLIPDualEncoder, CLIPTextConfig, CLIPTextTower, CLIPVisionConfig,
         SDXLUNet, UNetConfig, VAEConfig)
     from pairwise_sample_optimization_tpu_torch.models.layers import init_random_
-    from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
-    from pairwise_sample_optimization_tpu_torch.pipeline import SDXLPipeline
-    from pairwise_sample_optimization_tpu_torch.rewards import PickScoreScorer
 
     f32 = torch.float32
     ucfg = UNetConfig(block_out_channels=(64, 128), transformer_layers=(0, 1),
@@ -402,9 +420,28 @@ def small_reference(seed):
     for m in mods:
         init_random_(m, gen, lora_b_std=0.05)
         m.eval()
+    return mods, gen
+
+
+def small_pipeline(mods, device):
+    """A pipeline of copies of ``small_modules``' towers on ``device``."""
+    from pairwise_sample_optimization_tpu_torch.pipeline import SDXLPipeline
+    from pairwise_sample_optimization_tpu_torch.rewards import PickScoreScorer
+
+    return SDXLPipeline(*[copy.deepcopy(m).to(device) for m in mods[:4]],
+                        scorer=PickScoreScorer(copy.deepcopy(mods[4]).to(device)), resolution=64)
+
+
+def small_reference(seed):
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
+    from pairwise_sample_optimization_tpu_torch.pipeline import SDXLPipeline
+    from pairwise_sample_optimization_tpu_torch.rewards import PickScoreScorer
+
+    mods, gen = small_modules(seed)
     cpu = SDXLPipeline(*mods[:4], scorer=PickScoreScorer(mods[4]), resolution=64)
-    gpu = SDXLPipeline(*[copy.deepcopy(m).cuda() for m in mods[:4]],
-                       scorer=PickScoreScorer(copy.deepcopy(mods[4]).cuda()), resolution=64)
+    gpu = small_pipeline(mods, "cuda")
     b = 2
     ids = [torch.randint(1, 998, (b, 77), generator=gen) for _ in range(3)]
     for t in ids:
@@ -2250,6 +2287,426 @@ def dreambooth_slice(seed, recorder):
 
 
 # ---------------------------------------------------------------------- #
+# data parallelism: two ranks sharing the card over gloo, NCCL at world 1
+# ---------------------------------------------------------------------- #
+
+DIST_WORLD = 2  # ranks sharing the one card
+DIST_TIMEOUT_S = 300  # the group's: the longest wait is for rank 0's checkpoint
+DIST_JOIN_S = 480  # both ranks' whole run
+# per rank: one pair batch of 2 prompts, one update of 2 x 3 microbatches of
+# policy batch 2 over the global 4 pairs; checkpoint and LoRA export at step 1
+DIST_CONFIG = {"sample.batch_size": 2, "sample.num_batches_per_epoch": 1,
+               "train.batch_size": 1, "train.gradient_accumulation_steps": 2,
+               "validation_steps": 0}
+DIST_SMALL_PAIRS = 4  # the small pipeline's sample set of part (b)
+# world 2 vs world 1 on the small fp32 pipeline: the LoRA after one AdamW
+# step at lr 1e-3 (a first step is at most lr in size, so the limit sits far
+# below it), and the update's loss, ratio_win and grad_norm
+DIST_SMALL_TOL = (5e-5, 5e-5)
+DIST_SMALL_METRICS_TOL = (1e-6, 1e-3)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _small_trainer(pipe, world):
+    from pairwise_sample_optimization_tpu_torch.train import OnlinePSOConfig, OnlinePSOTrainer
+
+    return OnlinePSOTrainer(OnlinePSOConfig(num_steps=4, train_batch_size=DIST_SMALL_PAIRS // world,
+                                            grad_accum=1), pipe)
+
+
+def _small_epoch(pipe, samples, cond, world, seed, num_batches=1):
+    """``train_epoch`` of the small pipeline's LoRA over ``samples``
+    (``num_batches`` pair batches): one update of the global
+    DIST_SMALL_PAIRS pairs. Returns the LoRA (CPU) and the update's
+    metrics."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.train import (PSOTrainState, lora_parameters,
+                                                              make_optimizer)
+
+    lora = lora_parameters(pipe.unet)
+    state = PSOTrainState.create(lora, make_optimizer(lora, learning_rate=1e-3))
+    _, metrics = _small_trainer(pipe, world).train_epoch(
+        state, samples, cond, torch.Generator().manual_seed(seed + 3), num_batches)
+    if len(metrics) != 1:
+        raise AssertionError(f"{len(metrics)} updates over the small sample set, expected 1")
+    return {k: v.detach().cpu() for k, v in state.lora.items()}, metrics[0]
+
+
+def _digest(tensors):
+    """sha256 of named tensors' names and bytes: equal digests, equal bits."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().contiguous().cpu().view(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def distributed_worker(out_dir, seed, backend):
+    """One rank of ``distributed_slice`` (this script with
+    ``--distributed-worker``; torchrun's variables in its environment): (a)
+    the Turbo loop through ``run_online_pso`` at full width over
+    ``backend`` on the card ``LOCAL_RANK`` names, (b) ``train_epoch`` of the
+    small pipeline over this rank's share of the sample set. Writes
+    ``rank<r>.pt`` for the parent to check."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch import parallel
+    from pairwise_sample_optimization_tpu_torch.cli import online_runner
+    from pairwise_sample_optimization_tpu_torch.configs import sdxl_turbo_dpo
+    from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
+    from pairwise_sample_optimization_tpu_torch.train import online_pso
+
+    torch.set_num_threads(1)
+    parallel.maybe_initialize_distributed(backend=backend, device="cuda",
+                                          timeout_s=DIST_TIMEOUT_S)
+    r, world = parallel.rank(), parallel.world_size()
+    config = sdxl_turbo_dpo.get_config()
+    config.seed, config.output_dir, config.run_name = seed, str(out_dir), "turbo"
+    for key, value in DIST_CONFIG.items():
+        config.override(f"{key}={value}")
+
+    # observation only: the prompts the loader gave, and the synchronized
+    # wall time of the phases and collectives
+    prompts, times = [], {}
+
+    class Recording(online_runner.PromptLoader):
+        def epoch(self):
+            for batch in super().epoch():
+                prompts.append(list(batch["prompts"]))
+                yield batch
+
+    def timed(name, fn, nbytes=None):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            entry = times.setdefault(name, {"calls": 0, "ms": 0.0, "bytes": 0})
+            entry["calls"] += 1
+            entry["ms"] += (time.perf_counter() - t0) * 1e3
+            if nbytes is not None:
+                entry["bytes"] += nbytes(*args)
+            return out
+        return wrapper
+
+    size = lambda t: t.numel() * t.element_size()
+    # the trained tensors and the optimizer's state tensors
+    state_bytes = lambda st, *a: sum(size(t) for t in [*st.lora.values(), *(
+        v for v in st.tx.state_dict()["state"].values() if isinstance(v, torch.Tensor))])
+    patches = [(online_runner, "PromptLoader", Recording),
+               (online_pso.OnlinePSOTrainer, "sample_pairs",
+                timed("sample_pairs", online_pso.OnlinePSOTrainer.sample_pairs)),
+               (online_pso.OnlinePSOTrainer, "update",
+                timed("update", online_pso.OnlinePSOTrainer.update)),
+               (online_pso, "all_reduce_mean_",
+                timed("all_reduce_mean_", online_pso.all_reduce_mean_,
+                      lambda ts, *a: sum(size(t) for t in ts))),
+               (online_pso, "process_allgather",
+                timed("process_allgather", online_pso.process_allgather, size)),
+               (online_runner, "broadcast_train_state_",
+                timed("broadcast_train_state_", online_runner.broadcast_train_state_,
+                      state_bytes))]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, value in patches:
+        setattr(obj, name, value)
+    recorder = ShapeRecorder()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with recorder:
+            state, history, pipe = online_runner.run_online_pso(config, num_epochs=1,
+                                                                device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+    wall_s = time.perf_counter() - t0
+    counts = dict(kernel_lib.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    t_cfg = config.train
+    n_micro = t_cfg.gradient_accumulation_steps * t_cfg.distilled_train_steps
+    sample = expected_launches(pipe, config.sample.num_steps)
+    update = expected_update_launches(pipe.unet.config, n_micro, bool(t_cfg.fuse_ref_pass),
+                                      2 * t_cfg.batch_size, pipe.latent_hw,
+                                      torch.cuda.get_device_properties(0).multi_processor_count)
+    want = {k: config.sample.num_batches_per_epoch * sample[k] + len(history) * update[k]
+            for k in sample}
+    turbo = {"rank": r, "world": world, "launches": counts, "expected_launches": want,
+             "history": history, "step": state.step, "prompts": prompts,
+             "lora_sha256": _digest(state.lora), "lora_tensors": len(state.lora),
+             "peak_bytes": peak, "wall_s": wall_s, "times": times, "n_micro": n_micro,
+             "policy_batch": 2 * t_cfg.batch_size,
+             "shapes": {"attention": recorder.attention, "attention_bwd": recorder.attention_bwd,
+                        "gn": recorder.gn}}
+    del state, pipe
+    torch.cuda.empty_cache()
+
+    # (b) this rank's share of the small sample set, as pair batches of one
+    # prompt each
+    small = torch.load(out_dir / "small_samples.pt", weights_only=True)
+    pipe = small_pipeline(small_modules(seed)[0], "cuda")
+    half = DIST_SMALL_PAIRS // world
+    rows = lambda tree: {k: v[r * half:(r + 1) * half].cuda() for k, v in tree.items()}
+    lora, metrics = _small_epoch(pipe, rows(small["samples"]), rows(small["cond"]), world,
+                                 seed, num_batches=half)
+    torch.save({"turbo": turbo, "small_lora": lora, "small_metrics": metrics},
+               out_dir / f"rank{r}.pt")
+    parallel.barrier()
+    parallel.shutdown_distributed()
+    return 0
+
+
+def _nccl_world_1():
+    """(c): NCCL at world 1 through the launch contract: the collectives on
+    CUDA tensors of the Turbo LoRA's gradients' sizes (rank 32) must return
+    their inputs bit for bit; their ms."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pairwise_sample_optimization_tpu_torch import parallel
+    from pairwise_sample_optimization_tpu_torch.models.unet import SDXLUNet, UNetConfig
+    from pairwise_sample_optimization_tpu_torch.train import lora_parameters
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()), "WORLD_SIZE": "1",
+           "RANK": "0", "LOCAL_RANK": "0"}
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        parallel.maybe_initialize_distributed(device="cuda", timeout_s=DIST_TIMEOUT_S)
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"a CUDA device took the {backend} backend, not NCCL")
+        shapes = [p.shape for p in lora_parameters(
+            SDXLUNet(UNetConfig.sdxl(lora_rank=32), device="meta")).values()]
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        grads = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+        want = [g.clone() for g in grads]
+        nbytes = sum(g.numel() * g.element_size() for g in grads)
+        res = {"backend": backend, "tensors": len(grads), "bytes": nbytes}
+
+        def timed(fn):
+            fn()  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        _, res["all_reduce_mean_ms"] = timed(lambda: parallel.all_reduce_mean_(grads))
+        _, res["broadcast_ms"] = timed(lambda: parallel.broadcast_(grads))
+        gathered, res["allgather_ms"] = timed(lambda: [parallel.process_allgather(g)
+                                                        for g in grads])
+        host = np.arange(11, dtype=np.float32)
+        for name, ok in (("all_reduce_mean_", all(torch.equal(g, w) for g, w in zip(grads, want))),
+                         ("broadcast_", True),
+                         ("process_allgather", all(o.shape == (1, *w.shape) and torch.equal(o[0], w)
+                                                   for o, w in zip(gathered, want))),
+                         ("process_allgather (numpy)",
+                          np.array_equal(parallel.process_allgather(host), host[None]))):
+            if not ok:
+                raise AssertionError(f"NCCL at world 1: {name} changed its input")
+    finally:
+        parallel.shutdown_distributed()
+    log(f"NCCL at world 1 over {res['tensors']} LoRA-gradient tensors ({res['bytes']} bytes): "
+        f"all_reduce_mean_ {res['all_reduce_mean_ms']:.2f} ms, broadcast_ "
+        f"{res['broadcast_ms']:.2f} ms, process_allgather {res['allgather_ms']:.2f} ms "
+        f"({res['tensors']} calls); every result bit-equal to its input")
+    return res
+
+
+def distributed_slice(seed, recorder, cards=1):
+    """Data parallelism on the card, in three parts:
+
+    (a) two ranks, each a process of this script on ``cuda:0``, over gloo
+    (NCCL refuses two ranks on one device; with ``cards`` > 1, one rank a
+    card over NCCL, ``--distributed-cards``), run the Turbo loop at full width
+    through ``run_online_pso`` (``DIST_CONFIG``: 2 prompts a rank, one update
+    of the global 4 pairs, a checkpoint and LoRA export by rank 0 at step 1):
+    both ranks' LoRA bit-identical after the update, their prompts
+    different (``seed + rank``), the first loss log 2 within 1e-3 on both,
+    each rank's launch counts (zeroed just before its run, read just after)
+    the formula's at its own batch, one metrics row (rank 0's), the
+    checkpoint and the LoRA file written; per rank the sample, update,
+    all-reduce, gather and broadcast ms and bytes and the peak memory, and
+    the most device memory the two used at once;
+    (b) ``train_epoch`` of the small fp32 pipeline at world 2 over the two
+    halves of a seeded sample set of ``DIST_SMALL_PAIRS`` pairs, each half
+    two pair batches of one prompt, against world 1 over the whole set in
+    the order of a one-process epoch (pair batch, then rank), here: every
+    LoRA tensor within ``DIST_SMALL_TOL``, the update's loss, ratio_win and
+    grad_norm within ``DIST_SMALL_METRICS_TOL``, the ranks' bit-equal (over
+    ``cards`` ranks and shares where more);
+    (c) NCCL at world 1 (``_nccl_world_1``).
+
+    A rank that fails, or does not end within ``DIST_JOIN_S``, fails the
+    phase. The ranks' kernel shapes join ``recorder``."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.checkpoints import LORA_FILE
+
+    world, backend = (DIST_WORLD, "gloo") if cards == 1 else (cards, "nccl")
+    out = RUN_DIR / "distributed"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+
+    # (b)'s sample set and its world-1 epoch, made before the ranks start
+    mods, _ = small_modules(seed)
+    pipe = small_pipeline(mods, "cuda")
+    g = torch.Generator().manual_seed(seed + 1)
+    ids = [torch.randint(1, 998, (DIST_SMALL_PAIRS, 77), generator=g).cuda() for _ in range(3)]
+    cond = pipe.encode_prompt(*ids)
+    samples, _ = _small_trainer(pipe, 1).sample_pairs(
+        cond, torch.Generator(device="cuda").manual_seed(seed + 2))
+    cond = {k: cond[k] for k in ("embeds", "pooled", "time_ids")}
+    torch.save({"samples": {k: v.cpu() for k, v in samples.items()},
+                "cond": {k: v.cpu() for k, v in cond.items()}}, out / "small_samples.pt")
+    # one process's epoch of the ranks' pair batches: batch j holds row j of
+    # each rank's share, in rank order
+    half = DIST_SMALL_PAIRS // world
+    order = torch.tensor([r * half + j for j in range(half) for r in range(world)],
+                         device=samples["log_probs"].device)
+    small_want, small_want_metrics = _small_epoch(
+        pipe, {k: v[order] for k, v in samples.items()},
+        {k: v[order] for k, v in cond.items()}, 1, seed)
+    del pipe, mods, samples, cond
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (a) and (b) in the two rank processes
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+           "WORLD_SIZE": str(world)}
+    logs = [open(out / f"rank{r}.log", "w") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+                               "--distributed-worker", str(out), "--distributed-backend",
+                               backend], cwd=ROOT,
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r if cards > 1 else 0)},
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    free0, total = torch.cuda.mem_get_info()
+    most_used = total - free0
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() - t0 > DIST_JOIN_S:
+                raise AssertionError(f"the ranks did not end within {DIST_JOIN_S} s")
+            most_used = max(most_used, total - torch.cuda.mem_get_info()[0])
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks_s = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    if codes != [0] * world:
+        tails = "\n".join(f"--- rank {r} (exit {c}) ---\n"
+                          + (out / f"rank{r}.log").read_text()[-4000:]
+                          for r, c in enumerate(codes))
+        raise AssertionError(f"distributed ranks exited {codes}\n{tails}")
+    res = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    turbo = [x["turbo"] for x in res]
+
+    if len({t["lora_sha256"] for t in turbo}) != 1:
+        raise AssertionError(f"the ranks' LoRA differ after the update: "
+                             f"{[t['lora_sha256'] for t in turbo]}")
+    if len({json.dumps(t["prompts"]) for t in turbo}) != world:
+        raise AssertionError(f"ranks sampled the same prompts: {[t['prompts'] for t in turbo]}")
+    for t in turbo:
+        if t["launches"] != t["expected_launches"]:
+            raise AssertionError(f"rank {t['rank']} launch counts {t['launches']} != expected "
+                                 f"{t['expected_launches']}")
+        if len(t["history"]) != 1 or t["step"] != 1:
+            raise AssertionError(f"rank {t['rank']}: {len(t['history'])} updates, step {t['step']}")
+        if abs(t["history"][0]["loss"] - math.log(2.0)) > 1e-3:
+            raise AssertionError(f"rank {t['rank']} first loss {t['history'][0]['loss']} != log 2")
+    if any(t["history"] != turbo[0]["history"] for t in turbo):
+        raise AssertionError(f"the ranks logged other numbers: {[t['history'] for t in turbo]}")
+    run = out / "turbo"
+    rows = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    if sum("loss" in x for x in rows) != 1 or not (run / "checkpoint-1" / "state.pt").exists() \
+            or not (run / "lora-1" / LORA_FILE).exists():
+        raise AssertionError(f"rank 0's writes: {len(rows)} metrics rows, "
+                             f"{sorted(p.name for p in run.iterdir())}")
+    small_errs, metric_errs = [], []
+    for x in res:
+        small_errs.append(max(check_close(f"small LoRA {k}, world 2 vs 1", x["small_lora"][k],
+                                          small_want[k], DIST_SMALL_TOL) for k in small_want))
+        metric_errs.append({k: check_close(f"small update's {k}, world 2 vs 1",
+                                           torch.tensor(x["small_metrics"][k], dtype=torch.float64),
+                                           torch.tensor(v, dtype=torch.float64),
+                                           DIST_SMALL_METRICS_TOL)
+                            for k, v in small_want_metrics.items()})
+    if any(not torch.equal(res[0]["small_lora"][k], x["small_lora"][k])
+           for x in res for k in small_want):
+        raise AssertionError("the ranks' small LoRA differ")
+    for t in turbo:  # the ranks' kernel shapes join the kernel phases'
+        for table, entries in t["shapes"].items():
+            mine = getattr(recorder, table)
+            for key, n in entries.items():
+                mine[key] = mine.get(key, 0) + n
+    nccl = _nccl_world_1()
+
+    launches = {k: sum(t["launches"][k] for t in turbo) for k in KERNELS}
+    per_rank = [{"rank": t["rank"], "peak_bytes": t["peak_bytes"], "wall_s": t["wall_s"],
+                 "sample_ms": t["times"]["sample_pairs"]["ms"],
+                 "update_ms": t["times"]["update"]["ms"],
+                 "all_reduce": t["times"]["all_reduce_mean_"],
+                 "gather": t["times"]["process_allgather"],
+                 "broadcast": t["times"]["broadcast_train_state_"]} for t in turbo]
+    summary = {"world": world, "backend": backend, "cards": cards, "config": DIST_CONFIG,
+               "policy_batch": turbo[0]["policy_batch"], "n_micro": turbo[0]["n_micro"],
+               "launches": launches, "launches_by_rank": [t["launches"] for t in turbo],
+               "history": turbo[0]["history"], "lora_sha256": turbo[0]["lora_sha256"],
+               "prompts": [t["prompts"] for t in turbo], "per_rank": per_rank,
+               "most_device_bytes_in_use": most_used, "ranks_s": ranks_s,
+               "small_max_abs_diff": small_errs, "small_metrics": small_want_metrics,
+               "small_metrics_abs_diff": metric_errs, "nccl_world_1": nccl}
+    for p in per_rank:
+        log(f"distributed rank {p['rank']} of {world} ({backend}, "
+            f"{'one card each' if cards > 1 else 'all on one card'}): sample "
+            f"{p['sample_ms']:.1f} ms, update {p['update_ms']:.1f} ms (its all-reduce "
+            f"{p['all_reduce']['ms']:.1f} ms over {p['all_reduce']['bytes']} bytes in "
+            f"{p['all_reduce']['calls']} calls), gather {p['gather']['ms']:.1f} ms / "
+            f"{p['gather']['bytes']} bytes, broadcast {p['broadcast']['ms']:.1f} ms / "
+            f"{p['broadcast']['bytes']} bytes, peak {p['peak_bytes'] / 2**30:.2f} GiB, run "
+            f"{p['wall_s']:.1f} s")
+    log(f"distributed Turbo loop at 512^2, {world} ranks x 2 prompts, one update of "
+        f"{turbo[0]['n_micro']} microbatches at policy batch {turbo[0]['policy_batch']} a rank: "
+        f"LoRA bit-identical (sha256 {turbo[0]['lora_sha256'][:16]}), loss "
+        f"{turbo[0]['history'][0]['loss']:.6f}, prompts {[t['prompts'] for t in turbo]}, "
+        f"launches per rank {turbo[0]['launches']}; card 0 held at most "
+        f"{most_used / 2**30:.2f} GiB; ranks' processes {ranks_s:.1f} s; small pipeline world "
+        f"{world} vs 1 max|diff| {max(small_errs):.2e} (limit {DIST_SMALL_TOL}), its update "
+        f"{small_want_metrics} at world 1, |diff| {metric_errs} (limit {DIST_SMALL_METRICS_TOL})")
+    shutil.rmtree(out, ignore_errors=True)
+    return summary
+
+
+# ---------------------------------------------------------------------- #
 # kernel phases
 # ---------------------------------------------------------------------- #
 
@@ -2635,6 +3092,12 @@ def summarize(name, rows, launches):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--distributed-cards", type=int, default=1, metavar="N",
+                    help="run the distributed phase alone, one rank on each of N > 1 cards "
+                         "over NCCL (default: every phase on one card)")
+    ap.add_argument("--distributed-worker", default="", metavar="DIR",
+                    help="run one rank of the distributed phase, writing into DIR")
+    ap.add_argument("--distributed-backend", default="gloo", choices=("gloo", "nccl"))
     args = ap.parse_args(argv)
 
     import torch
@@ -2650,6 +3113,13 @@ def main(argv=None) -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.distributed_worker:
+        return distributed_worker(Path(args.distributed_worker), args.seed,
+                                  args.distributed_backend)
+    if args.distributed_cards > torch.cuda.device_count():
+        print(f"chip_smoke: {args.distributed_cards} cards asked for, "
+              f"{torch.cuda.device_count()} present", file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2657,6 +3127,9 @@ def main(argv=None) -> int:
     log(card.splitlines()[0])
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
+    device_line = json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                     "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}})
 
     t = time.perf_counter()
     build_s = kernel_lib.build()
@@ -2665,6 +3138,14 @@ def main(argv=None) -> int:
         for line in log_file.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {log_file.stem}: {line.strip()}")
+
+    if args.distributed_cards > 1:  # the data-parallel phase over several cards alone
+        summary = distributed_slice(args.seed, ShapeRecorder(), args.distributed_cards)
+        print(json.dumps({"cards": card, "build_s": build_s, "distributed": summary,
+                          "seconds": time.perf_counter() - t_start}))
+        log(card)
+        print(device_line)
+        return 0
 
     small = small_reference(args.seed)
     slice_summary = full_slice(args.seed)
@@ -2677,10 +3158,11 @@ def main(argv=None) -> int:
     db_summary = dreambooth_slice(args.seed, recorder)
     remat_summary = remat_phase(args.seed, recorder)
     full_summary = full_finetune_slice(args.seed, recorder)
+    dist_summary = distributed_slice(args.seed, recorder)
     paths = {"turbo_loop": train_summary["launches"], "dmd_loop": dmd_summary["launches"],
              "dmd_eval": eval_summary["launches_all_runs"],
              "dreambooth": db_summary["launches"], "remat": remat_summary["launches"],
-             "full_finetune": full_summary["launches"]}
+             "full_finetune": full_summary["launches"], "distributed": dist_summary["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     bwd_rows, bwd_whole, run_to_run = attention_bwd_phase(recorder.attention_bwd, args.seed)
     rows = {**attention_phase(recorder.attention, args.seed), **bwd_rows,
@@ -2692,6 +3174,7 @@ def main(argv=None) -> int:
               "build_s": build_s, "small_reference": small, "slice": slice_summary,
               "train": train_summary, "dmd_train": dmd_summary, "eval": eval_summary,
               "dreambooth": db_summary, "remat": remat_summary, "full_finetune": full_summary,
+              "distributed": dist_summary,
               "launches_by_path": paths, "function_check": function_errs, "kernels": kernels,
               "backward": bwd_whole, "backward_run_to_run": run_to_run,
               "seconds": time.perf_counter() - t_start}
@@ -2704,9 +3187,7 @@ def main(argv=None) -> int:
     log(card.splitlines()[0])
     print(json.dumps({"kernels": [{k: v for k, v in kern.items()
                                    if k not in ("shapes", "by_head_dim")} for kern in kernels]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    print(device_line)
     return 0
 
 

@@ -12,13 +12,15 @@
 Counterpart of the JAX package's ``cli/evaluate_sdxl_dmd2.py``: 4-step DMD2
 generation on the fixed lattice [999, 749, 499, 249] at guidance 0, one
 image per prompt, each prompt's noise drawn from a generator seeded by
-(``--seed``, its global index) so that the batch size never changes an
-image; the prompts are sharded round-robin over processes (the last shard
-padded, the scores gathered back into dataset order and truncated; one
-process today); the images scored by PickScore, CLIP score, HPS, the
-LAION aesthetic model and ImageReward; the means reported. It prints the
-timing line (with ``--timing``) and then the summary as JSON, and writes
-``--output_json`` with ``n_prompts``, ``<scorer>_mean`` and ``per_prompt``.
+(``--seed``, its global index) so that neither the batch size nor the
+number of processes changes an image; the prompts are sharded round-robin
+over the processes of a ``torch.distributed`` group (``torchrun
+--nproc_per_node=N``, one card a rank; the last shard padded, the scores
+gathered back into dataset order and truncated); the images scored by
+PickScore, CLIP score, HPS, the LAION aesthetic model and ImageReward; the
+means reported. Rank 0 prints the timing line (with ``--timing``) and then
+the summary as JSON, and writes ``--output_json`` with ``n_prompts``,
+``<scorer>_mean`` and ``per_prompt``.
 
 Weights: the SDXL towers from a local diffusers checkpoint
 (``--model_dir``) and the PSO adapter from ``--lora_path``; the scorers'
@@ -69,6 +71,7 @@ from ..models.bert import BertConfig
 from ..models.clip import CLIPTextConfig, CLIPVisionConfig
 from ..models.layers import set_gelu_exact
 from ..models.vit import ViTConfig
+from .. import parallel
 from ..pipeline import SDXLPipeline
 from ..rewards import (AestheticScorer, CLIPScorer, HPSScorer, ImageRewardScorer,
                        PickScoreScorer)
@@ -172,13 +175,6 @@ def shard_prompts(prompts, rank: int, world: int):
     return shard
 
 
-def gather_round_robin(shards, n_total: int) -> np.ndarray:
-    """Inverse of :func:`shard_prompts`: per-rank score arrays (each of the
-    padded shard length) -> scores in dataset order, pads dropped."""
-    world = len(shards)
-    return np.asarray([shards[i % world][i // world] for i in range(n_total)])
-
-
 def prompt_generator(seed: int, index: int, device) -> torch.Generator:
     """The generator of the prompt at global ``index``: its noise depends on
     (seed, index) only."""
@@ -267,9 +263,10 @@ def _timing_summary(timing, chunk: int):
 
 def main(argv=None):
     args = parse_args(argv)
-    rank, world = 0, 1  # one process: distributed evaluation is not ported yet
     wanted = check_args(args)
     dev = resolve_device(args.device)
+    parallel.maybe_initialize_distributed(device=dev)
+    rank, world = parallel.rank(), parallel.world_size()  # 0 of 1 without a group
     resolution = args.resolution or (32 if args.tiny else 1024)
     chunk = score_chunk(args, resolution)
     set_gelu_exact(args.gelu_exact)
@@ -379,11 +376,11 @@ def main(argv=None):
             if chunk > bs or done % (10 * bs) < bs or done == per:
                 logger.info("[%d/%d] prompts evaluated", done, per)
 
-    # ---- gather (one process: the shard itself) -> dataset order -> means ----
+    # ---- gather (every rank's padded shard) -> dataset order -> means ----
     summary, per_prompt = {}, {}
     for name, chunks in results.items():
         local = np.concatenate(chunks)[:per]
-        gathered = gather_round_robin([local], n_total)
+        gathered = parallel.round_robin_gather(local, n_total)
         per_prompt[name] = [float(x) for x in gathered]
         summary[f"{name}_mean"] = float(np.mean(gathered))
         logger.info("%s on eval set: %.8f", name, summary[f"{name}_mean"])
@@ -391,7 +388,9 @@ def main(argv=None):
     if timing_summary:
         logger.info("timing: %s", timing_summary)
 
-    if rank == 0 and args.output_json:
+    if rank != 0:
+        return summary
+    if args.output_json:
         with open(args.output_json, "w") as f:
             json.dump({"n_prompts": n_total, **summary,
                        **({"timing": timing_summary} if timing_summary else {}),
@@ -403,4 +402,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        parallel.shutdown_distributed()

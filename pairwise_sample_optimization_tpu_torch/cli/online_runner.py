@@ -1,4 +1,5 @@
-"""The online-PSO run loop for SDXL-Turbo and SDXL-DMD2 on one device.
+"""The online-PSO run loop for SDXL-Turbo and SDXL-DMD2, on one device or
+data-parallel over a ``torch.distributed`` group.
 
 Counterpart of the JAX package's ``cli/online_runner.py::run_online_pso``:
 build the pipeline (a local diffusers checkpoint under
@@ -57,8 +58,21 @@ invocation, or the only one, with ``torch.profiler``
 (``<profile_dir>/epoch-<n>.json``); ``use_wandb`` logs to wandb too where
 it imports and starts, as the JAX runner does.
 
+Data parallelism, as the JAX runner's: launched as ``torchrun
+--nproc_per_node=N`` (or with the JAX package's ``PSO_COORDINATOR`` /
+``PSO_NUM_PROCESSES`` / ``PSO_PROCESS_ID``), each process runs on its own
+card (``cuda:LOCAL_RANK``) with ``mesh.data`` -1 or the world size;
+``sample.batch_size`` and ``train.batch_size`` are per rank, each rank's
+prompt stream is seeded ``seed + rank``, and an update averages the
+gradients of the global microbatch over the ranks
+(``train/online_pso.py``). The trained tensors and the optimizer state are
+broadcast from rank 0 after build or resume, the rewards gathered before
+their mean and std are logged, and rank 0 alone logs metrics, validates,
+checkpoints, exports the LoRA and prunes, the other ranks waiting for it.
+
 Not ported yet, and refused when asked for (by :func:`check_config`):
-meshes beyond one device, ``fast_init`` and the JAX package's int8 options.
+``mesh.model > 1`` and ``mesh.fsdp`` (tensor parallelism and FSDP),
+``fast_init`` and the JAX package's int8 options.
 """
 
 from __future__ import annotations
@@ -77,6 +91,8 @@ from ..data import PromptDataset, PromptLoader, make_clip_tokenizers
 from ..device import resolve_device
 from ..models.layers import set_gelu_exact
 from ..models.unet import frozen_copy
+from ..parallel import (MeshSpec, barrier, broadcast_train_state_, host_fold,
+                        maybe_initialize_distributed, process_allgather, rank, world_size)
 from ..pipeline import SAMPLERS, SDXLPipeline
 from ..rewards import CLIPScorer
 from ..train import (OnlinePSOConfig, OnlinePSOTrainer, PSOTrainState, all_parameters,
@@ -89,7 +105,6 @@ logger = get_logger("pso.online")
 
 # knob -> its default; any other value is refused until the port has it
 _UNPORTED = {
-    "mesh.data": (-1, 1), "mesh.model": (1,), "mesh.fsdp": (False,),
     "fast_init": (False,), "train.int8_ref_pass": (False,),
     "kernels.subpixel_upsample": (False,), "kernels.int8_vae_decode": (False,),
     "kernels.int8_smooth_alpha": (0.0,),
@@ -105,9 +120,11 @@ def _get(config, dotted: str):
     return node
 
 
-def check_config(config, sampler: str) -> None:
-    """Refuse knobs the port does not implement. The remat mode is the
-    UNet's to check (``models/unet.py``)."""
+def check_config(config, sampler: str, world: int = 1) -> None:
+    """Refuse knobs the port does not implement, and a mesh that does not
+    cover the ``world`` processes. The remat mode is the UNet's to check
+    (``models/unet.py``)."""
+    MeshSpec(config.mesh.data, config.mesh.model, bool(config.mesh.fsdp)).resolve(world)
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r}; have {SAMPLERS}")
     for key, allowed in _UNPORTED.items():
@@ -215,9 +232,13 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
     start or from the checkpoint under ``config.resume_from``, writing to
     :func:`run_dir`. Returns (state, metrics history: one dict per update,
     the pipeline whose UNet carries the trained adapter, or the trained
-    weights and the frozen reference copy under full finetuning)."""
-    check_config(config, sampler)
+    weights and the frozen reference copy under full finetuning). Under a
+    process group every rank calls it; each returns its own pipeline and
+    the same state and history."""
     dev = resolve_device(device)
+    maybe_initialize_distributed(device=dev)
+    world, is_main = world_size(), rank() == 0
+    check_config(config, sampler, world)
     dtype = torch.bfloat16 if config.mixed_precision == "bf16" else torch.float32
     tiny = bool(config.tiny_model)
     epochs = config.num_epochs if num_epochs is None else num_epochs
@@ -232,8 +253,9 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
     offload = HostOffload(aux) if config.offload_aux_during_update else None
     tok1, tok2, tok_r = make_clip_tokenizers(
         config.pretrained.bpe_path, vocab_size=pipe.te1.config.vocab_size, with_reward=True)
+    # per-rank prompt streams; train.batch_size is per rank too
     loader = PromptLoader(PromptDataset(config.prompt_json or None), config.sample.batch_size,
-                          tok1, tok2, reward_tokenizer=tok_r, seed=config.seed)
+                          tok1, tok2, reward_tokenizer=tok_r, seed=host_fold(config.seed))
 
     # ---- trainer, optimizer, state ----
     ocfg = OnlinePSOConfig(
@@ -268,6 +290,8 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
             # epoch-keyed random streams of epochs already trained
             start_epoch = int(extra.get("epoch", 0)) + 1
             logger.info("resumed from %s (step %d, epoch %d)", ckpt, state.step, start_epoch)
+    # every rank starts from rank 0's state (the weights are the same seed's)
+    broadcast_train_state_(state)
 
     # ---- validation: its prompts where it will fire; the CLIP scorer when it
     # first fires (at full width ~2 GB a run without validation need not hold) ----
@@ -304,8 +328,8 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
     profile_epoch = start_epoch + (1 if epochs > 1 else 0)
     try:
         for epoch in range(start_epoch, start_epoch + epochs):
-            with profile_to(config.profile_dir if epoch == profile_epoch else None, dev,
-                            f"epoch-{epoch}"):
+            with profile_to(config.profile_dir if epoch == profile_epoch and is_main else None,
+                            dev, f"epoch-{epoch}"):
                 gen = torch.Generator(device=dev).manual_seed(_epoch_seed(config.seed, epoch, 0))
                 shuffle_gen = torch.Generator().manual_seed(_epoch_seed(config.seed, epoch, 1))
                 # ---------------- sampling ----------------
@@ -324,7 +348,7 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
                             break
                 samples = {k: torch.cat([s[k] for s in all_samples]) for k in all_samples[0]}
                 cond = {k: torch.cat([c[k] for c in all_cond]) for k in all_cond[0]}
-                rewards = samples["rewards"].float()
+                rewards = process_allgather(samples["rewards"].float()).flatten(0, 1)
                 metrics_logger.log_metrics({"epoch": epoch, "reward_mean": rewards.mean(),
                                             "reward_std": rewards.std(unbiased=False)}, state.step)
 
@@ -335,7 +359,8 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
                     with timer.phase("offload"):
                         offload.to_host()
                 with timer.phase("train"):
-                    state, step_metrics = trainer.train_epoch(state, samples, cond, shuffle_gen)
+                    state, step_metrics = trainer.train_epoch(state, samples, cond, shuffle_gen,
+                                                              len(all_samples))
                 if offload is not None:
                     with timer.phase("reload"):
                         offload.to_device()
@@ -344,10 +369,13 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
                     global_step += 1
                     metrics_logger.log_metrics({**m, **moves, **timer.summary()}, global_step)
                     history.append(m)
-                    if config.validation_steps and global_step % config.validation_steps == 0:
+                    validating = bool(config.validation_steps
+                                      and global_step % config.validation_steps == 0)
+                    saving = bool(config.checkpointing_steps and (
+                        global_step % config.checkpointing_steps == 0 or global_step == 1))
+                    if is_main and validating:
                         validate(global_step)
-                    if config.checkpointing_steps and (
-                            global_step % config.checkpointing_steps == 0 or global_step == 1):
+                    if is_main and saving:
                         # the state after the whole epoch, under the update's step
                         # number, as the JAX runner saves it
                         path = save_train_state(out_dir, global_step, state, {"epoch": epoch})
@@ -357,6 +385,8 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
                             export_lora_safetensors(pipe.unet, os.path.join(lora_dir, LORA_FILE))
                         prune_checkpoints(out_dir, int(config.num_checkpoint_limit))
                         logger.info("saved state to %s", path)
+                    if validating or saving:  # the other ranks wait for rank 0's work
+                        barrier()
                 timer.reset()
     finally:
         metrics_logger.close()

@@ -11,6 +11,15 @@ Runs ``cli.online_runner.run_online_pso(sampler="dmd")`` with the
 run of a few seconds); the device is CUDA unless ``--device cpu`` is given.
 ``train.distilled_train_steps`` must equal ``sample.num_steps - 1``
 (``online_runner.check_config`` refuses any other value before any work).
+
+Data-parallel over N cards of one machine:
+
+    torchrun --nproc_per_node=N -m \
+        pairwise_sample_optimization_tpu_torch.cli.train_online_pso_sdxl_dmd2 [key=value ...]
+
+Each rank runs on ``cuda:LOCAL_RANK`` (NCCL); ``sample.batch_size`` and
+``train.batch_size`` are per rank. With ``--device cpu`` the ranks talk
+over gloo.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from __future__ import annotations
 import argparse
 
 from ..configs.sdxl_dmd_dpo import get_config
+from ..parallel import shutdown_distributed
 from .online_runner import run_online_pso
 from .train_online_pso_sdxl_turbo import TINY_OVERRIDES
 
@@ -45,4 +55,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown_distributed()

@@ -8,6 +8,15 @@ Runs ``cli.online_runner.run_online_pso`` with the
 ``train.beta=25 sample.batch_size=2``. ``--tiny`` selects the toy 2-level
 models at 16x16 with one pair batch of 2 prompts per epoch (a CPU run of a
 few seconds); the device is CUDA unless ``--device cpu`` is given.
+
+Data-parallel over N cards of one machine:
+
+    torchrun --nproc_per_node=N -m \
+        pairwise_sample_optimization_tpu_torch.cli.train_online_pso_sdxl_turbo [key=value ...]
+
+Each rank runs on ``cuda:LOCAL_RANK`` (NCCL); ``sample.batch_size`` and
+``train.batch_size`` are per rank. With ``--device cpu`` the ranks talk
+over gloo.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from __future__ import annotations
 import argparse
 
 from ..configs.sdxl_turbo_dpo import get_config
+from ..parallel import shutdown_distributed
 from .online_runner import run_online_pso
 
 TINY_OVERRIDES = (
@@ -49,4 +59,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown_distributed()

@@ -22,6 +22,15 @@ per run, so for the same seed the port picks other instances and
 negatives than the JAX CLI does, and a resumed JAX run draws other picks
 than its uninterrupted run.
 
+Data-parallel (``torchrun --nproc_per_node=N``, one card a rank): each rank
+draws its own picks, latents, lattice indices and noise (rank 0 the
+one-process run's; the others from seeds that take their rank, as the JAX
+CLI offsets its picks per process), the gradients are averaged over the
+ranks before the clip, and ``--scale_lr`` multiplies by the world size too.
+Every rank makes the same negatives and encode caches; rank 0 alone
+generates the class images, writes checkpoints, LoRA files and metrics,
+and validates, the other ranks waiting for it.
+
 - ``--with_prior_preservation`` with ``--class_data_dir``: class images are
   generated into the directory as PNGs until it holds
   ``--num_class_images``; they join the win half with the class prompt;
@@ -41,8 +50,8 @@ than its uninterrupted run.
   or weight decays differ, with the six diffusers schedules
   (``--lr_scheduler``); or ``--optimizer prodigy`` over all of them at
   ``--learning_rate`` (the text encoders' lr is overridden), a
-  non-constant schedule multiplying its update; ``--scale_lr`` at a world
-  size of 1;
+  non-constant schedule multiplying its update; ``--scale_lr`` multiplies
+  the learning rates by accumulation x batch x world size;
 - checkpoints every ``--checkpointing_steps`` and at the last step:
   ``checkpoint-<step>/`` (the train state) and
   ``lora-<step>/pytorch_lora_weights.safetensors`` (diffusers layout, every
@@ -95,6 +104,8 @@ from ..data import make_clip_tokenizers
 from ..data.dreambooth import DreamBoothDataset, image_files
 from ..device import resolve_device
 from ..models.sdxl_text import compute_time_ids, time_ids_from_records
+from ..parallel import (barrier, broadcast_train_state_, maybe_initialize_distributed, rank,
+                        rank_entropy, shutdown_distributed, world_size)
 from ..pipeline import SDXLPipeline
 from ..train import (DreamBoothPSOConfig, DreamBoothPSOTrainer, PSOTrainState, lora_parameters,
                      make_lr_schedule, make_optimizer)
@@ -129,7 +140,7 @@ def parse_args(argv=None):
     p.add_argument("--gradient_accumulation_steps", type=int, default=4)
     p.add_argument("--learning_rate", type=float, default=2e-4)
     p.add_argument("--scale_lr", action="store_true",
-                   help="scale the lr by accumulation x batch x world size (1)")
+                   help="scale the lr by accumulation x batch x world size")
     p.add_argument("--text_encoder_lr", type=float, default=5e-6)
     p.add_argument("--train_text_encoder", action="store_true",
                    help="also train a LoRA on both text encoders")
@@ -232,7 +243,7 @@ def make_dreambooth_optimizer(args, lora, total_steps: int):
     global-norm clip over every tensor."""
     lr, te_lr = args.learning_rate, args.text_encoder_lr
     if args.scale_lr:
-        scale = args.gradient_accumulation_steps * args.train_batch_size
+        scale = args.gradient_accumulation_steps * args.train_batch_size * world_size()
         lr, te_lr = lr * scale, te_lr * scale
     sched = lambda base: make_lr_schedule(args.lr_scheduler, base, args.lr_warmup_steps,
                                           total_steps, num_cycles=args.lr_num_cycles,
@@ -267,13 +278,16 @@ def make_dreambooth_optimizer(args, lora, total_steps: int):
 
 
 def _step_seed(seed: int, step: int) -> int:
-    return int(np.random.SeedSequence([seed, step, 3]).generate_state(1)[0])
+    """The seed of this rank's generator at ``step``."""
+    return int(np.random.SeedSequence(rank_entropy([seed, step, 3])).generate_state(1)[0])
 
 
 def main(argv=None):
     args = parse_args(argv)
     check_args(args)
     dev = resolve_device(args.device)
+    maybe_initialize_distributed(device=dev)
+    is_main = rank() == 0
     resolution = args.resolution or (TINY_RESOLUTION if args.tiny else 512)
     use_prior = bool(args.with_prior_preservation and args.class_data_dir)
     if use_prior and os.path.isdir(args.class_data_dir):
@@ -351,11 +365,12 @@ def main(argv=None):
         os.makedirs(args.class_data_dir, exist_ok=True)
         existing = image_files(args.class_data_dir)
         missing = args.num_class_images - len(existing)
-        if missing > 0:
+        if missing > 0 and is_main:
             logger.info("generating %d class images", missing)
             with timer.phase("class_images"):
                 save_pngs(generate_images(missing, args.seed + 2, "class images"),
                           args.class_data_dir, name="class-{i:05d}.png", first=len(existing))
+        barrier()  # every rank reads the class images rank 0 wrote
         class_ds = DreamBoothDataset(args.class_data_dir, class_prompt, resolution)
         num_class_pool = len(class_ds)
         with timer.phase("encode"):
@@ -388,6 +403,7 @@ def main(argv=None):
             logger.info("resumed from %s at step %d", path, start_step)
         else:
             logger.warning("no checkpoint found to resume from; starting fresh")
+    broadcast_train_state_(state)  # every rank starts from rank 0's state
 
     ga, b = args.gradient_accumulation_steps, args.train_batch_size
     prompts = [args.instance_prompt] * b + ([class_prompt] * b if use_prior else [])
@@ -437,7 +453,7 @@ def main(argv=None):
         for step in range(start_step, total_steps):
             with timer.phase("step"):
                 gen = torch.Generator(device=dev).manual_seed(_step_seed(args.seed, step))
-                rng = np.random.default_rng([args.seed, step, 4])
+                rng = np.random.default_rng(rank_entropy([args.seed, step, 4]))
                 inst_idx = rng.choice(len(dataset), n_draw, replace=len(dataset) < n_draw)
                 neg_idx = rng.choice(args.num_negatives, n_neg,
                                      replace=args.num_negatives < n_neg)
@@ -474,19 +490,27 @@ def main(argv=None):
                 mlog.log_metrics(metrics, step + 1)
             if (args.checkpointing_steps and (step + 1) % args.checkpointing_steps == 0) or (
                     step + 1 == total_steps):
-                save_all(step + 1)
+                if is_main:
+                    save_all(step + 1)
+                barrier()
             if (not args.skip_validation and args.validation_steps
                     and (step + 1) % args.validation_steps == 0):
-                with timer.phase("validation"):
-                    root = run_dreambooth_validation(val_generate, val_prompts, args.output_dir,
-                                                     step + 1, args.num_validation_images,
-                                                     seed=args.seed, device=dev)
-                mlog.log_metrics({"time/validation_s": timer.last["validation"]}, step + 1)
-                logger.info("validation images at %s", root)
+                if is_main:
+                    with timer.phase("validation"):
+                        root = run_dreambooth_validation(val_generate, val_prompts,
+                                                         args.output_dir, step + 1,
+                                                         args.num_validation_images,
+                                                         seed=args.seed, device=dev)
+                    mlog.log_metrics({"time/validation_s": timer.last["validation"]}, step + 1)
+                    logger.info("validation images at %s", root)
+                barrier()
     finally:
         mlog.close()
     return state, history, pipe
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown_distributed()

@@ -6,11 +6,12 @@ The memory knobs are the JAX package's: ``use_lora=False`` (full
 finetuning), ``param_dtype``, ``activation_checkpoint`` (every remat mode),
 ``offload_aux_during_update``, ``vae_decode_chunk`` and
 ``kernels.gelu_exact``; ``profile_dir`` (a ``torch.profiler`` trace of
-one epoch) and ``use_wandb`` run as there. Knobs the port does not
-implement yet are kept so launch scripts parse, and
-``cli.online_runner.check_config`` refuses a non-default value: ``mesh.*``
-beyond one device, ``mesh.fsdp``, ``fast_init``, ``train.int8_ref_pass``
-and the int8 and subpixel ``kernels.*`` options.
+one epoch) and ``use_wandb`` run as there. ``mesh.data`` is -1 or the
+number of data-parallel processes. Knobs the port does not implement yet
+are kept so launch scripts parse, and ``cli.online_runner.check_config``
+refuses a non-default value: ``mesh.model > 1``, ``mesh.fsdp``,
+``fast_init``, ``train.int8_ref_pass`` and the int8 and subpixel
+``kernels.*`` options.
 """
 
 from . import Config
@@ -65,7 +66,7 @@ def get_config() -> Config:
     p.pickscore_dir = ""
     p.bpe_path = ""
 
-    # ---- mesh (one device) ----
+    # ---- mesh: data-parallel processes ----
     c.mesh = m = Config()
     m.data = -1
     m.model = 1

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops.schedules import NoiseScheduleConfig, make_alphas_cumprod, make_karras_sigmas
+from ..parallel import all_reduce_mean_
 from .losses import dreambooth_pso_loss
 from .train_state import PSOTrainState
 
@@ -217,7 +218,9 @@ class DreamBoothPSOTrainer:
         the token ids, ``time_ids_win`` / ``time_ids_lose``), ``idx`` (ga, b)
         and ``noise`` (ga, b, h, w, c) has a leading microbatch axis. The gradients of the
         microbatch losses are summed and divided by ``grad_accum``; the
-        metrics are means over the microbatches."""
+        metrics are means over the microbatches. Under a process group of W
+        ranks, each with its own batch, the gradients and the metrics are
+        then averaged over the ranks, before the clip and the optimizer."""
         ga = self.config.grad_accum
         for p in state.lora.values():
             p.grad = None
@@ -231,6 +234,8 @@ class DreamBoothPSOTrainer:
                 sums[k] = sums.get(k, 0.0) + v
         grads = {name: (p.grad / ga if p.grad is not None else torch.zeros_like(p))
                  for name, p in state.lora.items()}
+        all_reduce_mean_(list(grads.values()))
+        all_reduce_mean_(list(sums.values()))
         state.apply_gradients(grads)
         del grads  # read inside the optimizer's step: freed now, as JAX's die with the step
         for p in state.lora.values():

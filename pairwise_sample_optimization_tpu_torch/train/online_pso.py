@@ -30,6 +30,20 @@ trajectory 1 another.
 
 Randomness is explicit: generators, or permutation and axis tensors that
 a test can take from the JAX side.
+
+Data parallelism (a ``torch.distributed`` group of W ranks, each with B
+prompts of its own) keeps the JAX package's semantics, in which every key
+is the same on every process and the batch is global: ``sample_pairs``
+draws the noise of the global batch of W x B prompts from the shared
+generator and keeps its own rows; ``train_epoch`` gathers the ranks'
+samples into the global batch (pair batch by pair batch, the ranks' rows
+in rank order within each), shuffles it and draws the preference axes of
+each global microbatch (``train_batch_size`` x W) from the shared CPU
+generator, each rank taking its own ``train_batch_size`` rows; and
+``update`` averages the gradients and the metrics over the ranks before
+the clip and the optimizer. W ranks thus train as one process would whose
+every pair batch holds the ranks' prompts of that batch, concatenated, and
+end with the same weights.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ import torch
 from ..ops.ddpm_renoise import distilled_logprob
 from ..ops.euler_ancestral import turbo_logprob
 from ..ops.schedules import distill_timesteps, make_alphas_cumprod, make_euler_ancestral_schedule
+from ..parallel import all_reduce_mean_, process_allgather, rank, world_size
 from .losses import pareto_compare, pso_pairwise_loss, sample_compare
 from .train_state import PSOTrainState, global_norm
 
@@ -126,9 +141,13 @@ class OnlinePSOTrainer:
         images (2B, H, W, 3)). Trajectory-major as the pipeline's batch:
         row i of trajectory k is row k*B + i. For DMD2 with
         ``shared_noise`` and no ``step_noise``, the transition noise is one
-        (S-1, 2, 1, h, w, C) draw broadcast over each side's B prompts."""
+        (S-1, 2, 1, h, w, C) draw broadcast over each side's B prompts.
+        With W > 1 ranks and no ``init_noise``, the noise is the global
+        batch's (:meth:`global_noise`), this rank's rows of it."""
         cfg = self.config
         b = cond["embeds"].shape[0]
+        if world_size() > 1 and init_noise is None:
+            init_noise, step_noise = self.global_noise(b, generator, step_noise)
         if cfg.sampler == "dmd" and cfg.shared_noise and step_noise is None:
             hw, c, dev = self.pipe.latent_hw, self.pipe.unet.config.in_channels, self.pipe.device
             if init_noise is None:
@@ -159,6 +178,33 @@ class OnlinePSOTrainer:
             "rewards": out.scores.float().reshape(2, b, 1).transpose(0, 1),
         }
         return samples, out.images
+
+    def global_noise(self, b: int, generator: Optional[torch.Generator], step_noise=None):
+        """This rank's rows of the noise a one-process run draws from
+        ``generator`` for the global batch of W x ``b`` prompts (rank r's
+        prompts are its rows r*b .. r*b + b-1, in both trajectory halves), in
+        the one-process run's order of draws: the initial latents, then
+        Turbo's step noise in one draw, DMD2's transition noise one draw a
+        step (one shared draw under ``shared_noise``: kept whole, as it is
+        the same for every prompt). ``step_noise``, where given, is kept."""
+        cfg, pipe = self.config, self.pipe
+        world, r = world_size(), rank()
+        g = world * b
+        dev = pipe.device
+        shape = (pipe.latent_hw, pipe.latent_hw, pipe.unet.config.in_channels)
+        rows = torch.cat([torch.arange(r * b, (r + 1) * b), g + torch.arange(r * b, (r + 1) * b)])
+        rows = rows.to(dev)
+        init = torch.randn((2 * g,) + shape, generator=generator, device=dev)[rows]
+        if step_noise is not None or (cfg.sampler == "dmd" and cfg.shared_noise):
+            return init, step_noise
+        if cfg.sampler == "turbo":
+            step_noise = torch.randn((cfg.num_steps, 2 * g) + shape, generator=generator,
+                                     device=dev, dtype=torch.float32)
+        else:
+            step_noise = torch.stack([
+                torch.randn((2 * g,) + shape, generator=generator, device=dev,
+                            dtype=torch.float32) for _ in range(cfg.num_steps - 1)])
+        return init, step_noise[:, rows]
 
     # ------------------------------------------------------------------ #
     # shuffling
@@ -244,7 +290,8 @@ class OnlinePSOTrainer:
         over the ``grad_accum x T`` microbatches (microbatch a*T + j takes
         slice a, timestep column j); ``grad_norm`` is the norm of their
         mean, before clipping. ``compare_axes`` (n_micro, train_bs) fixes
-        ``sample_compare``'s reward axes."""
+        ``sample_compare``'s reward axes. With W > 1 ranks the gradients,
+        the loss and ratio_win are averaged over the ranks first."""
         cfg = self.config
         t_steps = cfg.train_timesteps
         n_micro = cfg.grad_accum * t_steps
@@ -266,6 +313,9 @@ class OnlinePSOTrainer:
             ratio_sum += ratio_w.detach()
         grads = {name: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for name, p in state.lora.items()}
+        # the mean over the ranks' global microbatch rows, as JAX's pmean gives
+        all_reduce_mean_(list(grads.values()))
+        all_reduce_mean_([loss_sum, ratio_sum])
         grad_norm = global_norm(grads.values())
         state.apply_gradients(grads)
         # every optimizer has read or copied the gradients inside its step: free
@@ -278,26 +328,49 @@ class OnlinePSOTrainer:
         return {k: float(v) for k, v in metrics.items()}
 
     def train_epoch(self, state: PSOTrainState, samples: dict, cond: dict,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None, num_batches: int = 1):
         """All optimizer updates for one epoch of collected samples
-        (leaves (B_tot, ...)). Shuffles and compare draws come from
-        ``generator`` (CPU). Returns (state, list of metrics dicts)."""
+        (leaves (B_tot, ...): ``num_batches`` pair batches one after
+        another). Shuffles and compare draws come from ``generator`` (CPU).
+        With W > 1 ranks the ranks' samples are gathered first into the
+        global batch of a one-process run, ordered (pair batch, rank, row),
+        and every draw is over it: each update's global microbatch holds
+        ``train_batch_size`` x W rows, of which this rank takes its own
+        ``train_batch_size``. Returns (state, list of metrics dicts)."""
         cfg = self.config
+        world, r = world_size(), rank()
+        if world > 1:
+            if generator is None:  # the global RNG differs between the ranks
+                raise ValueError("train_epoch over several ranks needs the shared generator")
+            # (W, nb * B, ...) -> (nb, W, B, ...) -> the global batch
+            gather = lambda tree: {k: process_allgather(v).unflatten(1, (num_batches, -1))
+                                   .transpose(0, 1).flatten(0, 2) for k, v in tree.items()}
+            samples, cond = gather(samples), gather(cond)
         b_tot = samples["log_probs"].shape[0]
-        per_update = cfg.train_batch_size * cfg.grad_accum
+        bs = cfg.train_batch_size
+        per_update = bs * world * cfg.grad_accum
         if b_tot % per_update:
             raise ValueError(f"{b_tot} sampled pairs are not a multiple of train_batch_size x "
-                             f"grad_accum = {per_update}")
+                             f"grad_accum x ranks = {per_update}")
         n_updates = b_tot // per_update
+        n_micro = cfg.grad_accum * cfg.train_timesteps
         metrics = []
         for _ in range(cfg.num_inner_epochs):
             shuffled, cond_sh = self.shuffle(samples, cond, generator)
 
             def slice_update(tree, u):
                 return {k: v[u * per_update:(u + 1) * per_update].reshape(
-                    (cfg.grad_accum, cfg.train_batch_size) + v.shape[1:]) for k, v in tree.items()}
+                    (cfg.grad_accum, bs * world) + v.shape[1:])[:, r * bs:(r + 1) * bs]
+                        for k, v in tree.items()}
 
             for u in range(n_updates):
+                axes = None
+                if world > 1 and cfg.compare == "sample":
+                    # the draws sample_compare makes in one process, one per
+                    # global microbatch in order; this rank's columns
+                    m = samples["rewards"].shape[-1]
+                    axes = torch.stack([torch.randint(0, m, (bs * world,), generator=generator)
+                                        for _ in range(n_micro)])[:, r * bs:(r + 1) * bs]
                 metrics.append(self.update(state, slice_update(shuffled, u),
-                                           slice_update(cond_sh, u), generator))
+                                           slice_update(cond_sh, u), generator, axes))
         return state, metrics

@@ -1,7 +1,9 @@
 """Console and JSONL metrics: an append-only ``metrics.jsonl`` per run
 (one ``{"step", "ts", ...}`` object per line), as the JAX package writes;
 with ``use_wandb`` also wandb where it can be imported and a run started
-(else a warning, and the JSONL alone), as there."""
+(else a warning, and the JSONL alone), as there. Under a process group of
+several ranks only rank 0 logs (the metrics every rank holds are the same
+global numbers)."""
 
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ import os
 import sys
 import time
 from typing import Any, Dict, Optional
+
+from ..parallel.multihost import rank
 
 
 def get_logger(name: str = "pso") -> logging.Logger:
@@ -32,10 +36,13 @@ class MetricLogger:
                  use_wandb: bool = False, config: Optional[dict] = None):
         self.log = get_logger()
         self._jsonl = None
+        self._wandb = None
+        self.active = rank() == 0  # the other ranks log nothing
+        if not self.active:
+            return
         if output_dir:
             os.makedirs(output_dir, exist_ok=True)
             self._jsonl = open(os.path.join(output_dir, "metrics.jsonl"), "a")
-        self._wandb = None
         if use_wandb:
             try:
                 import wandb
@@ -46,6 +53,8 @@ class MetricLogger:
                 self.log.warning("wandb unavailable (%s); JSONL logging only", e)
 
     def log_metrics(self, metrics: Dict[str, Any], step: int):
+        if not self.active:
+            return
         clean = {k: (float(v) if hasattr(v, "__float__") else v) for k, v in metrics.items()}
         if self._jsonl:
             self._jsonl.write(json.dumps({"step": step, "ts": time.time(), **clean}) + "\n")

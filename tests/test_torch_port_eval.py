@@ -338,12 +338,18 @@ def test_eval_cli_with_a_trained_lora_differs_from_without(tmp_path):
                       - np.array(tuned["per_prompt"][name])).min() > 0, name
 
 
-def test_round_robin_shards_gather_back_in_order():
+def test_round_robin_shards_gather_back_in_order(monkeypatch):
+    """``shard_prompts`` and the eval's gather, ``parallel.round_robin_gather``,
+    at worlds 1-3: the gather of the ranks' padded shards (here their stack,
+    as ``process_allgather`` returns it) is the prompts in order."""
+    from pairwise_sample_optimization_tpu_torch.parallel import collectives
+
     prompts = [f"p{i}" for i in range(7)]
     for world in (1, 2, 3):
         shards = [ev.shard_prompts(prompts, r, world) for r in range(world)]
         assert {len(s) for s in shards} == {-(-7 // world)}  # padded to one length
-        assert list(ev.gather_round_robin(shards, 7)) == prompts
+        monkeypatch.setattr(collectives, "process_allgather", lambda local: np.asarray(shards))
+        assert list(collectives.round_robin_gather(np.asarray(shards[0]), 7)) == prompts
 
 
 def test_chip_smoke_launch_counts_match_the_tiny_eval(tmp_path):

@@ -23,8 +23,8 @@ PKG = Path(port.__file__).resolve().parent
 ROOT = PKG.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_collections", "absl", "regex",
              "safetensors", "PIL", "datasets", "pyarrow", "pairwise_sample_optimization_tpu")
-SUBPACKAGES = ("checkpoints", "cli", "configs", "data", "models", "ops", "rewards", "train",
-               "utils")
+SUBPACKAGES = ("checkpoints", "cli", "configs", "data", "models", "ops", "parallel", "rewards",
+               "train", "utils")
 
 
 @pytest.fixture(autouse=True)
@@ -379,7 +379,9 @@ def _port_imports(path: Path):
                                    "cli/train_pso_sdxl_turbo_dreambooth.py", "data/dreambooth.py",
                                    "train/dreambooth_pso.py", "train/db_validation.py",
                                    "train/prodigy.py", "train/quantized_adam.py",
-                                   "train/flat_optim.py"])
+                                   "train/flat_optim.py", "parallel/collectives.py",
+                                   "parallel/multihost.py", "parallel/mesh.py",
+                                   "parallel/prng.py", "cli/train_online_pso_sdxl_turbo.py"])
 def test_new_entry_points_need_only_torch_numpy_and_the_stdlib(entry):
     """Every module the entry point reaches, through the port's own imports,
     imports nothing but the port, torch, numpy and the standard library;
