@@ -155,11 +155,40 @@ PyTorch. In order:
    gather and the broadcast bit-equal to their inputs. A rank that fails or
    does not end in time fails the phase. Prints per rank the sample and
    update ms, the all-reduce's, gather's and broadcast's ms and bytes, the
-   peak memory, and the most memory the card held at once;
+   peak memory, and the most memory the card held at once. Before the ranks
+   start, a Turbo epoch at ``SHARDED_CONFIG`` (smaller, every LoRA ``up``
+   drawn non-zero) at world 1 on the card (its LoRA gradient and step
+   recorded); after the data-parallel run the ranks run that epoch
+   data-parallel twice and under each mesh of ``SHARDED_ONE_CARD``: tensor
+   parallelism at data 1 x model 2 (the UNet's attention and feed-forward
+   sliced, K1 and the backward on each rank's 5 / 10 local heads) and FSDP
+   over 2 (the frozen suite sharded, gathered per module). Each: launch
+   counts the formula's at the rank's local heads, one update, a finite
+   loss, the ranks' whole LoRA and metrics the same, the model ranks'
+   prompts the same, rank 0's checkpoint and LoRA file holding the whole
+   LoRA; TP against world 1: every LoRA tensor's gradient within
+   ``TP_GRAD_RTOL`` of its norm plus its even share of the whole gradient's
+   (checked before the ranks' sameness), the AdamW step's cosine at least
+   ``TP_STEP_COSINE``; TP's UNet at most 0.7 of a replica's resident bytes;
+   FSDP against the data-parallel run: the epoch's rewards and the update's
+   loss and ratio_win bit-identical (the gathers are exact), the gradient
+   within ``FSDP_SPREAD_FACTOR`` times the spread of the data-parallel run
+   run again (whose forwards must be bit-identical to the first's: the
+   backward kernel's sums come in another order each run), its frozen
+   suite at most 0.6 of a replica's bytes. Prints per rank the resident bytes (beside
+   ``sharding_prediction``'s from the parameter counts), the activation
+   all-reduces' and weight gathers' calls, ms and bytes. With
+   ``--distributed-cards 4`` (on a machine with four cards, this step
+   alone, one rank a card over NCCL) the meshes are
+   ``SHARDED_FOUR_CARDS``: 2 x 2, 1 x 4 (held against world 1 on card 0)
+   and FSDP over 4;
 12. one phase per kernel at every shape steps 5-11 gave it (recorded during
    those runs) in bf16, plus one fp32 case and, for the attention kernels,
    the bf16 ragged lengths of ``RAGGED`` (and, for the forward, of
-   ``RAGGED_FWD`` at head dims 80 and 512; 0 launches): the kernel against
+   ``RAGGED_FWD`` at head dims 80 and 512; 0 launches) and the local heads
+   of tensor parallelism off the one-card path (``TP_LOCAL``: model 4 at
+   the Turbo loop's token counts, model 2 and 4 at the DMD2 loop's; 0
+   launches): the kernel against
    its plain version on the same inputs (ImageReward's two shapes, the ViT's
    self-attention (B, 197, 16, 64) and BERT's cross-attention (B, 35, 12,
    64) over 197 keys, among them; |diff| <= atol + rtol*|plain|,
@@ -189,7 +218,8 @@ PyTorch. In order:
    tokens). GroupNorm rows report the share of the limit used. The
    attention forward's times are also printed per head dim;
 13. prints the card line again, the ``{"kernels": [...]}`` line (launches:
-   the sum over the runs of steps 5-11), then, last, the device line.
+   the sum over the runs of steps 5-11, the sharded runs' and the world-1
+   run's of step 11 among them), then, last, the device line.
 
 Any failure raises, and the script exits non-zero. It also exits non-zero,
 printing no result, where CUDA or the port's package is missing. The full
@@ -252,6 +282,13 @@ PLAIN_LOGITS = 2**28
 RAGGED = (((2, 1000, 3, 64), 77), ((1, 200, 5, 64), 1000), ((1, 1, 2, 64), 1))
 # The same for the forward's own tilings at PickScore's and the VAE's head
 # dims (forward only: the backward takes d = 64).
+# the local heads of tensor parallelism off the one-card run's path (0
+# launches): d = 64 at model 4 (SDXL's 10 heads -> 3 / 2, 20 -> 5) at the
+# Turbo loop's token counts (4096 and 1024 self, 77 cross; batch 2), and at
+# model 2 and 4 at the DMD2 loop's (16384 and 4096; batch 1)
+TP_LOCAL = tuple(((b, s, h, 64), skv) for b, levels in (
+    (2, ((4096, (3, 2)), (1024, (5,)))), (1, ((16384, (5, 3, 2)), (4096, (10, 5)))))
+    for s, heads in levels for h in heads for skv in (s, 77))
 RAGGED_FWD = (((2, 1000, 3, 80), 77), ((1, 1, 2, 80), 1), ((1, 1000, 1, 512), 77),
               ((2, 200, 1, 512), 1000))
 _BWD_SRC = "pairwise_sample_optimization_tpu_torch/csrc/flash_attn_bwd.cu"
@@ -555,17 +592,27 @@ def expected_eval_launches(ucfg, vcfg, steps, batches, vision_layers, decodes=1)
             _generation_launches(ucfg, vcfg, steps, vision_layers, decodes).items()}
 
 
-def attention_shapes(ucfg, batch, latent_hw, text_len=77):
+def local_heads(heads, tp=(0, 1)):
+    """The heads model rank ``tp[0]`` of ``tp[1]`` runs (``parallel.tp``:
+    whole heads, as evenly as they split)."""
+    from pairwise_sample_optimization_tpu_torch.parallel.tp import split_bounds
+
+    lo, hi = split_bounds(heads, tp[1])[tp[0]]
+    return hi - lo
+
+
+def attention_shapes(ucfg, batch, latent_hw, text_len=77, tp=(0, 1)):
     """(q shape (B, S, H, D), kv length) of each attention call of one UNet
     forward at ``batch`` and a ``latent_hw`` x ``latent_hw`` latent: per
     transformer block a self-attention over the level's tokens and a
-    cross-attention to the ``text_len`` text tokens."""
+    cross-attention to the ``text_len`` text tokens; H the local heads of
+    model rank ``tp[0]`` of ``tp[1]``."""
     n, lpb, depths = len(ucfg.block_out_channels), ucfg.layers_per_block, ucfg.transformer_layers
     shapes = []
     for i, (ch, d) in enumerate(zip(ucfg.block_out_channels, depths)):
         blocks = d * (2 * lpb + 1) + (depths[-1] if i == n - 1 else 0)
         tokens = (latent_hw // 2 ** i) ** 2
-        q = (batch, tokens, ch // ucfg.head_dim, ucfg.head_dim)
+        q = (batch, tokens, local_heads(ch // ucfg.head_dim, tp), ucfg.head_dim)
         shapes += [(q, tokens), (q, text_len)] * blocks
     return shapes
 
@@ -581,7 +628,7 @@ def bwd_needs_post(q_shape, skv, sms=132):
 
 
 def expected_update_launches(ucfg, n_micro, fuse_ref_pass, batch, latent_hw, sms=132,
-                             reference=True, trained_cond=False):
+                             reference=True, trained_cond=False, tp=(0, 1)):
     """Launches of one optimizer update of ``n_micro`` microbatches with a
     policy pass at ``batch``. Per microbatch: the policy forward (with
     grad), what its backward recomputes under ``ucfg.remat``
@@ -597,10 +644,11 @@ def expected_update_launches(ucfg, n_micro, fuse_ref_pass, batch, latent_hw, sms
     LoRA reaches every ResnetBlock through the pooled embedding's time
     embedding) or the UNet's own weights are (full finetuning), so every
     rematerialized ResnetBlock is recomputed. The GroupNorm+SiLU backward is
-    the plain version."""
+    the plain version. ``tp``: (model rank, model ranks) of a
+    tensor-parallel UNet, whose attention runs the rank's local heads."""
     attn, gn = _unet_counts(ucfg)
     re_attn, re_resnets = _remat_recomputed(ucfg, trained_cond)
-    shapes = attention_shapes(ucfg, batch * (2 if fuse_ref_pass else 1), latent_hw)
+    shapes = attention_shapes(ucfg, batch * (2 if fuse_ref_pass else 1), latent_hw, tp=tp)
     assert len(shapes) == attn, (len(shapes), attn)
     passes = 1 + (0 if fuse_ref_pass or not reference else 1)
     k1 = attn * passes + re_attn
@@ -1390,7 +1438,7 @@ class _CheckpointWatch:
         save, restore = self.orig
         watch = self
 
-        def save_train_state(base_dir, step, state, extra=None):
+        def save_train_state(base_dir, step, state, extra=None, blob=None):
             import torch
 
             entry = {"step": step, "disk_free_bytes": shutil.disk_usage(base_dir).free,
@@ -1399,7 +1447,7 @@ class _CheckpointWatch:
             torch.cuda.synchronize()
             with HostPeak() as host:
                 t0 = time.perf_counter()
-                path = save(base_dir, step, state, extra)
+                path = save(base_dir, step, state, extra, blob)
                 entry["write_s"] = time.perf_counter() - t0
             files = [p for p in Path(path).iterdir() if p.is_file()]
             t0 = time.perf_counter()
@@ -2292,12 +2340,19 @@ def dreambooth_slice(seed, recorder):
 
 DIST_WORLD = 2  # ranks sharing the one card
 DIST_TIMEOUT_S = 300  # the group's: the longest wait is for rank 0's checkpoint
-DIST_JOIN_S = 480  # both ranks' whole run
-# per rank: one pair batch of 2 prompts, one update of 2 x 3 microbatches of
-# policy batch 2 over the global 4 pairs; checkpoint and LoRA export at step 1
+DIST_JOIN_S = 780  # the ranks' whole run: data-parallel, sharded and small
+# per rank: one pair batch of 1 prompt, one update of 3 microbatches of
+# policy batch 2 over the global pairs (2 on one card); checkpoint and LoRA
+# export at step 1
 DIST_CONFIG = {"sample.batch_size": 2, "sample.num_batches_per_epoch": 1,
                "train.batch_size": 1, "train.gradient_accumulation_steps": 2,
                "validation_steps": 0}
+# the sharded meshes and the runs they are held against: DIST_CONFIG cut to
+# 1 prompt a rank and one update of 3 microbatches (there are five such runs
+# a rank), with every LoRA ``up`` drawn from a normal of this std (seeded)
+# instead of zero, so that every ``down`` has a gradient in the one update
+SHARDED_CONFIG = {**DIST_CONFIG, "sample.batch_size": 1, "train.gradient_accumulation_steps": 1}
+SHARDED_LORA_UP_STD = 1e-3
 DIST_SMALL_PAIRS = 4  # the small pipeline's sample set of part (b)
 # world 2 vs world 1 on the small fp32 pipeline: the LoRA after one AdamW
 # step at lr 1e-3 (a first step is at most lr in size, so the limit sits far
@@ -2353,33 +2408,64 @@ def _digest(tensors):
     return h.hexdigest()
 
 
-def distributed_worker(out_dir, seed, backend):
-    """One rank of ``distributed_slice`` (this script with
-    ``--distributed-worker``; torchrun's variables in its environment): (a)
-    the Turbo loop through ``run_online_pso`` at full width over
-    ``backend`` on the card ``LOCAL_RANK`` names, (b) ``train_epoch`` of the
-    small pipeline over this rank's share of the sample set. Writes
-    ``rank<r>.pt`` for the parent to check."""
+# the sharded runs of ``distributed_slice`` after the data-parallel one: (name,
+# mesh overrides) on one card (two gloo ranks) and on four cards (NCCL)
+SHARDED_ONE_CARD = (("tp", {"mesh.data": 1, "mesh.model": 2}), ("fsdp", {"mesh.fsdp": True}))
+SHARDED_FOUR_CARDS = (("tp_2x2", {"mesh.data": 2, "mesh.model": 2}),
+                      ("tp_1x4", {"mesh.data": 1, "mesh.model": 4}),
+                      ("fsdp", {"mesh.fsdp": True}))
+# tensor parallelism at data 1 against one process on the same card: the
+# row-parallel sums are bf16 products summed in another order (fp32 sums of
+# the ranks' bf16 partials, one rounding), a few bf16 ulps per activation
+# that 70 transformer blocks carry into the LoRA gradient. Limits: each
+# LoRA tensor's gradient error (L2) within TP_GRAD_RTOL of its own norm plus
+# the norm it would have were the whole gradient spread evenly (atol + rtol:
+# a tensor whose gradient is far below the rms, as attention's at a
+# saturated softmax, is mostly rounding noise; a rank's share of a
+# replicated tensor's gradient, or a wrong slice, is off by about its whole
+# norm), and the cosine of the LoRA's AdamW step
+TP_GRAD_RTOL = 0.15
+TP_STEP_COSINE = 0.9
+# FSDP against the data-parallel run: every forward bit-identical (the
+# gathers are exact: the epoch's rewards, the update's loss and ratio_win);
+# the gradient only as close as two data-parallel runs of the one update
+# are (the backward kernel's fp32 dQ sums come in another order each run,
+# ``RUN_TO_RUN``, and some of their bf16 roundings turn): its relative L2
+# from the first run at most this many times the second run's
+FSDP_SPREAD_FACTOR = 4
+
+
+def _whole(tensors, params=None):
+    """Whole tensors on the CPU: the tensor-parallel slices of ``params``
+    (default: ``tensors`` themselves) gathered (a collective)."""
+    from pairwise_sample_optimization_tpu_torch.parallel import tp
+
+    params = tensors if params is None else params
+    return {k: (tp.shard_of(params[k]).gather(v.detach()) if tp.shard_of(params[k])
+                else v.detach()).to("cpu", copy=True) for k, v in tensors.items()}
+
+
+def _loop_run(config, out_dir, name, capture=False, lora_up_std=0.0):
+    """One Turbo epoch through ``run_online_pso`` with its observation: the
+    prompts the loader gave, the synchronized wall time of the phases and
+    the collectives (the gradient all-reduce, the gathers and broadcast,
+    tensor parallelism's activation all-reduces, FSDP's weight gathers),
+    the launch counts (zeroed just before, read just after), the whole
+    LoRA's digest, the resident bytes of the UNet and of the frozen suite.
+    ``capture``: rank 0 writes the whole LoRA gradient of the first update,
+    the LoRA before and after it to ``<out_dir>/<name>_update.pt``.
+    ``lora_up_std``: every LoRA ``up`` of the new UNet drawn from a normal of
+    this std (a generator seeded with the config's seed, before the weights
+    are placed on the mesh) instead of zero."""
     import torch
 
     from pairwise_sample_optimization_tpu_torch import parallel
     from pairwise_sample_optimization_tpu_torch.cli import online_runner
-    from pairwise_sample_optimization_tpu_torch.configs import sdxl_turbo_dpo
     from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
-    from pairwise_sample_optimization_tpu_torch.train import online_pso
+    from pairwise_sample_optimization_tpu_torch.parallel import collectives, fsdp, tp
+    from pairwise_sample_optimization_tpu_torch.train import online_pso, train_state
 
-    torch.set_num_threads(1)
-    parallel.maybe_initialize_distributed(backend=backend, device="cuda",
-                                          timeout_s=DIST_TIMEOUT_S)
-    r, world = parallel.rank(), parallel.world_size()
-    config = sdxl_turbo_dpo.get_config()
-    config.seed, config.output_dir, config.run_name = seed, str(out_dir), "turbo"
-    for key, value in DIST_CONFIG.items():
-        config.override(f"{key}={value}")
-
-    # observation only: the prompts the loader gave, and the synchronized
-    # wall time of the phases and collectives
-    prompts, times = [], {}
+    prompts, times, captured = [], {}, {}
 
     class Recording(online_runner.PromptLoader):
         def epoch(self):
@@ -2387,24 +2473,32 @@ def distributed_worker(out_dir, seed, backend):
                 prompts.append(list(batch["prompts"]))
                 yield batch
 
-    def timed(name, fn, nbytes=None):
+    def timed(key, fn, nbytes=None):
         def wrapper(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            entry = times.setdefault(name, {"calls": 0, "ms": 0.0, "bytes": 0})
+            entry = times.setdefault(key, {"calls": 0, "ms": 0.0, "bytes": 0})
             entry["calls"] += 1
             entry["ms"] += (time.perf_counter() - t0) * 1e3
             if nbytes is not None:
-                entry["bytes"] += nbytes(*args)
+                entry["bytes"] += nbytes(*args, out=out)
             return out
         return wrapper
 
     size = lambda t: t.numel() * t.element_size()
     # the trained tensors and the optimizer's state tensors
-    state_bytes = lambda st, *a: sum(size(t) for t in [*st.lora.values(), *(
+    state_bytes = lambda st, *a, out=None: sum(size(t) for t in [*st.lora.values(), *(
         v for v in st.tx.state_dict()["state"].values() if isinstance(v, torch.Tensor))])
+    apply_gradients = train_state.PSOTrainState.apply_gradients
+
+    def capturing(state, grads):
+        if not captured:
+            captured["grads"] = _whole(grads, state.lora)
+            captured["before"] = _whole(state.lora)
+        return apply_gradients(state, grads)
+
     patches = [(online_runner, "PromptLoader", Recording),
                (online_pso.OnlinePSOTrainer, "sample_pairs",
                 timed("sample_pairs", online_pso.OnlinePSOTrainer.sample_pairs)),
@@ -2412,15 +2506,37 @@ def distributed_worker(out_dir, seed, backend):
                 timed("update", online_pso.OnlinePSOTrainer.update)),
                (online_pso, "all_reduce_mean_",
                 timed("all_reduce_mean_", online_pso.all_reduce_mean_,
-                      lambda ts, *a: sum(size(t) for t in ts))),
+                      lambda ts, *a, out=None: sum(size(t) for t in ts))),
                (online_pso, "process_allgather",
-                timed("process_allgather", online_pso.process_allgather, size)),
+                timed("process_allgather", online_pso.process_allgather,
+                      lambda t, *a, out=None: size(t))),
                (online_runner, "broadcast_train_state_",
                 timed("broadcast_train_state_", online_runner.broadcast_train_state_,
-                      state_bytes))]
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
-    for obj, name, value in patches:
-        setattr(obj, name, value)
+                      state_bytes)),
+               (collectives, "_reduce",
+                timed("tp_activation_all_reduce", collectives._reduce,
+                      lambda x, *a, out=None: size(out))),
+               (fsdp, "all_gather_dim",
+                timed("fsdp_weight_gather", fsdp.all_gather_dim,
+                      lambda t, *a, out=None: size(out)))]
+    if capture:
+        patches.append((train_state.PSOTrainState, "apply_gradients", capturing))
+    if lora_up_std:
+        build_pipeline = online_runner.build_pipeline
+
+        def with_lora_up(*args, **kwargs):
+            pipe = build_pipeline(*args, **kwargs)
+            gen = torch.Generator().manual_seed(config.seed)
+            with torch.no_grad():
+                for k, p in sorted(pipe.unet.named_parameters()):
+                    if k.endswith(".lora.up.weight"):
+                        p.copy_(torch.randn(p.shape, generator=gen) * lora_up_std)
+            return pipe
+
+        patches.append((online_runner, "build_pipeline", with_lora_up))
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    for obj, attr, value in patches:
+        setattr(obj, attr, value)
     recorder = ShapeRecorder()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2432,28 +2548,84 @@ def distributed_worker(out_dir, seed, backend):
                                                                 device="cuda")
         torch.cuda.synchronize()
     finally:
-        for obj, name, value in saved:
-            setattr(obj, name, value)
+        for obj, attr, value in saved:
+            setattr(obj, attr, value)
     wall_s = time.perf_counter() - t0
     counts = dict(kernel_lib.launch_counts)
     peak = torch.cuda.max_memory_allocated()
+    mesh = parallel.current_mesh()
     t_cfg = config.train
     n_micro = t_cfg.gradient_accumulation_steps * t_cfg.distilled_train_steps
     sample = expected_launches(pipe, config.sample.num_steps)
     update = expected_update_launches(pipe.unet.config, n_micro, bool(t_cfg.fuse_ref_pass),
                                       2 * t_cfg.batch_size, pipe.latent_hw,
-                                      torch.cuda.get_device_properties(0).multi_processor_count)
+                                      torch.cuda.get_device_properties(0).multi_processor_count,
+                                      tp=(mesh.model_index, mesh.model))
     want = {k: config.sample.num_batches_per_epoch * sample[k] + len(history) * update[k]
             for k in sample}
-    turbo = {"rank": r, "world": world, "launches": counts, "expected_launches": want,
-             "history": history, "step": state.step, "prompts": prompts,
-             "lora_sha256": _digest(state.lora), "lora_tensors": len(state.lora),
-             "peak_bytes": peak, "wall_s": wall_s, "times": times, "n_micro": n_micro,
-             "policy_batch": 2 * t_cfg.batch_size,
-             "shapes": {"attention": recorder.attention, "attention_bwd": recorder.attention_bwd,
-                        "gn": recorder.gn}}
-    del state, pipe
+    lora = _whole(state.lora)
+    frozen = [p for n, p in pipe.unet.named_parameters() if ".lora." not in n]
+    frozen += [p for m in (pipe.vae, pipe.te1, pipe.te2, pipe.scorer.model) for p in m.parameters()]
+    out = {"name": name, "rank": parallel.rank(), "world": parallel.world_size(),
+           "lora_up_std": lora_up_std,
+           "mesh": {"data": mesh.data, "model": mesh.model, "fsdp": mesh.fsdp,
+                    "data_index": mesh.data_index, "model_index": mesh.model_index},
+           "launches": counts, "expected_launches": want, "history": history,
+           "step": state.step, "prompts": prompts, "lora_sha256": _digest(lora),
+           "lora_tensors": len(lora), "peak_bytes": peak, "wall_s": wall_s, "times": times,
+           "n_micro": n_micro, "policy_batch": 2 * t_cfg.batch_size,
+           "unet_bytes": sum(size(t) for t in [*pipe.unet.parameters(), *pipe.unet.buffers()]),
+           "frozen_bytes": sum(size(p) for p in frozen),
+           "tp_sliced_tensors": len(tp.tp_plan(pipe.unet)),
+           "shapes": {"attention": recorder.attention, "attention_bwd": recorder.attention_bwd,
+                      "gn": recorder.gn}}
+    if capture and parallel.rank() == 0:
+        torch.save({**captured, "after": lora, "lr": float(t_cfg.learning_rate)},
+                   out_dir / f"{name}_update.pt")
+    del state, pipe, lora
     torch.cuda.empty_cache()
+    return out
+
+
+def _dist_config(seed, out_dir, name, mesh=(), base=SHARDED_CONFIG):
+    from pairwise_sample_optimization_tpu_torch.configs import sdxl_turbo_dpo
+
+    config = sdxl_turbo_dpo.get_config()
+    config.seed, config.output_dir, config.run_name = seed, str(out_dir), name
+    for key, value in {**base, **dict(mesh)}.items():
+        config.override(f"{key}={value}")
+    return config
+
+
+def distributed_worker(out_dir, seed, backend):
+    """One rank of ``distributed_slice`` (this script with
+    ``--distributed-worker``; torchrun's variables in its environment): (a)
+    the Turbo loop through ``run_online_pso`` at full width over
+    ``backend`` on the card ``LOCAL_RANK`` names, data-parallel
+    (``DIST_CONFIG``), then at ``SHARDED_CONFIG`` data-parallel twice and
+    under each mesh of ``SHARDED_ONE_CARD`` (two ranks) or
+    ``SHARDED_FOUR_CARDS`` (four), (b) ``train_epoch`` of the small pipeline
+    over this rank's share of the sample set. Writes ``rank<r>.pt`` for the
+    parent to check."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch import parallel
+
+    torch.set_num_threads(1)
+    parallel.maybe_initialize_distributed(backend=backend, device="cuda",
+                                          timeout_s=DIST_TIMEOUT_S)
+    r, world = parallel.rank(), parallel.world_size()
+    turbo = _loop_run(_dist_config(seed, out_dir, "turbo", base=DIST_CONFIG), out_dir, "turbo")
+    # the sharded runs' data-parallel reference, and the same again: the
+    # spread FSDP's update is held to
+    ddp, again = (_loop_run(_dist_config(seed, out_dir, n), out_dir, n, capture=True,
+                            lora_up_std=SHARDED_LORA_UP_STD) for n in ("ddp", "ddp_again"))
+    sharded = {}
+    for name, mesh in (SHARDED_FOUR_CARDS if world == 4 else SHARDED_ONE_CARD):
+        sharded[name] = _loop_run(_dist_config(seed, out_dir, name, mesh), out_dir, name,
+                                  capture=mesh.get("mesh.data") == 1 or "mesh.fsdp" in mesh,
+                                  lora_up_std=SHARDED_LORA_UP_STD)
+    parallel.reset_mesh()
 
     # (b) this rank's share of the small sample set, as pair batches of one
     # prompt each
@@ -2463,11 +2635,228 @@ def distributed_worker(out_dir, seed, backend):
     rows = lambda tree: {k: v[r * half:(r + 1) * half].cuda() for k, v in tree.items()}
     lora, metrics = _small_epoch(pipe, rows(small["samples"]), rows(small["cond"]), world,
                                  seed, num_batches=half)
-    torch.save({"turbo": turbo, "small_lora": lora, "small_metrics": metrics},
-               out_dir / f"rank{r}.pt")
+    torch.save({"turbo": turbo, "ddp": ddp, "again": again, "sharded": sharded, "small_lora": lora,
+                "small_metrics": metrics}, out_dir / f"rank{r}.pt")
     parallel.barrier()
     parallel.shutdown_distributed()
     return 0
+
+
+def sharding_prediction(lora_rank=32):
+    """Resident bytes predicted from the parameter counts of the port's
+    full-width towers (built on the meta device): a replica's UNet (bf16
+    frozen weights, fp32 LoRA) and frozen suite (the UNet's frozen weights,
+    the VAE, both text towers and PickScore, bf16), each model rank's UNet
+    under tensor parallelism at model 2 and 4, and each data rank's frozen
+    suite under FSDP at 2 and 4 ranks (``fsdp_plan``: the sharded leaves
+    divided, the small ones whole)."""
+    from pairwise_sample_optimization_tpu_torch.models.clip import (CLIPTextConfig,
+                                                                     CLIPTextTower,
+                                                                     CLIPVisionConfig)
+    from pairwise_sample_optimization_tpu_torch.models.unet import SDXLUNet, UNetConfig
+    from pairwise_sample_optimization_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from pairwise_sample_optimization_tpu_torch.parallel import fsdp, tp
+    from pairwise_sample_optimization_tpu_torch.rewards.pickscore import CLIPDualEncoder
+
+    unet = lambda: SDXLUNet(UNetConfig.sdxl(lora_rank=lora_rank), device="meta")
+    towers = {"unet": unet(), "vae": AutoencoderKL(VAEConfig.sdxl(), device="meta"),
+              "te1": CLIPTextTower(CLIPTextConfig.sdxl_te1(), device="meta"),
+              "te2": CLIPTextTower(CLIPTextConfig.sdxl_te2(), device="meta"),
+              "pickscore": CLIPDualEncoder(CLIPTextConfig.vit_h14(), CLIPVisionConfig.vit_h14(),
+                                           device="meta")}
+    frozen = lambda m: {n: p.numel() for n, p in m.named_parameters() if ".lora." not in n}
+    unet_bytes = lambda m: sum(p.numel() * (4 if ".lora." in n else 2)
+                               for n, p in m.named_parameters())
+    out = {"params": {k: sum(frozen(m).values()) for k, m in towers.items()},
+           "replica_unet_bytes": unet_bytes(towers["unet"]),
+           "replica_frozen_bytes": 2 * sum(sum(frozen(m).values()) for m in towers.values())}
+    for model in (2, 4):
+        out[f"tp{model}_unet_bytes"] = [unet_bytes(tp.shard_unet_tp(unet(), r, model, None))
+                                        for r in range(model)]
+    for n in (2, 4):
+        total = 0
+        for m in towers.values():
+            plan = fsdp.fsdp_plan(m, n)
+            total += 2 * sum(c // n if k in plan else c for k, c in frozen(m).items())
+        out[f"fsdp{n}_frozen_bytes"] = total
+    return out
+
+
+def _check_sharded_run(run):
+    """One rank's run: its launch counts the formula's at its batch and local
+    heads, one update at step 1, the first loss log 2 with a fresh adapter
+    (finite with a drawn ``up``)."""
+    if run["launches"] != run["expected_launches"]:
+        raise AssertionError(f"{run['name']} rank {run['rank']} launch counts {run['launches']} "
+                             f"!= expected {run['expected_launches']}")
+    if len(run["history"]) != 1 or run["step"] != 1:
+        raise AssertionError(f"{run['name']} rank {run['rank']}: {len(run['history'])} updates, "
+                             f"step {run['step']}")
+    loss = run["history"][0]["loss"]
+    if not (math.isfinite(loss) if run["lora_up_std"] else abs(loss - math.log(2.0)) <= 1e-3):
+        raise AssertionError(f"{run['name']} rank {run['rank']} first loss "
+                             f"{run['history'][0]['loss']} != log 2")
+
+
+def _update_against(name, ref, out, grad_limit, cosine_limit, leaf=False):
+    """Run ``name``'s first update against run ``ref``'s (both written by
+    ``_loop_run(capture=True)``): the same LoRA before it, the whole LoRA
+    gradient within ``grad_limit`` relative L2 or, with ``leaf``, every
+    LoRA tensor's within ``grad_limit`` of its norm plus its even share of
+    the whole's (``TP_GRAD_RTOL``), the cosine of the LoRA's AdamW step at
+    least ``cosine_limit``."""
+    import torch
+
+    got, want = (torch.load(out / f"{n}_update.pt", weights_only=True) for n in (name, ref))
+    for k in want["before"]:
+        if not torch.equal(got["before"][k], want["before"][k]):
+            raise AssertionError(f"{name}: the LoRA before the update differs from {ref}'s at {k}")
+    flat = lambda d: torch.cat([d[k].double().reshape(-1) for k in sorted(d)])
+    g, g1 = flat(got["grads"]), flat(want["grads"])
+    rel_l2 = lambda a, b: float(torch.linalg.vector_norm(a.double() - b.double())
+                                / torch.linalg.vector_norm(b.double()))
+    rel = rel_l2(g, g1)
+    norm1, n1 = float(torch.linalg.vector_norm(g1)), g1.numel()
+    leaves = {}
+    for k, v in want["grads"].items():
+        err = float(torch.linalg.vector_norm(got["grads"][k].double() - v.double()))
+        own, even = float(torch.linalg.vector_norm(v.double())), norm1 * math.sqrt(v.numel() / n1)
+        leaves[k] = {"rel": err / own if own else math.inf, "norm_over_even": own / even,
+                     "ratio": err / (grad_limit * (own + even))}
+    worst = max(leaves, key=lambda k: leaves[k]["rel"])
+    worst_ratio = max(leaves, key=lambda k: leaves[k]["ratio"])
+    # per role (attn1 / attn2 x q, k, v, out x down, up): relative L2
+    roles = {}
+    for k in want["grads"]:
+        role = ".".join(x for x in k.split(".") if x in ("attn1", "attn2", "to_q", "to_k", "to_v",
+                                                          "to_out", "down", "up"))
+        roles.setdefault(role, []).append(k)
+    by_role = {r: rel_l2(torch.cat([got["grads"][k].reshape(-1) for k in ks]),
+                         torch.cat([want["grads"][k].reshape(-1) for k in ks]))
+               for r, ks in sorted(roles.items())}
+    step, step1 = flat(got["after"]) - flat(got["before"]), flat(want["after"]) - flat(want["before"])
+    cos = float(step @ step1 / (torch.linalg.vector_norm(step) * torch.linalg.vector_norm(step1)))
+    res = {"grad_rel_l2": rel, "worst_leaf": {worst: leaves[worst]},
+           "worst_ratio": leaves[worst_ratio]["ratio"],
+           "worst_ratio_leaf": {worst_ratio: leaves[worst_ratio]}, "rel_l2_by_role": by_role,
+           "zero_grad_leaves": sum(not bool(v.any()) for v in want["grads"].values()),
+           "leaves": len(leaves), "step_cosine": cos,
+           "step_max_abs_diff": float((step - step1).abs().max()), "lr": want["lr"],
+           "grad_norm": float(torch.linalg.vector_norm(g)),
+           f"grad_norm_{ref}": float(torch.linalg.vector_norm(g1))}
+    log(f"{name} vs {ref}: {res}")
+    if leaf and res["zero_grad_leaves"]:
+        raise AssertionError(f"{name} vs {ref}: {res['zero_grad_leaves']} LoRA tensors of {ref} "
+                             f"have no gradient to hold {name}'s against")
+    if leaf and not res["worst_ratio"] <= 1:
+        raise AssertionError(f"{name} vs {ref}: {worst_ratio}'s gradient off by "
+                             f"{res['worst_ratio']:.3f} x its limit ({grad_limit} of its norm plus "
+                             f"its even share; {leaves[worst_ratio]})")
+    if not (leaf or rel <= grad_limit) or not cos >= cosine_limit:
+        raise AssertionError(f"{name} vs {ref}: gradient rel L2 {rel:.3e} (limit {grad_limit}), "
+                             f"step cosine {cos:.5f} (limit {cosine_limit})")
+    return res
+
+
+def _first_rewards(out, name):
+    """The epoch's reward mean and std rank 0 logged for run ``name``."""
+    rows = [json.loads(x) for x in (out / name / "metrics.jsonl").read_text().splitlines()]
+    return next((x["reward_mean"], x["reward_std"]) for x in rows if "reward_mean" in x)
+
+
+def _forwards(out, name, history):
+    """What the forwards alone decide: the epoch's rewards (rank 0's log)
+    and the update's mean loss and ratio_win (the weights do not change
+    within an update)."""
+    return _first_rewards(out, name), {k: history[0][k] for k in ("loss", "ratio_win")}
+
+
+def _run_to_run(out, again, ddp):
+    """The sharded runs' data-parallel reference and the same run again:
+    every forward bit-identical (the kernels' forwards are deterministic),
+    and the update's spread (``_update_against`` with no limit)."""
+    for r in ddp + again:
+        _check_sharded_run(r)
+    if _forwards(out, "ddp_again", again[0]["history"]) != _forwards(out, "ddp",
+                                                                    ddp[0]["history"]):
+        raise AssertionError(f"the data-parallel run's forwards differ from run to run: "
+                             f"{_forwards(out, 'ddp_again', again[0]['history'])} vs "
+                             f"{_forwards(out, 'ddp', ddp[0]['history'])}")
+    return _update_against("ddp_again", "ddp", out, math.inf, -math.inf)
+
+
+def _check_sharded(name, runs, ddp, world1, out, spread):
+    """The ranks of one sharded run (``SHARDED_ONE_CARD`` /
+    ``SHARDED_FOUR_CARDS``): each rank's counts and first update; FSDP's
+    frozen suite's resident bytes at most 0.6 of a replica's, every forward
+    bit-identical to the data-parallel run ``ddp`` at the same world size
+    and the update's gradient within ``FSDP_SPREAD_FACTOR`` times the
+    ``spread`` of two data-parallel runs (relative L2); tensor
+    parallelism's UNet at most 0.7 (model 2) / 0.5 (model 4) of a
+    replica's, and at data 1 held against ``world1``; then the ranks' whole
+    LoRA and metrics the same, the checkpoint and LoRA file of rank 0 whole
+    (the checkpoint's LoRA the run's)."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.checkpoints import LORA_FILE, load_file
+
+    for run in runs:
+        _check_sharded_run(run)
+    by_data = {}
+    for r in runs:  # the model ranks of one data index read the same prompts
+        by_data.setdefault(r["mesh"]["data_index"], set()).add(json.dumps(r["prompts"]))
+    if any(len(p) != 1 for p in by_data.values()) or len(by_data) != runs[0]["mesh"]["data"]:
+        raise AssertionError(f"{name}: prompts by data index {by_data}")
+    mesh = runs[0]["mesh"]
+    replica = ddp[0]
+    summary = {"mesh": mesh, "history": runs[0]["history"], "lora_sha256": runs[0]["lora_sha256"],
+               "per_rank": [{k: r[k] for k in ("rank", "unet_bytes", "frozen_bytes", "peak_bytes",
+                                               "wall_s", "times", "tp_sliced_tensors")}
+                            for r in runs],
+               "replica_unet_bytes": replica["unet_bytes"],
+               "replica_frozen_bytes": replica["frozen_bytes"]}
+    for r in runs:
+        t = r["times"]
+        red, gat = t.get("tp_activation_all_reduce", {}), t.get("fsdp_weight_gather", {})
+        log(f"{name} ({mesh['data']} x {mesh['model']}{', fsdp' if mesh['fsdp'] else ''}) rank "
+            f"{r['rank']}: UNet {r['unet_bytes'] / 2**30:.3f} GiB (replica "
+            f"{replica['unet_bytes'] / 2**30:.3f}), frozen suite {r['frozen_bytes'] / 2**30:.3f} "
+            f"GiB (replica {replica['frozen_bytes'] / 2**30:.3f}); sample "
+            f"{t['sample_pairs']['ms']:.1f} ms, update {t['update']['ms']:.1f} ms; activation "
+            f"all-reduces {red.get('calls', 0)} calls {red.get('ms', 0.0):.1f} ms "
+            f"{red.get('bytes', 0)} bytes; weight gathers {gat.get('calls', 0)} calls "
+            f"{gat.get('ms', 0.0):.1f} ms {gat.get('bytes', 0)} bytes; peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; run {r['wall_s']:.1f} s")
+    if mesh["fsdp"]:
+        got, want = (_forwards(out, name, runs[0]["history"]),
+                     _forwards(out, "ddp", replica["history"]))
+        if got != want:
+            raise AssertionError(f"{name}: a forward differs from data parallelism's: {got} vs "
+                                 f"{want}")
+        summary["against_ddp"] = _update_against(
+            name, "ddp", out, FSDP_SPREAD_FACTOR * spread["grad_rel_l2"], -math.inf)
+        summary["run_to_run"] = spread
+        if any(r["frozen_bytes"] > 0.6 * replica["frozen_bytes"] for r in runs):
+            raise AssertionError(f"{name}: frozen suite {[r['frozen_bytes'] for r in runs]} bytes "
+                                 f"a rank against {replica['frozen_bytes']} a replica")
+    else:
+        limit = 0.7 if mesh["model"] == 2 else 0.5
+        if any(r["unet_bytes"] > limit * replica["unet_bytes"] for r in runs):
+            raise AssertionError(f"{name}: UNet {[r['unet_bytes'] for r in runs]} bytes a rank "
+                                 f"against {replica['unet_bytes']} a replica")
+        if mesh["data"] == 1:
+            summary["against_world1"] = _update_against(name, "world1", out, TP_GRAD_RTOL,
+                                                        TP_STEP_COSINE, leaf=True)
+    if len({r["lora_sha256"] for r in runs}) != 1 or any(r["history"] != runs[0]["history"]
+                                                        for r in runs):
+        raise AssertionError(f"{name}: the ranks' LoRA or metrics differ: "
+                             f"{[(r['lora_sha256'][:12], r['history']) for r in runs]}")
+    ckpt = torch.load(out / name / "checkpoint-1" / "state.pt", weights_only=True)
+    export = load_file(str(out / name / "lora-1" / LORA_FILE))
+    if _digest(ckpt["lora"]) != runs[0]["lora_sha256"] or any(
+            not torch.equal(export[f"unet.{k}"], v) for k, v in ckpt["lora"].items()):
+        raise AssertionError(f"{name}: the checkpoint or LoRA file is not the run's whole LoRA")
+    return summary
 
 
 def _nccl_world_1():
@@ -2537,13 +2926,13 @@ def _nccl_world_1():
 
 
 def distributed_slice(seed, recorder, cards=1):
-    """Data parallelism on the card, in three parts:
+    """Data parallelism and the sharded meshes on the card, in four parts:
 
     (a) two ranks, each a process of this script on ``cuda:0``, over gloo
     (NCCL refuses two ranks on one device; with ``cards`` > 1, one rank a
     card over NCCL, ``--distributed-cards``), run the Turbo loop at full width
     through ``run_online_pso`` (``DIST_CONFIG``: 2 prompts a rank, one update
-    of the global 4 pairs, a checkpoint and LoRA export by rank 0 at step 1):
+    of the global pairs, a checkpoint and LoRA export by rank 0 at step 1):
     both ranks' LoRA bit-identical after the update, their prompts
     different (``seed + rank``), the first loss log 2 within 1e-3 on both,
     each rank's launch counts (zeroed just before its run, read just after)
@@ -2558,7 +2947,12 @@ def distributed_slice(seed, recorder, cards=1):
     LoRA tensor within ``DIST_SMALL_TOL``, the update's loss, ratio_win and
     grad_norm within ``DIST_SMALL_METRICS_TOL``, the ranks' bit-equal (over
     ``cards`` ranks and shares where more);
-    (c) NCCL at world 1 (``_nccl_world_1``).
+    (c) NCCL at world 1 (``_nccl_world_1``);
+    (d) before the ranks start, the epoch of ``SHARDED_CONFIG`` at world 1 on
+    this card; after (a), the ranks run it data-parallel twice (the second
+    run's spread from the first holds FSDP) and under each sharded mesh
+    (``SHARDED_ONE_CARD``, with ``cards`` > 1 ``SHARDED_FOUR_CARDS``),
+    checked by :func:`_check_sharded`.
 
     A rank that fails, or does not end within ``DIST_JOIN_S``, fails the
     phase. The ranks' kernel shapes join ``recorder``."""
@@ -2593,8 +2987,17 @@ def distributed_slice(seed, recorder, cards=1):
     del pipe, mods, samples, cond
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    prediction = sharding_prediction()
+    log(f"resident bytes predicted from the parameter counts: {prediction}")
+    # (a)'s world-1 run on this card, which the tensor-parallel runs at data 1
+    # are held against
+    world1 = _loop_run(_dist_config(seed, out, "world1"), out, "world1", capture=True,
+                       lora_up_std=SHARDED_LORA_UP_STD)
+    _check_sharded_run(world1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
-    # (a) and (b) in the two rank processes
+    # (a) and (b) in the rank processes
     env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
            "WORLD_SIZE": str(world)}
     logs = [open(out / f"rank{r}.log", "w") for r in range(world)]
@@ -2651,6 +3054,11 @@ def distributed_slice(seed, recorder, cards=1):
             or not (run / "lora-1" / LORA_FILE).exists():
         raise AssertionError(f"rank 0's writes: {len(rows)} metrics rows, "
                              f"{sorted(p.name for p in run.iterdir())}")
+    sharded = {name: [x["sharded"][name] for x in res] for name in res[0]["sharded"]}
+    ddp = [x["ddp"] for x in res]
+    spread = _run_to_run(out, [x["again"] for x in res], ddp)
+    sharded_summary = {name: _check_sharded(name, runs, ddp, world1, out, spread)
+                       for name, runs in sharded.items()}
     small_errs, metric_errs = [], []
     for x in res:
         small_errs.append(max(check_close(f"small LoRA {k}, world 2 vs 1", x["small_lora"][k],
@@ -2663,7 +3071,8 @@ def distributed_slice(seed, recorder, cards=1):
     if any(not torch.equal(res[0]["small_lora"][k], x["small_lora"][k])
            for x in res for k in small_want):
         raise AssertionError("the ranks' small LoRA differ")
-    for t in turbo:  # the ranks' kernel shapes join the kernel phases'
+    for t in turbo + ddp + [world1] + [x for runs in sharded.values() for x in runs]:
+        # the ranks' kernel shapes join the kernel phases'
         for table, entries in t["shapes"].items():
             mine = getattr(recorder, table)
             for key, n in entries.items():
@@ -2684,7 +3093,14 @@ def distributed_slice(seed, recorder, cards=1):
                "prompts": [t["prompts"] for t in turbo], "per_rank": per_rank,
                "most_device_bytes_in_use": most_used, "ranks_s": ranks_s,
                "small_max_abs_diff": small_errs, "small_metrics": small_want_metrics,
-               "small_metrics_abs_diff": metric_errs, "nccl_world_1": nccl}
+               "small_metrics_abs_diff": metric_errs, "nccl_world_1": nccl,
+               "world1": {k: world1[k] for k in ("launches", "history", "lora_sha256",
+                                                 "unet_bytes", "frozen_bytes", "wall_s",
+                                                 "peak_bytes", "times")},
+               "sharded": sharded_summary, "prediction": prediction,
+               "launches_by_run": {"world1": world1["launches"], **{
+                   name: {k: sum(x["launches"][k] for x in runs) for k in KERNELS}
+                   for name, runs in sharded.items()}}}
     for p in per_rank:
         log(f"distributed rank {p['rank']} of {world} ({backend}, "
             f"{'one card each' if cards > 1 else 'all on one card'}): sample "
@@ -2694,7 +3110,8 @@ def distributed_slice(seed, recorder, cards=1):
             f"{p['gather']['bytes']} bytes, broadcast {p['broadcast']['ms']:.1f} ms / "
             f"{p['broadcast']['bytes']} bytes, peak {p['peak_bytes'] / 2**30:.2f} GiB, run "
             f"{p['wall_s']:.1f} s")
-    log(f"distributed Turbo loop at 512^2, {world} ranks x 2 prompts, one update of "
+    log(f"distributed Turbo loop at 512^2, {world} ranks x {DIST_CONFIG['sample.batch_size']} "
+        f"prompts, one update of "
         f"{turbo[0]['n_micro']} microbatches at policy batch {turbo[0]['policy_batch']} a rank: "
         f"LoRA bit-identical (sha256 {turbo[0]['lora_sha256'][:16]}), loss "
         f"{turbo[0]['history'][0]['loss']:.6f}, prompts {[t['prompts'] for t in turbo]}, "
@@ -2737,7 +3154,8 @@ def attention_phase(shapes, seed):
     cases = [(q, k, dt, n) for (q, k, dt), n in shapes.items()]
     q0, k0, _, _ = max(cases, key=lambda c: c[3])
     cases.append((q0, k0, torch.float32, 0))  # the fp32 case, off the main path
-    cases += [(qs, (qs[0], skv, *qs[2:]), torch.bfloat16, 0) for qs, skv in RAGGED + RAGGED_FWD]
+    cases += [(qs, (qs[0], skv, *qs[2:]), torch.bfloat16, 0)
+              for qs, skv in RAGGED + RAGGED_FWD + TP_LOCAL]
     rows = []
     for qs, ks, dt, launches in cases:
         q = torch.randn(qs, generator=gen, device="cuda", dtype=dt)
@@ -2823,7 +3241,7 @@ def attention_bwd_phase(shapes, seed):
     cases = [(q, k, dt, n) for (q, k, dt), n in shapes.items()]
     q0, k0, _, _ = max(cases, key=lambda c: (c[3], c[0][1] * c[1][1]))
     cases.append((q0, k0, torch.float32, 0))  # the fp32 case, off the main path
-    cases += [(qs, (qs[0], skv, *qs[2:]), torch.bfloat16, 0) for qs, skv in RAGGED]
+    cases += [(qs, (qs[0], skv, *qs[2:]), torch.bfloat16, 0) for qs, skv in RAGGED + TP_LOCAL]
     rows = {name: [] for name in ("flash_attn_bwd_pre", "flash_attn_bwd", "flash_attn_bwd_post")}
     whole_rows = []
     for qs, ks, dt, launches in cases:
@@ -3139,7 +3557,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {log_file.stem}: {line.strip()}")
 
-    if args.distributed_cards > 1:  # the data-parallel phase over several cards alone
+    if args.distributed_cards > 1:  # the distributed phase over several cards alone
         summary = distributed_slice(args.seed, ShapeRecorder(), args.distributed_cards)
         print(json.dumps({"cards": card, "build_s": build_s, "distributed": summary,
                           "seconds": time.perf_counter() - t_start}))
@@ -3162,7 +3580,9 @@ def main(argv=None) -> int:
     paths = {"turbo_loop": train_summary["launches"], "dmd_loop": dmd_summary["launches"],
              "dmd_eval": eval_summary["launches_all_runs"],
              "dreambooth": db_summary["launches"], "remat": remat_summary["launches"],
-             "full_finetune": full_summary["launches"], "distributed": dist_summary["launches"]}
+             "full_finetune": full_summary["launches"], "distributed": dist_summary["launches"],
+             **{f"distributed_{name}": counts
+                for name, counts in dist_summary["launches_by_run"].items()}}
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     bwd_rows, bwd_whole, run_to_run = attention_bwd_phase(recorder.attention_bwd, args.seed)
     rows = {**attention_phase(recorder.attention, args.seed), **bwd_rows,

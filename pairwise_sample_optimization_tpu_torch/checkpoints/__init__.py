@@ -18,4 +18,5 @@ from .train_state_io import (
     prune_checkpoints,
     restore_train_state,
     save_train_state,
+    train_state_blob,
 )

@@ -45,8 +45,10 @@ _KOHYA = {"lora.down.weight": "lora_down.weight", "lora.up.weight": "lora_up.wei
           "lora_magnitude_vector": "dora_scale"}
 
 
-def _adapter(module: nn.Module) -> Dict[str, nn.Parameter]:
-    lora = {name: p for name, p in module.named_parameters() if ".lora." in name}
+def _adapter(module) -> Dict[str, nn.Parameter]:
+    """The adapter's tensors by name: a module's, or a mapping of them."""
+    items = module.items() if isinstance(module, Mapping) else module.named_parameters()
+    lora = {name: p for name, p in items if ".lora." in name}
     if not lora:
         raise ValueError("the module has no LoRA parameters")
     return lora
@@ -55,8 +57,10 @@ def _adapter(module: nn.Module) -> Dict[str, nn.Parameter]:
 def export_sdxl_lora_safetensors(modules: Mapping[str, nn.Module], path: Optional[str] = None
                                  ) -> Dict[str, torch.Tensor]:
     """``{"unet": ..., "te1": ..., "te2": ...}`` (any of them; a missing or
-    None one is left out) -> {diffusers key: contiguous fp32 CPU tensor},
-    also written to ``path`` when given."""
+    None one is left out; each a module or its ``{parameter name: tensor}``,
+    such as the whole tensors ``parallel.tp.whole_tensors`` gathers) ->
+    {diffusers key: contiguous fp32 CPU tensor}, also written to ``path``
+    when given."""
     out = {}
     for which, module in modules.items():
         if module is None:
@@ -71,7 +75,7 @@ def export_sdxl_lora_safetensors(modules: Mapping[str, nn.Module], path: Optiona
     return out
 
 
-def export_lora_safetensors(unet: nn.Module, path: Optional[str] = None
+def export_lora_safetensors(unet, path: Optional[str] = None
                             ) -> Dict[str, torch.Tensor]:
     """The UNet's adapter alone (keys ``unet.<module>.lora...``)."""
     return export_sdxl_lora_safetensors({"unet": unet}, path)

@@ -4,6 +4,12 @@ LoRA adapter, or every UNet weight under full finetuning, as the JAX train
 state's ``lora`` field), the optimizer's ``state_dict`` and an extra dict
 (the epoch), written with ``torch.save``. The counterpart of the JAX
 package's ``checkpoints/orbax_io.py``.
+
+A checkpoint always holds whole tensors, as orbax writes global arrays:
+under tensor parallelism (``parallel/tp.py``) :func:`train_state_blob`
+gathers the slices of every model rank (a collective they all make) before
+rank 0 writes, and :func:`restore_train_state` gives each rank its slices,
+so a run resumes at any ``mesh.model``.
 """
 
 from __future__ import annotations
@@ -29,17 +35,27 @@ def _steps(base_dir: str) -> list[int]:
                   (re.fullmatch(r"checkpoint-(\d+)", n) for n in os.listdir(base_dir)) if m)
 
 
-def save_train_state(base_dir: str, step: int, state, extra: Optional[dict] = None) -> str:
+def train_state_blob(state) -> dict:
+    """What a checkpoint of ``state`` holds: the update count, the whole
+    trained tensors (on the CPU) and the whole-tensor optimizer state (see
+    the module docstring)."""
+    from ..parallel.tp import whole_tensors
+    from ..train.sharded_state import whole_optimizer_state
+
+    return {"step": int(state.step),
+            "lora": {k: v.cpu() for k, v in whole_tensors(state.lora).items()},
+            "optimizer": whole_optimizer_state(state.tx)}
+
+
+def save_train_state(base_dir: str, step: int, state, extra: Optional[dict] = None,
+                     blob: Optional[dict] = None) -> str:
     """Write ``<base>/checkpoint-<step>/state.pt`` (to a temporary name
-    first, then renamed). Returns the checkpoint directory."""
+    first, then renamed): ``blob`` (:func:`train_state_blob`, made from
+    ``state`` when not given) and ``extra``. Returns the checkpoint
+    directory."""
     path = _ckpt_dir(base_dir, step)
     os.makedirs(path, exist_ok=True)
-    blob = {
-        "step": int(state.step),
-        "lora": {k: v.detach().cpu() for k, v in state.lora.items()},
-        "optimizer": state.tx.state_dict(),
-        "extra": dict(extra or {}),
-    }
+    blob = {**(blob or train_state_blob(state)), "extra": dict(extra or {})}
     tmp = os.path.join(path, _STATE_FILE + ".tmp")
     torch.save(blob, tmp)
     os.replace(tmp, os.path.join(path, _STATE_FILE))
@@ -48,16 +64,20 @@ def save_train_state(base_dir: str, step: int, state, extra: Optional[dict] = No
 
 def restore_train_state(path: str, state) -> dict:
     """Load a checkpoint directory into the live ``state`` (trained tensors in
-    place, optimizer state, step). Returns the saved extra dict."""
+    place, optimizer state, step; a tensor-parallel rank its slices).
+    Returns the saved extra dict."""
+    from ..parallel.tp import local_tensors
+    from ..train.sharded_state import load_whole_optimizer_state
+
     blob = torch.load(os.path.join(path, _STATE_FILE), map_location="cpu", weights_only=True)
     missing = set(state.lora) ^ set(blob["lora"])
     if missing:
         raise KeyError(f"checkpoint and state disagree on the trained tensors' names "
                        f"(a LoRA state and a whole-UNet one?): {sorted(missing)[:5]}")
     with torch.no_grad():
-        for k, p in state.lora.items():
-            p.copy_(blob["lora"][k])
-    state.tx.load_state_dict(blob["optimizer"])
+        for k, v in local_tensors(blob["lora"], state.lora).items():
+            state.lora[k].copy_(v)
+    load_whole_optimizer_state(state.tx, blob["optimizer"])
     state.step = int(blob["step"])
     return blob["extra"]
 

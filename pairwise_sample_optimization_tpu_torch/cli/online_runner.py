@@ -61,17 +61,36 @@ it imports and starts, as the JAX runner does.
 Data parallelism, as the JAX runner's: launched as ``torchrun
 --nproc_per_node=N`` (or with the JAX package's ``PSO_COORDINATOR`` /
 ``PSO_NUM_PROCESSES`` / ``PSO_PROCESS_ID``), each process runs on its own
-card (``cuda:LOCAL_RANK``) with ``mesh.data`` -1 or the world size;
-``sample.batch_size`` and ``train.batch_size`` are per rank, each rank's
-prompt stream is seeded ``seed + rank``, and an update averages the
-gradients of the global microbatch over the ranks
+card (``cuda:LOCAL_RANK``); the world is laid out as the mesh
+``mesh.data`` x ``mesh.model`` (``parallel/mesh.py``: rank = d * model +
+m). ``sample.batch_size`` and ``train.batch_size`` are per data index,
+each data index's prompt stream is seeded ``seed + d``, and an update
+averages the gradients of the global microbatch over the data axis
 (``train/online_pso.py``). The trained tensors and the optimizer state are
-broadcast from rank 0 after build or resume, the rewards gathered before
-their mean and std are logged, and rank 0 alone logs metrics, validates,
-checkpoints, exports the LoRA and prunes, the other ranks waiting for it.
+broadcast from the data axis's first rank after build or resume, the
+rewards gathered before their mean and std are logged, and rank 0 alone
+logs metrics, writes the validation images, checkpoints, exports the LoRA
+and prunes, the other ranks waiting for it.
+
+The weights are placed on the mesh in the JAX runner's order:
+
+- ``mesh.model > 1``: tensor parallelism of the UNet's attention and GEGLU
+  feed-forward over the model axis (``parallel/tp.py``; the trained UNet
+  and, under full finetuning, the frozen reference copy); the VAE, the
+  text towers and the scorer replicated. The LoRA adapter (or the trained
+  weights) and their optimizer moments are sliced with the weights;
+  checkpoints and LoRA files hold whole tensors (gathered to rank 0), and a
+  run resumes at any ``mesh.model``;
+- ``mesh.fsdp``: FSDP of the frozen weights over the data axis
+  (``parallel/fsdp.py``): the UNet's frozen weights (the reference copy
+  under full finetuning), the VAE, both text towers and the scorer; the
+  trained tensors and the optimizer state replicated. It does not combine
+  with ``mesh.model > 1``.
+
+Under either, every rank runs the validation (a sharded forward needs all
+of them); rank 0 writes its images and logs it.
 
 Not ported yet, and refused when asked for (by :func:`check_config`):
-``mesh.model > 1`` and ``mesh.fsdp`` (tensor parallelism and FSDP),
 ``fast_init`` and the JAX package's int8 options.
 """
 
@@ -86,13 +105,17 @@ import torch
 
 from ..checkpoints import (LORA_FILE, export_lora_safetensors, latest_checkpoint, load_clip_dual,
                            load_torch_state_dict, load_weights, prune_checkpoints,
-                           restore_train_state, save_train_state, tower_weight_file)
+                           restore_train_state, save_train_state, tower_weight_file,
+                           train_state_blob)
 from ..data import PromptDataset, PromptLoader, make_clip_tokenizers
 from ..device import resolve_device
 from ..models.layers import set_gelu_exact
 from ..models.unet import frozen_copy
-from ..parallel import (MeshSpec, barrier, broadcast_train_state_, host_fold,
-                        maybe_initialize_distributed, process_allgather, rank, world_size)
+from ..parallel import (MeshSpec, barrier, broadcast_train_state_, data_group, host_fold,
+                        init_mesh, maybe_initialize_distributed, model_group, model_index,
+                        process_allgather, rank, world_size)
+from ..parallel.fsdp import shard_module_fsdp
+from ..parallel.tp import shard_unet_tp
 from ..pipeline import SAMPLERS, SDXLPipeline
 from ..rewards import CLIPScorer
 from ..train import (OnlinePSOConfig, OnlinePSOTrainer, PSOTrainState, all_parameters,
@@ -120,11 +143,15 @@ def _get(config, dotted: str):
     return node
 
 
+def mesh_spec(config) -> MeshSpec:
+    return MeshSpec(int(config.mesh.data), int(config.mesh.model), bool(config.mesh.fsdp))
+
+
 def check_config(config, sampler: str, world: int = 1) -> None:
-    """Refuse knobs the port does not implement, and a mesh that does not
-    cover the ``world`` processes. The remat mode is the UNet's to check
-    (``models/unet.py``)."""
-    MeshSpec(config.mesh.data, config.mesh.model, bool(config.mesh.fsdp)).resolve(world)
+    """Refuse knobs the port does not implement, a mesh that does not cover
+    the ``world`` processes, and FSDP with ``mesh.model > 1``. The remat
+    mode is the UNet's to check (``models/unet.py``)."""
+    mesh_spec(config).resolve(world)
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r}; have {SAMPLERS}")
     for key, allowed in _UNPORTED.items():
@@ -239,10 +266,11 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
     maybe_initialize_distributed(device=dev)
     world, is_main = world_size(), rank() == 0
     check_config(config, sampler, world)
+    mesh = init_mesh(mesh_spec(config))
+    use_tp, use_fsdp = mesh.model > 1, mesh.fsdp and mesh.data > 1
     dtype = torch.bfloat16 if config.mixed_precision == "bf16" else torch.float32
     tiny = bool(config.tiny_model)
     epochs = config.num_epochs if num_epochs is None else num_epochs
-    full_ft = not config.use_lora
     set_gelu_exact(config.kernels.gelu_exact)
 
     # ---- models ----
@@ -250,10 +278,23 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
     aux = (pipe.vae, pipe.te1, pipe.te2, pipe.scorer.model)
     for module in aux:
         module.requires_grad_(False)
+    full_ft = not config.use_lora
+    if full_ft:
+        pipe.reference_unet = frozen_copy(pipe.unet)
+
+    # ---- place the weights on the mesh (the JAX runner's order) ----
+    if use_tp:  # the UNet width-sharded over the model axis, the rest replicated
+        for unet in (pipe.unet, pipe.reference_unet):
+            if unet is not None:
+                shard_unet_tp(unet, model_index(), mesh.model, model_group())
+    elif use_fsdp:  # the frozen suite sharded over the data axis
+        frozen_unet = pipe.reference_unet if full_ft else pipe.unet
+        for module in (frozen_unet,) + aux:
+            shard_module_fsdp(module, data_group())
     offload = HostOffload(aux) if config.offload_aux_during_update else None
     tok1, tok2, tok_r = make_clip_tokenizers(
         config.pretrained.bpe_path, vocab_size=pipe.te1.config.vocab_size, with_reward=True)
-    # per-rank prompt streams; train.batch_size is per rank too
+    # per-data-index prompt streams; train.batch_size is per data index too
     loader = PromptLoader(PromptDataset(config.prompt_json or None), config.sample.batch_size,
                           tok1, tok2, reward_tokenizer=tok_r, seed=host_fold(config.seed))
 
@@ -270,8 +311,6 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
         # policy and reference run different weights under full finetuning
         fuse_ref_pass=bool(config.train.fuse_ref_pass) and not full_ft,
         full_finetune=full_ft)
-    if full_ft:
-        pipe.reference_unet = frozen_copy(pipe.unet)
     trainer = OnlinePSOTrainer(ocfg, pipe)
     trainable = all_parameters(pipe.unet) if full_ft else lora_parameters(pipe.unet)
     tx = make_optimizer(trainable, learning_rate=config.train.learning_rate,
@@ -290,8 +329,9 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
             # epoch-keyed random streams of epochs already trained
             start_epoch = int(extra.get("epoch", 0)) + 1
             logger.info("resumed from %s (step %d, epoch %d)", ckpt, state.step, start_epoch)
-    # every rank starts from rank 0's state (the weights are the same seed's)
-    broadcast_train_state_(state)
+    # every rank starts from its data axis's first rank's state (the weights
+    # are the same seed's; the model ranks hold different slices)
+    broadcast_train_state_(state, data_group())
 
     # ---- validation: its prompts where it will fire; the CLIP scorer when it
     # first fires (at full width ~2 GB a run without validation need not hold) ----
@@ -303,6 +343,9 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
     if config.validation_steps and any(s % config.validation_steps == 0 for s in steps):
         val_prompts = validation_prompts(config)
 
+    # a sharded forward needs every rank: then all of them validate
+    validators = world > 1 and (use_tp or use_fsdp)
+
     def validate(step):
         nonlocal clip_scorer
         if clip_scorer is None:
@@ -313,7 +356,7 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
         t0 = time.perf_counter()
         metrics = run_validation(pipe, clip_scorer, val_prompts, (tok1, tok2, tok_r), sampler,
                                  config.seed, max(config.sample.batch_size, 1),
-                                 os.path.join(out_dir, f"val-{step}"))
+                                 os.path.join(out_dir, f"val-{step}") if is_main else None)
         # the means are host floats: the device work is done
         metrics["time/validation_s"] = time.perf_counter() - t0
         metrics_logger.log_metrics(metrics, step)
@@ -348,7 +391,8 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
                             break
                 samples = {k: torch.cat([s[k] for s in all_samples]) for k in all_samples[0]}
                 cond = {k: torch.cat([c[k] for c in all_cond]) for k in all_cond[0]}
-                rewards = process_allgather(samples["rewards"].float()).flatten(0, 1)
+                rewards = process_allgather(samples["rewards"].float(),
+                                            data_group()).flatten(0, 1)
                 metrics_logger.log_metrics({"epoch": epoch, "reward_mean": rewards.mean(),
                                             "reward_std": rewards.std(unbiased=False)}, state.step)
 
@@ -373,16 +417,20 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
                                       and global_step % config.validation_steps == 0)
                     saving = bool(config.checkpointing_steps and (
                         global_step % config.checkpointing_steps == 0 or global_step == 1))
-                    if is_main and validating:
+                    if validating and (is_main or validators):
                         validate(global_step)
+                    # whole tensors: under tensor parallelism every rank gathers them
+                    blob = train_state_blob(state) if saving and use_tp else None
                     if is_main and saving:
                         # the state after the whole epoch, under the update's step
                         # number, as the JAX runner saves it
-                        path = save_train_state(out_dir, global_step, state, {"epoch": epoch})
+                        path = save_train_state(out_dir, global_step, state, {"epoch": epoch},
+                                                blob)
                         if not full_ft:  # the adapter for diffusers beside it
                             lora_dir = os.path.join(out_dir, f"lora-{global_step}")
                             os.makedirs(lora_dir, exist_ok=True)
-                            export_lora_safetensors(pipe.unet, os.path.join(lora_dir, LORA_FILE))
+                            export_lora_safetensors(blob["lora"] if blob else pipe.unet,
+                                                    os.path.join(lora_dir, LORA_FILE))
                         prune_checkpoints(out_dir, int(config.num_checkpoint_limit))
                         logger.info("saved state to %s", path)
                     if validating or saving:  # the other ranks wait for rank 0's work

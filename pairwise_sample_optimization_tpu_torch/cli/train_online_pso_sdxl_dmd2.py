@@ -18,8 +18,13 @@ Data-parallel over N cards of one machine:
         pairwise_sample_optimization_tpu_torch.cli.train_online_pso_sdxl_dmd2 [key=value ...]
 
 Each rank runs on ``cuda:LOCAL_RANK`` (NCCL); ``sample.batch_size`` and
-``train.batch_size`` are per rank. With ``--device cpu`` the ranks talk
-over gloo.
+``train.batch_size`` are per data index. With ``--device cpu`` the ranks
+talk over gloo. ``mesh.model=M`` (M dividing N) adds tensor parallelism of
+the UNet over groups of M consecutive ranks; ``mesh.fsdp=True`` shards the
+frozen weights over the N ranks instead, e.g.
+
+    torchrun --nproc_per_node=4 -m \
+        pairwise_sample_optimization_tpu_torch.cli.train_online_pso_sdxl_dmd2 mesh.model=2
 """
 
 from __future__ import annotations

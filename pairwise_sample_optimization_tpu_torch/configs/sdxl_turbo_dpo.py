@@ -6,12 +6,15 @@ The memory knobs are the JAX package's: ``use_lora=False`` (full
 finetuning), ``param_dtype``, ``activation_checkpoint`` (every remat mode),
 ``offload_aux_during_update``, ``vae_decode_chunk`` and
 ``kernels.gelu_exact``; ``profile_dir`` (a ``torch.profiler`` trace of
-one epoch) and ``use_wandb`` run as there. ``mesh.data`` is -1 or the
-number of data-parallel processes. Knobs the port does not implement yet
+one epoch) and ``use_wandb`` run as there. The mesh is the JAX
+package's: ``mesh.data`` x ``mesh.model`` processes (``mesh.data`` -1:
+the world over ``mesh.model``); ``mesh.model > 1`` shards the UNet's
+attention and feed-forward over the model axis (``parallel/tp.py``),
+``mesh.fsdp`` the frozen weights over the data axis (``parallel/fsdp.py``;
+not with ``mesh.model > 1``). Knobs the port does not implement yet
 are kept so launch scripts parse, and ``cli.online_runner.check_config``
-refuses a non-default value: ``mesh.model > 1``, ``mesh.fsdp``,
-``fast_init``, ``train.int8_ref_pass`` and the int8 and subpixel
-``kernels.*`` options.
+refuses a non-default value: ``fast_init``, ``train.int8_ref_pass`` and
+the int8 and subpixel ``kernels.*`` options.
 """
 
 from . import Config
@@ -66,7 +69,7 @@ def get_config() -> Config:
     p.pickscore_dir = ""
     p.bpe_path = ""
 
-    # ---- mesh: data-parallel processes ----
+    # ---- mesh: data x model processes ----
     c.mesh = m = Config()
     m.data = -1
     m.model = 1

@@ -11,6 +11,16 @@ LoRA stays apart from the frozen weights: ``LoRALinear`` is an
 reference model of LoRA training is ``lora_scale=0`` on the same module,
 never a copy.
 
+Tensor parallelism (``parallel/tp.py``) slices a ``Linear`` /
+``LoRALinear`` and sets its ``tp_mode``: ``"col"`` (the layer holds some
+output features) or ``"row"`` (it holds some input features: its partial
+output is summed over the model group by ``reduce_from_group``, then the
+bias is added once). The ``Attention`` or ``GEGLUFeedForward`` around them
+gets ``tp_mode`` ``"in"``: its input (and the attention's context) passes
+``copy_to_group`` once, for all the column layers and LoRA ``down``
+products that read it (Megatron's ``f``). None (the default) is the plain
+module.
+
 The weighted layers (``Linear``, ``Conv2d``, ``LayerNorm``, ``GroupNorm``,
 ``LoRALinear``) compute in their ``compute_dtype`` whatever dtype their
 weights are stored in: a weight stored in another dtype is cast at use, as
@@ -30,6 +40,7 @@ import torch.nn.functional as F
 from ..ops.attention import dot_product_attention
 from ..ops.group_norm import group_norm
 from ..ops.upsample import upsample2x_conv3x3
+from ..parallel.collectives import copy_to_group, reduce_from_group
 
 
 _GELU_FORCE_EXACT = False
@@ -65,9 +76,28 @@ class CastAtUse:
         return at_use(self.weight, self.compute_dtype), at_use(self.bias, self.compute_dtype)
 
 
-class Linear(CastAtUse, nn.Linear):
+class TensorParallel:
+    """A module's tensor-parallel mode (see the module docstring)."""
+
+    tp_mode = None  # None | "in" | "col" | "row"
+    tp_group = None
+
+    def tp_input(self, x):
+        """Megatron's ``f`` on the input of an "in" module (None passes)."""
+        return copy_to_group(x, self.tp_group) if self.tp_mode == "in" and x is not None else x
+
+    def tp_output(self, y, bias):
+        """The row layer's sum over the model group, then its bias."""
+        y = reduce_from_group(y, self.tp_group)
+        return y if bias is None else y + bias
+
+
+class Linear(TensorParallel, CastAtUse, nn.Linear):
     def forward(self, x):
-        return F.linear(x, *self.weights_at_use())
+        w, b = self.weights_at_use()
+        if self.tp_mode == "row":
+            return self.tp_output(F.linear(x, w), b)
+        return F.linear(x, w, b)
 
 
 class Conv2d(CastAtUse, nn.Conv2d):
@@ -99,7 +129,7 @@ class _LoRAPair(nn.Module):
             self.magnitude = nn.Parameter(torch.ones(out_features, dtype=dtype))
 
 
-class LoRALinear(CastAtUse, nn.Linear):
+class LoRALinear(TensorParallel, CastAtUse, nn.Linear):
     """y = x W^T + b + lora_scale * (alpha / r) * (x A) B.
 
     ``lora_scale`` is a Python number or a per-sample (B,) tensor; a static
@@ -138,22 +168,27 @@ class LoRALinear(CastAtUse, nn.Linear):
 
     def forward(self, x, lora_scale=1.0):
         x = x.to(self.compute_dtype or self.weight.dtype)
-        y = F.linear(x, *self.weights_at_use())
+        w, b = self.weights_at_use()
+        row = self.tp_mode == "row"  # the bias goes on after the sum
+        y = F.linear(x, w, None if row else b)
         static_zero = isinstance(lora_scale, (int, float)) and lora_scale == 0
-        if not self.lora_rank or static_zero:
-            return y
-        per_sample = isinstance(lora_scale, torch.Tensor) and lora_scale.ndim >= 1
-        if self.use_dora and per_sample:
-            raise ValueError("use_dora needs a scalar lora_scale (the magnitude normalization "
-                             "acts on the weight; a per-sample scale cannot express it)")
-        delta = F.linear(F.linear(x, self.lora.down.weight.to(x.dtype)),
-                         self.lora.up.weight.to(x.dtype))
-        if self.use_dora:
-            return self._dora(y, delta, lora_scale)
-        if per_sample:
-            lora_scale = lora_scale.to(x.dtype).reshape(
+        if self.lora_rank and not static_zero:
+            per_sample = isinstance(lora_scale, torch.Tensor) and lora_scale.ndim >= 1
+            if self.use_dora and per_sample:
+                raise ValueError("use_dora needs a scalar lora_scale (the magnitude "
+                                 "normalization acts on the weight; a per-sample scale "
+                                 "cannot express it)")
+            delta = F.linear(F.linear(x, self.lora.down.weight.to(x.dtype)),
+                             self.lora.up.weight.to(x.dtype))
+            y = self._dora(y, delta, lora_scale) if self.use_dora else y + self._scaled(
+                delta, lora_scale)
+        return self.tp_output(y, b) if row else y
+
+    def _scaled(self, delta, lora_scale):
+        if isinstance(lora_scale, torch.Tensor) and lora_scale.ndim >= 1:  # per sample
+            lora_scale = lora_scale.to(delta.dtype).reshape(
                 lora_scale.shape + (1,) * (delta.ndim - lora_scale.ndim))
-        return y + delta * (lora_scale * self.lora_scaling)
+        return delta * (lora_scale * self.lora_scaling)
 
     def _dora(self, y, delta, lora_scale):
         scale = lora_scale * self.lora_scaling
@@ -223,7 +258,7 @@ class GroupNorm(CastAtUse, nn.Module):
         return group_norm(x, *self.weights_at_use(), self.num_groups, self.eps, act=self.act)
 
 
-class Attention(nn.Module):
+class Attention(TensorParallel, nn.Module):
     """Self/cross attention with LoRA-able q/k/v/out projections.
 
     Input (B, S, C); optional context (B, S_kv, C_ctx) for cross attention.
@@ -243,6 +278,7 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([lin(inner, query_dim, True)])
 
     def forward(self, x, context=None, lora_scale=1.0):
+        x, context = self.tp_input(x), self.tp_input(context)
         kv = x if context is None else context
         b, sq, sk = x.shape[0], x.shape[1], kv.shape[1]
         q = self.to_q(x, lora_scale).view(b, sq, self.heads, self.head_dim)
@@ -262,7 +298,7 @@ class GEGLU(nn.Module):
         return hidden * F.gelu(gate, approximate=gelu_approximate(gate.dtype))
 
 
-class GEGLUFeedForward(nn.Module):
+class GEGLUFeedForward(TensorParallel, nn.Module):
     """Transformer FF with a GEGLU gate (diffusers ``ff.net`` layout)."""
 
     def __init__(self, dim: int, mult: int = 4, dtype=None):
@@ -272,6 +308,7 @@ class GEGLUFeedForward(nn.Module):
                                   Linear(inner, dim, dtype=dtype)])
 
     def forward(self, x):
+        x = self.tp_input(x)
         for layer in self.net:
             x = layer(x)
         return x

@@ -17,9 +17,17 @@ a zeroed ``(world, ...)`` buffer into which each rank wrote its own row,
 as bytes: 0 + b = b, so every rank receives each row bit for bit. The
 mean sums and divides by the world size.
 
+Each function takes a ``group`` (default None: the whole world), such as
+a mesh axis of ``parallel/mesh.py``; rank 0 of a broadcast is the group's
+first rank. Tensor parallelism's two operators, :func:`copy_to_group`
+(identity forward, all-reduce backward) and :func:`reduce_from_group`
+(all-reduce forward, identity backward), and :func:`all_gather_dim` (the
+weight gather of FSDP and of whole-tensor checkpoints) live here too.
+
 Without a process group every function returns at once (a gather returns
 ``x[None]``), so code is the same at any world size; a group of one
-process runs the collectives (NCCL or gloo on their own).
+process runs the collectives (NCCL or gloo on their own), a mesh group of
+one rank runs none.
 """
 
 from __future__ import annotations
@@ -35,6 +43,27 @@ from .multihost import is_initialized, rank, world_size
 # bytes of gradients one all-reduce carries: tensors smaller than this are
 # packed into a shared buffer of at most this size; larger ones go alone
 BUCKET_BYTES = 64 << 20
+
+
+def group_size(group=None) -> int:
+    """Ranks in ``group`` (None: the world; 1 without a process group)."""
+    if not is_initialized():
+        return 1
+    return dist.get_world_size(group) if group is not None else world_size()
+
+
+def group_rank(group=None) -> int:
+    """This rank's index in ``group`` (None: the world)."""
+    if not is_initialized():
+        return 0
+    return dist.get_rank(group) if group is not None else rank()
+
+
+def _active(group) -> bool:
+    """Whether a collective over ``group`` has work: a group of several
+    ranks, or the world's group even of one process (NCCL and gloo run on
+    their own there)."""
+    return is_initialized() and (group is None or dist.get_world_size(group) > 1)
 
 
 def _comm_device() -> torch.device:
@@ -76,28 +105,43 @@ def _bucketed_(tensors: Iterable[torch.Tensor], op) -> None:
 
 
 @torch.no_grad()
-def all_reduce_mean_(tensors: Iterable[torch.Tensor]) -> None:
-    """Replace each tensor by its mean over the ranks, in place. The ranks
-    pass their tensors in the same order; every rank ends with the same
-    values. No flat copy of all of them is made: a bucket holds at most
-    ``BUCKET_BYTES``."""
-    if not is_initialized():
+def all_reduce_mean_(tensors: Iterable[torch.Tensor], group=None) -> None:
+    """Replace each tensor by its mean over the ranks of ``group``, in
+    place. The ranks pass their tensors in the same order; every rank ends
+    with the same values. No flat copy of all of them is made: a bucket
+    holds at most ``BUCKET_BYTES``."""
+    if not _active(group):
         return
-    world = world_size()
+    world = group_size(group)
 
     def reduce(t):
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
         t.div_(world)
 
     _bucketed_(tensors, reduce)
 
 
 @torch.no_grad()
-def broadcast_(tensors: Iterable[torch.Tensor]) -> None:
-    """Overwrite each tensor with rank 0's, in place."""
-    if not is_initialized():
+def all_reduce_sum_(tensors: Iterable[torch.Tensor], group=None, op=dist.ReduceOp.SUM) -> None:
+    """Replace each tensor by its sum (or ``op``: MAX) over the ranks of
+    ``group``, in place."""
+    if not _active(group):
         return
-    _bucketed_(tensors, lambda t: dist.broadcast(t, 0))
+    _bucketed_(tensors, lambda t: dist.all_reduce(t, op=op, group=group))
+
+
+def _src(group) -> int:
+    """The global rank of ``group``'s first rank."""
+    return 0 if group is None else dist.get_global_rank(group, 0)
+
+
+@torch.no_grad()
+def broadcast_(tensors: Iterable[torch.Tensor], group=None) -> None:
+    """Overwrite each tensor with that of ``group``'s first rank, in place."""
+    if not _active(group):
+        return
+    src = _src(group)
+    _bucketed_(tensors, lambda t: dist.broadcast(t, src, group=group))
 
 
 def _tensors_and_numbers(tree, tensors: List[torch.Tensor], numbers: list, path=()):
@@ -127,20 +171,22 @@ def _set_path(tree, path, value):
 
 
 @torch.no_grad()
-def broadcast_train_state_(state) -> None:
-    """Make every rank's train state rank 0's: the trained tensors,
-    the update count and the optimizer's state (its tensors in place, its
-    numbers through ``load_state_dict``)."""
-    if not is_initialized():
+def broadcast_train_state_(state, group=None) -> None:
+    """Make every rank's train state that of ``group``'s first rank (rank 0
+    of the world by default): the trained tensors, the update count and the
+    optimizer's state (its tensors in place, its numbers through
+    ``load_state_dict``). Under tensor parallelism the group is the data
+    axis: the ranks that hold the same shards."""
+    if not _active(group):
         return
     opt = state.tx.state_dict()
     tensors, numbers = list(state.lora.values()), []
     _tensors_and_numbers(opt, tensors, numbers)
-    broadcast_(tensors)
+    broadcast_(tensors, group)
     dev = _comm_device()
     values = torch.tensor([float(state.step)] + [_get_path(opt, p) for p in numbers],
                           dtype=torch.float64, device=dev)
-    dist.broadcast(values, 0)
+    dist.broadcast(values, _src(group), group=group)
     values = values.tolist()
     state.step = int(values[0])
     for path, v in zip(numbers, values[1:]):
@@ -148,22 +194,100 @@ def broadcast_train_state_(state) -> None:
     state.tx.load_state_dict(opt)
 
 
-def process_allgather(x):
-    """This rank's ``x`` (n, ...) -> (world, n, ...) in rank order, every
-    rank's bit for bit. A tensor stays on its device (every rank passes the
-    same shape and dtype); a numpy array returns as one."""
+def process_allgather(x, group=None):
+    """This rank's ``x`` (n, ...) -> (ranks of ``group``, n, ...) in rank
+    order, every rank's bit for bit. A tensor stays on its device (every
+    rank passes the same shape and dtype); a numpy array returns as one."""
     is_np = not isinstance(x, torch.Tensor)
     t = torch.from_numpy(np.ascontiguousarray(x)) if is_np else x
-    world = world_size()
-    if not is_initialized():
+    if not _active(group):
         out = t[None]
     else:
         dev = _comm_device() if is_np else t.device
-        out = torch.zeros((world,) + tuple(t.shape), dtype=t.dtype, device=dev)
-        out[rank()].copy_(t)
+        out = torch.zeros((group_size(group),) + tuple(t.shape), dtype=t.dtype, device=dev)
+        out[group_rank(group)].copy_(t)
         if out.numel():
-            dist.all_reduce(out.view(-1).view(torch.uint8))
+            dist.all_reduce(out.view(-1).view(torch.uint8), group=group)
     return out.cpu().numpy() if is_np else out
+
+
+def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """(ranks, *t.shape): every rank's ``t``, bit for bit. NCCL gathers
+    into one buffer; gloo sums bytes into a zeroed one
+    (:func:`process_allgather`: gloo has no all-gather of CUDA tensors)."""
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty((group_size(group),) + tuple(t.shape), dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+        return out
+    return process_allgather(t.contiguous(), group)
+
+
+@torch.no_grad()
+def all_gather_dim(t: torch.Tensor, dim: int, group=None, sizes: Sequence[int] = ()):
+    """The ranks' ``t`` joined along ``dim`` in rank order, exact. ``sizes``
+    gives each rank's extent along ``dim`` where they differ (every rank
+    passes the same list; the shorter ones are padded for the collective
+    and cut after)."""
+    if not _active(group):
+        return t
+    n = group_size(group)
+    if not sizes or len(set(sizes)) == 1:
+        rows = _gather_rows(t, group)
+        return torch.cat(rows.unbind(0), dim) if dim else rows.reshape((-1,) + t.shape[1:])
+    pad = max(sizes) - t.shape[dim]
+    if pad:
+        shape = list(t.shape)
+        shape[dim] = pad
+        t = torch.cat([t, t.new_zeros(shape)], dim)
+    rows = _gather_rows(t, group)
+    return torch.cat([rows[i].narrow(dim, 0, sizes[i]) for i in range(n)], dim)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """The sum over the group forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: ``x`` summed over ``group``, in fp32 for a 16-bit
+    ``x`` (one rounding to its dtype at the end)."""
+    wide = x.to(torch.float32 if x.element_size() < 4 else x.dtype,
+                memory_format=torch.contiguous_format, copy=True)
+    dist.all_reduce(wide, group=group)
+    return wide.to(x.dtype)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``f``: the input of a column-parallel product. Forward
+    ``x`` itself; backward the sum of the ranks' gradients, so that
+    everything before it sees the whole gradient."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``g``: the output of a row-parallel product. Forward the
+    sum of the ranks' partial ``x``; backward the gradient itself."""
+    return _ReduceFromGroup.apply(x, group)
 
 
 def round_robin_gather(local: np.ndarray, total: int) -> np.ndarray:

@@ -97,6 +97,11 @@ def maybe_initialize_distributed(backend: Optional[str] = None, device=None,
 
 
 def shutdown_distributed() -> None:
-    """End the process group, where there is one."""
+    """End the process group, where there is one, and forget the mesh made
+    over it."""
+    from . import mesh
+
+    mesh.reset_mesh()
+    mesh._GROUPS.clear()
     if is_initialized():
         dist.destroy_process_group()

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..parallel.tp import is_sharded
+
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """fp32 square root rounded to nearest (as XLA's and CUDA's): the
@@ -81,6 +83,8 @@ class FlatOptimizer:
         self.update_flat = torch.zeros(n, device=dev)
 
         self.offsets = offsets
+        # tensor-parallel slices among the parameters (``parallel.tp``)
+        self.sharded = is_sharded(self.params)
         self._grad_views = self._views(self.grad_flat)
         self._param_views = self._views(self.param_flat)
         self._update_views = self._views(self.update_flat)
@@ -120,7 +124,12 @@ class FlatOptimizer:
         torch._foreach_copy_(self._grad_views, [grads[k] for k in self.names])
         torch._foreach_copy_(self._param_views, self.params)
         g = self.grad_flat
-        norm = torch.linalg.vector_norm(g)
+        if self.sharded:
+            from .foreach_adamw import sharded_global_norm
+
+            norm = sharded_global_norm(self.params, self._grad_views)
+        else:
+            norm = torch.linalg.vector_norm(g)
         g = torch.where(norm < self.max_grad_norm, g, g / norm * self.max_grad_norm)
         self.update_flat.copy_(self.update(g, self.param_flat))
         torch._foreach_add_(self.params, self._update_views)

@@ -39,6 +39,26 @@ def global_norm(tensors, chunk: int = CHUNK) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def sharded_global_norm(params, grads) -> torch.Tensor:
+    """:func:`global_norm` of ``grads`` (in the order of ``params``) where
+    some parameters are tensor-parallel slices (``parallel.tp``): their
+    squares are summed over the model group, the replicated ones counted
+    once, as JAX's norm of the global arrays. Without slices it is
+    :func:`global_norm` itself."""
+    from ..parallel.collectives import all_reduce_sum_
+    from ..parallel.tp import shard_of
+
+    shards = [shard_of(p) for p in params]
+    if not any(shards):
+        return global_norm(grads)
+    grads = list(grads)
+    rep = [g for g, s in zip(grads, shards) if s is None]
+    sh = [g for g, s in zip(grads, shards) if s is not None]
+    sq = global_norm(sh).square()
+    all_reduce_sum_([sq], next(s for s in shards if s is not None).group)
+    return torch.sqrt(global_norm(rep).square() + sq) if rep else torch.sqrt(sq)
+
+
 def chunk_groups(groups: List[dict], schedule: Optional[Callable[[int], float]], chunk: int,
                  block: int = 1):
     """(names, parameters, chunks) of ``groups`` (``FlatOptimizer``'s
@@ -90,7 +110,7 @@ class ForeachAdamW:
         if list(params) != self.names:
             raise KeyError("step() needs the parameters the optimizer was made with, in order")
         grads = [grads[k] for k in self.names]
-        norm = global_norm(grads)
+        norm = sharded_global_norm(self.params, grads)
         clip = bool(norm >= self.max_grad_norm)
         k = self.count + 1
         bc1, bc2 = bias_correction(self.b1, k), bias_correction(self.b2, k)

@@ -44,6 +44,12 @@ generator, each rank taking its own ``train_batch_size`` rows; and
 the clip and the optimizer. W ranks thus train as one process would whose
 every pair batch holds the ranks' prompts of that batch, concatenated, and
 end with the same weights.
+
+On a (data, model) mesh (``parallel/mesh.py``) every "rank" and "W" above
+is the data axis's: the model ranks of one data index draw, gather and
+train on the same rows, the gradients and metrics are averaged over the
+data group, and the gradient norm of tensor-parallel slices sums their
+squares over the model group (``foreach_adamw.sharded_global_norm``).
 """
 
 from __future__ import annotations
@@ -56,9 +62,11 @@ import torch
 from ..ops.ddpm_renoise import distilled_logprob
 from ..ops.euler_ancestral import turbo_logprob
 from ..ops.schedules import distill_timesteps, make_alphas_cumprod, make_euler_ancestral_schedule
-from ..parallel import all_reduce_mean_, process_allgather, rank, world_size
+from ..parallel import all_reduce_mean_, data_group, data_index, data_size, process_allgather
+from ..parallel.tp import sum_partial_grads_
+from .foreach_adamw import sharded_global_norm
 from .losses import pareto_compare, pso_pairwise_loss, sample_compare
-from .train_state import PSOTrainState, global_norm
+from .train_state import PSOTrainState
 
 _TIME_AXIS_KEYS = ("latents", "next_latents", "input_latents", "log_probs")
 _STEP_KEYS = ("step_indices", "timesteps")
@@ -146,7 +154,7 @@ class OnlinePSOTrainer:
         batch's (:meth:`global_noise`), this rank's rows of it."""
         cfg = self.config
         b = cond["embeds"].shape[0]
-        if world_size() > 1 and init_noise is None:
+        if data_size() > 1 and init_noise is None:
             init_noise, step_noise = self.global_noise(b, generator, step_noise)
         if cfg.sampler == "dmd" and cfg.shared_noise and step_noise is None:
             hw, c, dev = self.pipe.latent_hw, self.pipe.unet.config.in_channels, self.pipe.device
@@ -188,7 +196,7 @@ class OnlinePSOTrainer:
         step (one shared draw under ``shared_noise``: kept whole, as it is
         the same for every prompt). ``step_noise``, where given, is kept."""
         cfg, pipe = self.config, self.pipe
-        world, r = world_size(), rank()
+        world, r = data_size(), data_index()
         g = world * b
         dev = pipe.device
         shape = (pipe.latent_hw, pipe.latent_hw, pipe.unet.config.in_channels)
@@ -313,10 +321,11 @@ class OnlinePSOTrainer:
             ratio_sum += ratio_w.detach()
         grads = {name: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for name, p in state.lora.items()}
+        sum_partial_grads_(state.lora, grads)  # tensor parallelism's shared shares
         # the mean over the ranks' global microbatch rows, as JAX's pmean gives
-        all_reduce_mean_(list(grads.values()))
-        all_reduce_mean_([loss_sum, ratio_sum])
-        grad_norm = global_norm(grads.values())
+        all_reduce_mean_(list(grads.values()), data_group())
+        all_reduce_mean_([loss_sum, ratio_sum], data_group())
+        grad_norm = sharded_global_norm(state.lora.values(), grads.values())
         state.apply_gradients(grads)
         # every optimizer has read or copied the gradients inside its step: free
         # them now, not when the next update starts (JAX's die with the step)
@@ -338,12 +347,13 @@ class OnlinePSOTrainer:
         ``train_batch_size`` x W rows, of which this rank takes its own
         ``train_batch_size``. Returns (state, list of metrics dicts)."""
         cfg = self.config
-        world, r = world_size(), rank()
+        world, r = data_size(), data_index()
         if world > 1:
             if generator is None:  # the global RNG differs between the ranks
                 raise ValueError("train_epoch over several ranks needs the shared generator")
             # (W, nb * B, ...) -> (nb, W, B, ...) -> the global batch
-            gather = lambda tree: {k: process_allgather(v).unflatten(1, (num_batches, -1))
+            gather = lambda tree: {k: process_allgather(v, data_group())
+                                   .unflatten(1, (num_batches, -1))
                                    .transpose(0, 1).flatten(0, 2) for k, v in tree.items()}
             samples, cond = gather(samples), gather(cond)
         b_tot = samples["log_probs"].shape[0]

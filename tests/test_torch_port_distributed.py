@@ -398,21 +398,30 @@ def test_launch_contract_reads_torchrun_and_the_jax_packages_variables(monkeypat
 
 
 def test_mesh_covers_the_world_and_refuses_what_is_not_ported(tmp_path):
+    """(data, model) over the world as JAX resolves it; a mesh that does not
+    cover the world, and FSDP with ``mesh.model > 1`` (refused by the JAX
+    runner too), are refused before any work."""
     from pairwise_sample_optimization_tpu_torch.parallel import MeshSpec
 
     assert MeshSpec().resolve(4) == (4, 1) and MeshSpec(data=2).resolve(2) == (2, 1)
+    assert MeshSpec(model=2).resolve(4) == (2, 2) and MeshSpec(model=4).resolve(4) == (1, 4)
+    assert MeshSpec(data=1, model=3).resolve(3) == (1, 3)
+    assert MeshSpec(fsdp=True).resolve(1) == (1, 1) and MeshSpec(fsdp=True).resolve(2) == (2, 1)
     with pytest.raises(ValueError, match="does not cover"):
         MeshSpec(data=2).resolve(4)
-    with pytest.raises(NotImplementedError, match="parallel/tp.py"):
-        MeshSpec(model=2).resolve(4)
-    with pytest.raises(NotImplementedError, match="parallel/fsdp.py"):
-        MeshSpec(fsdp=True).resolve(1)
+    with pytest.raises(ValueError, match="does not cover"):
+        MeshSpec(model=3).resolve(4)
+    with pytest.raises(ValueError, match="unsupported; pick one"):
+        MeshSpec(model=2, fsdp=True).resolve(2)
     config = build_config(True, [f"output_dir={tmp_path}", "mesh.data=2"])
     online_runner.check_config(config, "turbo", world=2)
     with pytest.raises(ValueError):
         online_runner.check_config(config, "turbo", world=1)
     with pytest.raises(ValueError):
         online_runner.run_online_pso(config, num_epochs=1, device="cpu")
+    both = build_config(True, [f"output_dir={tmp_path}", "mesh.model=2", "mesh.fsdp=True"])
+    with pytest.raises(ValueError, match="pick one"):
+        online_runner.check_config(both, "turbo", world=2)
     assert not any(tmp_path.iterdir())  # refused before any work
 
 

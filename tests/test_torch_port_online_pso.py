@@ -422,7 +422,12 @@ def test_config_overrides_keep_types():
 
 
 @pytest.mark.parametrize("override,error", [
-    ("mesh.fsdp=True", NotImplementedError), ("mesh.model=2", NotImplementedError),
+    # the mesh cases keep the ids they had while FSDP and tensor parallelism
+    # were unported; what is refused of them now: FSDP together with
+    # mesh.model > 1, and a mesh of 2 model ranks over one process
+    pytest.param("mesh.fsdp=True mesh.model=2", ValueError,
+                 id="mesh.fsdp=True-NotImplementedError"),
+    pytest.param("mesh.model=2", ValueError, id="mesh.model=2-NotImplementedError"),
     ("train.int8_ref_pass=True", NotImplementedError),
     ("pretrained.model_dir=/x", FileNotFoundError),
     ("kernels.int8_vae_decode=True", NotImplementedError),
@@ -430,7 +435,7 @@ def test_config_overrides_keep_types():
     ("param_dtype=float16", ValueError),
 ])
 def test_runner_refuses_unported_knobs(tmp_path, override, error):
-    config = build_config(True, [f"output_dir={tmp_path}", override])
+    config = build_config(True, [f"output_dir={tmp_path}", *override.split()])
     with pytest.raises(error):
         online_runner.run_online_pso(config, num_epochs=1, device="cpu")
     assert not any(tmp_path.iterdir())  # refused before any work
