@@ -140,11 +140,21 @@ PyTorch. In order:
    with and without the offload, update and offload seconds, the
    optimizers' resting bytes, the checkpoint's size, write and read
    seconds and the host's peak resident memory;
+10b. the opt-in int8 and subpixel paths and ``fast_init`` (``int8_slice``;
+   each run's launch counts the formula's, the int8 kernels' too): the
+   Turbo loop with ``train.int8_ref_pass`` (``INT8_TURBO``, 2 epochs), the
+   reference pass's eps and log-prob gap to bf16 and its ms; DMD2 sampling
+   at 1024^2 with ``kernels.int8_vae_decode``, a decode in bf16, int8 and
+   int8 with ``int8_smooth_alpha`` (pixels' relative L2 to bf16); PickScore
+   under the int8 scorer override (features' cosine to bf16); a DMD2
+   update with ``kernels.subpixel_upsample`` against the naive path (loss,
+   grad_norm, the LoRA step's cosine; ms of each); ``run_online_pso`` with
+   ``fast_init`` (every tower zero, a finite loss);
 11. data parallelism (``distributed_slice``): two processes of this script
    (``--distributed-worker``), both on the card, form a gloo group (NCCL
    refuses two ranks on one device) and run the Turbo loop at full width
-   through ``run_online_pso``, 2 prompts a rank and one update of 2 x 3
-   microbatches of policy batch 2 over the global 4 pairs: the ranks' LoRA
+   through ``run_online_pso``, 1 prompt a rank and one update of 3
+   microbatches of policy batch 2 over the global 2 pairs: the ranks' LoRA
    bit-identical after it, their prompts different, the first loss log 2
    within 1e-3 on both, each rank's launch counts the formula's at its own
    batch, rank 0 alone writing the metrics, the checkpoint and the LoRA
@@ -161,8 +171,10 @@ PyTorch. In order:
    recorded); after the data-parallel run the ranks run that epoch
    data-parallel twice and under each mesh of ``SHARDED_ONE_CARD``: tensor
    parallelism at data 1 x model 2 (the UNet's attention and feed-forward
-   sliced, K1 and the backward on each rank's 5 / 10 local heads) and FSDP
-   over 2 (the frozen suite sharded, gathered per module). Each: launch
+   sliced, K1 and the backward on each rank's 5 / 10 local heads; with
+   ``train.int8_ref_pass``, as its world-1 run, so one run takes TP's bf16
+   policy pass and its int8 reference pass) and FSDP over 2 (the
+   frozen suite sharded, gathered per module). Each: launch
    counts the formula's at the rank's local heads, one update, a finite
    loss, the ranks' whole LoRA and metrics the same, the model ranks'
    prompts the same, rank 0's checkpoint and LoRA file holding the whole
@@ -216,7 +228,12 @@ PyTorch. In order:
    bf16 at the ``RAGGED`` shapes. The plain attention forward runs over
    slices of the batch where its logits would pass 1 GiB (the VAE's 16384
    tokens). GroupNorm rows report the share of the limit used. The
-   attention forward's times are also printed per head dim;
+   attention forward's times are also printed per head dim. The int8
+   kernels (``int8_phase``) at every shape the paths gave them and at the
+   512^2 VAE decode's (``int8_off_path_shapes``, 0 launches): absmaxes,
+   integers, scales and outputs equal to the plain versions' bit for bit;
+   per ``torch._int_mm`` shape the whole int8 matmul beside bf16
+   ``torch.matmul``;
 13. prints the card line again, the ``{"kernels": [...]}`` line (launches:
    the sum over the runs of steps 5-11, the sharded runs' and the world-1
    run's of step 11 among them), then, last, the device line.
@@ -230,6 +247,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import inspect
 import json
 import logging
 import math
@@ -249,7 +267,7 @@ RUN_DIR = ROOT / "chip_smoke_runs"  # the training run's checkpoints (git-ignore
 # One H100 SXM at its 700 W limit (NVIDIA data sheet, dense): device memory
 # rate, bf16 tensor-core rate, fp32 rate outside the tensor cores.
 H100_BYTES_PER_S = 3.35e12
-H100_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+H100_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 GN_STATS_OPS, GN_NORM_OPS = 3, 8  # fp32 operations per element of K4, K5
 # (atol, rtol); in bf16 see fwd_tolerance and bwd_tolerance
 TOL = {"attention": {"bf16": (5e-2, 1e-2), "fp32": (2e-3, 2e-3)},
@@ -293,6 +311,8 @@ RAGGED_FWD = (((2, 1000, 3, 80), 77), ((1, 1, 2, 80), 1), ((1, 1000, 1, 512), 77
               ((2, 200, 1, 512), 1000))
 _BWD_SRC = "pairwise_sample_optimization_tpu_torch/csrc/flash_attn_bwd.cu"
 _JAX_ATTN = "pairwise_sample_optimization_tpu/ops/flash_attention.py"
+_INT8_SRC = "pairwise_sample_optimization_tpu_torch/csrc/int8_conv.cu"
+_JAX_QCONV = "pairwise_sample_optimization_tpu/ops/qconv.py"
 KERNELS = {
     "flash_attn_fwd": ("pairwise_sample_optimization_tpu_torch/csrc/flash_attn_fwd.cu",
                        f"{_JAX_ATTN}:99"),
@@ -305,7 +325,14 @@ KERNELS = {
                  "pairwise_sample_optimization_tpu/ops/fused_groupnorm.py:55"),
     "gn_silu_norm": ("pairwise_sample_optimization_tpu_torch/csrc/group_norm_silu.cu",
                      "pairwise_sample_optimization_tpu/ops/fused_groupnorm.py:78"),
+    # no Pallas counterpart: the JAX package's int8 paths in jnp / lax (ops/qconv.py),
+    # which PyTorch has no CUDA op for; "replaces" names the JAX lines each computes
+    "int8_absmax": (_INT8_SRC, f"{_JAX_QCONV}:115, {_JAX_QCONV}:158 (jnp, no Pallas kernel)"),
+    "int8_quantize": (_INT8_SRC, f"{_JAX_QCONV}:117, {_JAX_QCONV}:160 (jnp, no Pallas kernel)"),
+    "int8_conv3x3": (_INT8_SRC, f"{_JAX_QCONV}:164 (lax.conv_general_dilated, no Pallas kernel)"),
+    "int8_dequant": (_INT8_SRC, f"{_JAX_QCONV}:123 (jnp, no Pallas kernel)"),
 }
+INT8_KERNELS = ("int8_absmax", "int8_quantize", "int8_conv3x3", "int8_dequant")
 
 
 def log(msg):
@@ -386,9 +413,10 @@ def tolerance_used(got, want, tol):
     return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
 
 
-def timed_ms(fn, reps=10, inner=10):
-    """Median over ``reps`` of CUDA-event device time per call for ``inner``
-    calls in a row, after 3 warm-up calls. Each rep first queues a device
+def timed_ms(fn, reps=3, inner=10, warm=3):
+    """Median over ``reps`` (3: the script runs within a time limit) of
+    CUDA-event device time per call for ``inner``
+    calls in a row, after ``warm`` warm-up calls. Each rep first queues a device
     sleep of at least ~2 ms and of about twice the host's time to enqueue
     ``inner`` calls (measured once; an autograd backward takes the host
     longer than its kernels take the card), so the host has enqueued the
@@ -396,7 +424,7 @@ def timed_ms(fn, reps=10, inner=10):
     host's launch rate."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -492,7 +520,7 @@ def small_reference(seed):
         outs.append(pipe.sample_pairs(cond, init_noise=init.to(dev), step_noise=noise.to(dev)))
     torch.cuda.synchronize()
     counts = dict(kernel_lib.launch_counts)
-    if min(v for k, v in counts.items() if "bwd" not in k) == 0:
+    if min(v for k, v in counts.items() if "bwd" not in k and k not in INT8_KERNELS) == 0:
         raise AssertionError(f"small reference did not reach every forward kernel: {counts}")
     want, got = outs
     tol = TOL["attention"]["fp32"]
@@ -549,17 +577,54 @@ def _remat_recomputed(ucfg, trained_cond=False):
     return attn, resnets
 
 
-def _generation_launches(ucfg, vcfg, steps, vision_layers, decodes=1):
+def int8_launches(matmuls=0, convs=0, smoothed_convs=0):
+    """Launches of dynamic int8 (``ops/qconv.py``): a matmul quantizes its
+    activations and weights (two absmax, two quantize) and dequantizes the
+    ``torch._int_mm`` product; a conv the same and the implicit-GEMM conv,
+    with SmoothQuant one absmax more (the channels')."""
+    c = convs + smoothed_convs
+    return {"int8_absmax": 2 * (matmuls + c) + smoothed_convs, "int8_quantize": 2 * (matmuls + c),
+            "int8_conv3x3": c, "int8_dequant": matmuls}
+
+
+def unet_int8_sites(ucfg, subpixel=False):
+    """(int8 matmuls, int8 convs) of one UNet forward inside the int8
+    reference pass: per transformer block the two attentions' q, k, v, out
+    and the feed-forward's two projections, per SpatialTransformer its
+    proj_in and proj_out; per ResnetBlock two 3x3 convs, and the upsamplers'
+    convs on the naive path (the subpixel rewrite never quantizes)."""
+    n, lpb, depths = len(ucfg.block_out_channels), ucfg.layers_per_block, ucfg.transformer_layers
+    blocks = sum(d * (2 * lpb + 1) for d in depths) + depths[-1]
+    transformers = sum((2 * lpb + 1) for d in depths if d) + (1 if depths[-1] else 0)
+    resnets = n * (2 * lpb + 1) + 2
+    return 10 * blocks + 2 * transformers, 2 * resnets + (0 if subpixel else n - 1)
+
+
+def vae_decoder_int8_convs(vcfg, subpixel=False):
+    """The VAE decoder's 3x3 convs the int8 decode quantizes: two per
+    ResnetBlock and, on the naive path, the upsamplers'."""
+    n = len(vcfg.block_out_channels)
+    return 2 * (2 + n * (vcfg.layers_per_block + 1)) + (0 if subpixel else n - 1)
+
+
+def _generation_launches(ucfg, vcfg, steps, vision_layers, decodes=1, int8=None):
     """Launches of ``steps`` UNet forwards (Turbo's steps, or DMD2's S - 1
     transitions and the final x0 prediction), ``decodes`` VAE decoder calls
     (each one mid-block attention) and vision towers of ``vision_layers``
-    layers."""
+    layers. ``int8``: {"decode": smoothed or not (None: off), "subpixel",
+    "vision_layers": layers whose MLPs run in int8}."""
     attn, gn_unet = _unet_counts(ucfg)
     vae_resnets = 2 + len(vcfg.block_out_channels) * (vcfg.layers_per_block + 1)
     k1 = steps * attn + decodes + sum(vision_layers)
     gn = steps * gn_unet + decodes * (2 * vae_resnets + 1)
+    int8 = int8 or {}
+    smooth = int8.get("decode")
+    convs = (0 if smooth is None else
+             decodes * vae_decoder_int8_convs(vcfg, int8.get("subpixel", False)))
+    q = int8_launches(matmuls=2 * int8.get("vision_layers", 0),
+                      **{"smoothed_convs" if smooth else "convs": convs})
     return {"flash_attn_fwd": k1, "flash_attn_bwd_pre": 0, "flash_attn_bwd": 0,
-            "flash_attn_bwd_post": 0, "gn_stats": gn, "gn_silu_norm": gn}
+            "flash_attn_bwd_post": 0, "gn_stats": gn, "gn_silu_norm": gn, **q}
 
 
 def expected_launches(pipe, steps):
@@ -628,7 +693,8 @@ def bwd_needs_post(q_shape, skv, sms=132):
 
 
 def expected_update_launches(ucfg, n_micro, fuse_ref_pass, batch, latent_hw, sms=132,
-                             reference=True, trained_cond=False, tp=(0, 1)):
+                             reference=True, trained_cond=False, tp=(0, 1), int8_ref=False,
+                             subpixel=False):
     """Launches of one optimizer update of ``n_micro`` microbatches with a
     policy pass at ``batch``. Per microbatch: the policy forward (with
     grad), what its backward recomputes under ``ucfg.remat``
@@ -645,7 +711,9 @@ def expected_update_launches(ucfg, n_micro, fuse_ref_pass, batch, latent_hw, sms
     embedding) or the UNet's own weights are (full finetuning), so every
     rematerialized ResnetBlock is recomputed. The GroupNorm+SiLU backward is
     the plain version. ``tp``: (model rank, model ranks) of a
-    tensor-parallel UNet, whose attention runs the rank's local heads."""
+    tensor-parallel UNet, whose attention runs the rank's local heads.
+    ``int8_ref``: the (unfused) reference forward in the int8 scope
+    (:func:`unet_int8_sites`; ``subpixel``: its upsamplers not in int8)."""
     attn, gn = _unet_counts(ucfg)
     re_attn, re_resnets = _remat_recomputed(ucfg, trained_cond)
     shapes = attention_shapes(ucfg, batch * (2 if fuse_ref_pass else 1), latent_hw, tp=tp)
@@ -654,9 +722,11 @@ def expected_update_launches(ucfg, n_micro, fuse_ref_pass, batch, latent_hw, sms
     k1 = attn * passes + re_attn
     k45 = gn * passes + 2 * re_resnets
     post = sum(bwd_needs_post(q, skv, sms) for q, skv in shapes)
+    q = int8_launches(*unet_int8_sites(ucfg, subpixel)) if int8_ref and passes == 2 else {}
     return {"flash_attn_fwd": n_micro * k1, "flash_attn_bwd_pre": n_micro * attn,
             "flash_attn_bwd": n_micro * attn, "flash_attn_bwd_post": n_micro * post,
-            "gn_stats": n_micro * k45, "gn_silu_norm": n_micro * k45}
+            "gn_stats": n_micro * k45, "gn_silu_norm": n_micro * k45,
+            **{k: n_micro * q.get(k, 0) for k in INT8_KERNELS}}
 
 
 DB_VIEWS = 8  # random crops kept per instance image (``DreamBoothDataset``'s aug_pool)
@@ -670,7 +740,7 @@ def expected_encode_launches(vcfg):
     resnets = len(vcfg.block_out_channels) * vcfg.layers_per_block + 2
     gn = 2 * resnets + 1
     return {"flash_attn_fwd": 1, "flash_attn_bwd_pre": 0, "flash_attn_bwd": 0,
-            "flash_attn_bwd_post": 0, "gn_stats": gn, "gn_silu_norm": gn}
+            "flash_attn_bwd_post": 0, "gn_stats": gn, "gn_silu_norm": gn, **int8_launches()}
 
 
 def expected_dreambooth_launches(pipe, args, instance_images, steps, first_step=0,
@@ -719,12 +789,17 @@ class ShapeRecorder:
     """Records the shapes the main path hands each kernel wrapper, by
     wrapping the module functions the models reach (observation only)."""
 
+    INT8_WRAPPERS = ("absmax", "quantize_rows", "quantize_nhwc", "conv3x3", "dequant", "int_mm")
+
     def __init__(self):
         from pairwise_sample_optimization_tpu_torch.ops import flash_attention as tfa
         from pairwise_sample_optimization_tpu_torch.ops import fused_groupnorm as tfg
+        from pairwise_sample_optimization_tpu_torch.ops import qconv as tq
 
         self.mods, self.attention, self.attention_bwd, self.gn = (tfa, tfg), {}, {}, {}
         self.orig = (tfa.flash_attention_fwd, tfa.flash_attention_bwd, tfg.fused_groupnorm_silu)
+        self.tq, self.int8 = tq, {}
+        self.int8_orig = {n: getattr(tq, n) for n in self.INT8_WRAPPERS}
 
     def __enter__(self):
         tfa, tfg = self.mods
@@ -732,6 +807,32 @@ class ShapeRecorder:
 
         def count(table, key):
             table[key] = table.get(key, 0) + 1
+
+        def rec_int8(name, fn):
+            sig = inspect.signature(fn)
+
+            def wrapper(*args, **kwargs):
+                a = sig.bind(*args, **kwargs)
+                a.apply_defaults()
+                a = a.arguments
+                shape = lambda t: tuple(t.shape)
+                key = {"absmax": lambda: (shape(a["x"]), str(a["x"].dtype), a["mode"],
+                                          a["div"] is not None),
+                       "quantize_rows": lambda: (shape(a["x"]), str(a["x"].dtype)),
+                       "quantize_nhwc": lambda: (shape(a["x"]), str(a["x"].dtype),
+                                                 a["div"] is not None),
+                       "conv3x3": lambda: (shape(a["xq"]), shape(a["wq"]), str(a["dtype"]),
+                                           a["bias"] is not None),
+                       "dequant": lambda: (shape(a["acc"]), str(a["dtype"]),
+                                           a["bias"] is not None),
+                       # the product between Q1 and Q3 (torch._int_mm): (M, K, N)
+                       "int_mm": lambda: shape(a["xq"]) + (a["wq"].shape[0],)}[name]()
+                count(self.int8, (name,) + key)
+                return fn(*args, **kwargs)
+            return wrapper
+
+        for n, fn in self.int8_orig.items():
+            setattr(self.tq, n, rec_int8(n, fn))
 
         def rec_fwd(q, k, v, scale=None):
             count(self.attention, (tuple(q.shape), tuple(k.shape), q.dtype))
@@ -752,6 +853,15 @@ class ShapeRecorder:
     def __exit__(self, *exc):
         tfa, tfg = self.mods
         tfa.flash_attention_fwd, tfa.flash_attention_bwd, tfg.fused_groupnorm_silu = self.orig
+        for n, fn in self.int8_orig.items():
+            setattr(self.tq, n, fn)
+
+    def int8_launches(self):
+        """The int8 kernels' launches a card counts for the recorded calls."""
+        calls = lambda *names: sum(n for key, n in self.int8.items() if key[0] in names)
+        return {"int8_absmax": calls("absmax"),
+                "int8_quantize": calls("quantize_rows", "quantize_nhwc"),
+                "int8_conv3x3": calls("conv3x3"), "int8_dequant": calls("dequant")}
 
 
 class HostPeak:
@@ -871,7 +981,7 @@ def checkpoint_round_trip(pipe, seed):
     return summary
 
 
-def full_slice(seed, prompts=4, steps=4, iters=5):
+def full_slice(seed, prompts=4, steps=4, iters=3):
     import torch
 
     from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
@@ -1186,7 +1296,7 @@ def train_slice(seed, sampler, recorder):
 
 REMAT_PAIRS = 4  # pairs of the remat phase's microbatch: policy batch 8, the Turbo loop's
 REMAT_TOL_FACTOR = 4  # gradients of a mode vs "full": 4x the spread of two "full" runs
-REMAT_REPS = 3  # timed runs of each mode's microbatch (median)
+REMAT_REPS = 2  # timed runs of each mode's microbatch (median)
 FULL_FT = {"sample.batch_size": 2, "sample.num_batches_per_epoch": 1, "train.batch_size": 1,
            "train.gradient_accumulation_steps": 2}  # 2 pairs an epoch, 1 update, policy batch 2
 # how much more the second full-finetuning update may start with than the first
@@ -2344,8 +2454,8 @@ DIST_JOIN_S = 780  # the ranks' whole run: data-parallel, sharded and small
 # per rank: one pair batch of 1 prompt, one update of 3 microbatches of
 # policy batch 2 over the global pairs (2 on one card); checkpoint and LoRA
 # export at step 1
-DIST_CONFIG = {"sample.batch_size": 2, "sample.num_batches_per_epoch": 1,
-               "train.batch_size": 1, "train.gradient_accumulation_steps": 2,
+DIST_CONFIG = {"sample.batch_size": 1, "sample.num_batches_per_epoch": 1,
+               "train.batch_size": 1, "train.gradient_accumulation_steps": 1,
                "validation_steps": 0}
 # the sharded meshes and the runs they are held against: DIST_CONFIG cut to
 # 1 prompt a rank and one update of 3 microbatches (there are five such runs
@@ -2410,7 +2520,12 @@ def _digest(tensors):
 
 # the sharded runs of ``distributed_slice`` after the data-parallel one: (name,
 # mesh overrides) on one card (two gloo ranks) and on four cards (NCCL)
-SHARDED_ONE_CARD = (("tp", {"mesh.data": 1, "mesh.model": 2}), ("fsdp", {"mesh.fsdp": True}))
+# on one card TP runs with the int8 reference pass (as its world-1 run does),
+# which takes the TP path of both the bf16 policy pass and the int8 reference
+# pass in one run; the four cards keep the bf16 reference pass
+ONE_CARD_INT8 = {"train.int8_ref_pass": True}
+SHARDED_ONE_CARD = (("tp", {"mesh.data": 1, "mesh.model": 2, **ONE_CARD_INT8}),
+                    ("fsdp", {"mesh.fsdp": True}))
 SHARDED_FOUR_CARDS = (("tp_2x2", {"mesh.data": 2, "mesh.model": 2}),
                       ("tp_1x4", {"mesh.data": 1, "mesh.model": 4}),
                       ("fsdp", {"mesh.fsdp": True}))
@@ -2560,7 +2675,8 @@ def _loop_run(config, out_dir, name, capture=False, lora_up_std=0.0):
     update = expected_update_launches(pipe.unet.config, n_micro, bool(t_cfg.fuse_ref_pass),
                                       2 * t_cfg.batch_size, pipe.latent_hw,
                                       torch.cuda.get_device_properties(0).multi_processor_count,
-                                      tp=(mesh.model_index, mesh.model))
+                                      tp=(mesh.model_index, mesh.model),
+                                      int8_ref=bool(t_cfg.int8_ref_pass))
     want = {k: config.sample.num_batches_per_epoch * sample[k] + len(history) * update[k]
             for k in sample}
     lora = _whole(state.lora)
@@ -2578,7 +2694,7 @@ def _loop_run(config, out_dir, name, capture=False, lora_up_std=0.0):
            "frozen_bytes": sum(size(p) for p in frozen),
            "tp_sliced_tensors": len(tp.tp_plan(pipe.unet)),
            "shapes": {"attention": recorder.attention, "attention_bwd": recorder.attention_bwd,
-                      "gn": recorder.gn}}
+                      "gn": recorder.gn, "int8": recorder.int8}}
     if capture and parallel.rank() == 0:
         torch.save({**captured, "after": lora, "lr": float(t_cfg.learning_rate)},
                    out_dir / f"{name}_update.pt")
@@ -2931,7 +3047,7 @@ def distributed_slice(seed, recorder, cards=1):
     (a) two ranks, each a process of this script on ``cuda:0``, over gloo
     (NCCL refuses two ranks on one device; with ``cards`` > 1, one rank a
     card over NCCL, ``--distributed-cards``), run the Turbo loop at full width
-    through ``run_online_pso`` (``DIST_CONFIG``: 2 prompts a rank, one update
+    through ``run_online_pso`` (``DIST_CONFIG``: 1 prompt a rank, one update
     of the global pairs, a checkpoint and LoRA export by rank 0 at step 1):
     both ranks' LoRA bit-identical after the update, their prompts
     different (``seed + rank``), the first loss log 2 within 1e-3 on both,
@@ -2991,8 +3107,8 @@ def distributed_slice(seed, recorder, cards=1):
     log(f"resident bytes predicted from the parameter counts: {prediction}")
     # (a)'s world-1 run on this card, which the tensor-parallel runs at data 1
     # are held against
-    world1 = _loop_run(_dist_config(seed, out, "world1"), out, "world1", capture=True,
-                       lora_up_std=SHARDED_LORA_UP_STD)
+    world1 = _loop_run(_dist_config(seed, out, "world1", ONE_CARD_INT8 if cards == 1 else ()),
+                       out, "world1", capture=True, lora_up_std=SHARDED_LORA_UP_STD)
     _check_sharded_run(world1)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3121,6 +3237,476 @@ def distributed_slice(seed, recorder, cards=1):
         f"{small_want_metrics} at world 1, |diff| {metric_errs} (limit {DIST_SMALL_METRICS_TOL})")
     shutil.rmtree(out, ignore_errors=True)
     return summary
+
+
+# ---------------------------------------------------------------------- #
+# the opt-in int8 and subpixel paths, and fast_init
+# ---------------------------------------------------------------------- #
+
+# the Turbo loop with the int8 reference pass: 4 prompts an epoch, one update
+# of 3 microbatches at the config's policy batch (8), two epochs
+INT8_TURBO = {"sample.batch_size": 4, "sample.num_batches_per_epoch": 1,
+              "train.gradient_accumulation_steps": 1, "validation_steps": 0,
+              "checkpointing_steps": 0, "train.int8_ref_pass": True}
+INT8_TURBO_EPOCHS = 2
+# the runner with fast_init: one prompt, one update of 3 microbatches
+FAST_INIT = {"sample.batch_size": 1, "sample.num_batches_per_epoch": 1, "train.batch_size": 1,
+             "train.gradient_accumulation_steps": 1, "validation_steps": 0,
+             "checkpointing_steps": 0, "fast_init": True}
+INT8_DMD_PROMPTS = 2  # the DMD2 sampling at 1024^2 with the int8 decode
+INT8_DECODE_LATENTS = 2  # latents decoded bf16 / int8 / int8 smoothed, compared
+INT8_SMOOTH_ALPHA = 0.5
+SUBPIXEL_REPS = 2  # timed DMD2 updates of each upsample path, in turns
+
+
+def _run_config(module, seed, name, overrides):
+    config = module.get_config()
+    config.seed, config.output_dir, config.run_name = seed, str(RUN_DIR), name
+    for key, value in overrides.items():
+        config.override(f"{key}={value}")
+    return config
+
+
+def _counted(recorder, fn):
+    """``fn()`` with the launch counts zeroed just before and read just after,
+    the kernel wrappers' shapes into ``recorder``: (result, counts)."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
+
+    torch.cuda.synchronize()
+    kernel_lib.reset_launch_counts()
+    with recorder:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernel_lib.launch_counts)
+
+
+def _check_counts(name, counts, want):
+    if counts != want:
+        raise AssertionError(f"{name}: launch counts {counts} != expected {want}")
+
+
+def _ref_logprob_gap(pipe, trainer, samples, cond, reps=3):
+    """One microbatch's reference pass (the first timestep column, both
+    trajectories of every prompt) in bf16 and in the int8 scope: the eps's
+    relative L2 and the reference log-probs' largest gap, and each pass's
+    synchronized ms (median of ``reps``, in turns)."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.ops.qconv import int8_ref_pass
+
+    b = samples["timesteps"].shape[0]
+    flat = lambda x: x[:, :, 0].transpose(0, 1).reshape((2 * b,) + x.shape[3:])
+    inp, x_t, x_prev = (flat(samples[k]) for k in ("input_latents", "latents", "next_latents"))
+    t2 = torch.cat([samples["timesteps"][:, 0]] * 2)
+    s2 = torch.cat([samples["step_indices"][:, 0]] * 2)
+    cond2 = {k: torch.cat([cond[k]] * 2) for k in ("embeds", "pooled", "time_ids")}
+    eps, ms = {}, {"bf16": [], "int8": []}
+    with torch.no_grad():
+        for _ in range(reps):
+            for mode in ("bf16", "int8"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with int8_ref_pass(mode == "int8"):
+                    eps[mode] = pipe.unet_eps(inp, t2, cond2, 0.0)
+                torch.cuda.synchronize()
+                ms[mode].append((time.perf_counter() - t0) * 1e3)
+        lp = {m: trainer._recompute_logprob(e, s2, t2, x_t, x_prev) for m, e in eps.items()}
+    e, e8 = eps["bf16"].double(), eps["int8"].double()
+    return {"batch": 2 * b, "eps_rel_l2": float((e8 - e).norm() / e.norm()),
+            "logprob_max_abs_gap": float((lp["int8"] - lp["bf16"]).abs().max()),
+            "logprob_mean_abs": float(lp["bf16"].abs().mean()),
+            "ms": {m: statistics.median(v) for m, v in ms.items()}}
+
+
+def int8_slice(seed, recorder):
+    """The opt-in int8 and subpixel paths and ``fast_init`` at full width:
+
+    (a) the Turbo loop through ``run_online_pso`` with
+    ``train.int8_ref_pass`` (``INT8_TURBO``, two epochs): launch counts the
+    formula's (the reference forward's weight products and resnet and
+    upsample convs through Q1 / Q2 / Q3), every loss finite; then one
+    microbatch's reference pass in bf16 and in int8 on the trained adapter:
+    the eps's relative L2, the reference log-probs' largest gap, the ms;
+    (b) SDXL-DMD2 at 1024^2: a pair of DMD2 trajectories for each of
+    ``INT8_DMD_PROMPTS`` prompts with ``kernels.int8_vae_decode`` (counts
+    as the formula), then ``INT8_DECODE_LATENTS`` latents decoded in bf16,
+    in int8 and in int8 with ``int8_smooth_alpha`` ``INT8_SMOOTH_ALPHA``
+    (each decode counted): the pixels' relative L2 to the bf16 decode;
+    (c) PickScore's image features of (b)'s images with the int8 scorer
+    override against bf16: the cosine (counted);
+    (d) one DMD2 update (one pair, 3 microbatches) with
+    ``kernels.subpixel_upsample`` and one on the naive path from the same
+    adapter (counted), ``SUBPIXEL_REPS`` times in turns: loss, grad_norm and
+    the updated LoRA against each other, each path's ms;
+    (e) ``run_online_pso`` with ``fast_init`` (``FAST_INIT``): every tower
+    zero, the loss finite, counts as the formula.
+    The knobs are set back to off at the end."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.cli.online_runner import run_online_pso
+    from pairwise_sample_optimization_tpu_torch.configs import sdxl_dmd_dpo, sdxl_turbo_dpo
+    from pairwise_sample_optimization_tpu_torch.ops import qconv
+    from pairwise_sample_optimization_tpu_torch.ops.upsample import set_use_subpixel
+    from pairwise_sample_optimization_tpu_torch.pipeline import SDXLPipeline
+    from pairwise_sample_optimization_tpu_torch.train import (OnlinePSOConfig, OnlinePSOTrainer,
+                                                              PSOTrainState, lora_parameters,
+                                                              make_optimizer)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    summary, launches = {}, {}
+    t_start = time.perf_counter()
+
+    # (a) the Turbo loop with the int8 reference pass
+    config = _run_config(sdxl_turbo_dpo, seed, "online_turbo_int8", INT8_TURBO)
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    (state, history, pipe), counts = _counted(recorder, lambda: run_online_pso(
+        config, sampler="turbo", num_epochs=INT8_TURBO_EPOCHS, device="cuda"))
+    wall = time.perf_counter() - t0
+    t_cfg = config.train
+    n_micro = t_cfg.gradient_accumulation_steps * t_cfg.distilled_train_steps
+    sample = expected_launches(pipe, config.sample.num_steps)
+    update = expected_update_launches(pipe.unet.config, n_micro, False, 2 * t_cfg.batch_size,
+                                      pipe.latent_hw, sms, int8_ref=True)
+    _check_counts("int8 Turbo loop", counts,
+                  {k: INT8_TURBO_EPOCHS * (sample[k] + update[k]) for k in sample})
+    if len(history) != INT8_TURBO_EPOCHS or not all(
+            math.isfinite(m[k]) for m in history for k in ("loss", "grad_norm", "ratio_win")):
+        raise AssertionError(f"int8 Turbo loop: history {history}")
+    launches["turbo_int8"] = counts
+    ocfg = OnlinePSOConfig(num_steps=config.sample.num_steps, train_batch_size=t_cfg.batch_size,
+                           grad_accum=1)
+    trainer = OnlinePSOTrainer(ocfg, pipe)
+    g = torch.Generator().manual_seed(seed + 5)
+    ids = [torch.randint(1, 49000, (t_cfg.batch_size, 77), generator=g).cuda() for _ in range(3)]
+    cond = pipe.encode_prompt(*ids)
+    with torch.no_grad():
+        samples, _ = trainer.sample_pairs(cond, torch.Generator(device="cuda").manual_seed(seed))
+    gap = _ref_logprob_gap(pipe, trainer, samples, cond)
+    summary["turbo"] = {"config": INT8_TURBO, "epochs": INT8_TURBO_EPOCHS, "history": history,
+                        "launches": counts, "wall_s": wall, "ref_pass": gap}
+    log(f"int8 reference pass, Turbo loop at 512^2 ({INT8_TURBO_EPOCHS} epochs of one update x "
+        f"{n_micro} microbatches at policy batch {2 * t_cfg.batch_size}): losses "
+        f"{[round(m['loss'], 6) for m in history]}, launches {counts}; one reference pass at "
+        f"batch {gap['batch']}: eps rel L2 {gap['eps_rel_l2']:.3e}, reference log-prob max gap "
+        f"{gap['logprob_max_abs_gap']:.3e} (mean |log-prob| {gap['logprob_mean_abs']:.3e}), "
+        f"{gap['ms']['int8']:.1f} ms int8 vs {gap['ms']['bf16']:.1f} ms bf16 (synchronized wall)")
+    del state, pipe, trainer, samples, cond
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (b) DMD2 at 1024^2 with the int8 decode
+    dmd = sdxl_dmd_dpo.get_config()
+    pipe = SDXLPipeline.random(lora_rank=dmd.train.lora_rank, dtype=torch.bfloat16,
+                               resolution=dmd.sample.resolution, seed=seed, remat="full",
+                               device="cuda")
+    for module in (pipe.vae, pipe.te1, pipe.te2, pipe.scorer.model):
+        module.requires_grad_(False)
+    ucfg, vcfg = pipe.unet.config, pipe.vae.config
+    steps = dmd.sample.num_steps
+    trainer = OnlinePSOTrainer(OnlinePSOConfig(
+        sampler="dmd", num_steps=steps, train_batch_size=1, grad_accum=1, compare="pareto",
+        shared_noise=True, num_train_timesteps=dmd.train.distilled_train_steps), pipe)
+    ids = [torch.randint(1, 49000, (INT8_DMD_PROMPTS, 77), generator=g).cuda() for _ in range(3)]
+    cond = pipe.encode_prompt(*ids)
+    layers = pipe.scorer.model.vision_config.layers
+    qconv.set_use_int8_decode(True)
+    try:
+        with torch.no_grad():
+            (samples, images), counts = _counted(recorder, lambda: trainer.sample_pairs(
+                cond, torch.Generator(device="cuda").manual_seed(seed + 1)))
+        _check_counts("DMD2 sampling with the int8 decode", counts, _generation_launches(
+            ucfg, vcfg, steps, [layers], int8={"decode": False}))
+        launches["dmd_int8_decode"] = counts
+        z = torch.randn((INT8_DECODE_LATENTS, pipe.latent_hw, pipe.latent_hw, 4),
+                        generator=torch.Generator(device="cuda").manual_seed(seed + 3),
+                        device="cuda")
+        decoded, decode_ms = {}, {}
+        for mode, on, alpha in (("bf16", False, None), ("int8", True, None),
+                                ("int8_smooth", True, INT8_SMOOTH_ALPHA)):
+            qconv.set_use_int8_decode(on)
+            qconv.set_int8_smooth_alpha(alpha)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                decoded[mode], counts = _counted(recorder, lambda: pipe.decode(z))
+            decode_ms[mode] = (time.perf_counter() - t0) * 1e3
+            _check_counts(f"decode {mode}", counts, _generation_launches(
+                ucfg, vcfg, 0, [], int8={"decode": None if not on else alpha is not None}))
+            launches[f"decode_{mode}"] = counts
+    finally:
+        qconv.set_use_int8_decode(False)
+        qconv.set_int8_smooth_alpha(None)
+    ref = decoded["bf16"].double()
+    decode_err = {m: float((decoded[m].double() - ref).norm() / ref.norm())
+                  for m in ("int8", "int8_smooth")}
+    if not all(math.isfinite(v) and v < 0.5 for v in decode_err.values()) or not all(
+            bool(torch.isfinite(decoded[m]).all()) for m in decoded):
+        raise AssertionError(f"int8 decode: relative L2 {decode_err}")
+    summary["dmd_decode"] = {"prompts": INT8_DMD_PROMPTS, "latents": INT8_DECODE_LATENTS,
+                             "pixel_rel_l2": decode_err, "ms": decode_ms,
+                             "smooth_alpha": INT8_SMOOTH_ALPHA}
+    log(f"int8 VAE decode at 1024^2 ({INT8_DECODE_LATENTS} latents): pixels' relative L2 to the "
+        f"bf16 decode {decode_err['int8']:.3e}, with SmoothQuant alpha {INT8_SMOOTH_ALPHA} "
+        f"{decode_err['int8_smooth']:.3e}; decode ms (synchronized wall, first call each) "
+        f"{ {k: round(v, 1) for k, v in decode_ms.items()} }")
+
+    # (c) PickScore with the int8 scorer override
+    with torch.no_grad():
+        f16 = pipe.scorer.image_features(images)
+        qconv.set_use_int8_scorer(True)
+        try:
+            f8, counts = _counted(recorder, lambda: pipe.scorer.image_features(images))
+        finally:
+            qconv.set_use_int8_scorer(False)
+    _check_counts("PickScore with the int8 scorer", counts, _generation_launches(
+        ucfg, vcfg, 0, [layers], decodes=0, int8={"vision_layers": layers}))
+    launches["pickscore_int8"] = counts
+    cos = torch.nn.functional.cosine_similarity(f8.double(), f16.double(), dim=-1)
+    if not bool(torch.isfinite(cos).all()) or float(cos.min()) < 0.9:
+        raise AssertionError(f"int8 PickScore features: cosine to bf16 {cos.tolist()}")
+    summary["pickscore"] = {"images": images.shape[0], "feature_cosine": cos.tolist()}
+    log(f"PickScore with the int8 scorer override ({images.shape[0]} images at 1024^2): image "
+        f"features' cosine to bf16 {[round(c, 6) for c in cos.tolist()]}")
+
+    # (d) one DMD2 update with the subpixel upsample, against the naive path
+    lora = lora_parameters(pipe.unet)
+    lora0 = {k: v.detach().clone() for k, v in lora.items()}
+    one = lambda tree: {k: tree[k][:1][None] for k in tree}
+    batch = one(samples)
+    cond1 = one({k: cond[k] for k in ("embeds", "pooled", "time_ids")})
+    upd = expected_update_launches(ucfg, dmd.train.distilled_train_steps, False, 2,
+                                   pipe.latent_hw, sms)
+    runs, ms = {}, {"subpixel": [], "naive": []}
+    try:
+        for _ in range(SUBPIXEL_REPS):
+            for mode in ("subpixel", "naive"):
+                with torch.no_grad():
+                    for k, v in lora.items():
+                        v.copy_(lora0[k])
+                set_use_subpixel(mode == "subpixel")
+                st = PSOTrainState.create(lora, make_optimizer(lora))
+                t0 = time.perf_counter()
+                metrics, counts = _counted(recorder, lambda: trainer.update(st, batch, cond1))
+                ms[mode].append((time.perf_counter() - t0) * 1e3)
+                _check_counts(f"DMD2 update ({mode})", counts, upd)
+                launches[f"dmd_update_{mode}"] = counts
+                runs[mode] = (metrics, {k: v.detach().clone() for k, v in lora.items()})
+    finally:
+        set_use_subpixel(False)
+    (m_sp, l_sp), (m_nv, l_nv) = runs["subpixel"], runs["naive"]
+    step = lambda l: torch.cat([(l[k] - lora0[k]).double().reshape(-1) for k in sorted(l)])
+    s_sp, s_nv = step(l_sp), step(l_nv)
+    sub = {"metrics": {"subpixel": m_sp, "naive": m_nv},
+           "step_cosine": float(s_sp @ s_nv / (s_sp.norm() * s_nv.norm())),
+           "step_rel_l2": float((s_sp - s_nv).norm() / s_nv.norm()),
+           "ms": {k: statistics.median(v) for k, v in ms.items()}, "ms_all": ms}
+    if not all(math.isfinite(m[k]) for m in (m_sp, m_nv) for k in ("loss", "grad_norm")) or \
+            abs(m_sp["loss"] - m_nv["loss"]) > 1e-2 or sub["step_cosine"] < 0.9:
+        raise AssertionError(f"subpixel DMD2 update against the naive one: {sub}")
+    summary["subpixel_update"] = sub
+    log(f"DMD2 update at 1024^2 (one pair, {dmd.train.distilled_train_steps} microbatches): "
+        f"subpixel {sub['ms']['subpixel']:.1f} ms vs naive {sub['ms']['naive']:.1f} ms "
+        f"(synchronized wall, median of {SUBPIXEL_REPS} in turns); loss {m_sp['loss']:.6f} vs "
+        f"{m_nv['loss']:.6f}, grad_norm {m_sp['grad_norm']:.6f} vs {m_nv['grad_norm']:.6f}, "
+        f"LoRA step cosine {sub['step_cosine']:.6f}, rel L2 {sub['step_rel_l2']:.3e}")
+    del pipe, trainer, samples, images, cond, cond1, batch, lora, lora0, runs, decoded, z
+    torch.cuda.empty_cache()
+
+    # (e) the runner with fast_init
+    config = _run_config(sdxl_turbo_dpo, seed, "online_fast_init", FAST_INIT)
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    (state, history, pipe), counts = _counted(recorder, lambda: run_online_pso(
+        config, sampler="turbo", num_epochs=1, device="cuda"))
+    wall = time.perf_counter() - t0
+    t_cfg = config.train
+    sample = expected_launches(pipe, config.sample.num_steps)
+    update = expected_update_launches(pipe.unet.config, t_cfg.distilled_train_steps, False,
+                                      2 * t_cfg.batch_size, pipe.latent_hw, sms)
+    _check_counts("fast_init run", counts, {k: sample[k] + update[k] for k in sample})
+    frozen = [p for n, p in pipe.unet.named_parameters() if ".lora." not in n]
+    towers = (pipe.vae, pipe.te1, pipe.te2, pipe.scorer.model)
+    if any(bool(p.detach().any()) for p in frozen + [p for m in towers for p in m.parameters()]) \
+            or len(history) != 1 or not math.isfinite(history[0]["loss"]):
+        raise AssertionError(f"fast_init run: a frozen weight not zero or history {history}")
+    launches["fast_init"] = counts
+    summary["fast_init"] = {"config": FAST_INIT, "history": history, "launches": counts,
+                            "wall_s": wall}
+    log(f"run_online_pso with fast_init at 512^2: every tower zero, loss "
+        f"{history[0]['loss']:.6f}, launches {counts}, {wall:.1f} s")
+    del state, pipe
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    summary["launches"] = launches
+    summary["wall_s"] = time.perf_counter() - t_start
+    return summary
+
+
+def vae_decoder_conv_shapes(vcfg, latent_hw, batch):
+    """(B, C, H, W, O) of each 3x3 conv the int8 decode runs at a latent of
+    ``latent_hw``: the resnets' two and the upsamplers' (naive path)."""
+    chans = list(reversed(vcfg.block_out_channels))
+    hw, c, out = latent_hw, chans[0], []
+    out += [(batch, c, hw, hw, c)] * 4  # the mid block's two resnets
+    for level, ch in enumerate(chans):
+        for _ in range(vcfg.layers_per_block + 1):
+            out += [(batch, c, hw, hw, ch), (batch, ch, hw, hw, ch)]
+            c = ch
+        if level < len(chans) - 1:
+            hw *= 2
+            out.append((batch, c, hw, hw, c))
+    return out
+
+
+def int8_off_path_shapes(batch=8, latent_hw=64):
+    """The int8 kernels' keys (as ``ShapeRecorder`` records them) of the
+    512^2 VAE decode at the Turbo sampler's batch (8 images), which no path
+    of this script runs (0 launches)."""
+    from pairwise_sample_optimization_tpu_torch.models.vae import VAEConfig
+
+    keys = set()
+    bf16 = "torch.bfloat16"
+    for b, c, h, w, o in vae_decoder_conv_shapes(VAEConfig.sdxl(), latent_hw, batch):
+        keys |= {("absmax", (o, 9 * c), bf16, "rows", False), ("quantize_rows", (o, 9 * c), bf16),
+                 ("absmax", (b, c, h, w), bf16, "samples", False),
+                 ("quantize_nhwc", (b, c, h, w), bf16, False),
+                 ("conv3x3", (b, h, w, c), (o, 3, 3, c), bf16, True)}
+    return keys
+
+
+INT8_TIMING = {"reps": 3, "inner": 5}
+INT8_PLAIN_TIMING = {"reps": 1, "inner": 1, "warm": 1}  # the plain conv: float64 integers
+QUANTIZE_OPS, ABSMAX_OPS, DEQUANT_OPS = 5, 2, 3  # fp32 operations per element
+
+
+def int8_phase(entries, seed):
+    """Each int8 kernel (Q1: ``int8_absmax``, ``int8_quantize``; Q2:
+    ``int8_conv3x3``; Q3: ``int8_dequant``) against its plain version at
+    every shape a path gave it (``entries``: the recorder's keys and their
+    launches) and at ``int8_off_path_shapes`` (0 launches), on inputs drawn
+    here: absmaxes, integers, scales and outputs must be equal (the plain
+    versions compute the same fp32 operations: no tolerance). Per shape ms,
+    bound, plain ms and a library call where one computes the same function
+    (the absmax: ``torch.linalg.vector_norm`` of order inf; the conv: bf16
+    ``F.conv2d`` of the same shape, the yardstick the int8 conv is for);
+    per ``torch._int_mm`` shape of the int8 matmul sites the whole int8
+    matmul (Q1 twice, the product, Q3) beside the bf16 ``torch.matmul``."""
+    import torch
+    import torch.nn.functional as F
+
+    from pairwise_sample_optimization_tpu_torch.ops import qconv as tq
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = dict(entries)
+    for key in int8_off_path_shapes():
+        cases.setdefault(key, 0)
+    rows = {k: [] for k in INT8_KERNELS}
+    sites = []
+    dt = {"torch.bfloat16": torch.bfloat16, "torch.float32": torch.float32}
+
+    def equal(name, got, want):
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+                diff = (a.double() - b.double()).abs().max().item() if a.shape == b.shape else None
+                raise AssertionError(f"{name}: kernel and plain version differ (max|diff| {diff})")
+        return 0.0
+
+    def rand(shape, dtype):
+        return (torch.randn(shape, generator=gen, device="cuda") * 1.7 + 0.1).to(dtype)
+
+    for key, launches in sorted(cases.items(), key=str):
+        kind = key[0]
+        if kind == "int_mm":
+            m, k, n = key[1:]
+            x, w = rand((m, k), torch.bfloat16), rand((n, k), torch.bfloat16) * 0.05
+            sites.append({"m": m, "k": k, "n": n, "launches": launches,
+                          "int8_ms": timed_ms(lambda: tq.int8_matmul(x, w), **INT8_TIMING),
+                          "bf16_matmul_ms": timed_ms(lambda: x @ w.t(), **INT8_TIMING),
+                          "bound_int8_ms": bound(m * k * 2 + n * k * 2 + m * n * 2,
+                                                 2 * m * k * n, "int8")[0]})
+            continue
+        if kind in ("absmax", "quantize_rows", "quantize_nhwc"):
+            shape, dtype = key[1], dt[key[2]]
+            x = rand(shape, dtype)
+            el, n = x.element_size(), x.numel()
+            div = None
+            if (kind == "absmax" and key[4]) or (kind == "quantize_nhwc" and key[3]):
+                div = torch.rand(shape[1], generator=gen, device="cuda") + 0.5
+            if kind == "absmax":
+                mode = key[3]
+                fn, plain = (lambda: tq.absmax(x, mode, div)), (lambda: tq.absmax_plain(x, mode, div))
+                rows_n = {"rows": shape[0], "samples": shape[0], "channels": shape[1]}[mode]
+                dims = {"rows": -1, "samples": (1, 2, 3), "channels": (0, 2, 3)}[mode]
+                library = (None if div is not None else
+                           lambda: torch.linalg.vector_norm(x, float("inf"), dim=dims))
+                b, by = bound(n * el + 4 * rows_n + (4 * shape[1] if div is not None else 0),
+                              ABSMAX_OPS * n, "fp32")
+                table, desc = "int8_absmax", {"x": list(shape), "mode": mode,
+                                              "divisor": div is not None}
+            else:
+                rows_n = shape[0]
+                am = rand((rows_n,), torch.float32).abs() * 3
+                if kind == "quantize_rows":
+                    fn, plain = (lambda: tq.quantize_rows(x, am)), (
+                        lambda: tq.quantize_rows_plain(x, am))
+                else:
+                    fn, plain = (lambda: tq.quantize_nhwc(x, am, div)), (
+                        lambda: tq.quantize_nhwc_plain(x, am, div))
+                library = None
+                b, by = bound(n * el + n + 8 * rows_n, QUANTIZE_OPS * n, "fp32")
+                table, desc = "int8_quantize", {"x": list(shape), "layout": kind,
+                                                "divisor": div is not None}
+        elif kind == "conv3x3":
+            (bsz, h, w_, c), (o, _, _, _), dtype, has_bias = key[1], key[2], dt[key[3]], key[4]
+            xq = torch.randint(-127, 128, (bsz, h, w_, c), generator=gen, device="cuda",
+                               dtype=torch.int8)
+            wq = torch.randint(-127, 128, (o, 3, 3, c), generator=gen, device="cuda",
+                               dtype=torch.int8)
+            sx = torch.rand(bsz, generator=gen, device="cuda") * 0.02 + 1e-3
+            sw = torch.rand(o, generator=gen, device="cuda") * 1e-3 + 1e-5
+            bias = torch.randn(o, generator=gen, device="cuda") if has_bias else None
+            fn = lambda: tq.conv3x3(xq, wq, sx, sw, bias, dtype)
+            plain = lambda: tq.conv3x3_plain(xq, wq, sx, sw, bias, dtype)
+            xl = rand((bsz, c, h, w_), dtype)
+            wl = rand((o, c, 3, 3), dtype) * 0.02
+            library = lambda: F.conv2d(xl, wl, padding=1)
+            out_el = torch.empty((), dtype=dtype).element_size()
+            b, by = bound(xq.numel() + wq.numel() + bsz * o * h * w_ * out_el + 4 * (bsz + 2 * o),
+                          2 * bsz * h * w_ * o * 9 * c, "int8")
+            table, desc = "int8_conv3x3", {"x": [bsz, h, w_, c], "w": [o, 3, 3, c],
+                                           "out": key[3], "bias": has_bias}
+        else:  # dequant
+            (m, n_), dtype, has_bias = key[1], dt[key[2]], key[3]
+            acc = torch.randint(-2**24, 2**24, (m, n_), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            sx = torch.rand(m, generator=gen, device="cuda") * 0.02 + 1e-3
+            sw = torch.rand(n_, generator=gen, device="cuda") * 1e-3 + 1e-5
+            bias = torch.randn(n_, generator=gen, device="cuda") if has_bias else None
+            fn = lambda: tq.dequant(acc, sx, sw, bias, dtype)
+            plain = lambda: tq.dequant_plain(acc, sx, sw, bias, dtype)
+            library = None
+            out_el = torch.empty((), dtype=dtype).element_size()
+            b, by = bound(m * n_ * (4 + out_el) + 4 * (m + 2 * n_), DEQUANT_OPS * m * n_, "fp32")
+            table, desc = "int8_dequant", {"acc": [m, n_], "out": key[2], "bias": has_bias}
+        err = equal(f"{table} {desc}", fn(), plain())
+        row = {"shape": desc, "launches": launches, "max_abs_err": err,
+               "ms": timed_ms(fn, **INT8_TIMING),
+               "plain_ms": timed_ms(plain, **INT8_PLAIN_TIMING),
+               "library_ms": timed_ms(library, **INT8_TIMING) if library else None,
+               "bound_ms": b, "bound_by": by}
+        rows[table].append(row)
+        log(f"{table} {desc}: equal to the plain version; {row['ms']:.4f} ms (bound {b:.4f}, "
+            f"{by}), plain {row['plain_ms']:.4f}"
+            + (f", library {row['library_ms']:.4f}" if library else "") + f"; {launches} launches")
+        torch.cuda.empty_cache()
+    for s_ in sites:
+        log(f"int8 matmul site (M, K, N) = ({s_['m']}, {s_['k']}, {s_['n']}): whole int8 matmul "
+            f"{s_['int8_ms']:.4f} ms vs bf16 torch.matmul {s_['bf16_matmul_ms']:.4f} ms (int8 "
+            f"operation bound {s_['bound_int8_ms']:.4f}); {s_['launches']} launches")
+    return rows, sites
 
 
 # ---------------------------------------------------------------------- #
@@ -3289,7 +3875,7 @@ def attention_bwd_phase(shapes, seed):
             "sdpa": timed_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                          retain_graph=True)),
             "plain": timed_ms(lambda: tfa.flash_attention_bwd_plain(q, k, v, o, lse, do),
-                              *((3, 2) if big else (5,))),
+                              *((3, 2) if big else (3,))),
             "whole": timed_ms(lambda: tfa.flash_attention_bwd(q, k, v, o, lse, do)),
             "pre": timed_ms(lambda: tfa.flash_attention_bwd_pre(o, do, acc)),
             "pre_plain": timed_ms(lambda: tfa.attention_di(o, do)),
@@ -3576,17 +4162,20 @@ def main(argv=None) -> int:
     db_summary = dreambooth_slice(args.seed, recorder)
     remat_summary = remat_phase(args.seed, recorder)
     full_summary = full_finetune_slice(args.seed, recorder)
+    int8_summary = int8_slice(args.seed, recorder)
     dist_summary = distributed_slice(args.seed, recorder)
     paths = {"turbo_loop": train_summary["launches"], "dmd_loop": dmd_summary["launches"],
              "dmd_eval": eval_summary["launches_all_runs"],
              "dreambooth": db_summary["launches"], "remat": remat_summary["launches"],
              "full_finetune": full_summary["launches"], "distributed": dist_summary["launches"],
+             **{f"int8_{name}": counts for name, counts in int8_summary["launches"].items()},
              **{f"distributed_{name}": counts
                 for name, counts in dist_summary["launches_by_run"].items()}}
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     bwd_rows, bwd_whole, run_to_run = attention_bwd_phase(recorder.attention_bwd, args.seed)
+    int8_rows, int8_sites = int8_phase(recorder.int8, args.seed)
     rows = {**attention_phase(recorder.attention, args.seed), **bwd_rows,
-            **gn_phase(recorder.gn, args.seed)}
+            **gn_phase(recorder.gn, args.seed), **int8_rows}
     function_errs = attention_function_check(args.seed)
     kernels = [summarize(name, rows[name], launches[name]) for name in KERNELS]
 
@@ -3594,7 +4183,7 @@ def main(argv=None) -> int:
               "build_s": build_s, "small_reference": small, "slice": slice_summary,
               "train": train_summary, "dmd_train": dmd_summary, "eval": eval_summary,
               "dreambooth": db_summary, "remat": remat_summary, "full_finetune": full_summary,
-              "distributed": dist_summary,
+              "int8": int8_summary, "int8_matmul_sites": int8_sites, "distributed": dist_summary,
               "launches_by_path": paths, "function_check": function_errs, "kernels": kernels,
               "backward": bwd_whole, "backward_run_to_run": run_to_run,
               "seconds": time.perf_counter() - t_start}

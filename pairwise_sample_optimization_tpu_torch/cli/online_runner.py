@@ -50,6 +50,14 @@ Memory options, as the JAX runner takes them:
 - ``vae_decode_chunk``: latents a VAE decoder call (0: the whole batch);
 - ``kernels.gelu_exact``: the exact erf GELU in bf16 too.
 
+The opt-in int8 and subpixel options, as the JAX runner sets them at the
+start of a run (process-wide): ``kernels.subpixel_upsample``
+(``ops.upsample.set_use_subpixel``), ``kernels.int8_vae_decode`` and
+``kernels.int8_smooth_alpha`` (``ops.qconv``; an alpha of 0 is off), and
+``train.int8_ref_pass`` for the trainer. ``fast_init`` zero-fills the
+random towers (the scorer too) instead of drawing them: for benches and
+compile checks.
+
 Validation prompts come from ``val_dataset``: ``hf:<dir>`` reads the
 ``val_split_name`` split of a local ``datasets`` ``save_to_disk`` export
 (``data/arrow_disk.py``; a hub name needs the network and is refused where
@@ -89,9 +97,6 @@ The weights are placed on the mesh in the JAX runner's order:
 
 Under either, every rank runs the validation (a sharded forward needs all
 of them); rank 0 writes its images and logs it.
-
-Not ported yet, and refused when asked for (by :func:`check_config`):
-``fast_init`` and the JAX package's int8 options.
 """
 
 from __future__ import annotations
@@ -111,6 +116,8 @@ from ..data import PromptDataset, PromptLoader, make_clip_tokenizers
 from ..device import resolve_device
 from ..models.layers import set_gelu_exact
 from ..models.unet import frozen_copy
+from ..ops import qconv
+from ..ops.upsample import set_use_subpixel
 from ..parallel import (MeshSpec, barrier, broadcast_train_state_, data_group, host_fold,
                         init_mesh, maybe_initialize_distributed, model_group, model_index,
                         process_allgather, rank, world_size)
@@ -126,21 +133,8 @@ from ..utils.png import save_pngs
 
 logger = get_logger("pso.online")
 
-# knob -> its default; any other value is refused until the port has it
-_UNPORTED = {
-    "fast_init": (False,), "train.int8_ref_pass": (False,),
-    "kernels.subpixel_upsample": (False,), "kernels.int8_vae_decode": (False,),
-    "kernels.int8_smooth_alpha": (0.0,),
-}
 PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 VAL_IMAGES = 5  # validation images saved per validation, as the JAX runner saves
-
-
-def _get(config, dotted: str):
-    node = config
-    for part in dotted.split("."):
-        node = node[part]
-    return node
 
 
 def mesh_spec(config) -> MeshSpec:
@@ -148,16 +142,13 @@ def mesh_spec(config) -> MeshSpec:
 
 
 def check_config(config, sampler: str, world: int = 1) -> None:
-    """Refuse knobs the port does not implement, a mesh that does not cover
-    the ``world`` processes, and FSDP with ``mesh.model > 1``. The remat
-    mode is the UNet's to check (``models/unet.py``)."""
+    """Refuse an unknown sampler or ``param_dtype``, a mesh that does not
+    cover the ``world`` processes, FSDP with ``mesh.model > 1``, and
+    ``train.distilled_train_steps`` other than the sampled transitions. The
+    remat mode is the UNet's to check (``models/unet.py``)."""
     mesh_spec(config).resolve(world)
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r}; have {SAMPLERS}")
-    for key, allowed in _UNPORTED.items():
-        if _get(config, key) not in allowed:
-            raise NotImplementedError(f"{key}={_get(config, key)!r} is not ported yet "
-                                      f"(allowed: {allowed})")
     if config.param_dtype not in PARAM_DTYPES:
         raise ValueError(f"param_dtype={config.param_dtype!r}: use one of {list(PARAM_DTYPES)}")
     if config.train.distilled_train_steps != config.sample.num_steps - 1:
@@ -190,8 +181,9 @@ def build_pipeline(config, dtype, tiny: bool, dev) -> SDXLPipeline:
     if p.model_dir:
         pipe = SDXLPipeline.from_torch_dir(p.model_dir, **kw)
     else:
-        logger.warning("no pretrained model_dir -- random weights from seed %d", config.seed)
-        pipe = SDXLPipeline.random(**kw)
+        logger.warning("no pretrained model_dir -- %s weights", "zero-filled" if config.fast_init
+                       else f"random weights from seed {config.seed}")
+        pipe = SDXLPipeline.random(**kw, fast_init=bool(config.fast_init))
     if p.vae_dir:
         path = tower_weight_file(p.vae_dir)
         if path is None:
@@ -272,6 +264,10 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
     tiny = bool(config.tiny_model)
     epochs = config.num_epochs if num_epochs is None else num_epochs
     set_gelu_exact(config.kernels.gelu_exact)
+    set_use_subpixel(config.kernels.subpixel_upsample)
+    qconv.set_use_int8_decode(config.kernels.int8_vae_decode)
+    alpha = float(config.kernels.int8_smooth_alpha)
+    qconv.set_int8_smooth_alpha(alpha if alpha > 0.0 else None)
 
     # ---- models ----
     pipe = build_pipeline(config, dtype, tiny, dev)
@@ -310,7 +306,7 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
         num_train_timesteps=config.train.distilled_train_steps,
         # policy and reference run different weights under full finetuning
         fuse_ref_pass=bool(config.train.fuse_ref_pass) and not full_ft,
-        full_finetune=full_ft)
+        full_finetune=full_ft, int8_ref_pass=bool(config.train.int8_ref_pass))
     trainer = OnlinePSOTrainer(ocfg, pipe)
     trainable = all_parameters(pipe.unet) if full_ft else lora_parameters(pipe.unet)
     tx = make_optimizer(trainable, learning_rate=config.train.learning_rate,

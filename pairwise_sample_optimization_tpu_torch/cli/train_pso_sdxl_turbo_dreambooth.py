@@ -68,14 +68,15 @@ and validates, the other ranks waiting for it.
 - ``--tiny``: the toy models at 32x32 (unless ``--resolution`` is given),
   fp32, a CPU run of seconds. Otherwise SDXL-Turbo's widths in bf16 with an
   fp32 LoRA, from ``--pretrained_model_dir`` (a local diffusers
-  checkpoint) or random weights from ``--seed``.
+  checkpoint) or random weights from ``--seed`` (zero-filled, the LoRA
+  too, under ``--fast_init``: for throughput and compile checks).
 
 ``--use_wandb`` logs to wandb too where it imports and starts (else a
 warning, and ``metrics.jsonl`` alone), as the JAX CLI does.
 
-Refused before any model is built, with ``NotImplementedError``:
-``--fast_init``; JPEG, WebP and BMP files in the
-instance or class directory (the port reads PNG). The
+Refused before any model is built, with ``NotImplementedError``: JPEG,
+WebP and BMP files in the instance or class directory (the port reads
+PNG). The
 JAX CLI's parity-inert flags (``--snr_gamma``, ``--gamma_pso``,
 ``--neg_generate_freq``) are accepted and do nothing, as there.
 
@@ -216,7 +217,9 @@ def parse_args(argv=None):
     p.add_argument("--output_kohya_format", action="store_true",
                    help="also export the LoRA in kohya-ss's layout")
     p.add_argument("--tiny", action="store_true", help="toy models (CPU runs)")
-    p.add_argument("--fast_init", action="store_true", help="not ported (refused)")
+    p.add_argument("--fast_init", action="store_true",
+                   help="zero-fill the weights instead of drawing them when there is no "
+                        "--pretrained_model_dir (throughput and compile checks)")
     p.add_argument("--device", default="cuda")
     # parity-inert, as in the JAX CLI
     p.add_argument("--snr_gamma", type=float, default=None, help="parity-inert")
@@ -226,10 +229,7 @@ def parse_args(argv=None):
 
 
 def check_args(args) -> None:
-    """Refuse what the port does not implement, naming the flag."""
-    if args.fast_init:
-        raise NotImplementedError("--fast_init is not ported yet (zero-filled weights; "
-                                  "ROADMAP Queue 1)")
+    """Refuse an optimizer the port does not implement."""
     if args.optimizer.lower() not in ("adamw", "prodigy"):
         raise ValueError(f"Unsupported optimizer {args.optimizer!r}: choose AdamW or prodigy")
 
@@ -308,8 +308,9 @@ def main(argv=None):
     if args.pretrained_model_dir:
         pipe = SDXLPipeline.from_torch_dir(args.pretrained_model_dir, **kw)
     else:
-        logger.warning("no --pretrained_model_dir: random weights from seed %d", args.seed)
-        pipe = SDXLPipeline.random(**kw)
+        logger.warning("no --pretrained_model_dir: %s weights", "zero-filled" if args.fast_init
+                       else f"random weights from seed {args.seed}")
+        pipe = SDXLPipeline.random(**kw, fast_init=args.fast_init)
     for module in (pipe.vae, pipe.te1, pipe.te2):
         module.requires_grad_(False)
     lora = lora_parameters(pipe.unet)

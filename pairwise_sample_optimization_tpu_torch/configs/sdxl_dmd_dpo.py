@@ -4,9 +4,10 @@ on top of ``sdxl_turbo_dpo``: 1024^2, the fixed 4-step lattice
 
 Left out, as the Turbo config leaves it out: the JAX package's TPU
 routing knob ``kernels.fused_groupnorm`` (on CUDA the port always takes its
-GroupNorm+SiLU kernels). ``kernels.subpixel_upsample`` stays refused: it is
-a rewrite of the same function as nearest-neighbour upsample + conv (JAX
-``ops/upsample.py``). ``vae_decode_chunk`` is 0, as the JAX config sets it.
+GroupNorm+SiLU kernels). ``kernels.subpixel_upsample`` runs as in the JAX
+package but stays off by default here, where the JAX config turns it on:
+the port's default waits for a measurement on the card.
+``vae_decode_chunk`` is 0, as the JAX config sets it.
 """
 
 from . import Config, sdxl_turbo_dpo

@@ -11,10 +11,13 @@ package's: ``mesh.data`` x ``mesh.model`` processes (``mesh.data`` -1:
 the world over ``mesh.model``); ``mesh.model > 1`` shards the UNet's
 attention and feed-forward over the model axis (``parallel/tp.py``),
 ``mesh.fsdp`` the frozen weights over the data axis (``parallel/fsdp.py``;
-not with ``mesh.model > 1``). Knobs the port does not implement yet
-are kept so launch scripts parse, and ``cli.online_runner.check_config``
-refuses a non-default value: ``fast_init``, ``train.int8_ref_pass`` and
-the int8 and subpixel ``kernels.*`` options.
+not with ``mesh.model > 1``). The opt-in int8 and subpixel knobs are the
+JAX package's too (``ops/qconv.py``, ``ops/upsample.py``):
+``train.int8_ref_pass`` (the update's reference forward in dynamic int8),
+``kernels.int8_vae_decode`` and ``kernels.int8_smooth_alpha`` (> 0:
+SmoothQuant's migration in the int8 decode; 0: off),
+``kernels.subpixel_upsample``; ``fast_init`` zero-fills the towers for
+benches and compile checks.
 """
 
 from . import Config
@@ -108,8 +111,7 @@ def get_config() -> Config:
     t.fuse_ref_pass = False
     t.int8_ref_pass = False
 
-    # ---- kernel options of the JAX package (the int8 and subpixel ones not
-    # ported) ----
+    # ---- kernel options of the JAX package ----
     c.kernels = k = Config()
     k.subpixel_upsample = False
     k.int8_vae_decode = False

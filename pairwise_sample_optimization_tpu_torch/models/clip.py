@@ -22,7 +22,8 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.attention import dot_product_attention
-from .layers import LoRALinear, gelu_approximate
+from ..ops.qconv import use_int8_scorer
+from .layers import Int8Linear, LoRALinear, gelu_approximate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +73,9 @@ class CLIPVisionConfig:
     act: str = "gelu"
     norm_eps: float = 1e-5
     projection_dim: int = 1024
+    # the encoder layers' MLPs (fc1, fc2) in dynamic int8; the process-wide
+    # ops.qconv.set_use_int8_scorer override turns it on for every vision tower
+    int8_mlp: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @staticmethod
@@ -114,24 +118,32 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPMLP(nn.Module):
-    def __init__(self, width: int, act: str, dtype):
+    """fc1 -> act -> fc2. A vision tower's (``vision``) runs both products in
+    dynamic int8 where its config's ``int8_mlp`` or the process-wide scorer
+    override asks for it; a text tower's never."""
+
+    def __init__(self, width: int, act: str, dtype, vision: bool = False, int8: bool = False):
         super().__init__()
-        self.act = act
-        self.fc1 = nn.Linear(width, 4 * width, dtype=dtype)
-        self.fc2 = nn.Linear(4 * width, width, dtype=dtype)
+        self.act, self.vision, self.int8 = act, vision, int8
+        lin = Int8Linear if vision else nn.Linear
+        self.fc1 = lin(width, 4 * width, dtype=dtype)
+        self.fc2 = lin(4 * width, width, dtype=dtype)
 
     def forward(self, x):
-        return self.fc2(_act(self.act, self.fc1(x)))
+        if not self.vision:
+            return self.fc2(_act(self.act, self.fc1(x)))
+        int8 = self.int8 or use_int8_scorer()
+        return self.fc2(_act(self.act, self.fc1(x, int8=int8)), int8=int8)
 
 
 class CLIPEncoderLayer(nn.Module):
     def __init__(self, width: int, heads: int, act: str, eps: float, dtype, lora_rank: int = 0,
-                 use_dora: bool = False):
+                 use_dora: bool = False, vision: bool = False, int8_mlp: bool = False):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(width, eps=eps, dtype=dtype)
         self.self_attn = CLIPAttention(width, heads, dtype, lora_rank, use_dora)
         self.layer_norm2 = nn.LayerNorm(width, eps=eps, dtype=dtype)
-        self.mlp = CLIPMLP(width, act, dtype)
+        self.mlp = CLIPMLP(width, act, dtype, vision, int8_mlp)
 
     def forward(self, x, causal: bool):
         x = x + self.self_attn(self.layer_norm1(x), causal)
@@ -139,10 +151,12 @@ class CLIPEncoderLayer(nn.Module):
 
 
 class CLIPEncoder(nn.Module):
-    def __init__(self, width, heads, act, eps, n_layers, dtype, lora_rank=0, use_dora=False):
+    def __init__(self, width, heads, act, eps, n_layers, dtype, lora_rank=0, use_dora=False,
+                 vision=False, int8_mlp=False):
         super().__init__()
         self.layers = nn.ModuleList([CLIPEncoderLayer(width, heads, act, eps, dtype, lora_rank,
-                                                      use_dora) for _ in range(n_layers)])
+                                                      use_dora, vision, int8_mlp)
+                                     for _ in range(n_layers)])
 
 
 class CLIPTextEmbeddings(nn.Module):
@@ -225,7 +239,7 @@ class CLIPVisionTransformer(nn.Module):
         self.embeddings = CLIPVisionEmbeddings(cfg)
         self.pre_layrnorm = nn.LayerNorm(cfg.width, eps=cfg.norm_eps, dtype=cfg.dtype)  # (sic)
         self.encoder = CLIPEncoder(cfg.width, cfg.heads, cfg.act, cfg.norm_eps, cfg.layers,
-                                   cfg.dtype)
+                                   cfg.dtype, vision=True, int8_mlp=cfg.int8_mlp)
         self.post_layernorm = nn.LayerNorm(cfg.width, eps=cfg.norm_eps, dtype=cfg.dtype)
 
     def forward(self, pixels):

@@ -27,6 +27,16 @@ weights are stored in: a weight stored in another dtype is cast at use, as
 the JAX package casts its fp32 params to the compute dtype. It is None (the
 weights' own dtype) until ``set_compute_dtype`` sets it, as a UNet whose
 trained weights are fp32 masters needs.
+
+Dynamic int8 (``ops/qconv.py``) reaches the layers the JAX package routes:
+inside the ``int8_ref_pass`` scope, ``LoRALinear``'s base product (its bias
+added afterwards in the compute dtype), ``MaybeInt8Linear``'s product (the
+transformer's ``proj_in`` / ``proj_out`` and the GEGLU feed-forward's two
+projections; the bias added in fp32 before the cast) and the 3x3 convs of
+``ResnetBlock`` and ``Upsample``; under the int8 decode knob, those convs
+where ``allow_int8`` is set (the VAE decoder's). The weights are quantized
+from their compute-dtype copy. ``Int8Linear`` (JAX ``Int8Dense``) is the
+CLIP vision MLP's.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import dot_product_attention
 from ..ops.group_norm import group_norm
+from ..ops.qconv import decoder_conv2d, in_int8_ref_pass, int8_matmul
 from ..ops.upsample import upsample2x_conv3x3
 from ..parallel.collectives import copy_to_group, reduce_from_group
 
@@ -86,10 +97,20 @@ class TensorParallel:
         """Megatron's ``f`` on the input of an "in" module (None passes)."""
         return copy_to_group(x, self.tp_group) if self.tp_mode == "in" and x is not None else x
 
-    def tp_output(self, y, bias):
-        """The row layer's sum over the model group, then its bias."""
+    def tp_output(self, y, bias, dtype=None):
+        """The row layer's sum over the model group (cast to ``dtype`` where
+        given), then its bias."""
         y = reduce_from_group(y, self.tp_group)
+        y = y if dtype is None else y.to(dtype)
         return y if bias is None else y + bias
+
+    def int8_product(self, x, w):
+        """x @ w^T in dynamic int8 without a bias: in x's dtype, or, in a
+        row layer, this rank's fp32 partial on the model group's grids."""
+        row = self.tp_mode == "row"
+        return int8_matmul(x, w, group=self.tp_group if row else None,
+                           out_dtype=torch.float32 if row else None,
+                           what=f"{type(self).__name__}({w.shape[1]}, {w.shape[0]})")
 
 
 class Linear(TensorParallel, CastAtUse, nn.Linear):
@@ -100,9 +121,49 @@ class Linear(TensorParallel, CastAtUse, nn.Linear):
         return F.linear(x, w, b)
 
 
+class MaybeInt8Linear(Linear):
+    """A ``Linear`` (the same keys) whose product runs in dynamic int8 inside
+    the ``int8_ref_pass`` scope, the bias added in fp32 before the cast:
+    JAX ``DenseMaybeInt8``."""
+
+    def forward(self, x):
+        if not in_int8_ref_pass():
+            return super().forward(x)
+        w, b = self.weights_at_use()
+        x = x.to(w.dtype)
+        if self.tp_mode == "row":  # the partials summed in fp32, then the bias
+            b = None if b is None else b.float()
+            return self.tp_output(self.int8_product(x, w), b).to(w.dtype)
+        return int8_matmul(x, w, b, what=f"MaybeInt8Linear({self.in_features}, "
+                                          f"{self.out_features})")
+
+
+class Int8Linear(nn.Linear):
+    """An ``nn.Linear`` (the same keys) whose product is always the dynamic
+    int8 matmul, the bias added in fp32 before the cast (JAX ``Int8Dense``);
+    ``forward(x, int8=False)`` takes the plain product instead."""
+
+    def forward(self, x, int8: bool = True):
+        if not int8:
+            return super().forward(x)
+        return int8_matmul(x.to(self.weight.dtype), self.weight, self.bias,
+                           what=f"Int8Linear({self.in_features}, {self.out_features})")
+
+
 class Conv2d(CastAtUse, nn.Conv2d):
     def forward(self, x):
         return self._conv_forward(x, *self.weights_at_use())
+
+
+class MaybeInt8Conv2d(Conv2d):
+    """A 3x3, stride-1, pad-1 ``Conv2d`` through ``qconv.decoder_conv2d``:
+    in dynamic int8 inside the ``int8_ref_pass`` scope, or under the int8
+    decode knob where ``allow_int8`` is set (the VAE decoder's resnets)."""
+
+    allow_int8 = False
+
+    def forward(self, x):
+        return decoder_conv2d(x, *self.weights_at_use(), allow_int8=self.allow_int8)
 
 
 class LayerNorm(CastAtUse, nn.LayerNorm):
@@ -170,7 +231,12 @@ class LoRALinear(TensorParallel, CastAtUse, nn.Linear):
         x = x.to(self.compute_dtype or self.weight.dtype)
         w, b = self.weights_at_use()
         row = self.tp_mode == "row"  # the bias goes on after the sum
-        y = F.linear(x, w, None if row else b)
+        if in_int8_ref_pass():  # the base product alone in int8, the bias in the compute dtype
+            y = self.int8_product(x, w)
+            if b is not None and not row:
+                y = y + b
+        else:
+            y = F.linear(x, w, None if row else b)
         static_zero = isinstance(lora_scale, (int, float)) and lora_scale == 0
         if self.lora_rank and not static_zero:
             per_sample = isinstance(lora_scale, torch.Tensor) and lora_scale.ndim >= 1
@@ -182,7 +248,7 @@ class LoRALinear(TensorParallel, CastAtUse, nn.Linear):
                              self.lora.up.weight.to(x.dtype))
             y = self._dora(y, delta, lora_scale) if self.use_dora else y + self._scaled(
                 delta, lora_scale)
-        return self.tp_output(y, b) if row else y
+        return self.tp_output(y, b, x.dtype) if row else y
 
     def _scaled(self, delta, lora_scale):
         if isinstance(lora_scale, torch.Tensor) and lora_scale.ndim >= 1:  # per sample
@@ -291,7 +357,7 @@ class Attention(TensorParallel, nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int, dtype=None):
         super().__init__()
-        self.proj = Linear(dim, inner * 2, dtype=dtype)
+        self.proj = MaybeInt8Linear(dim, inner * 2, dtype=dtype)
 
     def forward(self, x):
         hidden, gate = self.proj(x).chunk(2, dim=-1)
@@ -305,7 +371,7 @@ class GEGLUFeedForward(TensorParallel, nn.Module):
         super().__init__()
         inner = dim * mult
         self.net = nn.ModuleList([GEGLU(dim, inner, dtype), nn.Dropout(0.0),
-                                  Linear(inner, dim, dtype=dtype)])
+                                  MaybeInt8Linear(inner, dim, dtype=dtype)])
 
     def forward(self, x):
         x = self.tp_input(x)
@@ -344,13 +410,13 @@ class SpatialTransformer(nn.Module):
                  lora_rank: int = 0, groups: int = 32, dtype=None, use_dora: bool = False):
         super().__init__()
         self.norm = GroupNorm(channels, groups, eps=1e-6, dtype=dtype)
-        self.proj_in = Linear(channels, channels, dtype=dtype)
+        self.proj_in = MaybeInt8Linear(channels, channels, dtype=dtype)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, heads, head_dim, context_dim, lora_rank, dtype,
                                   use_dora)
             for _ in range(depth)
         ])
-        self.proj_out = Linear(channels, channels, dtype=dtype)
+        self.proj_out = MaybeInt8Linear(channels, channels, dtype=dtype)
 
     def forward(self, x, context, lora_scale=1.0):
         b, c, h, w = x.shape
@@ -366,17 +432,20 @@ class SpatialTransformer(nn.Module):
 
 
 class ResnetBlock(nn.Module):
-    """GN+SiLU -> conv -> (+time) -> GN+SiLU -> conv, with a 1x1 skip."""
+    """GN+SiLU -> conv -> (+time) -> GN+SiLU -> conv, with a 1x1 skip. The
+    two 3x3 convs may run in int8 (``MaybeInt8Conv2d``; ``allow_int8``: under
+    the int8 decode knob too)."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels=None,
-                 groups: int = 32, eps: float = 1e-5, dtype=None):
+                 groups: int = 32, eps: float = 1e-5, dtype=None, allow_int8: bool = False):
         super().__init__()
         self.norm1 = GroupNorm(in_channels, groups, eps, act="silu", dtype=dtype)
-        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, dtype=dtype)
+        self.conv1 = MaybeInt8Conv2d(in_channels, out_channels, 3, padding=1, dtype=dtype)
         self.time_emb_proj = (Linear(temb_channels, out_channels, dtype=dtype)
                               if temb_channels else None)
         self.norm2 = GroupNorm(out_channels, groups, eps, act="silu", dtype=dtype)
-        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, dtype=dtype)
+        self.conv2 = MaybeInt8Conv2d(out_channels, out_channels, 3, padding=1, dtype=dtype)
+        self.conv1.allow_int8 = self.conv2.allow_int8 = allow_int8
         self.conv_shortcut = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
                               if in_channels != out_channels else None)
 
@@ -406,14 +475,36 @@ class Downsample(nn.Module):
 
 
 class Upsample(nn.Module):
-    """Nearest-2x upsample + 3x3 conv (diffusers Upsample2D)."""
+    """Nearest-2x upsample + 3x3 conv (diffusers Upsample2D), through
+    ``ops.upsample`` (the subpixel rewrite, or int8 on the naive path:
+    ``allow_int8`` as ``ResnetBlock``'s)."""
 
-    def __init__(self, channels: int, dtype=None):
+    def __init__(self, channels: int, dtype=None, allow_int8: bool = False):
         super().__init__()
+        self.allow_int8 = allow_int8
         self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype)
 
     def forward(self, x):
-        return upsample2x_conv3x3(x, *self.conv.weights_at_use())
+        return upsample2x_conv3x3(x, *self.conv.weights_at_use(), allow_int8=self.allow_int8)
+
+
+@torch.no_grad()
+def init_zeros_(module: nn.Module) -> nn.Module:
+    """Every parameter of ``module`` zero, its LoRA too: ``fast_init``'s
+    towers for benches and compile checks, where the values do not matter
+    (the JAX package's zero fill)."""
+    for p in module.parameters():
+        p.zero_()
+    return module
+
+
+def init_weights_(module: nn.Module, generator: torch.Generator, fast_init: bool = False,
+                  **kw) -> nn.Module:
+    """:func:`init_zeros_` under ``fast_init``, else :func:`init_random_`."""
+    if fast_init:
+        return init_zeros_(module)
+    init_random_(module, generator, **kw)
+    return module
 
 
 @torch.no_grad()

@@ -5,7 +5,9 @@ diffusers keys: ``encoder.*`` and ``quant_conv.*`` (``encode``: an image to
 the latent moments, for DreamBooth's instance and negative images), and
 ``post_quant_conv.*`` and ``decoder.*`` (``decode``). The VAE runs in its
 config's dtype; its GroupNorm+SiLU and mid-block attention go through the
-op seams (the CUDA kernels on a CUDA tensor).
+op seams (the CUDA kernels on a CUDA tensor), and the decoder's 3x3 resnet
+and upsample convs through ``ops.qconv.decoder_conv2d`` (int8 under the
+``kernels.int8_vae_decode`` knob; ``decoder_allow_int8``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ class VAEConfig:
     layers_per_block: int = 2
     norm_groups: int = 32
     scaling_factor: float = 0.13025
+    # the decoder's resnet and upsample 3x3 convs run in int8 when the int8
+    # decode knob is on (ops.qconv.set_use_int8_decode); the encoder's never
+    decoder_allow_int8: bool = True
     dtype: torch.dtype = torch.float32
 
     @staticmethod
@@ -113,8 +118,9 @@ class Decoder(nn.Module):
         super().__init__()
         dt = cfg.dtype
         channels = list(reversed(cfg.block_out_channels))
+        int8 = cfg.decoder_allow_int8
         resnet = lambda cin, cout: ResnetBlock(cin, cout, None, cfg.norm_groups, eps=1e-6,
-                                               dtype=dt)
+                                               dtype=dt, allow_int8=int8)
         self.conv_in = nn.Conv2d(cfg.latent_channels, channels[0], 3, padding=1, dtype=dt)
         self.mid_block = nn.Module()
         self.mid_block.resnets = nn.ModuleList([resnet(channels[0], channels[0]),
@@ -129,7 +135,7 @@ class Decoder(nn.Module):
                 blk.resnets.append(resnet(h_ch, ch))
                 h_ch = ch
             if level < len(channels) - 1:
-                blk.upsamplers = nn.ModuleList([Upsample(ch, dtype=dt)])
+                blk.upsamplers = nn.ModuleList([Upsample(ch, dtype=dt, allow_int8=int8)])
             self.up_blocks.append(blk)
         self.conv_norm_out = GroupNorm(channels[-1], cfg.norm_groups, eps=1e-6, act="silu",
                                        dtype=dt)

@@ -28,6 +28,7 @@ SOURCES = {
     "flash_attn_fwd": "flash_attn_fwd.cu",
     "flash_attn_bwd": "flash_attn_bwd.cu",
     "group_norm_silu": "group_norm_silu.cu",
+    "int8_conv": "int8_conv.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -37,7 +38,8 @@ NVCC_FLAGS = [
 
 # kernel name -> launches since the last reset (wrappers increment these)
 launch_counts = {"flash_attn_fwd": 0, "flash_attn_bwd_pre": 0, "flash_attn_bwd": 0,
-                 "flash_attn_bwd_post": 0, "gn_stats": 0, "gn_silu_norm": 0}
+                 "flash_attn_bwd_post": 0, "gn_stats": 0, "gn_silu_norm": 0,
+                 "int8_absmax": 0, "int8_quantize": 0, "int8_conv3x3": 0, "int8_dequant": 0}
 _libs: dict[str, ctypes.CDLL] = {}
 
 

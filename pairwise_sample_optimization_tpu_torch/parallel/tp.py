@@ -32,6 +32,13 @@ they divide. Every other
 tensor (convs, norms, embeddings, the VAE, the text towers, the scorer) is
 replicated and gets the same gradient on every model rank.
 
+Dynamic int8 (the reference pass's ``train.int8_ref_pass``) quantizes per
+token and per output row: a column layer has the whole contracted dim and
+quantizes as one process does; a row layer (``to_out.0``, ``ff.net.2``) has
+a slice of it, so it reduces both absmaxes with max over the model group
+before it quantizes (``layers.TensorParallel.int8_product``), as GSPMD
+reduces JAX's ``jnp.max`` over the sharded axis, and sums its fp32 partials.
+
 Each sliced parameter carries a :class:`Shard` (``param.tp_shard``): the
 whole tensor's shape, the dim and this rank's positions along it. The
 optimizers read it for the global norm and the 8-bit moments' blocks

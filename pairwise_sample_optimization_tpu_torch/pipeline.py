@@ -33,7 +33,7 @@ import torch
 from .checkpoints.convert import load_torch_state_dict, load_weights, tower_weight_file
 from .device import resolve_device
 from .models.clip import CLIPTextConfig, CLIPTextTower, CLIPVisionConfig
-from .models.layers import init_random_, refresh_dora_magnitudes_
+from .models.layers import init_weights_, refresh_dora_magnitudes_
 from .models.sdxl_text import compute_time_ids, encode_sdxl_prompt
 from .models.unet import SDXLUNet, UNetConfig
 from .models.vae import AutoencoderKL, VAEConfig
@@ -78,7 +78,8 @@ class SDXLPipeline:
                tiny: bool = False, seed: int = 0, lora_b_std: float = 0.0,
                remat: str = "", device="cuda", with_scorer: bool = True,
                te_lora_rank: int = 0, use_dora: bool = False,
-               unet_param_dtype: Optional[torch.dtype] = None) -> "SDXLPipeline":
+               unet_param_dtype: Optional[torch.dtype] = None,
+               fast_init: bool = False) -> "SDXLPipeline":
         """Architecture-true random weights made from ``seed``, built on
         ``device`` directly: each tower is constructed on the meta device,
         materialized there with ``to_empty`` and filled by
@@ -92,7 +93,10 @@ class SDXLPipeline:
         ``use_dora`` makes every adapter (UNet and text encoders) DoRA.
         ``unet_param_dtype`` stores the UNet's weights in that dtype (its
         draws are made in ``dtype`` first), computing in ``dtype``
-        (``SDXLUNet.set_param_dtype``; None: stored in ``dtype``)."""
+        (``SDXLUNet.set_param_dtype``; None: stored in ``dtype``).
+        ``fast_init`` fills every tower (the LoRA and the scorer too) with
+        zeros instead, for benches and compile checks, as the JAX package's
+        ``fast_init``: no draw is made."""
         dev = resolve_device(device)
         if tiny:
             ucfg = UNetConfig.tiny(lora_rank=lora_rank, dtype=dtype, remat=remat)
@@ -115,7 +119,7 @@ class SDXLPipeline:
 
         def make(module):
             module.to_empty(device=dev)
-            init_random_(module, gen, lora_b_std=lora_b_std)
+            init_weights_(module, gen, fast_init, lora_b_std=lora_b_std)
             return module.eval()
 
         unet = make(SDXLUNet(ucfg, device="meta"))
@@ -124,7 +128,8 @@ class SDXLPipeline:
         vae = make(AutoencoderKL(vcfg, device="meta"))
         te1 = make(CLIPTextTower(t1cfg, device="meta"))
         te2 = make(CLIPTextTower(t2cfg, device="meta"))
-        scorer = PickScoreScorer.random(*pcfg, seed=seed + 1, device=dev) if with_scorer else None
+        scorer = (PickScoreScorer.random(*pcfg, seed=seed + 1, device=dev, fast_init=fast_init)
+                  if with_scorer else None)
         return cls(unet=unet, vae=vae, te1=te1, te2=te2, scorer=scorer, resolution=resolution)
 
     @classmethod

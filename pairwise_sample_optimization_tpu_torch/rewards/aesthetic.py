@@ -18,7 +18,7 @@ import torch.nn as nn
 
 from ..device import resolve_device
 from ..models.clip import CLIPVisionConfig, CLIPVisionTower
-from ..models.layers import init_random_
+from ..models.layers import init_random_, init_weights_
 from .preprocess import clip_preprocess
 
 
@@ -49,17 +49,18 @@ class AestheticScorer:
 
     @classmethod
     def random(cls, vision_config: Optional[CLIPVisionConfig] = None, seed: int = 0,
-               mlp_path: Optional[str] = None, device="cuda") -> "AestheticScorer":
+               mlp_path: Optional[str] = None, device="cuda",
+               fast_init: bool = False) -> "AestheticScorer":
         """Random CLIP-L/14 tower (``vision_config`` otherwise) made from
-        ``seed`` on ``device``; the MLP random too, or loaded from
-        ``mlp_path`` ("packaged" = :func:`packaged_mlp_path`)."""
+        ``seed`` on ``device`` (zeros under ``fast_init``); the MLP random
+        too, or loaded from ``mlp_path`` ("packaged" = :func:`packaged_mlp_path`)."""
         dev = resolve_device(device)
         vcfg = vision_config or CLIPVisionConfig.vit_l14()
         gen = torch.Generator(device=dev).manual_seed(seed)
         vision = CLIPVisionTower(vcfg, device="meta").to_empty(device=dev)
         mlp = AestheticMLP(vcfg.projection_dim, device="meta").to_empty(device=dev)
-        for module in (vision, mlp):
-            init_random_(module, gen)
+        init_weights_(vision, gen, fast_init)
+        init_random_(mlp, gen)
         if mlp_path:
             from ..checkpoints.scorer_loaders import load_aesthetic_mlp
 

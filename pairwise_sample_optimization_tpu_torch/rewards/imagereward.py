@@ -18,7 +18,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.bert import BertConfig, BertEncoder
-from ..models.layers import init_random_
+from ..models.layers import init_weights_
 from ..models.vit import ViT, ViTConfig
 from .aesthetic import AestheticMLP
 from .preprocess import clip_preprocess
@@ -37,10 +37,10 @@ class ImageRewardScorer:
     @classmethod
     def random(cls, vit_config: Optional[ViTConfig] = None,
                bert_config: Optional[BertConfig] = None, seed: int = 0,
-               device="cuda") -> "ImageRewardScorer":
+               device="cuda", fast_init: bool = False) -> "ImageRewardScorer":
         """Architecture-true random weights (BLIP ViT-L/16 and the BLIP
         BERT-base by default) made from ``seed``, built on ``device``
-        directly."""
+        directly; zeros under ``fast_init``."""
         dev = resolve_device(device)
         bcfg = bert_config or BertConfig.blip_base()
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -48,7 +48,7 @@ class ImageRewardScorer:
                    BertEncoder(bcfg, device="meta"), AestheticMLP(bcfg.hidden, device="meta"))
         for module in modules:
             module.to_empty(device=dev)
-            init_random_(module, gen)
+            init_weights_(module, gen, fast_init)
             module.eval()
         return cls(*modules)
 

@@ -13,7 +13,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.clip import CLIPDualEncoder, CLIPTextConfig, CLIPVisionConfig
-from ..models.layers import init_random_
+from ..models.layers import init_weights_
 from .preprocess import clip_preprocess, clip_preprocess_max_size
 
 _PREPROCESS = {"resize": clip_preprocess, "max_size": clip_preprocess_max_size}
@@ -37,14 +37,16 @@ class PickScoreScorer:
     @classmethod
     def random(cls, text_config: Optional[CLIPTextConfig] = None,
                vision_config: Optional[CLIPVisionConfig] = None, seed: int = 0,
-               device="cuda", preprocess: str = "resize") -> "PickScoreScorer":
+               device="cuda", preprocess: str = "resize",
+               fast_init: bool = False) -> "PickScoreScorer":
         """Architecture-true random weights (ViT-H/14 by default), built on
-        ``device`` directly (meta first, no host copy)."""
+        ``device`` directly (meta first, no host copy); zeros under
+        ``fast_init``."""
         dev = resolve_device(device)
         model = CLIPDualEncoder(text_config or CLIPTextConfig.vit_h14(),
                                 vision_config or CLIPVisionConfig.vit_h14(), device="meta")
         model.to_empty(device=dev)
-        init_random_(model, torch.Generator(device=dev).manual_seed(seed))
+        init_weights_(model, torch.Generator(device=dev).manual_seed(seed), fast_init)
         return cls(model.eval(), preprocess)
 
     def text_features(self, input_ids):

@@ -18,7 +18,10 @@ and DMD2 samplers, as eager PyTorch:
   backpropagates loss / n_micro into the LoRA gradients. Under
   ``full_finetune`` (the reference's ``use_lora=False``) the policy is the
   whole trained UNet and the reference pass runs the pipeline's separate
-  frozen copy (``pipeline.reference_unet``), unfused.
+  frozen copy (``pipeline.reference_unet``), unfused. ``int8_ref_pass``
+  runs that unfused reference forward (either kind) inside
+  ``ops.qconv.int8_ref_pass``: its weight products and resnet convs in
+  dynamic int8.
 
 DMD2 (``sampler="dmd"``) samples on the fixed lattice
 (``ops.schedules.distill_timesteps``) with DDPM re-noise transitions, and
@@ -61,6 +64,7 @@ import torch
 
 from ..ops.ddpm_renoise import distilled_logprob
 from ..ops.euler_ancestral import turbo_logprob
+from ..ops.qconv import int8_ref_pass
 from ..ops.schedules import distill_timesteps, make_alphas_cumprod, make_euler_ancestral_schedule
 from ..parallel import all_reduce_mean_, data_group, data_index, data_size, process_allgather
 from ..parallel.tp import sum_partial_grads_
@@ -104,8 +108,6 @@ class OnlinePSOConfig:
             raise ValueError("int8_ref_pass needs fuse_ref_pass=False")
         if self.sampler not in ("turbo", "dmd"):
             raise ValueError(f"unknown sampler {self.sampler!r}")
-        if self.int8_ref_pass:
-            raise NotImplementedError("the int8 reference pass is not ported yet")
         if self.compare not in ("sample", "pareto"):
             raise ValueError(f"unknown compare {self.compare!r}")
 
@@ -275,7 +277,7 @@ class OnlinePSOTrainer:
         else:
             eps_pol = self.pipe.unet_eps(inp, t2, cond2, 1.0)
             ref = self.pipe.reference_unet if cfg.full_finetune else None
-            with torch.no_grad():
+            with torch.no_grad(), int8_ref_pass(cfg.int8_ref_pass):
                 eps_ref = self.pipe.unet_eps(inp, t2, cond2, 0.0, unet=ref)
 
         lp_0, lp_1 = self._recompute_logprob(eps_pol, s2, t2, x_t, x_prev).chunk(2)

@@ -373,5 +373,6 @@ def test_chip_smoke_launch_counts_match_the_tiny_dmd_loop(tmp_path):
            "flash_attn_bwd": sum(rec.attention_bwd.values()),
            "flash_attn_bwd_post": sum(n for (qs, ks, _), n in rec.attention_bwd.items()
                                       if cs.bwd_needs_post(qs, ks[1])),
-           "gn_stats": sum(rec.gn.values()), "gn_silu_norm": sum(rec.gn.values())}
+           "gn_stats": sum(rec.gn.values()), "gn_silu_norm": sum(rec.gn.values()),
+           **rec.int8_launches()}
     assert got == {k: want[k] + upd[k] for k in want}

@@ -456,14 +456,16 @@ def test_cli_tiny_run_validates_checkpoints_resumes_and_exports_the_jax_layout(t
     assert all(torch.equal(first["unet." + k], v.detach()) for k, v in restored.lora.items())
 
 
-REFUSED_FLAGS = (["--fast_init"],)
+# what the CLI still refuses before building a model (``--fast_init`` runs
+# since it was ported: tests/test_torch_port_int8.py)
+REFUSED_FLAGS = ((["--optimizer", "sgd"], ValueError, "sgd"),)
 
 
 def test_cli_refuses_unported_flags_before_building_a_model(tmp_path, monkeypatch):
     monkeypatch.setattr(SDXLPipeline, "random", None)  # a model built would fail otherwise
     _instance_dir(tmp_path)
-    for flags in REFUSED_FLAGS:
-        with pytest.raises(NotImplementedError, match=flags[0]):
+    for flags, error, named in REFUSED_FLAGS:
+        with pytest.raises(error, match=named):
             cli.main(_cli(tmp_path, *flags))
 
 
@@ -532,6 +534,7 @@ def test_chip_smoke_launch_counts_match_the_tiny_dreambooth_runs(tmp_path):
                "flash_attn_bwd": sum(rec.attention_bwd.values()),
                "flash_attn_bwd_post": sum(n for (qs, ks, _), n in rec.attention_bwd.items()
                                           if cs.bwd_needs_post(qs, ks[1])),
-               "gn_stats": sum(rec.gn.values()), "gn_silu_norm": sum(rec.gn.values())}
+               "gn_stats": sum(rec.gn.values()), "gn_silu_norm": sum(rec.gn.values()),
+           **rec.int8_launches()}
         assert got == want, name
         assert all(math.isfinite(m["loss"]) for m in history), name

@@ -18,6 +18,7 @@ import pairwise_sample_optimization_tpu_torch as port
 from pairwise_sample_optimization_tpu_torch.ops import flash_attention as tfa
 from pairwise_sample_optimization_tpu_torch.ops import fused_groupnorm as tfg
 from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
+from pairwise_sample_optimization_tpu_torch.ops import qconv as tq
 
 PKG = Path(port.__file__).resolve().parent
 ROOT = PKG.parent
@@ -213,8 +214,12 @@ def kernel_path(monkeypatch):
     monkeypatch.setattr(tfa, "flash_attention_plain", plain_reached)
     monkeypatch.setattr(tfa, "flash_attention_bwd_plain", plain_reached)
     monkeypatch.setattr(tfg, "fused_groupnorm_silu_plain", plain_reached)
+    for plain in ("absmax_plain", "quantize_rows_plain", "quantize_nhwc_plain", "conv3x3_plain",
+                  "dequant_plain"):
+        monkeypatch.setattr(tq, plain, plain_reached)
     monkeypatch.setattr(tfa, "_check", lambda *a: None)
     monkeypatch.setattr(tfg, "_check", lambda *a: None)
+    monkeypatch.setattr(tq, "_on_cuda", lambda *a, what: True)
     monkeypatch.setattr(kernel_lib, "stream_ptr", lambda device: 0)
     monkeypatch.setattr(tfa, "_sm_count", lambda index: 132)  # an H100's
     lib = _FakeLib(rc=0)
@@ -269,7 +274,58 @@ def test_each_launch_counts_once(kernel_path):
     assert kernel_path.calls == ["flash_attn_fwd", "gn_stats", "gn_silu_norm"]
     assert kernel_lib.launch_counts == {"flash_attn_fwd": 1, "flash_attn_bwd_pre": 0,
                                         "flash_attn_bwd": 0, "flash_attn_bwd_post": 0,
-                                        "gn_stats": 1, "gn_silu_norm": 1}
+                                        "gn_stats": 1, "gn_silu_norm": 1, "int8_absmax": 0,
+                                        "int8_quantize": 0, "int8_conv3x3": 0,
+                                        "int8_dequant": 0}
+
+
+# the int8 wrappers' launches: (call, C entry points in order, counts)
+INT8_LAUNCHES = {
+    "conv": (lambda x, w, b: tq.int8_conv2d(x, w, b),
+             ["q8_absmax", "q8_quantize_rows", "q8_absmax", "q8_quantize_nhwc", "q8_conv3x3"],
+             {"int8_absmax": 2, "int8_quantize": 2, "int8_conv3x3": 1}),
+    "conv_smoothed": (lambda x, w, b: tq.int8_conv2d(x, w, b, smooth_alpha=0.5),
+                      ["q8_absmax", "q8_absmax", "q8_quantize_rows", "q8_absmax",
+                       "q8_quantize_nhwc", "q8_conv3x3"],
+                      {"int8_absmax": 3, "int8_quantize": 2, "int8_conv3x3": 1}),
+    "matmul": (lambda x, w, b: tq.int8_matmul(x.flatten(2).transpose(1, 2), w[:, :, 0, 0], b),
+               ["q8_absmax", "q8_absmax", "q8_quantize_rows", "q8_quantize_rows", "q8_dequant"],
+               {"int8_absmax": 2, "int8_quantize": 2, "int8_dequant": 1}),
+}
+
+
+@pytest.mark.parametrize("op", list(INT8_LAUNCHES))
+def test_int8_wrappers_launch_q1_to_q3_and_count_each_once(kernel_path, op):
+    call, calls, counts = INT8_LAUNCHES[op]
+    x = torch.empty((2, 32, 8, 8), device="meta", dtype=torch.bfloat16)
+    w = torch.empty((48, 32, 3, 3), device="meta", dtype=torch.bfloat16)
+    with torch.no_grad():
+        call(x, w, torch.empty((48,), device="meta", dtype=torch.bfloat16))
+    assert kernel_path.calls == calls
+    assert {n: c for n, c in kernel_lib.launch_counts.items() if c} == counts
+    kernel_path.rc, kernel_path.calls = 700, []
+    kernel_lib.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="q8_absmax: CUDA error 700"), torch.no_grad():
+        call(x, w, None)
+    assert set(kernel_lib.launch_counts.values()) == {0}
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 64, 24), (77, 60, 24), (77, 64, 20)])
+def test_int8_refuses_shapes_the_card_does_not_take(kernel_path, m, k, n):
+    """Off the CPU, ``torch._int_mm``'s CUDA rules (M > 16, K and N
+    multiples of 8) raise naming the layer before any launch, and the conv
+    refuses channels its 16-byte loads cannot take."""
+    from pairwise_sample_optimization_tpu_torch.models.layers import Int8Linear
+
+    layer = Int8Linear(k, n, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=fr"Int8Linear\({k}, {n}\).*M={m}, K={k}, N={n}"), \
+            torch.no_grad():
+        layer(torch.empty((1, m, k), device="meta", dtype=torch.bfloat16))
+    meta = lambda shape, dt=torch.int8: torch.empty(shape, device="meta", dtype=dt)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tq.conv3x3(meta((1, 4, 4, 24)), meta((8, 3, 3, 24)), meta((1,), torch.float32),
+                   meta((8,), torch.float32))
+
 
 
 def _meta_bwd_inputs(d=64, skv=77, dtype=torch.float32):
@@ -331,7 +387,7 @@ def test_kernel_sources_and_signatures_line_up():
     many parameters as the wrapper passes (the card is needed to build)."""
     for name, sigs in (("flash_attn_fwd", tfa._SIGNATURES),
                        ("flash_attn_bwd", tfa._BWD_SIGNATURES),
-                       ("group_norm_silu", tfg._SIGNATURES)):
+                       ("group_norm_silu", tfg._SIGNATURES), ("int8_conv", tq._SIGNATURES)):
         src = (kernel_lib.CSRC / kernel_lib.SOURCES[name]).read_text()
         c_api = src[src.index('extern "C" {'):]
         for fn, argtypes in sigs.items():
@@ -381,7 +437,8 @@ def _port_imports(path: Path):
                                    "train/prodigy.py", "train/quantized_adam.py",
                                    "train/flat_optim.py", "parallel/collectives.py",
                                    "parallel/multihost.py", "parallel/mesh.py",
-                                   "parallel/prng.py", "cli/train_online_pso_sdxl_turbo.py"])
+                                   "parallel/prng.py", "cli/train_online_pso_sdxl_turbo.py",
+                                   "ops/qconv.py", "ops/upsample.py"])
 def test_new_entry_points_need_only_torch_numpy_and_the_stdlib(entry):
     """Every module the entry point reaches, through the port's own imports,
     imports nothing but the port, torch, numpy and the standard library;

@@ -424,14 +424,17 @@ def test_config_overrides_keep_types():
 @pytest.mark.parametrize("override,error", [
     # the mesh cases keep the ids they had while FSDP and tensor parallelism
     # were unported; what is refused of them now: FSDP together with
-    # mesh.model > 1, and a mesh of 2 model ranks over one process
+    # mesh.model > 1, and a mesh of 2 model ranks over one process. So does
+    # the int8 reference pass's: refused now only with the fused reference
+    # pass, as the JAX trainer refuses it (the int8 knobs and fast_init run:
+    # tests/test_torch_port_int8.py)
     pytest.param("mesh.fsdp=True mesh.model=2", ValueError,
                  id="mesh.fsdp=True-NotImplementedError"),
     pytest.param("mesh.model=2", ValueError, id="mesh.model=2-NotImplementedError"),
-    ("train.int8_ref_pass=True", NotImplementedError),
+    pytest.param("train.int8_ref_pass=True train.fuse_ref_pass=True", ValueError,
+                 id="train.int8_ref_pass=True-NotImplementedError"),
     ("pretrained.model_dir=/x", FileNotFoundError),
-    ("kernels.int8_vae_decode=True", NotImplementedError),
-    ("activation_checkpoint=fulll", ValueError), ("fast_init=True", NotImplementedError),
+    ("activation_checkpoint=fulll", ValueError),
     ("param_dtype=float16", ValueError),
 ])
 def test_runner_refuses_unported_knobs(tmp_path, override, error):
@@ -571,7 +574,8 @@ def _counted(cs, rec):
             "flash_attn_bwd": bwd,
             "flash_attn_bwd_post": sum(n for (qs, ks, _), n in rec.attention_bwd.items()
                                        if cs.bwd_needs_post(qs, ks[1])),
-            "gn_stats": sum(rec.gn.values()), "gn_silu_norm": sum(rec.gn.values())}
+            "gn_stats": sum(rec.gn.values()), "gn_silu_norm": sum(rec.gn.values()),
+           **rec.int8_launches()}
 
 
 def test_chip_smoke_launch_counts_match_the_tiny_loop(tmp_path):

@@ -18,7 +18,7 @@ references run here:
 - 2 ranks: the same at (data 1, model 2) and under FSDP (data 2); the tiny
   Turbo and DMD2 loops through ``run_online_pso`` under ``mesh.model=2``
   (with a checkpoint and LoRA export, and resumed from a world-1
-  checkpoint), and both loops under ``mesh.fsdp=True`` and plain data
+  checkpoint; the Turbo loop with the int8 reference pass too), and both loops under ``mesh.fsdp=True`` and plain data
   parallelism with the ``dots`` remat and ``offload_aux_during_update``.
 
 Tolerance: ATOL 3e-5 / RTOL 2e-4 in fp32 against world 1 and JAX (the
@@ -62,6 +62,7 @@ WORLDS = (4, 3, 2)  # the groups the rank processes form, one after the other
 UNET_MESHES = {2: [(1, 2, False), (2, 1, True)], 3: [(1, 3, False)], 4: [(2, 2, False)]}
 BATCH = 4  # the UNet cases' global batch
 FULL = ["use_lora=False", "train.learning_rate=1e-4"]
+INT8 = ["train.int8_ref_pass=True"]  # the reference pass in dynamic int8
 SHARED_OPTS = ["sample.batch_size=1", "train.batch_size=1", "activation_checkpoint=dots",
                "offload_aux_during_update=True"]
 
@@ -133,6 +134,24 @@ def unet_case(unet_file, data=1, model=1, use_fsdp=False):
     return {"out": out, "grads": whole, "reduces": (n_forward, len(calls) - n_forward)}
 
 
+def unet_int8_case(unet_file, model=1):
+    """The tiny UNet's reference forward (``lora_scale=0``) inside the int8
+    scope over the global batch, at (data 1, ``model``)."""
+    from pairwise_sample_optimization_tpu_torch.ops.qconv import int8_ref_pass
+
+    blob = torch.load(unet_file, weights_only=True)
+    u = tunet.SDXLUNet(tunet.UNetConfig.tiny(lora_rank=4), device="cpu")
+    u.load_state_dict(blob["state_dict"])
+    if model > 1:
+        parallel.init_mesh(parallel.MeshSpec(1, model, False))
+        tp.shard_unet_tp(u, parallel.model_index(), model, parallel.model_group())
+    with torch.no_grad(), int8_ref_pass():
+        out = u(*[blob["inputs"][k] for k in ("x", "t", "ehs", "pooled", "tids")],
+                lora_scale=0.0)
+    parallel.reset_mesh()
+    return out
+
+
 def runner_case(out_dir, name, overrides=(), sampler="turbo", epochs=1):
     """One tiny ``run_online_pso``: the whole trained tensors (gathered on
     every rank) and the metrics."""
@@ -157,6 +176,8 @@ def _phase(out_dir, world):
         res["full-8bit"] = run("full-8bit", ["mesh.model=3", *FULL, "train.use_8bit_adam=True"])
     if world == 2:
         res["turbo"] = run("turbo", ["mesh.model=2"])
+        res["unet-int8"] = unet_int8_case(out_dir / "unet.pt", 2)
+        res["turbo-int8"] = run("turbo-int8", ["mesh.model=2", *INT8])
         res["turbo-resumed"] = run("turbo-resumed", ["mesh.model=2",
                                                      f"resume_from={out_dir / 'w1' / 'turbo'}"])
         res["dmd"] = run("dmd", ["mesh.model=2"], sampler="dmd")
@@ -305,6 +326,8 @@ def world1(ranks):
     return {"turbo": ranks["w1_turbo"],
             "turbo-2-epochs": runner_case(out, "turbo-resumed", [f"resume_from={w1_ckpt}"]),
             "dmd": runner_case(out, "dmd", sampler="dmd"),
+            "turbo-int8": runner_case(out, "turbo-int8", INT8),
+            "unet-int8": unet_int8_case(ranks["out"] / "unet.pt"),
             "full-fp32": runner_case(out, "full-fp32", FULL),
             "full-8bit": runner_case(out, "full-8bit", FULL + ["train.use_8bit_adam=True"]),
             "unet": unet_case(ranks["out"] / "unet.pt"), "jax": ranks["jax_reference"]()}
@@ -472,6 +495,27 @@ def test_loops_under_tensor_parallelism_equal_world_1(results, world1, name):
     assert got[0]["history"] == got[1]["history"] and len(want["history"]) == 1
     for k, v in want["history"][0].items():
         _close(got[0]["history"][0][k], v)
+
+
+def test_int8_reference_pass_under_tensor_parallelism_equals_world_1(results, world1):
+    """``train.int8_ref_pass`` at model 2: the row-parallel layers
+    (``to_out.0``, ``ff.net.2``) quantize on the grids of the whole
+    contracted dim (both absmaxes reduced with max over the model group), so
+    on the same input the reference forward is one process's; the loop's
+    LoRA equals world 1's. Its loss is held at 5e-3 relative: the policy's
+    rollouts differ from one process's by the row sums' ulps, and an
+    activation within an ulp of a rounding tie then lands one int8 step
+    apart in the reference log-prob (3.2e-3 of the loss here; the
+    forward on one input agrees bit for bit)."""
+    got = [r["unet-int8"] for r in results[2]]
+    _close(got[0], world1["unet-int8"])
+    assert torch.equal(got[1], got[0])
+    loop, want = [r["turbo-int8"] for r in results[2]], world1["turbo-int8"]
+    _close_trees(loop[0]["lora"], want["lora"])
+    _equal_trees(loop[1]["lora"], loop[0]["lora"])
+    assert loop[0]["history"] == loop[1]["history"] and len(want["history"]) == 1
+    for k, v in want["history"][0].items():
+        _close(loop[0]["history"][0][k], v, atol=0.0, rtol=5e-3)
 
 
 def test_tp_checkpoint_and_lora_export_hold_whole_tensors(ranks, results, world1):
