@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of PSO (serving, training, eval, DreamBooth, data parallelism) on an H100.
+"""Drive the PyTorch port of PSO (every path, SD1.x included) on an H100.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --distributed-cards N   # step 11 alone, one rank a card, NCCL;
@@ -101,7 +101,8 @@ PyTorch. In order:
    adapters, 25 PNGs under ``gen_2/``. Run C (``pso`` with DoRA adapters,
    so its reference pass is a forward of its own at LoRA scale 0,
    text-encoder LoRA, Prodigy, the kohya export; 2 accumulation steps, 2
-   steps, a 25-prompt validation at step 2): launch counts, its first loss
+   steps, no validation (run A's covers it; the script runs within a time
+   limit)): launch counts, its first loss
    minus the prior term log 2 within 1e-3, every adapter and DoRA magnitude
    moved and every frozen weight (UNet and text encoders) bit-equal to a
    rebuild, Prodigy's d finite and at least d0, ``lora-2`` holding the
@@ -194,13 +195,33 @@ PyTorch. In order:
    alone, one rank a card over NCCL) the meshes are
    ``SHARDED_FOUR_CARDS``: 2 x 2, 1 x 4 (held against world 1 on card 0)
    and FSDP over 4;
-12. one phase per kernel at every shape steps 5-11 gave it (recorded during
+11b. the SD1.x family (``sd15_slice``): the SD1.5 UNet at full width
+   (``UNetConfig.sd15``, 860 M parameters, 8 fixed heads: attention at head
+   dims 40, 80 and 160; random bf16 weights, LoRA rank 4 with ``up`` drawn
+   non-zero), 2 prompts with CFG at guidance ``SD15_GUIDANCE`` (one UNet
+   call of batch 4 a step, random 77 x 768 contexts), 20 DDIM steps (eta 1)
+   at 512^2 on diffusers' leading spacing (``SD15_TIMESTEPS``) through
+   ``train.sampling.sample_ddim_cfg_trajectories``: latents and log-probs
+   finite, each log-prob equal to the step recomputed from its stored
+   transition, launch counts the formula's (K1 32 a UNet call: 10 at
+   d = 40, 10 at 80, 12 at 160; K4 / K5 45), the rollout's ms and the
+   card's busy share (``torch.profiler``); then the gradient of the mean
+   log-prob of two stored transitions with respect to the LoRA tensors
+   (``sd15_grad``: launch counts; finite, non-zero LoRA gradients, none on
+   a frozen weight; held against the same gradient through the plain
+   attention on the card, within ``SD15_GRAD_SPREAD_FACTOR`` times the
+   spread of two plain runs whose sums differ in order); then a small fp32
+   SD1.x UNet whose head dims are the kernels' own (one head over 40, 80,
+   160 channels) on the card and on the CPU: a 3-step CFG-DDIM rollout
+   equal to 2e-3;
+12. one phase per kernel at every shape steps 5-11b gave it (recorded during
    those runs) in bf16, plus one fp32 case and, for the attention kernels,
    the bf16 ragged lengths of ``RAGGED`` (and, for the forward, of
    ``RAGGED_FWD`` at head dims 80 and 512; 0 launches) and the local heads
    of tensor parallelism off the one-card path (``TP_LOCAL``: model 4 at
    the Turbo loop's token counts, model 2 and 4 at the DMD2 loop's; 0
-   launches): the kernel against
+   launches), the SD1.x head dims' ragged lengths (``RAGGED_SD15``) and
+   their cross-attention shapes in fp32 (0 launches): the kernel against
    its plain version on the same inputs (ImageReward's two shapes, the ViT's
    self-attention (B, 197, 16, 64) and BERT's cross-attention (B, 35, 12,
    64) over 197 keys, among them; |diff| <= atol + rtol*|plain|,
@@ -235,8 +256,10 @@ PyTorch. In order:
    per ``torch._int_mm`` shape the whole int8 matmul beside bf16
    ``torch.matmul``;
 13. prints the card line again, the ``{"kernels": [...]}`` line (launches:
-   the sum over the runs of steps 5-11, the sharded runs' and the world-1
-   run's of step 11 among them), then, last, the device line.
+   the sum over the runs of steps 5-11b, the sharded runs' and the world-1
+   run's of step 11 among them; K1 at head dims 40 and 160 and the backward
+   at 40, 80 and 160 as entries of their own, ``HEAD_DIM_ENTRIES``), then,
+   last, the device line.
 
 Any failure raises, and the script exits non-zero. It also exits non-zero,
 printing no result, where CUDA or the port's package is missing. The full
@@ -277,6 +300,9 @@ TOL = {"attention": {"bf16": (5e-2, 1e-2), "fp32": (2e-3, 2e-3)},
        # another order (each within ~64 ulps of the sum of their magnitudes)
        "attention_di": (1e-4, 1e-5),
        "gn": {"bf16": (3e-2, 3e-2), "fp32": (2e-4, 2e-4)},
+       # a DDIM log-prob recomputed from its stored transition and the eps it was
+       # taken with: only (x_prev - mean) against std * noise differs, by rounding
+       "sd15_logprob": (1e-4, 1e-4),
        # an eval score at batch 2 against the same prompt's at batch 1 (bf16):
        # the noise is the same, the kernels cuBLAS and cuDNN pick may not be
        "eval_batch": (1e-2, 1e-2)}
@@ -413,8 +439,8 @@ def tolerance_used(got, want, tol):
     return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
 
 
-def timed_ms(fn, reps=3, inner=10, warm=3):
-    """Median over ``reps`` (3: the script runs within a time limit) of
+def timed_ms(fn, reps=3, inner=5, warm=3):
+    """Median over ``reps`` (3 of 5 calls: the script runs within a time limit) of
     CUDA-event device time per call for ``inner``
     calls in a row, after ``warm`` warm-up calls. Each rep first queues a device
     sleep of at least ~2 ms and of about twice the host's time to enqueue
@@ -548,7 +574,7 @@ def small_reference(seed):
 def _unet_counts(ucfg):
     """(attention calls, GroupNorm+SiLU calls) of one UNet forward."""
     n, lpb, depths = len(ucfg.block_out_channels), ucfg.layers_per_block, ucfg.transformer_layers
-    blocks = sum(d * (2 * lpb + 1) for d in depths) + depths[-1]
+    blocks = sum(d * (2 * lpb + 1) for d in depths) + ucfg.mid_depth
     resnets = n * (2 * lpb + 1) + 2
     return 2 * blocks, 2 * resnets + 1
 
@@ -1296,7 +1322,7 @@ def train_slice(seed, sampler, recorder):
 
 REMAT_PAIRS = 4  # pairs of the remat phase's microbatch: policy batch 8, the Turbo loop's
 REMAT_TOL_FACTOR = 4  # gradients of a mode vs "full": 4x the spread of two "full" runs
-REMAT_REPS = 2  # timed runs of each mode's microbatch (median)
+REMAT_REPS = 1  # timed runs of each mode's microbatch (the script runs within a time limit)
 FULL_FT = {"sample.batch_size": 2, "sample.num_batches_per_epoch": 1, "train.batch_size": 1,
            "train.gradient_accumulation_steps": 2}  # 2 pairs an epoch, 1 update, policy batch 2
 # how much more the second full-finetuning update may start with than the first
@@ -2321,7 +2347,8 @@ def dreambooth_slice(seed, recorder):
     run_c = common + ["--output_dir", str(root / "c"), "--loss_type", "pso", "--use_dora",
                       "--train_text_encoder", "--text_encoder_lr", "5e-5", "--optimizer",
                       "prodigy", "--learning_rate", "1.0", "--output_kohya_format",
-                      "--gradient_accumulation_steps", "2", "--max_train_steps", "2"]
+                      "--gradient_accumulation_steps", "2", "--max_train_steps", "2",
+                      "--skip_validation"]
     c, state, pipe = run("C", run_c, 0)
     first = c["history"][0]
     if abs(first["loss"] - prior_w * first["lose_loss"] - math.log(2.0)) > 1e-3:
@@ -2373,7 +2400,7 @@ def dreambooth_slice(seed, recorder):
     if {k.split(".")[0] for k in diffusers} != {"unet", "text_encoder", "text_encoder_2"}:
         raise AssertionError("dreambooth C: lora-2 lacks a tower's adapter")
     c_pngs = len(sorted((root / "c" / "gen_2").glob("p_*/img_*.png")))
-    if c_pngs != DB_VALIDATION_PROMPTS:
+    if c_pngs:  # --skip_validation
         raise AssertionError(f"dreambooth C: gen_2/ holds {c_pngs} validation PNGs")
     del ref
     torch.cuda.empty_cache()
@@ -2427,8 +2454,8 @@ def dreambooth_slice(seed, recorder):
     c_steps = [m["time/step_s"] for m in c["history"]]
     log(f"dreambooth run C (pso, DoRA, text-encoder LoRA, prodigy, kohya; ga 2, policy batch 2 "
         f"+ a reference forward): s per step {[round(x, 3) for x in c_steps]}, losses "
-        f"{[round(m['loss'], 6) for m in c['history']]}, validation "
-        f"{c['validation_s'][0]:.3f} s, peak {c['peak_bytes'] / 2**30:.2f} GiB, prodigy d "
+        f"{[round(m['loss'], 6) for m in c['history']]}, peak "
+        f"{c['peak_bytes'] / 2**30:.2f} GiB, prodigy d "
         f"{d:.3e}, adapters moved {moved}, {len(diffusers)} diffusers / {len(kohya)} kohya "
         f"tensors; run D (pso_db, 8-bit AdamW, 2 groups, text-encoder LoRA): "
         f"{dd['history'][0]['time/step_s']:.3f} s, loss {dd['history'][0]['loss']:.6f}, peak "
@@ -2458,10 +2485,13 @@ DIST_CONFIG = {"sample.batch_size": 1, "sample.num_batches_per_epoch": 1,
                "train.batch_size": 1, "train.gradient_accumulation_steps": 1,
                "validation_steps": 0}
 # the sharded meshes and the runs they are held against: DIST_CONFIG cut to
-# 1 prompt a rank and one update of 3 microbatches (there are five such runs
-# a rank), with every LoRA ``up`` drawn from a normal of this std (seeded)
-# instead of zero, so that every ``down`` has a gradient in the one update
-SHARDED_CONFIG = {**DIST_CONFIG, "sample.batch_size": 1, "train.gradient_accumulation_steps": 1}
+# 1 prompt a rank, 2 Turbo steps and one update of 1 microbatch (there are
+# five such runs a rank; FSDP's weight gathers go through the host on one
+# card, and the script runs within a time limit), with every LoRA ``up``
+# drawn from a normal of this std (seeded) instead of zero, so that every
+# ``down`` has a gradient in the one update
+SHARDED_CONFIG = {**DIST_CONFIG, "sample.batch_size": 1, "train.gradient_accumulation_steps": 1,
+                  "sample.num_steps": 2, "train.distilled_train_steps": 1}
 SHARDED_LORA_UP_STD = 1e-3
 DIST_SMALL_PAIRS = 4  # the small pipeline's sample set of part (b)
 # world 2 vs world 1 on the small fp32 pipeline: the LoRA after one AdamW
@@ -3710,6 +3740,381 @@ def int8_phase(entries, seed):
 
 
 # ---------------------------------------------------------------------- #
+# the SD1.x family: the fixed-head SD1.5 UNet, CFG-DDIM with log-probs
+# ---------------------------------------------------------------------- #
+
+SD15_PROMPTS = 2  # CFG: one UNet call of batch 4 a step
+SD15_GUIDANCE = 5.0
+# diffusers' "leading" spacing of 20 steps over 1000 with offset 1: 951, 901, ..., 1
+SD15_TIMESTEPS = tuple(range(951, 0, -50))
+SD15_GRAD_STEPS = (0, 10)  # the stored transitions whose mean log-prob is differentiated
+SD15_LORA_UP_STD = 1e-3  # LoRA up drawn non-zero: every LoRA tensor gets a gradient
+# a LoRA gradient through the kernels against the plain attention's: its
+# relative L2 distance at most this many times the largest one between two
+# plain runs whose sums differ in order (as REMAT_TOL_FACTOR)
+SD15_GRAD_SPREAD_FACTOR = 4
+# the small fp32 check: a 4-level SD1.x UNet whose head dims are the kernels' own
+# (one fixed head over 40, 80, 160 channels), 3 CFG-DDIM steps at 32x32 latents
+SD15_SMALL_TIMESTEPS = (667, 334, 1)
+_BWD_FMA_SRC = "pairwise_sample_optimization_tpu_torch/csrc/flash_attn_bwd_fma.cu"
+# (entry of the kernels line, its launch counter, head dim): the attention
+# kernels' SD1.x instances, listed apart from the counter's other head dims
+HEAD_DIM_ENTRIES = (("flash_attn_fwd_d40", "flash_attn_fwd", 40),
+                    ("flash_attn_fwd_d160", "flash_attn_fwd", 160),
+                    ("flash_attn_bwd_d40", "flash_attn_bwd", 40),
+                    ("flash_attn_bwd_d80", "flash_attn_bwd", 80),
+                    ("flash_attn_bwd_d160", "flash_attn_bwd", 160))
+# the SD1.x shapes off the main path (0 launches; forward and backward): the
+# ragged lengths of the zero-filled and masked tile edges at the new head dims
+RAGGED_SD15 = (((2, 1000, 3, 40), 77), ((1, 200, 5, 160), 1000), ((1, 1, 2, 40), 1))
+
+
+def attention_calls_by_head_dim(ucfg):
+    """{head dim: attention calls} of one UNet forward (self and cross)."""
+    chs, lpb, depths = ucfg.block_out_channels, ucfg.layers_per_block, ucfg.transformer_layers
+    calls = {}
+    for level, ch in enumerate(chs):
+        blocks = depths[level] * (2 * lpb + 1) + (ucfg.mid_depth if level == len(chs) - 1 else 0)
+        d = ucfg.heads_for(ch)[1]
+        calls[d] = calls.get(d, 0) + 2 * blocks
+    return {d: n for d, n in calls.items() if n}
+
+
+def expected_sd15_launches(ucfg, unet_calls, backward_calls=0):
+    """(launch counts, launches by (kernel, head dim)) of ``unet_calls`` UNet
+    forwards, ``backward_calls`` of them differentiated (every attention's
+    q, k and v need a gradient under LoRA): the backward at head dims other
+    than 64 takes the pre kernel and the two-kernel path, no post kernel."""
+    attn, gn = _unet_counts(ucfg)
+    counts = {k: 0 for k in KERNELS}
+    counts.update({"flash_attn_fwd": unet_calls * attn, "flash_attn_bwd_pre": backward_calls * attn,
+                   "flash_attn_bwd": backward_calls * attn, "gn_stats": unet_calls * gn,
+                   "gn_silu_norm": unet_calls * gn})
+    by_dim = {}
+    for d, n in attention_calls_by_head_dim(ucfg).items():
+        by_dim[("flash_attn_fwd", d)] = unet_calls * n
+        if backward_calls:
+            by_dim[("flash_attn_bwd", d)] = backward_calls * n
+    return counts, by_dim
+
+
+def _counted_by_head_dim(recorder, fn):
+    """``_counted`` and the launches by (kernel, head dim) of the same run."""
+    from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
+
+    out, counts = _counted(recorder, fn)
+    return out, counts, dict(kernel_lib.head_dim_launches)
+
+
+def _path_launches(counts, by_dim):
+    """A run's counts for the kernels line: each ``HEAD_DIM_ENTRIES``
+    instance's launches as an entry of its own, taken out of its counter's."""
+    out = dict(counts)
+    for entry, name, d in HEAD_DIM_ENTRIES:
+        n = by_dim.get((name, d), 0)
+        out[entry] = n
+        out[name] -= n
+    return out
+
+
+def _sd15_cfg_eps(unet, ctx, lora_scale=1.0):
+    """The CFG epsilon of ``SD15_GUIDANCE``: one UNet call at twice the batch
+    (unconditional contexts first), as the JAX package's test mixes it."""
+    import torch
+
+    def eps(x, t):
+        u, c = unet(torch.cat([x, x]), torch.cat([t, t]), ctx, lora_scale=lora_scale).chunk(2)
+        return u + SD15_GUIDANCE * (c - u)
+    return eps
+
+
+def _device_busy_ms(fn):
+    """Device busy ms of ``fn()`` from a ``torch.profiler`` trace (kernel
+    events), or None where the profiler recorded no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    return sum(busy) / 1e3 if busy else None
+
+
+def sd15_slice(seed, recorder):
+    """The SD1.x path at full SD1.5 width (``UNetConfig.sd15``: 860 M
+    parameters, 8 fixed heads: attention at head dims 40, 80 and 160),
+    random bf16 weights from ``seed`` (LoRA rank 4, up drawn non-zero),
+    512^2: ``SD15_PROMPTS`` prompts with CFG (guidance ``SD15_GUIDANCE``, one
+    UNet call of batch 4 a step, random 77 x 768 contexts), 20 DDIM steps
+    (eta 1) on ``SD15_TIMESTEPS`` over ``make_alphas_cumprod()`` through
+    ``sample_ddim_cfg_trajectories``; then the gradient phase on two of its
+    stored transitions and the small fp32 check. Returns the summary and
+    each run's counts for the kernels line."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.models import SDXLUNet, UNetConfig
+    from pairwise_sample_optimization_tpu_torch.models.layers import init_random_
+    from pairwise_sample_optimization_tpu_torch.ops import ddim_step_with_logprob
+    from pairwise_sample_optimization_tpu_torch.ops.schedules import make_alphas_cumprod
+    from pairwise_sample_optimization_tpu_torch.train.sampling import sample_ddim_cfg_trajectories
+
+    t0 = time.perf_counter()
+    ucfg = UNetConfig.sd15(lora_rank=4)
+    unet = SDXLUNet(ucfg, device="cuda")
+    with torch.no_grad():
+        init_random_(unet, torch.Generator(device="cuda").manual_seed(seed),
+                     lora_b_std=SD15_LORA_UP_STD)
+    unet.eval()
+    n_params = sum(p.numel() for n, p in unet.named_parameters() if ".lora." not in n)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    b, steps, ac = SD15_PROMPTS, len(SD15_TIMESTEPS), make_alphas_cumprod()
+    ctx = torch.randn((2 * b, 77, 768), generator=gen, device="cuda").to(torch.bfloat16)
+    init = torch.randn((b, 4, 64, 64), generator=gen, device="cuda")
+    noise = torch.randn((steps, b, 4, 64, 64), generator=gen, device="cuda")
+    eps_fn, seen = _sd15_cfg_eps(unet, ctx), []
+
+    def rollout(record=False):
+        def eps(x, t):
+            e = eps_fn(x, t)
+            if record:
+                seen.append(e)
+            return e
+        with torch.no_grad():
+            return sample_ddim_cfg_trajectories(eps, ac, SD15_TIMESTEPS, init, noise, eta=1.0)
+
+    rollout()  # warm-up: first-call setup of cuDNN, cuBLAS and the kernels
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    traj, counts, by_dim = _counted_by_head_dim(recorder, lambda: rollout(record=True))
+    wall_ms = (time.perf_counter() - t) * 1e3
+    want, want_dim = expected_sd15_launches(ucfg, steps)
+    _check_counts("sd15 rollout", counts, want)
+    if by_dim != want_dim:
+        raise AssertionError(f"sd15 rollout: launches by head dim {by_dim} != {want_dim}")
+    busy_ms = _device_busy_ms(rollout)
+    for name, x in (("latents", traj.latents), ("log_probs", traj.log_probs)):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"sd15 rollout: non-finite {name}")
+    if traj.latents.shape != (steps + 1, b, 4, 64, 64) or traj.log_probs.shape != (steps, b):
+        raise AssertionError(f"sd15 rollout shapes {traj.latents.shape} {traj.log_probs.shape}")
+    # each recorded log-prob against the step recomputed from the stored
+    # transition (the eps it was taken with, prev_sample given)
+    prev = list(SD15_TIMESTEPS[1:]) + [-1]
+    recomputed = torch.stack([ddim_step_with_logprob(
+        ac, seen[j], torch.full((b,), SD15_TIMESTEPS[j], device="cuda"),
+        torch.full((b,), prev[j], device="cuda"), traj.latents[j],
+        prev_sample=traj.latents[j + 1])[1] for j in range(steps)])
+    lp_err = check_close("sd15 recomputed log-probs", recomputed, traj.log_probs,
+                         TOL["sd15_logprob"])
+    summary = {"params": n_params, "prompts": b, "unet_batch": 2 * b, "steps": steps,
+               "resolution": 512, "timesteps": list(SD15_TIMESTEPS), "guidance": SD15_GUIDANCE,
+               "launches": counts, "launches_by_head_dim": {f"{k[0]} d{k[1]}": v
+                                                            for k, v in by_dim.items()},
+               "rollout_ms": wall_ms, "device_busy_ms": busy_ms,
+               "busy_share": None if busy_ms is None else busy_ms / wall_ms,
+               "log_probs_mean": traj.log_probs.mean(1).tolist(),
+               "recomputed_log_prob_max_abs_diff": lp_err,
+               "build_s": t - t0}
+    log(f"sd15 rollout (UNet {n_params / 1e6:.1f} M params, {b} prompts x CFG = batch {2 * b}, "
+        f"{steps} DDIM steps at 512^2): {wall_ms:.1f} ms ({wall_ms / steps:.1f} ms a step), "
+        f"device busy {busy_ms if busy_ms is None else round(busy_ms, 1)} ms (share "
+        f"{summary['busy_share'] if busy_ms is None else round(summary['busy_share'], 3)}); "
+        f"launches {counts}, by head dim {summary['launches_by_head_dim']}; recomputed "
+        f"log-probs max|diff| {lp_err:.2e}")
+    del seen
+    grad = sd15_grad(unet, ctx, traj, recorder)
+    del unet, traj
+    torch.cuda.empty_cache()
+    small = sd15_small_check(seed)
+    paths = {"sd15_rollout": _path_launches(counts, by_dim),
+             "sd15_grad": _path_launches(grad.pop("counts"), grad.pop("counts_by_dim"))}
+    return {**summary, "grad": grad, "small_fp32": small}, paths
+
+
+def lora_grad_tolerance(want):
+    """(atol, rtol) of a LoRA gradient of the bf16 UNet against the same
+    gradient through the plain attention: ``grad_tolerance``'s bf16 rule
+    (rtol 1e-2, atol 5% of the plain gradient's rms). The LoRA tensors are
+    fp32, but every product upstream of them is bf16, whose roundings
+    (P and dS in the kernels, O in both) follow the gradient's scale."""
+    import torch
+
+    return bwd_tolerance(want.to(torch.bfloat16))
+
+
+def sd15_grad(unet, ctx, traj, recorder):
+    """The gradient of the mean log-prob of the rollout's transitions
+    ``SD15_GRAD_STEPS``, recomputed through the CFG eps with ``prev_sample``
+    given, with respect to the LoRA tensors: through the kernels (launches
+    counted: 2 UNet forwards and backwards), then twice with every attention
+    on its plain version on the card (autograd of ``flash_attention_plain``),
+    the second time with the keys and values in reverse order (the same
+    function, its fp32 sums taken in another order: the spread that bf16
+    roundings downstream of one changed ulp give). Every LoRA gradient
+    finite and non-zero, no frozen weight with one; each LoRA tensor's
+    relative L2 distance from the plain run's gradient at most
+    ``SD15_GRAD_SPREAD_FACTOR`` times the largest spread of the two plain
+    runs (the remat phase's rule), and the median distance at most that
+    factor times the median spread. The share of ``lora_grad_tolerance``
+    each uses is reported: elementwise, the two plain runs differ by many
+    times that bf16 rule (19.7x at full SD1.5 width on an H100), so it holds no
+    whole-UNet gradient."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.models import layers
+    from pairwise_sample_optimization_tpu_torch.ops import ddim_step_with_logprob
+    from pairwise_sample_optimization_tpu_torch.ops import flash_attention as tfa
+    from pairwise_sample_optimization_tpu_torch.ops.schedules import make_alphas_cumprod
+
+    lora = {n: p for n, p in unet.named_parameters() if ".lora." in n}
+    for n, p in unet.named_parameters():
+        p.requires_grad_(n in lora)
+    ac, b, eps_fn = make_alphas_cumprod(), traj.latents.shape[1], _sd15_cfg_eps(unet, ctx)
+    prev = list(SD15_TIMESTEPS[1:]) + [-1]
+
+    def grads():
+        for p in lora.values():
+            p.grad = None
+        for j in SD15_GRAD_STEPS:
+            t = torch.full((b,), SD15_TIMESTEPS[j], device="cuda")
+            _, lp = ddim_step_with_logprob(ac, eps_fn(traj.latents[j], t), t,
+                                           torch.full((b,), prev[j], device="cuda"),
+                                           traj.latents[j], prev_sample=traj.latents[j + 1])
+            (lp.mean() / len(SD15_GRAD_STEPS)).backward()
+        return {n: p.grad.detach().clone() for n, p in lora.items()}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, counts, by_dim = _counted_by_head_dim(recorder, grads)
+    kernel_ms = (time.perf_counter() - t0) * 1e3
+    want_counts, want_dim = expected_sd15_launches(unet.config, len(SD15_GRAD_STEPS),
+                                                   len(SD15_GRAD_STEPS))
+    _check_counts("sd15 gradient", counts, want_counts)
+    if by_dim != want_dim:
+        raise AssertionError(f"sd15 gradient: launches by head dim {by_dim} != {want_dim}")
+    frozen = [n for n, p in unet.named_parameters() if n not in lora and p.grad is not None]
+    if frozen:
+        raise AssertionError(f"sd15 gradient: frozen weights with a gradient: {frozen[:5]}")
+    for n, g in got.items():
+        if not torch.isfinite(g).all() or not g.abs().max() > 0:
+            raise AssertionError(f"sd15 gradient {n}: not finite and non-zero")
+
+    def plain(order):
+        def attention(q, k, v, *, causal=False):
+            assert not causal
+            return tfa.flash_attention_plain(q, k[:, order(k.shape[1])], v[:, order(k.shape[1])])[0]
+        return attention
+
+    kernel_attention = layers.dot_product_attention
+    plain_ms = []
+    try:
+        for order in (lambda n: slice(None), lambda n: torch.arange(n - 1, -1, -1, device="cuda")):
+            layers.dot_product_attention = plain(order)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain_ms.append((grads(), (time.perf_counter() - t0) * 1e3))
+    finally:
+        layers.dot_product_attention = kernel_attention
+    (want, ms_plain), (again, _) = plain_ms
+    rel = lambda a, r: ((a - r).norm() / r.norm()).item()
+    spread = {n: rel(again[n], want[n]) for n in got}
+    dist = {n: rel(got[n], want[n]) for n in got}
+    used = {n: tolerance_used(got[n], want[n], lora_grad_tolerance(want[n])) for n in got}
+    used_plain = {n: tolerance_used(again[n], want[n], lora_grad_tolerance(want[n])) for n in got}
+    limit = SD15_GRAD_SPREAD_FACTOR * max(spread.values())
+    for p in unet.parameters():
+        p.grad = None
+    worst = max(dist, key=dist.get)
+    log(f"sd15 gradient of the mean log-prob of transitions {SD15_GRAD_STEPS} over "
+        f"{len(lora)} LoRA tensors (rank 4): {kernel_ms:.1f} ms through the kernels, "
+        f"{ms_plain:.1f} ms with the plain attention; ||g - g_plain|| / ||g_plain|| max "
+        f"{dist[worst]:.3e} ({worst}), median {statistics.median(dist.values()):.3e}; the plain "
+        f"runs' spread max {max(spread.values()):.3e}, median "
+        f"{statistics.median(spread.values()):.3e} (limit {limit:.3e}); share of the bf16 "
+        f"grad_tolerance used: kernels max {max(used.values()):.3f} (median "
+        f"{statistics.median(used.values()):.3f}), the second plain run max "
+        f"{max(used_plain.values()):.3f} (median {statistics.median(used_plain.values()):.3f}); "
+        f"launches {counts}")
+    for n in sorted(dist, key=dist.get, reverse=True)[:8]:
+        log(f"  {n}: distance {dist[n]:.3e}, spread {spread[n]:.3e}, tolerance share "
+            f"{used[n]:.3f} (plain runs {used_plain[n]:.3f})")
+    if dist[worst] > limit:
+        raise AssertionError(f"sd15 LoRA gradient {worst}: ||g - g_plain|| / ||g_plain|| "
+                             f"{dist[worst]:.3e} > {SD15_GRAD_SPREAD_FACTOR} x the plain runs' "
+                             f"largest spread {max(spread.values()):.3e}")
+    median_limit = SD15_GRAD_SPREAD_FACTOR * statistics.median(spread.values())
+    if statistics.median(dist.values()) > median_limit:
+        raise AssertionError(f"sd15 LoRA gradients: median ||g - g_plain|| / ||g_plain|| "
+                             f"{statistics.median(dist.values()):.3e} > {median_limit:.3e}")
+    return {"steps": list(SD15_GRAD_STEPS), "lora_tensors": len(lora), "kernel_ms": kernel_ms,
+            "plain_attention_ms": ms_plain, "relative_l2_max": dist[worst],
+            "relative_l2_worst": worst, "relative_l2_median": statistics.median(dist.values()),
+            "plain_spread_max": max(spread.values()),
+            "plain_spread_median": statistics.median(spread.values()), "limit": limit,
+            "grad_tolerance_used_max": max(used.values()),
+            "grad_tolerance_used_median": statistics.median(used.values()),
+            "plain_grad_tolerance_used_max": max(used_plain.values()), "counts": counts,
+            "counts_by_dim": by_dim,
+            "launches_by_head_dim": {f"{k[0]} d{k[1]}": v for k, v in by_dim.items()}}
+
+
+def sd15_small_check(seed):
+    """A small fp32 SD1.x UNet (4 levels of 40, 80, 160, 160 channels, one
+    fixed head: head dims 40, 80 and 160, the kernels' own) on the card
+    through the kernels and on the CPU through the plain versions, same
+    weights and noise: a 3-step CFG-DDIM rollout's latents and log-probs
+    equal to 2e-3."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.models import SDXLUNet, UNetConfig
+    from pairwise_sample_optimization_tpu_torch.models.layers import init_random_
+    from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
+    from pairwise_sample_optimization_tpu_torch.ops.schedules import make_alphas_cumprod
+    from pairwise_sample_optimization_tpu_torch.train.sampling import sample_ddim_cfg_trajectories
+
+    ucfg = UNetConfig(block_out_channels=(40, 80, 160, 160), transformer_layers=(1, 1, 1, 0),
+                      mid_transformer_layers=1, layers_per_block=1, fixed_num_heads=1,
+                      cross_attention_dim=32, use_text_time=False, norm_groups=8, lora_rank=4,
+                      dtype=torch.float32)
+    gen = torch.Generator().manual_seed(seed + 16)
+    cpu = SDXLUNet(ucfg, device="cpu")
+    with torch.no_grad():
+        init_random_(cpu, gen, lora_b_std=0.05)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    ctx = torch.randn((2 * SD15_PROMPTS, 77, 32), generator=gen)
+    init = torch.randn((SD15_PROMPTS, 4, 32, 32), generator=gen)
+    noise = torch.randn((len(SD15_SMALL_TIMESTEPS), SD15_PROMPTS, 4, 32, 32), generator=gen)
+    outs, ac = [], make_alphas_cumprod()
+    kernel_lib.reset_launch_counts()
+    for unet, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        with torch.no_grad():
+            outs.append(sample_ddim_cfg_trajectories(
+                _sd15_cfg_eps(unet, ctx.to(dev)), ac, SD15_SMALL_TIMESTEPS, init.to(dev),
+                noise.to(dev)))
+    torch.cuda.synchronize()
+    by_dim = dict(kernel_lib.head_dim_launches)
+    want_dim = {("flash_attn_fwd", d): n * len(SD15_SMALL_TIMESTEPS)
+                for d, n in attention_calls_by_head_dim(ucfg).items()}
+    if by_dim != want_dim:
+        raise AssertionError(f"sd15 small check: launches by head dim {by_dim} != {want_dim}")
+    want, got = outs
+    tol = TOL["attention"]["fp32"]
+    errs = {"latents": check_close("sd15 small latents", got.latents.cpu(), want.latents, tol),
+            "log_probs": check_close("sd15 small log_probs", got.log_probs.cpu(), want.log_probs,
+                                     tol)}
+    log(f"sd15 small check (fp32, head dims {sorted(attention_calls_by_head_dim(ucfg))}, "
+        f"kernels on the card vs plain on the CPU, {len(SD15_SMALL_TIMESTEPS)} CFG-DDIM steps): "
+        "max|diff| " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; K1 launches by head dim {by_dim}")
+    return {"max_abs_diff": errs, "launches_by_head_dim": {f"{k[0]} d{k[1]}": v
+                                                           for k, v in by_dim.items()}}
+
+
+# ---------------------------------------------------------------------- #
 # kernel phases
 # ---------------------------------------------------------------------- #
 
@@ -3730,6 +4135,18 @@ def attention_plain(q, k, v):
     return torch.cat([o for o, _ in parts]), torch.cat([lse for _, lse in parts])
 
 
+def _sd15_fp32_cases(shapes):
+    """fp32 cases at the SD1.x head dims (0 launches): each head dim's
+    cross-attention shape the SD1.x runs recorded, in fp32."""
+    import torch
+
+    seen = {}
+    for (q, k, dt), _ in shapes.items():
+        if q[-1] in (40, 80, 160) and k[1] == 77 and dt == torch.bfloat16:
+            seen.setdefault(q[-1], (q, k, torch.float32, 0))
+    return [seen[d] for d in sorted(seen)]
+
+
 def attention_phase(shapes, seed):
     import torch
     import torch.nn.functional as F
@@ -3741,7 +4158,8 @@ def attention_phase(shapes, seed):
     q0, k0, _, _ = max(cases, key=lambda c: c[3])
     cases.append((q0, k0, torch.float32, 0))  # the fp32 case, off the main path
     cases += [(qs, (qs[0], skv, *qs[2:]), torch.bfloat16, 0)
-              for qs, skv in RAGGED + RAGGED_FWD + TP_LOCAL]
+              for qs, skv in RAGGED + RAGGED_FWD + TP_LOCAL + RAGGED_SD15]
+    cases += _sd15_fp32_cases(shapes)
     rows = []
     for qs, ks, dt, launches in cases:
         q = torch.randn(qs, generator=gen, device="cuda", dtype=dt)
@@ -3827,7 +4245,9 @@ def attention_bwd_phase(shapes, seed):
     cases = [(q, k, dt, n) for (q, k, dt), n in shapes.items()]
     q0, k0, _, _ = max(cases, key=lambda c: (c[3], c[0][1] * c[1][1]))
     cases.append((q0, k0, torch.float32, 0))  # the fp32 case, off the main path
-    cases += [(qs, (qs[0], skv, *qs[2:]), torch.bfloat16, 0) for qs, skv in RAGGED + TP_LOCAL]
+    cases += [(qs, (qs[0], skv, *qs[2:]), torch.bfloat16, 0)
+              for qs, skv in RAGGED + TP_LOCAL + RAGGED_SD15]
+    cases += _sd15_fp32_cases(shapes)
     rows = {name: [] for name in ("flash_attn_bwd_pre", "flash_attn_bwd", "flash_attn_bwd_post")}
     whole_rows = []
     for qs, ks, dt, launches in cases:
@@ -3848,7 +4268,7 @@ def attention_bwd_phase(shapes, seed):
 
         whole_err, whole_used = held("backward", tfa.flash_attention_bwd(q, k, v, o, lse, do))
         # kernel by kernel, as flash_attention_bwd runs them
-        if dt == torch.bfloat16:
+        if dt == torch.bfloat16 and d == tfa.BWD_ONE_KERNEL_DIM:
             q_chunk, dq_rows, kv_rows = tfa.bwd_plan(b * h, sq, skv, sms)
         else:
             q_chunk, dq_rows, kv_rows = -(-sq // tfa.TILE), 0, 0
@@ -3871,16 +4291,18 @@ def attention_bwd_phase(shapes, seed):
         out = F.scaled_dot_product_attention(qt, kt, vt)
         dot = do.transpose(1, 2)
         big = b * h * sq * skv > PLAIN_LOGITS // 4  # fewer timed calls of a slow plain version
+        # the two-kernel path (fp32 arithmetic on the CUDA cores) at the long shapes too
+        slow = (3, 2) if big and (d != tfa.BWD_ONE_KERNEL_DIM or dt == torch.float32) else ()
         t = {
             "sdpa": timed_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                          retain_graph=True)),
             "plain": timed_ms(lambda: tfa.flash_attention_bwd_plain(q, k, v, o, lse, do),
                               *((3, 2) if big else (3,))),
-            "whole": timed_ms(lambda: tfa.flash_attention_bwd(q, k, v, o, lse, do)),
+            "whole": timed_ms(lambda: tfa.flash_attention_bwd(q, k, v, o, lse, do), *slow),
             "pre": timed_ms(lambda: tfa.flash_attention_bwd_pre(o, do, acc)),
             "pre_plain": timed_ms(lambda: tfa.attention_di(o, do)),
             "main": timed_ms(lambda: tfa.flash_attention_bwd_main(q, k, v, do, lse, di, acc,
-                                                                  q_chunk, scale)),
+                                                                  q_chunk, scale), *slow),
         }
         if post:
             t["post"] = timed_ms(lambda: tfa.flash_attention_bwd_post(
@@ -4076,7 +4498,10 @@ def summarize(name, rows, launches):
     """One kernel's line entry: times and bound as launch-weighted means per
     launch over the main path's shape mix (the attention forward's also by
     head dim); max_abs_err over every case."""
-    src, replaces = KERNELS[name]
+    counter = next((c for e, c, _ in HEAD_DIM_ENTRIES if e == name), name)
+    src, replaces = KERNELS[counter]
+    if counter == "flash_attn_bwd" and name != counter:  # the two-kernel route's own source
+        src = _BWD_FMA_SRC
     out = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
            **_means(rows), "shapes": rows}
@@ -4151,48 +4576,64 @@ def main(argv=None) -> int:
         print(device_line)
         return 0
 
-    small = small_reference(args.seed)
-    slice_summary = full_slice(args.seed)
+    phase_s = {"build": time.perf_counter() - t}  # wall seconds of each phase
+
+    def phase(name, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    small = phase("small_reference", small_reference, args.seed)
+    slice_summary = phase("slice", full_slice, args.seed)
     # the main paths whose shapes the kernel phases check: each sets the
     # counts to 0 just before its run and checks them just after
     recorder = ShapeRecorder()
-    train_summary, metrics_jsonl = train_slice(args.seed, "turbo", recorder)
-    dmd_summary, dmd_metrics_jsonl = train_slice(args.seed, "dmd", recorder)
-    eval_summary = eval_slice(args.seed, recorder)
-    db_summary = dreambooth_slice(args.seed, recorder)
-    remat_summary = remat_phase(args.seed, recorder)
-    full_summary = full_finetune_slice(args.seed, recorder)
-    int8_summary = int8_slice(args.seed, recorder)
-    dist_summary = distributed_slice(args.seed, recorder)
+    train_summary, metrics_jsonl = phase("turbo_loop", train_slice, args.seed, "turbo", recorder)
+    dmd_summary, dmd_metrics_jsonl = phase("dmd_loop", train_slice, args.seed, "dmd", recorder)
+    eval_summary = phase("eval", eval_slice, args.seed, recorder)
+    db_summary = phase("dreambooth", dreambooth_slice, args.seed, recorder)
+    remat_summary = phase("remat", remat_phase, args.seed, recorder)
+    full_summary = phase("full_finetune", full_finetune_slice, args.seed, recorder)
+    int8_summary = phase("int8", int8_slice, args.seed, recorder)
+    dist_summary = phase("distributed", distributed_slice, args.seed, recorder)
+    sd15_summary, sd15_paths = phase("sd15", sd15_slice, args.seed, recorder)
     paths = {"turbo_loop": train_summary["launches"], "dmd_loop": dmd_summary["launches"],
              "dmd_eval": eval_summary["launches_all_runs"],
              "dreambooth": db_summary["launches"], "remat": remat_summary["launches"],
              "full_finetune": full_summary["launches"], "distributed": dist_summary["launches"],
              **{f"int8_{name}": counts for name, counts in int8_summary["launches"].items()},
              **{f"distributed_{name}": counts
-                for name, counts in dist_summary["launches_by_run"].items()}}
-    launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
-    bwd_rows, bwd_whole, run_to_run = attention_bwd_phase(recorder.attention_bwd, args.seed)
-    int8_rows, int8_sites = int8_phase(recorder.int8, args.seed)
-    rows = {**attention_phase(recorder.attention, args.seed), **bwd_rows,
-            **gn_phase(recorder.gn, args.seed), **int8_rows}
-    function_errs = attention_function_check(args.seed)
-    kernels = [summarize(name, rows[name], launches[name]) for name in KERNELS]
+                for name, counts in dist_summary["launches_by_run"].items()}, **sd15_paths}
+    entries = list(KERNELS) + [e for e, _, _ in HEAD_DIM_ENTRIES]
+    launches = {k: sum(p.get(k, 0) for p in paths.values()) for k in entries}
+    bwd_rows, bwd_whole, run_to_run = phase("attention_bwd_phase", attention_bwd_phase,
+                                            recorder.attention_bwd, args.seed)
+    int8_rows, int8_sites = phase("int8_phase", int8_phase, recorder.int8, args.seed)
+    rows = {**phase("attention_phase", attention_phase, recorder.attention, args.seed),
+            **bwd_rows, **phase("gn_phase", gn_phase, recorder.gn, args.seed), **int8_rows}
+    for entry, name, d in HEAD_DIM_ENTRIES:  # each SD1.x instance's rows apart
+        rows[entry] = [r for r in rows[name] if r["shape"]["q"][-1] == d]
+        rows[name] = [r for r in rows[name] if r["shape"]["q"][-1] != d]
+    function_errs = phase("function_check", attention_function_check, args.seed)
+    kernels = [summarize(name, rows[name], launches[name]) for name in entries]
 
     record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": build_s, "small_reference": small, "slice": slice_summary,
               "train": train_summary, "dmd_train": dmd_summary, "eval": eval_summary,
               "dreambooth": db_summary, "remat": remat_summary, "full_finetune": full_summary,
               "int8": int8_summary, "int8_matmul_sites": int8_sites, "distributed": dist_summary,
+              "sd15": sd15_summary,
               "launches_by_path": paths, "function_check": function_errs, "kernels": kernels,
-              "backward": bwd_whole, "backward_run_to_run": run_to_run,
+              "backward": bwd_whole, "backward_run_to_run": run_to_run, "phase_s": phase_s,
               "seconds": time.perf_counter() - t_start}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     (out / "train_metrics.jsonl").write_text(metrics_jsonl)
     (out / "dmd_train_metrics.jsonl").write_text(dmd_metrics_jsonl)
-    log(f"chip_smoke done in {record['seconds']:.1f} s; launches by path {paths}")
+    log(f"chip_smoke done in {record['seconds']:.1f} s; seconds by phase "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()) + f"; launches by path {paths}")
     log(card.splitlines()[0])
     print(json.dumps({"kernels": [{k: v for k, v in kern.items()
                                    if k not in ("shapes", "by_head_dim")} for kern in kernels]}))

@@ -1,6 +1,7 @@
-// Flash-attention backward for Hopper (sm_90a), head dim 64: the
-// gradients dQ, dK and dV of softmax(Q K^T * scale) V, recomputing the
-// probabilities from the forward's per-row fp32 logsumexp (LSE).
+// Flash-attention backward for Hopper (sm_90a), bf16 at head dim 64, and
+// the Di kernel of every route: the gradients dQ, dK and dV of
+// softmax(Q K^T * scale) V, recomputing the probabilities from the forward's
+// per-row fp32 logsumexp (LSE).
 //
 // Replaces the TPU kernels pairwise_sample_optimization_tpu/ops/
 // flash_attention.py::_bwd_dkv_kernel (K2) and ::_bwd_dq_kernel (K3), both
@@ -20,9 +21,11 @@
 // where a block's few tiles make latency and waves matter as much as
 // either rate.
 //
-// bf16 (the whole backward of the update) takes two or three launches:
+// bf16 at d = 64 (the whole backward of the SDXL update) takes two or three
+// launches:
 // - flash_bwd_pre_kernel: Di of every q row (8 threads a row, 16-byte
-//   loads of O and dO), and zeroes the fp32 accumulators below.
+//   loads of O and dO; any d that is a multiple of 8), and zeroes the fp32
+//   accumulators below (the pre kernel runs before every route).
 // - flash_bwd_kernel_d64: one block of two warpgroups per (128 kv rows,
 //   chunk of q tiles, batch*head), looping over the chunk's q tiles of 64;
 //   warpgroup wg owns kv rows 64 wg..64 wg + 63, its warp w 16 of those.
@@ -79,20 +82,9 @@
 // out); kv rows past skv are zero-filled and get S = -1e30 (P = 0) and are
 // never stored.
 //
-// fp32 inputs (a correctness path, not a fast one) keep the first, simple
-// two-kernel design (flash_bwd_dkv_kernel then flash_bwd_dq_kernel, after
-// the same pre kernel's Di):
-// - 4 warps, 64x64 tiles; each warp owns 16 rows of S / dP (all 64 columns)
-//   and, in the dK/dV kernel, 16 kv rows of the dK / dV accumulators, in the
-//   dQ kernel 16 q rows of dQ, computed with exact fp32 FMAs in the m16n8
-//   fragment layout.
-// - tiles are copied to shared memory with 16-byte loads from the caller's
-//   (B, S, H, D) strides; rows past either sequence end are zero-filled and
-//   their probabilities set to 0, which covers the 77-token kv without
-//   padding on the host. Rows that do not exist are never written.
-// - the dK/dV kernel stores P^T and dS^T in shared memory so the transposed
-//   products read a row-major A operand; the dQ kernel stores dS row-major
-//   (each warp its own rows).
+// fp32 inputs at d = 64, and either dtype at d = 40, 80 and 160, take the
+// two-kernel backward of flash_attn_bwd_fma.cu (its own library, built in
+// parallel with this one), after the same pre kernel's Di.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,9 +96,6 @@
 
 namespace {
 
-using pso::from_float;
-using pso::load_tile;
-using pso::tile_mma;
 
 constexpr float kMask = -1e30f;
 constexpr int D = 64, BM = 64, BN = 64, NWARPS = 4, NTHREADS = 32 * NWARPS;
@@ -132,239 +121,7 @@ struct Params {
   int q_chunk;
 };
 
-template <typename T>
-struct Layout {
-  static constexpr int PAD = 16 / sizeof(T);
-  static constexpr int LDT = D + PAD;   // Q, K, V, dO rows
-  static constexpr int LDX = BM + PAD;  // K2: P^T / dS^T rows (BN of them, BM wide)
-  static constexpr int LDS = BN + PAD;  // K3: dS rows (BM of them, BN wide)
-  static constexpr size_t SMEM_DKV =
-      sizeof(T) * (size_t)(2 * BN * LDT + 2 * BM * LDT + 2 * BN * LDX) + sizeof(float) * 2 * BM;
-  static constexpr size_t SMEM_DQ =
-      sizeof(T) * (size_t)(2 * BM * LDT + 2 * BN * LDT + BM * LDS) + sizeof(float) * 2 * BM;
-};
-
-// S = Q K^T and dP = dO V^T for this warp's 16 rows, all BN columns.
-template <typename T>
-__device__ __forceinline__ void scores(float (&s)[NT][4], float (&dp)[NT][4], const T* Qs,
-                                       const T* dOs, const T* Ks, const T* Vs, int row0,
-                                       int lane) {
-  constexpr int LDT = Layout<T>::LDT;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      tile_mma<true>(s[j], Qs + row0 * LDT + kk, LDT, Ks + (j * 8) * LDT + kk, LDT, lane);
-      tile_mma<true>(dp[j], dOs + row0 * LDT + kk, LDT, Vs + (j * 8) * LDT + kk, LDT, lane);
-    }
-  }
-}
-
-// Rows [row0, row0 + BM) of lse and Di for head bh into shared memory; 0
-// past the end (those rows get P = 0 anyway).
-__device__ __forceinline__ void load_rows(float* lse_s, float* di_s, const Params& p, int bh,
-                                          int row0) {
-  for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-    const bool ok = row0 + r < p.sq;
-    lse_s[r] = ok ? p.lse[(long long)bh * p.sq + row0 + r] : 0.f;
-    di_s[r] = ok ? p.di[(long long)bh * p.sq + row0 + r] : 0.f;
-  }
-}
-
-// Write a warp's 16 x 64 fp32 accumulator (rows row0.., fragment layout) to
-// dst rows < n in T.
-template <typename T>
-__device__ __forceinline__ void store_rows(T* dst, long long row_stride, const float (&acc)[NT][4],
-                                           int row0, int n, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row0 + g + half * 8;
-    if (r >= n) continue;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      T* out = dst + (long long)r * row_stride + j * 8 + 2 * t;
-      out[0] = from_float<T>(acc[j][half * 2]);
-      out[1] = from_float<T>(acc[j][half * 2 + 1]);
-    }
-  }
-}
-
-// K2: one block per (kv tile of BN rows, batch*head); loops over q tiles.
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(Params p) {
-  using L = Layout<T>;
-  constexpr int LDT = L::LDT, LDX = L::LDX;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* Vs = Ks + BN * LDT;
-  T* Qs = Vs + BN * LDT;
-  T* dOs = Qs + BM * LDT;
-  T* Pt = dOs + BM * LDT;   // P^T:  BN x BM
-  T* dSt = Pt + BN * LDX;   // dS^T: BN x BM
-  float* lse_s = reinterpret_cast<float*>(dSt + BN * LDX);
-  float* di_s = lse_s + BM;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int k0 = blockIdx.x * BN;
-
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-
-  load_tile<T, D, NTHREADS>(Ks, LDT, kb, p.k_ss, k0, BN, p.skv);
-  load_tile<T, D, NTHREADS>(Vs, LDT, vb, p.v_ss, k0, BN, p.skv);
-
-  float dk[NT][4], dv[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  const int n_q = (p.sq + BM - 1) / BM;
-  for (int qt = 0; qt < n_q; ++qt) {
-    const int q0 = qt * BM;
-    __syncthreads();  // the previous tile's readers of Qs / dOs / Pt / dSt are done
-    load_tile<T, D, NTHREADS>(Qs, LDT, qb, p.q_ss, q0, BM, p.sq);
-    load_tile<T, D, NTHREADS>(dOs, LDT, dob, p.do_ss, q0, BM, p.sq);
-    load_rows(lse_s, di_s, p, bh, q0);
-    __syncthreads();
-
-    float s[NT][4], dp[NT][4];
-    scores<T>(s, dp, Qs, dOs, Ks, Vs, warp * 16, lane);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t + (e & 1), r = warp * 16 + g + (e >> 1) * 8;
-        float pr = 0.f, ds = 0.f;
-        if (q0 + r < p.sq) {
-          const float sv = (k0 + c < p.skv) ? s[j][e] * p.scale : kMask;
-          pr = __expf(sv - lse_s[r]);
-          ds = pr * (dp[j][e] - di_s[r]) * p.scale;
-        }
-        Pt[c * LDX + r] = from_float<T>(pr);
-        dSt[c * LDX + r] = from_float<T>(ds);
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q for this warp's 16 kv rows
-#pragma unroll
-    for (int kk = 0; kk < BM; kk += 16) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        tile_mma<false>(dv[j], Pt + (warp * 16) * LDX + kk, LDX, dOs + kk * LDT + j * 8, LDT, lane);
-        tile_mma<false>(dk[j], dSt + (warp * 16) * LDX + kk, LDX, Qs + kk * LDT + j * 8, LDT, lane);
-      }
-    }
-  }
-
-  T* dkb = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  T* dvb = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
-  store_rows<T>(dkb, p.dk_ss, dk, k0 + warp * 16, p.skv, lane);
-  store_rows<T>(dvb, p.dv_ss, dv, k0 + warp * 16, p.skv, lane);
-}
-
-// K3: one block per (q tile of BM rows, batch*head); loops over kv tiles.
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(Params p) {
-  using L = Layout<T>;
-  constexpr int LDT = L::LDT, LDS = L::LDS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* dOs = Qs + BM * LDT;
-  T* Ks = dOs + BM * LDT;
-  T* Vs = Ks + BN * LDT;
-  T* dSs = Vs + BN * LDT;  // dS: BM x BN, each warp its own 16 rows
-  float* lse_s = reinterpret_cast<float*>(dSs + BM * LDS);
-  float* di_s = lse_s + BM;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int q0 = blockIdx.x * BM;
-
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-
-  load_tile<T, D, NTHREADS>(Qs, LDT, qb, p.q_ss, q0, BM, p.sq);
-  load_tile<T, D, NTHREADS>(dOs, LDT, dob, p.do_ss, q0, BM, p.sq);
-  load_rows(lse_s, di_s, p, bh, q0);
-
-  float dq[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
-
-  const int n_kv = (p.skv + BN - 1) / BN;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // the previous tile's readers of Ks / Vs are done
-    load_tile<T, D, NTHREADS>(Ks, LDT, kb, p.k_ss, k0, BN, p.skv);
-    load_tile<T, D, NTHREADS>(Vs, LDT, vb, p.v_ss, k0, BN, p.skv);
-    __syncthreads();
-
-    float s[NT][4], dp[NT][4];
-    scores<T>(s, dp, Qs, dOs, Ks, Vs, warp * 16, lane);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t + (e & 1), r = warp * 16 + g + (e >> 1) * 8;
-        float ds = 0.f;
-        if (q0 + r < p.sq) {
-          const float sv = (k0 + c < p.skv) ? s[j][e] * p.scale : kMask;
-          ds = __expf(sv - lse_s[r]) * (dp[j][e] - di_s[r]) * p.scale;
-        }
-        dSs[r * LDS + c] = from_float<T>(ds);
-      }
-    }
-    __syncwarp();  // a warp reads back only the dS rows it wrote
-
-    // dQ += dS K for this warp's 16 q rows
-#pragma unroll
-    for (int kk = 0; kk < BN; kk += 16) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        tile_mma<false>(dq[j], dSs + (warp * 16) * LDS + kk, LDS, Ks + kk * LDT + j * 8, LDT, lane);
-    }
-  }
-
-  T* dqb = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  store_rows<T>(dqb, p.dq_ss, dq, q0 + warp * 16, p.sq, lane);
-}
-
-template <typename T, bool kDkv>
-cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  using L = Layout<T>;
-  void (*kernel)(Params);
-  if constexpr (kDkv)
-    kernel = flash_bwd_dkv_kernel<T>;
-  else
-    kernel = flash_bwd_dq_kernel<T>;
-  const size_t smem = kDkv ? L::SMEM_DKV : L::SMEM_DQ;
-  // once per instantiation: the host's launch rate bounds the update
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return attr;
-  const int rows = kDkv ? p.skv : p.sq;
-  dim3 grid((rows + (kDkv ? BN : BM) - 1) / (kDkv ? BN : BM), batch * p.heads);
-  kernel<<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-
+// ---- the two-kernel backward: fp32 arithmetic at any instantiated head dim --
 // ---- Di, and the accumulators zeroed ----------------------------------------
 namespace pre {
 
@@ -376,6 +133,7 @@ struct Params {
   long long n_acc4;
   long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
   int heads, sq;
+  int chunks;          // 8-value chunks a row: d / 8
   long long rows;      // B * Sq * H
 };
 
@@ -397,8 +155,10 @@ __device__ __forceinline__ void load8(float (&x)[8], const float* src) {
 
 constexpr int THREADS = 256;
 
-// Eight threads a (b, q, h) row, eight values each, summed over the eight
-// by shuffles; every thread also zeroes a share of the accumulators.
+// Eight threads a (b, q, h) row, eight values at a time each (one chunk at
+// d = 64; d = 40: threads 5-7 idle; 160: 2-3 chunks a thread), summed over
+// the eight by shuffles; every thread also zeroes a share of the
+// accumulators.
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_bwd_pre_kernel(Params p) {
   const long long gid = (long long)blockIdx.x * THREADS + threadIdx.x;
@@ -412,11 +172,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_pre_kernel(Params p) {
   const int b = (int)(r / ((long long)p.heads * p.sq));
   float sum = 0.f;
   if (ok) {
-    float o[8], d[8];
-    load8(o, static_cast<const T*>(p.o) + b * p.o_sb + q * p.o_ss + h * p.o_sh + c * 8);
-    load8(d, static_cast<const T*>(p.dout) + b * p.do_sb + q * p.do_ss + h * p.do_sh + c * 8);
+    for (int cc = c; cc < p.chunks; cc += 8) {
+      float o[8], d[8];
+      load8(o, static_cast<const T*>(p.o) + b * p.o_sb + q * p.o_ss + h * p.o_sh + cc * 8);
+      load8(d, static_cast<const T*>(p.dout) + b * p.do_sb + q * p.do_ss + h * p.do_sh + cc * 8);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) sum = fmaf(o[i], d[i], sum);
+      for (int i = 0; i < 8; ++i) sum = fmaf(o[i], d[i], sum);
+    }
   }
   sum += __shfl_xor_sync(0xffffffffu, sum, 4);
   sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -814,33 +576,34 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_post_kernel(Params p) {
 
 extern "C" {
 
-// dtype: 0 = bfloat16, 1 = float32. o and dout are (B, Sq, H, 64) views
-// (strides in elements, last dim contiguous); writes di (B*H, Sq) fp32 and
-// zeroes acc[0, n_acc) (n_acc a multiple of 4; 0 for fp32).
-int flash_attn_bwd_pre(int dtype, const void* o, const void* dout, float* di, float* acc,
+// dtype: 0 = bfloat16, 1 = float32. o and dout are (B, Sq, H, d) views, d a
+// multiple of 8 (strides in elements, last dim contiguous); writes di
+// (B*H, Sq) fp32 and zeroes acc[0, n_acc) (n_acc a multiple of 4; 0 where
+// no accumulator is used).
+int flash_attn_bwd_pre(int dtype, int d, const void* o, const void* dout, float* di, float* acc,
                        long long n_acc, long long o_sb, long long o_ss, long long o_sh,
                        long long do_sb, long long do_ss, long long do_sh, int batch, int heads,
                        int sq, void* stream) {
   pre::Params p{};
   p.o = o, p.dout = dout, p.di = di, p.acc = reinterpret_cast<float4*>(acc), p.n_acc4 = n_acc / 4;
   p.o_sb = o_sb, p.o_ss = o_ss, p.o_sh = o_sh, p.do_sb = do_sb, p.do_ss = do_ss, p.do_sh = do_sh;
-  p.heads = heads, p.sq = sq, p.rows = (long long)batch * sq * heads;
+  p.heads = heads, p.sq = sq, p.chunks = d / 8, p.rows = (long long)batch * sq * heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_acc % 4) return (int)cudaErrorInvalidValue;
+  if (n_acc % 4 || d % 8 || d <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return pre::launch<__nv_bfloat16>(p, s);
   if (dtype == 1) return pre::launch<float>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype 0 (bf16): the one-kernel backward. With skv <= 128 dq is written;
+// bf16 at d = 64: the one-kernel backward. With skv <= 128 dq is written;
 // else dQ is added into acc (zeroed by flash_attn_bwd_pre; per head
 // ceil(sq / 64) * 64 rows of 64 in the tiled layout above) and dq left to
 // flash_attn_bwd_post. With q_chunk < ceil(sq / 64) q tiles the q loop is
 // split and dK, dV are added into acc after dQ's accumulator, if any (per
 // head ceil(skv / 64) * 64 rows each), else written to dk / dv. dtype 1
-// (fp32): the two-kernel correctness path, writing dq, dk and dv; acc and
-// q_chunk unused. d must be 64. q, k, v, dout, dq, dk, dv are (B, S, H, D)
-// views; lse and di (B*H, Sq) fp32.
+// Any other dtype or d is refused: fp32, and d = 40, 80 and 160, take the
+// entry of the same name in flash_attn_bwd_fma.cu. q, k, v, dout, dq, dk,
+// dv are (B, S, H, 64) views; lse and di (B*H, Sq) fp32.
 int flash_attn_bwd(int dtype, int d, const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* di, void* dq, void* dk,
                    void* dv, float* acc, long long q_sb, long long q_ss, long long q_sh,
@@ -860,13 +623,8 @@ int flash_attn_bwd(int dtype, int d, const void* q, const void* k, const void* v
   p.dv_sb = dv_sb, p.dv_ss = dv_ss, p.dv_sh = dv_sh;
   p.heads = heads, p.sq = sq, p.skv = skv, p.scale = scale, p.acc = acc, p.q_chunk = q_chunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d != D) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return bwd_bf16::launch(p, batch, s);
-  if (dtype == 1) {
-    const cudaError_t e = launch<float, true>(p, batch, s);
-    return e != cudaSuccess ? (int)e : (int)launch<float, false>(p, batch, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 || d != D) return (int)cudaErrorInvalidValue;
+  return bwd_bf16::launch(p, batch, s);
 }
 
 // bf16 only: dq (with_q) and dk and dv (with_kv) from acc as flash_attn_bwd

@@ -10,7 +10,7 @@
 //
 // What bounds it on an H100: the least time is set by tensor-core
 // operations (4*Sq*Skv*d per head) at the long sequences, the UNet's
-// 1024-token self-attention and the VAE mid-block (d = 512, 4096 tokens),
+// 1024- and 4096-token self-attention and the VAE mid-block (d = 512),
 // and by bytes (Q, K, V read once, O and the LSE written once) at the short
 // ones, 256/257 tokens and the 77-token cross-attention. At the short ones a
 // block's work is a few kv tiles, so latency (copy, product, softmax, copy)
@@ -34,19 +34,26 @@
 //   O is normalised once, staged in shared memory and stored as 16-byte
 //   rows.
 //
-// d = 64 (the UNet, 7280 of the online loop's 7412 launches per epoch) and
-// d = 80 (PickScore's ViT-H/14, 128) share flash_fwd_kernel_wgmma<D>: one
-// warpgroup (4 warps) per (64 query rows, batch*head), warp w owning rows
-// 16w..16w+15; a 2-stage K / V ring, so the next tile's copy overlaps this
-// tile's products, one __syncthreads a tile. A row of 64 values is one
-// 128-byte swizzle row; at d = 80 a row (160 bytes) is split into 64
-// columns in the 128-byte swizzle and 16 in the 32-byte one, so S takes a
-// fifth k-step from the 32-byte blocks and P V a second product of n = 16.
-// d = 64: 41 KB of shared memory and 114 registers, 4 blocks an SM; on the
-// H100 this ran 1-9% faster at every main-path shape than two warpgroups
-// sharing 128 rows, and 1.3-1.4x faster than the same structure on
-// mma.sync with ldmatrix operands (PERF.md). d = 80: 51 KB and 146
-// registers, 3 blocks an SM (4, capped at 128 registers, ran no faster).
+// d = 64 (the SDXL UNet, 7280 of the online loop's 7412 launches per epoch),
+// d = 80 (PickScore's ViT-H/14, 128; the SD1.5 UNet's 640-channel level)
+// and d = 40 and 160 (the SD1.5 UNet's 8 fixed heads over 320 and 1280
+// channels) share flash_fwd_kernel_wgmma<D>: one warpgroup (4 warps) per
+// (64 query rows, batch*head), warp w owning rows 16w..16w+15; a 2-stage
+// K / V ring, so the next tile's copy overlaps this tile's products, one
+// __syncthreads a tile. A row is stored as blocks of 64 columns in the
+// 128-byte swizzle, then blocks of 16 in the 32-byte one (pso::RowBlocks):
+// d = 64 one 128-byte block; 80 one and one 16-column block (S takes a
+// fifth k-step from it and P V a second product of n = 16); 160 two and
+// two; 40 three 16-column blocks, the last holding columns 32..39 and 8
+// columns the copy zero-fills, so S runs 3 k-steps of 16 over a depth of
+// 48 (20% more products than d needs) and P V three products of n = 16,
+// whose 8 pad columns of O are never stored. d = 64: 41 KB of shared memory
+// and 114 registers, 4 blocks an SM; on the H100 this ran 1-9% faster at
+// every main-path shape than two warpgroups sharing 128 rows, and 1.3-1.4x
+// faster than the same structure on mma.sync with ldmatrix operands
+// (PERF.md). d = 80: 51 KB and 146 registers, 3 blocks an SM (4, capped at
+// 128 registers, ran no faster). d = 40: 31 KB, 4 blocks an SM; d = 160:
+// 101 KB (O is 80 fp32 registers a thread), 2 blocks an SM.
 //
 // d = 512 (the VAE mid-block, 4096 tokens, one head) takes
 // flash_fwd_kernel_d512: a 64 x 512 fp32 O is 256 registers a thread in one
@@ -61,7 +68,7 @@
 // tile's the next S. 226 registers a thread, no spills.
 //
 // fp32 inputs (a correctness path, not a fast one) keep the first, simple
-// design (flash_fwd_kernel):
+// design (flash_fwd_kernel; d = 40 zero-padded to a depth of 48 for S):
 // - one block per (batch*head, 16*WM query rows); the block loops over kv
 //   tiles of BN keys, which takes the place of the TPU's sequential
 //   "arbitrary" grid axis. No state is carried between blocks.
@@ -108,14 +115,15 @@ struct Tiling {
   static constexpr int NWARPS = WM * WN;
   static constexpr int NTHREADS = 32 * NWARPS;
   static constexpr int PAD = 16 / sizeof(T);
-  static constexpr int LDT = D + PAD;   // Q, K, V rows
+  static constexpr int DK = (D + 15) / 16 * 16;  // S's depth: d = 40 zero-padded to 48
+  static constexpr int LDT = DK + PAD;  // Q, K, V rows
   static constexpr int LDS = BN + 4;    // fp32 S rows
   static constexpr int LDP = BN + PAD;  // P rows
   static constexpr int TPR = NTHREADS / BM;  // threads per softmax row
   static constexpr size_t SMEM = sizeof(T) * (size_t)(BM * LDT + 2 * BN * LDT + BM * LDP) +
                                  sizeof(float) * (size_t)(BM * LDS + 3 * BM);
   static_assert(BN % (8 * WN) == 0 && BN % 16 == 0, "kv tile");
-  static_assert(D % (8 * WN) == 0 && D % 16 == 0, "head dim split");
+  static_assert(D % (8 * WN) == 0, "head dim split");
   static_assert(TPR >= 1 && TPR <= 32 && (TPR & (TPR - 1)) == 0, "softmax row split");
 };
 
@@ -152,6 +160,12 @@ flash_fwd_kernel(Params p) {
     row_m[r] = -INFINITY;
     row_l[r] = 0.f;
   }
+  if constexpr (TL::DK > D) {  // the pad columns of Q and K, which no copy writes
+    for (int i = tid; i < (BM + BN) * (TL::DK - D); i += TL::NTHREADS) {
+      const int r = i / (TL::DK - D), c = D + i % (TL::DK - D);
+      (r < BM ? Qs + r * LDT : Ks + (r - BM) * LDT)[c] = from_float<T>(0.f);
+    }
+  }
 
   float oacc[NT_O][4];
 #pragma unroll
@@ -170,7 +184,7 @@ flash_fwd_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < NT_S; ++j) sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
 #pragma unroll 4
-    for (int kk = 0; kk < D; kk += 16) {
+    for (int kk = 0; kk < TL::DK; kk += 16) {
 #pragma unroll
       for (int j = 0; j < NT_S; ++j) {
         const int n0 = wn * (BN / WN) + j * 8;
@@ -358,23 +372,30 @@ __device__ __forceinline__ void store_lse(const Params& p, int bh, int row0, con
   }
 }
 
-// ---- bf16 at head dims 64 and 80: one warpgroup ---------------------------
+// ---- bf16 at head dims 40, 64, 80 and 160: one warpgroup ----------------
 namespace wg {
 
 using namespace pso;
 
 constexpr int NTHREADS = 128, STAGES = 2;
+constexpr int BLK = 64 * 128;  // one 64-row block of 64 columns, 128-byte swizzle
+constexpr int TBLK = 64 * 32;  // one 64-row block of 16 columns, 32-byte swizzle
 
 template <int D>
 struct Shape {
-  static_assert(D == 64 || D == 80, "head dim");
-  static constexpr bool TAIL = D == 80;          // columns 64..79, a 32-byte-swizzled block
-  static constexpr int MAIN = 64 * 128;          // a tile's first 64 columns; the tail follows
-  static constexpr int TILE = 64 * 2 * D;        // one Q, K or V tile of 64 rows: 8 or 10 KB
-  static constexpr int CHUNKS = D / 8;           // 16-byte chunks of a row
+  static_assert(D == 40 || D == 64 || D == 80 || D == 160, "head dim");
+  using RB = RowBlocks<D>;
+  static constexpr int FULL = RB::FULL;    // 64-column blocks: 0, 1, 1, 2
+  static constexpr int TAILS = RB::TAILS;  // 16-column blocks after them: 3, 0, 1, 2
+  static constexpr int MAIN = FULL * BLK;  // where a tile's 16-column blocks start
+  static constexpr int TILE = RB::TILE;    // one Q, K or V tile of 64 rows: 6, 8, 10 or 20 KB
+  static constexpr int CHUNKS = RB::CHUNKS;  // real 16-byte chunks of a row
   // 1 KB of slack to align the tiles to the 1024-byte swizzle period
-  static constexpr size_t SMEM = 1024 + (size_t)TILE * (1 + 2 * STAGES);  // 41,984 / 52,224
-  static constexpr int MIN_BLOCKS = D == 64 ? 4 : 3;  // blocks an SM
+  static constexpr size_t SMEM = 1024 + (size_t)TILE * (1 + 2 * STAGES);
+  static constexpr int MIN_BLOCKS = D == 160 ? 2 : (D == 80 ? 3 : 4);  // blocks an SM
+  // O's accumulators: a 64-column block's and a 16-column block's (at least
+  // one of each, so that no array is empty; the unused ones are never touched)
+  static constexpr int NO = FULL > 0 ? FULL : 1, NT = TAILS > 0 ? TAILS : 1;
 };
 
 // One block (one warpgroup) per (64 query rows, batch*head); warp w owns
@@ -383,7 +404,7 @@ template <int D>
 __global__ void __launch_bounds__(NTHREADS, Shape<D>::MIN_BLOCKS)
 flash_fwd_kernel_wgmma(Params p) {
   using SH = Shape<D>;
-  constexpr int TILE = SH::TILE, MAIN = SH::MAIN;
+  constexpr int TILE = SH::TILE, MAIN = SH::MAIN, FULL = SH::FULL, TAILS = SH::TAILS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -405,12 +426,17 @@ flash_fwd_kernel_wgmma(Params p) {
   copy_rows_swz<D, BN, NTHREADS>(Va, vb, p.v_ss, 0, p.skv);
   cp_async_commit();
 
-  const uint64_t dq = sw128_desc(Qa, 16), dq_tail = sw32_desc(Qa + MAIN);
-  float o[8][4], ot[2][4];  // O's columns 0..63 and, at d = 80, 64..79
+  // block c's descriptor is the first one's plus c * BLK bytes
+  const uint64_t dq = sw128_desc(Qa, 16);
+  float o[SH::NO][8][4], ot[SH::NT][2][4];  // O's 64-column and 16-column blocks
 #pragma unroll
-  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int c = 0; c < SH::NO; ++c)
 #pragma unroll
-  for (int j = 0; j < 2; ++j) ot[j][0] = ot[j][1] = ot[j][2] = ot[j][3] = 0.f;
+    for (int j = 0; j < 8; ++j) o[c][j][0] = o[c][j][1] = o[c][j][2] = o[c][j][3] = 0.f;
+#pragma unroll
+  for (int c = 0; c < SH::NT; ++c)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) ot[c][j][0] = ot[c][j][1] = ot[c][j][2] = ot[c][j][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   const int n_kv = (p.skv + BN - 1) / BN;
@@ -430,41 +456,58 @@ flash_fwd_kernel_wgmma(Params p) {
     // the two offsets the hardware takes for them (one 64-wide block of n)
     const uint64_t dv = sw128_desc(Vt, 1024);
 
-    // S = Q K^T, both K-major in shared memory
+    // S = Q K^T, both K-major in shared memory: 4 k-steps a 64-column block
+    // (32 bytes of each swizzled row a step), 1 a 16-column block (d = 40:
+    // its last 8 columns zero in Q and K)
     float s[BN / 8][4];
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
     fence_acc(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // 32 bytes of each swizzled row a step
-      wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
-    if constexpr (SH::TAIL) wgmma_ss(s, dq_tail, sw32_desc(Kt + MAIN), 1);
+    for (int c = 0; c < FULL; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(s, dq + c * (BLK >> 4) + 2 * kk, dk + c * (BLK >> 4) + 2 * kk, c | kk);
+#pragma unroll
+    for (int c = 0; c < TAILS; ++c)
+      wgmma_ss(s, sw32_desc(Qa + MAIN + c * TBLK), sw32_desc(Kt + MAIN + c * TBLK),
+               FULL > 0 || c > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
 
     float alpha[2];
     softmax_tile(s, m, l, alpha, sl2, kt * BN, p.skv, t);
-    rescale(o, alpha);
-    if constexpr (SH::TAIL) rescale(ot, alpha);
+#pragma unroll
+    for (int c = 0; c < FULL; ++c) rescale(o[c], alpha);
+#pragma unroll
+    for (int c = 0; c < TAILS; ++c) rescale(ot[c], alpha);
 
     // O += P V: P rounded to bf16 straight from the S accumulators
     uint32_t pa[BN / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) acc_to_a(pa[kk], s, kk);
-    fence_acc(o);
-    if constexpr (SH::TAIL) fence_acc(ot);
+#pragma unroll
+    for (int c = 0; c < FULL; ++c) fence_acc(o[c]);
+#pragma unroll
+    for (int c = 0; c < TAILS; ++c) fence_acc(ot[c]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {  // 16 keys a step: 2048 bytes of V, 512 of its tail
-      wgmma_rs_mn(o, pa[kk], dv + kk * (2048 >> 4));
-      if constexpr (SH::TAIL) wgmma_rs_mn_n16(ot, pa[kk], sw32_desc(Vt + MAIN) + kk * (512 >> 4));
+    for (int kk = 0; kk < BN / 16; ++kk) {  // 16 keys a step: 2048 bytes of a 64-column block, 512 of a 16-column one
+#pragma unroll
+      for (int c = 0; c < FULL; ++c)
+        wgmma_rs_mn(o[c], pa[kk], dv + c * (BLK >> 4) + kk * (2048 >> 4));
+#pragma unroll
+      for (int c = 0; c < TAILS; ++c)
+        wgmma_rs_mn_n16(ot[c], pa[kk], sw32_desc(Vt + MAIN + c * TBLK) + kk * (512 >> 4));
     }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_acc(o);
-    if constexpr (SH::TAIL) fence_acc(ot);
+#pragma unroll
+    for (int c = 0; c < FULL; ++c) fence_acc(o[c]);
+#pragma unroll
+    for (int c = 0; c < TAILS; ++c) fence_acc(ot[c]);
     fence_a(pa);
   }
 
@@ -472,34 +515,40 @@ flash_fwd_kernel_wgmma(Params p) {
   finish_rows(l, inv);
   __syncthreads();  // the last product has read all of Q
   // O, normalised once, staged in this warp's own (swizzled) rows of the Q
-  // tile, then written as 16-byte rows
+  // tile's blocks, then written as 16-byte rows
   unsigned char* Ow = smem_raw + (Qa - raw) + warp * 16 * 128;
   unsigned char* Ot = smem_raw + (Qa - raw) + MAIN + warp * 16 * 32;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = g + 8 * i;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(Ow + sw128(r, j) + 4 * t) =
-          pack_f32(o[j][2 * i] * inv[i], o[j][2 * i + 1] * inv[i]);
-    if constexpr (SH::TAIL) {
+    for (int c = 0; c < FULL; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(Ow + c * BLK + sw128(r, j) + 4 * t) =
+            pack_f32(o[c][j][2 * i] * inv[i], o[c][j][2 * i + 1] * inv[i]);
+#pragma unroll
+    for (int c = 0; c < TAILS; ++c)
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        *reinterpret_cast<uint32_t*>(Ot + sw32(r, j) + 4 * t) =
-            pack_f32(ot[j][2 * i] * inv[i], ot[j][2 * i + 1] * inv[i]);
-    }
+        *reinterpret_cast<uint32_t*>(Ot + c * TBLK + sw32(r, j) + 4 * t) =
+            pack_f32(ot[c][j][2 * i] * inv[i], ot[c][j][2 * i + 1] * inv[i]);
   }
   __syncwarp();
   bf16* ob = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  constexpr int CH = SH::CHUNKS;
 #pragma unroll
-  for (int it = 0; it < 16 * SH::CHUNKS / 32; ++it) {
+  for (int it = 0; it < (16 * CH + 31) / 32; ++it) {
     const unsigned idx = lane + 32 * it;
-    const int r = idx / SH::CHUNKS, ch = idx % SH::CHUNKS;
+    const int r = idx / CH, ch = idx % CH;
     const int row = q0 + warp * 16 + r;
-    const unsigned char* src = ch < 8 ? Ow + sw128(r, ch) : Ot + sw32(r, ch - 8);
-    if (row < p.sq)
-      *reinterpret_cast<uint4*>(ob + (long long)row * p.o_ss + ch * 8) =
-          *reinterpret_cast<const uint4*>(src);
+    const unsigned char* src = ch < 8 * FULL
+                                   ? Ow + (ch >> 3) * BLK + sw128(r, ch & 7)
+                                   : Ot + ((ch - 8 * FULL) >> 1) * TBLK + sw32(r, ch & 1);
+    if ((16 * CH) % 32 == 0 || idx < 16 * CH)
+      if (row < p.sq)
+        *reinterpret_cast<uint4*>(ob + (long long)row * p.o_ss + ch * 8) =
+            *reinterpret_cast<const uint4*>(src);
   }
   store_lse(p, bh, q0 + warp * 16, m, l, g, t);
 }
@@ -690,12 +739,16 @@ int flash_attn_fwd(int dtype, int d, const void* q, const void* k, const void* v
            k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, heads, sq,  skv, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    if (d == 40) return wg::launch<40>(p, batch, s);
     if (d == 64) return wg::launch<64>(p, batch, s);
     if (d == 80) return wg::launch<80>(p, batch, s);
+    if (d == 160) return wg::launch<160>(p, batch, s);
     if (d == 512) return d512::launch(p, batch, s);
   } else if (dtype == 1) {
+    if (d == 40) return launch<float, 40, 4, 1, 64>(p, batch, s);
     if (d == 64) return launch<float, 64, 4, 1, 64>(p, batch, s);
     if (d == 80) return launch<float, 80, 4, 1, 64>(p, batch, s);
+    if (d == 160) return launch<float, 160, 4, 2, 64>(p, batch, s);
     if (d == 512) return launch<float, 512, 2, 4, 32>(p, batch, s);
   }
   return (int)cudaErrorInvalidValue;

@@ -14,6 +14,9 @@ namespace pso {
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
 
 // c (16x8 fp32 fragment) += A (16x16, row-major at A, leading dim lda)
 //                          * B (16x8; element (k, n) at B[n*ldb + k] when

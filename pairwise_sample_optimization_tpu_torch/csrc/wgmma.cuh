@@ -1,6 +1,6 @@
 // Hopper warpgroup-product helpers shared by the flash-attention kernels
-// built on wgmma (the bf16 forward at head dims 64, 80 and 512, the bf16
-// backward at 64): the swizzled shared-memory layouts that cp.async
+// built on wgmma (the bf16 forward at head dims 40, 64, 80, 160 and 512,
+// the bf16 backward at 64): the swizzled shared-memory layouts that cp.async
 // writes and wgmma reads, the shared-memory matrix descriptors, the wgmma
 // instructions and the fences around them, and the bulk reductions that
 // add a shared-memory tile into global memory.
@@ -12,11 +12,12 @@
 // - a row of 16 values (32 bytes) is one row of the 32-byte swizzle:
 //   chunk ch of row r at r * 32 + ((ch ^ ((r / 4) % 2)) * 16); tiles are
 //   256-byte aligned, 8-row groups 256 bytes apart.
-// A head dim of 64 * n + 16 is stored as n blocks of 64 columns in the
-// 128-byte swizzle followed by one block of 16 columns in the 32-byte one.
-// Read K-major (the k of the product runs along the row) a block gives 4
-// or 1 k-steps of 16; read MN-major (the k runs down the rows) it gives
-// an n of 64 or 16.
+// A head dim of 64 * n + r (r a multiple of 8 below 64) is stored as n
+// blocks of 64 columns in the 128-byte swizzle followed by ceil(r / 16)
+// blocks of 16 columns in the 32-byte one (d = 80: one; 160: two; 40: three,
+// the last holding columns 32..39 and 8 zero-filled columns). Read K-major
+// (the k of the product runs along the row) a block gives 4 or 1 k-steps
+// of 16; read MN-major (the k runs down the rows) it gives an n of 64 or 16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,26 +34,41 @@ __device__ __forceinline__ uint32_t sw32(int r, int ch) {
   return (uint32_t)(r * 32 + ((ch ^ ((r >> 2) & 1)) << 4));
 }
 
+// The column blocks of a row of D bf16 values: 128-byte-swizzled blocks of
+// 64 columns, then 32-byte-swizzled blocks of 16; the 16-byte chunks a row
+// holds (a zero-filled one where D % 16 == 8); a 64-row tile's bytes.
+template <int D>
+struct RowBlocks {
+  static_assert(D % 8 == 0, "head dim: a multiple of 8");
+  static constexpr int FULL = D / 64, TAILS = (D % 64 + 15) / 16;
+  static constexpr int CHUNKS = D / 8, SLOTS = 8 * FULL + 2 * TAILS;
+  static constexpr int TILE = 64 * (128 * FULL + 32 * TAILS);
+};
+
 // Start copying rows [row0, row0 + ROWS) of one head, D bf16 values each,
 // into the swizzled tile at shared address dst (column blocks of ROWS rows
-// one after the other, as above); rows at or past n are zero-filled, their
-// source clamped to a real row. A copy of more than 8 chunks a thread (the
+// one after the other, as above); rows at or past n, and the pad chunk of a
+// head dim that is not a multiple of 16, are zero-filled, their source
+// clamped to a real address. A copy of more than 8 chunks a thread (the
 // d = 512 tiles) is unrolled by 4 only: fully unrolled, its addresses would
 // take registers from the 128 of O that stay live across it.
 template <int D, int ROWS, int NTHREADS>
 __device__ __forceinline__ void copy_rows_swz(uint32_t dst, const __nv_bfloat16* src,
                                               long long row_stride, int row0, int n) {
-  constexpr int CHUNKS = D / 8, FULL = D / 64;  // 16-byte chunks a row, 128-byte blocks
-  constexpr int ITERS = ROWS * CHUNKS / NTHREADS;
-  static_assert(D % 64 == 0 || D % 64 == 16, "head dim: 64 n or 64 n + 16");
-  static_assert((ROWS * CHUNKS) % NTHREADS == 0, "copy split");
+  using RB = RowBlocks<D>;
+  constexpr int FULL = RB::FULL, SLOTS = RB::SLOTS;
+  constexpr int ITERS = ROWS * SLOTS / NTHREADS;
+  static_assert((ROWS * SLOTS) % NTHREADS == 0, "copy split");
   auto chunk = [&](int it) {
     const unsigned i = threadIdx.x + it * NTHREADS;  // unsigned: / and % fold to shifts
-    const int r = i / CHUNKS, c = i % CHUNKS;
+    const int r = i / SLOTS, c = i % SLOTS;
     const int row = row0 + r, src_row = row < n ? row : n - 1, blk = c >> 3;
+    const int tb = RB::TAILS > 1 ? (c - 8 * FULL) >> 1 : 0;  // 32-byte block of a tail chunk
     const uint32_t off = blk < FULL ? blk * (ROWS * 128) + sw128(r, c & 7)
-                                    : FULL * (ROWS * 128) + sw32(r, c & 7);
-    cp_async_16(dst + off, src + (long long)src_row * row_stride + c * 8, row < n);
+                                    : FULL * (ROWS * 128) + tb * (ROWS * 32) + sw32(r, c & 1);
+    const bool real = SLOTS == RB::CHUNKS || c < RB::CHUNKS;
+    cp_async_16(dst + off, src + (long long)src_row * row_stride + (real ? c * 8 : 0),
+                row < n && real);
   };
   if constexpr (ITERS <= 8) {
 #pragma unroll

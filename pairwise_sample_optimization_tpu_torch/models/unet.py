@@ -1,4 +1,4 @@
-"""SDXL UNet2DCondition in PyTorch (NCHW, LoRA-aware attention).
+"""SDXL (and SD1.x) UNet2DCondition in PyTorch (NCHW, LoRA-aware attention).
 
 Counterpart of the JAX package's ``models/unet.py``:
 
@@ -8,9 +8,14 @@ conv_in -> [DownBlock, CrossAttnDown(d=2), CrossAttnDown(d=10)]
 
 with SDXL "text_time" micro-conditioning: the pooled text embedding and
 the six sinusoidally embedded ``add_time_ids`` joined, MLP'd and added to
-the timestep embedding. ``state_dict`` keys are diffusers'
-``UNet2DConditionModel`` keys (plus ``*.lora.down/up.weight`` when LoRA is
-on). ``lora_scale`` reaches every attention q/k/v/out projection; the DPO
+the timestep embedding. ``UNetConfig.sd15`` is the SD1.x family: four
+levels (320, 640, 1280, 1280) with one transformer block at each of the
+first three and at the mid block, 8 fixed heads (head dims 40, 80, 160),
+768-wide text context and no micro-conditioning (``add_embedding`` is not
+built and ``forward`` refuses the pooled embedding and time ids).
+``state_dict`` keys are diffusers' ``UNet2DConditionModel`` keys (plus
+``*.lora.down/up.weight`` when LoRA is on). ``lora_scale`` reaches every
+attention q/k/v/out projection; the DPO
 reference model is ``lora_scale=0`` on the same module.
 
 ``UNetConfig.remat`` is the JAX package's remat knob, decided per level
@@ -43,7 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -69,11 +74,19 @@ class UNetConfig:
     in_channels: int = 4
     out_channels: int = 4
     block_out_channels: Tuple[int, ...] = (320, 640, 1280)
-    # attention depth per level (0 = plain block); the mid block takes the last
+    # attention depth per level (0 = plain block)
     transformer_layers: Tuple[int, ...] = (0, 2, 10)
+    # the mid block's attention depth; None = transformer_layers[-1] (SDXL);
+    # SD1.x has an attention-free last level but an attending mid block
+    mid_transformer_layers: Optional[int] = None
     layers_per_block: int = 2
     head_dim: int = 64
+    # SD1.x: a fixed head count (head dim = channels / heads); None = a
+    # fixed head_dim (SDXL)
+    fixed_num_heads: Optional[int] = None
     cross_attention_dim: int = 2048
+    # SDXL "text_time" micro-conditioning; False = SD1.x (no add_embedding)
+    use_text_time: bool = True
     addition_time_embed_dim: int = 256
     pooled_embed_dim: int = 1280
     num_time_ids: int = 6
@@ -83,6 +96,17 @@ class UNetConfig:
     # "" / "none" (off), "full", or a selective mode of REMAT_MODES (see remat_at)
     remat: str = ""
     dtype: torch.dtype = torch.bfloat16
+
+    def heads_for(self, channels: int) -> Tuple[int, int]:
+        """(heads, head dim) of an attention over ``channels``."""
+        if self.fixed_num_heads is not None:
+            return self.fixed_num_heads, channels // self.fixed_num_heads
+        return channels // self.head_dim, self.head_dim
+
+    @property
+    def mid_depth(self) -> int:
+        return (self.mid_transformer_layers if self.mid_transformer_layers is not None
+                else self.transformer_layers[-1])
 
     @property
     def time_embed_dim(self) -> int:
@@ -96,6 +120,23 @@ class UNetConfig:
     def sdxl(lora_rank: int = 0, dtype=torch.bfloat16, remat: str = "") -> "UNetConfig":
         """Full SDXL (Turbo / DMD2 share this architecture; 2.6B params)."""
         return UNetConfig(lora_rank=lora_rank, remat=remat, dtype=dtype)
+
+    @staticmethod
+    def sd15(lora_rank: int = 0, dtype=torch.bfloat16, remat: str = "") -> "UNetConfig":
+        """SD1.x family (the reference's legacy D3PO/DDPO pipeline path): 4
+        levels, single-depth transformers, 8 fixed heads, 768 cross dim, no
+        micro-conditioning (~860M params)."""
+        return UNetConfig(
+            block_out_channels=(320, 640, 1280, 1280),
+            transformer_layers=(1, 1, 1, 0),
+            fixed_num_heads=8,
+            cross_attention_dim=768,
+            mid_transformer_layers=1,
+            use_text_time=False,
+            lora_rank=lora_rank,
+            remat=remat,
+            dtype=dtype,
+        )
 
     @staticmethod
     def tiny(lora_rank: int = 0, dtype=torch.float32, remat: str = "") -> "UNetConfig":
@@ -158,12 +199,13 @@ class SDXLUNet(nn.Module):
             return ResnetBlock(cin, cout, temb, cfg.norm_groups, dtype=dt)
 
         def transformer(depth, ch):
-            return SpatialTransformer(ch, depth, ch // cfg.head_dim, cfg.head_dim,
-                                      cfg.cross_attention_dim, cfg.lora_rank,
-                                      cfg.norm_groups, dtype=dt, use_dora=cfg.lora_use_dora)
+            return SpatialTransformer(ch, depth, *cfg.heads_for(ch), cfg.cross_attention_dim,
+                                      cfg.lora_rank, cfg.norm_groups, dtype=dt,
+                                      use_dora=cfg.lora_use_dora)
 
         self.time_embedding = TimestepEmbedMLP(chs[0], temb, dtype=dt)
-        self.add_embedding = TimestepEmbedMLP(cfg.add_embed_input_dim, temb, dtype=dt)
+        if cfg.use_text_time:
+            self.add_embedding = TimestepEmbedMLP(cfg.add_embed_input_dim, temb, dtype=dt)
         self.conv_in = Conv2d(cfg.in_channels, chs[0], 3, padding=1, dtype=dt)
 
         skip_chs = [chs[0]]
@@ -188,7 +230,8 @@ class SDXLUNet(nn.Module):
 
         self.mid_block = nn.Module()
         self.mid_block.resnets = nn.ModuleList([resnet(chs[-1], chs[-1]), resnet(chs[-1], chs[-1])])
-        self.mid_block.attentions = nn.ModuleList([transformer(cfg.transformer_layers[-1], chs[-1])])
+        if cfg.mid_depth:
+            self.mid_block.attentions = nn.ModuleList([transformer(cfg.mid_depth, chs[-1])])
 
         self.up_blocks = nn.ModuleList()
         for rev, ch in enumerate(reversed(chs)):
@@ -210,18 +253,28 @@ class SDXLUNet(nn.Module):
         self.conv_norm_out = GroupNorm(chs[0], cfg.norm_groups, act="silu", dtype=dt)
         self.conv_out = Conv2d(chs[0], cfg.out_channels, 3, padding=1, dtype=dt)
 
-    def forward(self, sample, timesteps, encoder_hidden_states, pooled_text_embeds,
-                add_time_ids, lora_scale=1.0):
+    def forward(self, sample, timesteps, encoder_hidden_states, pooled_text_embeds=None,
+                add_time_ids=None, lora_scale=1.0):
         """sample (B, C, h, w) latents (already input-scaled), timesteps (B,),
         encoder_hidden_states (B, 77, cross_dim), pooled (B, pooled_dim),
-        add_time_ids (B, 6) -> eps (B, C, h, w) fp32."""
+        add_time_ids (B, 6) -> eps (B, C, h, w) fp32. The pooled embedding
+        and the time ids are required with ``use_text_time`` and refused
+        without it (SD1.x)."""
         cfg = self.config
         dt = cfg.dtype
         temb = self.time_embedding(timestep_embedding(timesteps, cfg.block_out_channels[0]).to(dt))
-        ids_emb = timestep_embedding(add_time_ids.reshape(-1), cfg.addition_time_embed_dim)
-        ids_emb = ids_emb.reshape(add_time_ids.shape[0], -1)
-        add = torch.cat([pooled_text_embeds.float(), ids_emb], dim=-1)
-        temb = temb + self.add_embedding(add.to(dt))
+        given = (pooled_text_embeds is not None, add_time_ids is not None)
+        if cfg.use_text_time:
+            if not all(given):
+                raise ValueError("text_time conditioning needs pooled_text_embeds and "
+                                 "add_time_ids")
+            ids_emb = timestep_embedding(add_time_ids.reshape(-1), cfg.addition_time_embed_dim)
+            ids_emb = ids_emb.reshape(add_time_ids.shape[0], -1)
+            add = torch.cat([pooled_text_embeds.float(), ids_emb], dim=-1)
+            temb = temb + self.add_embedding(add.to(dt))
+        elif any(given):
+            raise ValueError("this UNet has no text_time conditioning (use_text_time=False): "
+                             "pass no pooled_text_embeds or add_time_ids")
         context = encoder_hidden_states.to(dt)
 
         n = len(cfg.block_out_channels)
@@ -247,7 +300,8 @@ class SDXLUNet(nn.Module):
                 skips.append(h)
 
         h = run(self.mid_block.resnets[0], n - 1, h, temb)
-        h = run(self.mid_block.attentions[0], n - 1, h, context, lora_scale)
+        if hasattr(self.mid_block, "attentions"):
+            h = run(self.mid_block.attentions[0], n - 1, h, context, lora_scale)
         h = run(self.mid_block.resnets[1], n - 1, h, temb)
 
         for rev, blk in enumerate(self.up_blocks):

@@ -1,6 +1,6 @@
-"""Flash attention: the CUDA kernels ``csrc/flash_attn_fwd.cu`` (forward)
-and ``csrc/flash_attn_bwd.cu`` (backward), their plain PyTorch versions,
-and the autograd Function that joins them.
+"""Flash attention: the CUDA kernels ``csrc/flash_attn_fwd.cu`` (forward),
+``csrc/flash_attn_bwd.cu`` and ``csrc/flash_attn_bwd_fma.cu`` (backward),
+their plain PyTorch versions, and the autograd Function that joins them.
 
 Counterpart of the JAX package's ``ops/flash_attention.py``: the forward
 ``_fwd_kernel`` (K1) and the two backward kernels ``_bwd_dkv_kernel`` (K2)
@@ -11,13 +11,18 @@ transpose or padding to 128 happens on the host, and keys past the kv
 length are masked in the kernels.
 
 A CPU tensor takes the plain versions; a CUDA tensor takes the kernels or
-raises. :class:`FlashAttentionFunction` runs the forward (K1) and saves
-q, k, v, o and the logsumexp; its backward (head dim 64 only, the UNet's)
-takes three launches in bf16: the pre kernel (Di = rowsum(O * dO), the
+raises. The forward takes head dims ``HEAD_DIMS``: 64 (the SDXL UNet), 80
+(the ViT-H/14 scorers), 512 (the VAE mid-block), 40 and 160 (the SD1.5
+UNet's 8 fixed heads over 320 and 1280 channels; 80 over 640).
+:class:`FlashAttentionFunction` runs the forward (K1) and saves q, k, v, o
+and the logsumexp; its backward takes head dims ``BWD_HEAD_DIMS``. At 64 in
+bf16 it takes three launches: the pre kernel (Di = rowsum(O * dO), the
 fp32 accumulators zeroed), one kernel that computes dQ, dK and dV (in
 place of K2 and K3; dQ summed over kv tiles into an fp32 accumulator) and
-the post kernel (the accumulators to bf16). fp32 runs the pre kernel and
-the two-kernel correctness path.
+the post kernel (the accumulators to bf16). fp32 at 64, and either dtype
+at 40, 80 and 160, run the pre kernel and the two-kernel path (K2 then
+K3 as the TPU has them, fp32 arithmetic, P and dS rounded to the input
+dtype before their products).
 """
 
 from __future__ import annotations
@@ -36,13 +41,16 @@ _SIGNATURES = {
     "flash_attn_fwd": [_I, _I, _P, _P, _P, _P, _P] + [_LL] * 12 + [_I, _I, _I, _I, _F, _P],
 }
 _BWD_SIGNATURES = {
-    "flash_attn_bwd_pre": [_I] + [_P] * 4 + [_LL] * 7 + [_I, _I, _I, _P],
+    "flash_attn_bwd_pre": [_I, _I] + [_P] * 4 + [_LL] * 7 + [_I, _I, _I, _P],
     "flash_attn_bwd": [_I, _I] + [_P] * 10 + [_LL] * 21 + [_I] * 5 + [_F, _P],
     "flash_attn_bwd_post": [_P] * 4 + [_LL] * 9 + [_I] * 6 + [_P],
 }
+# the two-kernel backward's library: an entry of the same name and signature
+_BWD_FMA_SIGNATURES = {"flash_attn_bwd": _BWD_SIGNATURES["flash_attn_bwd"]}
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-HEAD_DIMS = (64, 80, 512)
-BWD_HEAD_DIMS = (64,)
+HEAD_DIMS = (40, 64, 80, 160, 512)
+BWD_HEAD_DIMS = (40, 64, 80, 160)
+BWD_ONE_KERNEL_DIM = 64  # the bf16 head dim of the one-kernel backward; others two kernels
 TILE = 64  # the backward kernels' q and kv tile
 BWD_KV_ROWS = 128  # kv rows a block of the bf16 backward kernel (two warpgroups of 64)
 BWD_BLOCKS_PER_SM = 1  # its blocks an SM (147 KB of shared memory, 256 threads)
@@ -109,6 +117,11 @@ def _takes_layout(t) -> bool:
     return t.stride(3) == 1 and not any(s % vec for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
 
 
+def _count(name, d):
+    kernel_lib.launch_counts[name] += 1
+    kernel_lib.head_dim_launches[(name, d)] += 1
+
+
 def _strides(*tensors):
     return [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
 
@@ -130,7 +143,7 @@ def flash_attention_fwd(q, k, v, scale: Optional[float] = None):
         kernel_lib.stream_ptr(q.device),
     )
     kernel_lib.check(lib, rc, "flash_attn_fwd")
-    kernel_lib.launch_counts["flash_attn_fwd"] += 1
+    _count("flash_attn_fwd", d)
     return o, lse
 
 
@@ -208,10 +221,10 @@ def bwd_post_plain(acc, dq, dk, dv, with_q: bool, with_kv: bool):
 def flash_attention_bwd_pre(o, do, acc):
     """Kernel: Di = rowsum(O * dO) in fp32 (B, H, Sq), and ``acc`` (the
     backward's fp32 accumulator, flat) set to zero."""
-    b, sq, h, _ = o.shape
+    b, sq, h, d = o.shape
     di = torch.empty((b, h, sq), dtype=torch.float32, device=o.device)
     lib = kernel_lib.load("flash_attn_bwd", _BWD_SIGNATURES)
-    rc = lib.flash_attn_bwd_pre(_DTYPES[o.dtype], o.data_ptr(), do.data_ptr(), di.data_ptr(),
+    rc = lib.flash_attn_bwd_pre(_DTYPES[o.dtype], d, o.data_ptr(), do.data_ptr(), di.data_ptr(),
                                 acc.data_ptr(), acc.numel(), *_strides(o, do), b, h, sq,
                                 kernel_lib.stream_ptr(o.device))
     kernel_lib.check(lib, rc, "flash_attn_bwd_pre")
@@ -220,20 +233,23 @@ def flash_attention_bwd_pre(o, do, acc):
 
 
 def flash_attention_bwd_main(q, k, v, do, lse, di, acc, q_chunk: int, scale):
-    """Kernel: the backward from Di -> (dq, dk, dv). bf16: as
-    :func:`bwd_plan` says, dQ is added into ``acc`` (and dq left for the
+    """Kernel: the backward from Di -> (dq, dk, dv). bf16 at head dim 64:
+    as :func:`bwd_plan` says, dQ is added into ``acc`` (and dq left for the
     post kernel) or written, and dK and dV are added into ``acc`` where
-    ``q_chunk`` splits the q loop, else written. fp32: all three written
-    (the two-kernel path)."""
+    ``q_chunk`` splits the q loop, else written. fp32, and other head dims:
+    all three written (the two-kernel path; ``acc`` and ``q_chunk``
+    unused)."""
     b, sq, h, d = q.shape
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
-    lib = kernel_lib.load("flash_attn_bwd", _BWD_SIGNATURES)
+    one_kernel = q.dtype == torch.bfloat16 and d == BWD_ONE_KERNEL_DIM
+    lib = (kernel_lib.load("flash_attn_bwd", _BWD_SIGNATURES) if one_kernel
+           else kernel_lib.load("flash_attn_bwd_fma", _BWD_FMA_SIGNATURES))
     rc = lib.flash_attn_bwd(
         _DTYPES[q.dtype], d, *[t.data_ptr() for t in (q, k, v, do, lse, di, dq, dk, dv, acc)],
         *_strides(q, k, v, do, dq, dk, dv), b, h, sq, k.shape[1], q_chunk, float(scale),
         kernel_lib.stream_ptr(q.device))
     kernel_lib.check(lib, rc, "flash_attn_bwd")
-    kernel_lib.launch_counts["flash_attn_bwd"] += 1
+    _count("flash_attn_bwd", d)
     return dq, dk, dv
 
 
@@ -253,16 +269,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: Optional[float] = None):
     upstream gradient ``do``, from the forward's ``lse``.
     :func:`flash_attention_bwd_plain` on a CPU tensor; on a CUDA one the
     pre kernel (Di, the accumulators zeroed), the backward kernel and, in
-    bf16 where :func:`bwd_plan` gives an accumulator, the post kernel (the
-    fp32 accumulators to bf16). A ``do`` view the kernels cannot read is
-    copied to a contiguous tensor first."""
+    bf16 at head dim 64 where :func:`bwd_plan` gives an accumulator, the
+    post kernel (the fp32 accumulators to bf16). A ``do`` view the kernels
+    cannot read is copied to a contiguous tensor first."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
     if not _takes_layout(do):
         do = do.contiguous()
     _check_bwd(q, k, v, o, do, lse)
     b, sq, h, d = q.shape
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and d == BWD_ONE_KERNEL_DIM:
         q_chunk, dq_rows, kv_rows = bwd_plan(b * h, sq, k.shape[1], _sm_count(q.device.index or 0))
     else:
         q_chunk, dq_rows, kv_rows = -(-sq // TILE), 0, 0

@@ -10,11 +10,14 @@ package's own sources.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code. ``launch_counts`` holds one plain
-integer per kernel, incremented by its wrapper where it launches.
+integer per kernel, incremented by its wrapper where it launches;
+``head_dim_launches`` the attention kernels' launches by (kernel, head
+dim), incremented at the same place (one template instance a head dim).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -27,6 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
     "flash_attn_fwd": "flash_attn_fwd.cu",
     "flash_attn_bwd": "flash_attn_bwd.cu",
+    "flash_attn_bwd_fma": "flash_attn_bwd_fma.cu",
     "group_norm_silu": "group_norm_silu.cu",
     "int8_conv": "int8_conv.cu",
 }
@@ -40,12 +44,15 @@ NVCC_FLAGS = [
 launch_counts = {"flash_attn_fwd": 0, "flash_attn_bwd_pre": 0, "flash_attn_bwd": 0,
                  "flash_attn_bwd_post": 0, "gn_stats": 0, "gn_silu_norm": 0,
                  "int8_absmax": 0, "int8_quantize": 0, "int8_conv3x3": 0, "int8_dequant": 0}
+# (attention kernel name, head dim) -> launches since the last reset
+head_dim_launches: collections.Counter = collections.Counter()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    head_dim_launches.clear()
 
 
 def build_dir() -> Path:

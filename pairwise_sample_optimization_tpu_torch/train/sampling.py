@@ -1,8 +1,10 @@
-"""SDXL-Turbo and SDXL-DMD2 trajectory samplers with per-step log-probs.
+"""SDXL-Turbo, SDXL-DMD2 and SD1.x CFG-DDIM trajectory samplers with
+per-step log-probs.
 
 Counterpart of the JAX package's ``train/sampling.py::
-sample_turbo_trajectories`` and ``sample_dmd_trajectories``, as Python
-loops. The recorded tensors of the Turbo sampler match it:
+sample_turbo_trajectories``, ``sample_dmd_trajectories`` and
+``sample_ddim_cfg_trajectories``, as Python loops. The recorded tensors
+of the Turbo sampler match it:
 
 - ``latents[t]`` for t in [0, S-1]   (current = [:-1], next = [1:])
 - ``input_latents[t]`` (Euler-scaled UNet inputs) for t in [0, S-2]
@@ -20,6 +22,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..ops.ddim import ddim_step_with_logprob
 from ..ops.ddpm_renoise import distilled_step_with_logprob, x0_from_eps
 from ..ops.euler_ancestral import scale_model_input, turbo_step_with_logprob
 from ..ops.schedules import EulerAncestralSchedule
@@ -123,6 +126,51 @@ def sample_dmd_trajectories(
     latents = torch.stack(xs + [x])  # x_0 .. x_{S-1}
     return Trajectory(
         final_latents=pred_x0,
+        latents=latents,
+        input_latents=latents[:-1],
+        log_probs=torch.stack(logprobs),
+    )
+
+
+def sample_ddim_cfg_trajectories(
+    eps_cfg_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    alphas_cumprod,
+    timesteps,
+    init_latents: torch.Tensor,
+    noise: torch.Tensor,
+    eta: float = 1.0,
+) -> Trajectory:
+    """SD1.x DDIM rollout with log-probs (the reference's
+    ``pipeline_with_logprob.py`` heritage path). ``eps_cfg_fn(x, t)`` is the
+    CFG-combined epsilon (the caller mixes the unconditional and conditional
+    predictions); every step is stochastic (eta-scaled), so all S
+    transitions carry log-probs and the last step's prev timestep is -1
+    (``final_alpha_cumprod``).
+
+    ``timesteps`` is the (S,) descending lattice, ``init_latents`` the
+    starting latents (used as they are, in the layout ``eps_cfg_fn`` takes:
+    (B, C, h, w) for the UNet) and ``noise`` (S,) + their shape, each step's
+    unit-normal draw. Returns S+1 ``latents`` (current = [:-1], next =
+    [1:]), ``input_latents`` = ``latents[:-1]``, (S, B) ``log_probs`` and the
+    last latents as ``final_latents``.
+    """
+    num_steps = len(timesteps)
+    batch = init_latents.shape[0]
+    device = init_latents.device
+    x = init_latents.float()
+    prev_ts = [int(t) for t in timesteps[1:]] + [-1]
+    xs, logprobs = [], []
+    for i in range(num_steps):
+        t = torch.full((batch,), int(timesteps[i]), dtype=torch.int32, device=device)
+        tp = torch.full((batch,), prev_ts[i], dtype=torch.int32, device=device)
+        x_next, logprob = ddim_step_with_logprob(alphas_cumprod, eps_cfg_fn(x, t), t, tp, x,
+                                                 noise=noise[i], eta=eta)
+        xs.append(x)
+        logprobs.append(logprob)
+        x = x_next
+    latents = torch.stack(xs + [x])  # x_0 .. x_S
+    return Trajectory(
+        final_latents=x,
         latents=latents,
         input_latents=latents[:-1],
         log_probs=torch.stack(logprobs),

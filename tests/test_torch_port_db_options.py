@@ -256,8 +256,8 @@ def test_clip_text_tower_with_lora_matches_jax(dora):
         out = model.apply({"params": v["params"], "lora": lora}, jnp.asarray(ids))
         return jnp.sum(out["projected"] * w_proj) + jnp.sum(out["penultimate"] * w_pen)
 
-    out_j = model.apply(v, jnp.asarray(ids))
-    grads_j = jax.grad(loss)(v["lora"])
+    out_j = jax.jit(model.apply)(v, jnp.asarray(ids))
+    grads_j = jax.jit(jax.grad(loss))(v["lora"])
     lora = lora_parameters(tower)
     out = tower(torch.from_numpy(ids).long())
     for k in ("penultimate", "last_hidden_state", "pooled", "projected"):

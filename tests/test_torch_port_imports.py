@@ -377,8 +377,9 @@ def test_backward_kernel_failure_propagates_and_is_not_counted(kernel_path):
 
 
 def test_backward_takes_head_dim_64_only():
-    q, k, v, o, lse = _meta_bwd_inputs(d=80)
-    with pytest.raises(ValueError, match=r"head dim 80 of q \(2, 64, 2, 80\)"):
+    # the backward takes BWD_HEAD_DIMS (40, 64, 80, 160); any other head dim raises
+    q, k, v, o, lse = _meta_bwd_inputs(d=48)
+    with pytest.raises(ValueError, match=r"head dim 48 of q \(2, 64, 2, 48\)"):
         tfa.flash_attention_bwd(q, k, v, o, lse, torch.empty_like(q))
 
 
@@ -438,7 +439,7 @@ def _port_imports(path: Path):
                                    "train/flat_optim.py", "parallel/collectives.py",
                                    "parallel/multihost.py", "parallel/mesh.py",
                                    "parallel/prng.py", "cli/train_online_pso_sdxl_turbo.py",
-                                   "ops/qconv.py", "ops/upsample.py"])
+                                   "ops/qconv.py", "ops/upsample.py", "ops/ddim.py"])
 def test_new_entry_points_need_only_torch_numpy_and_the_stdlib(entry):
     """Every module the entry point reaches, through the port's own imports,
     imports nothing but the port, torch, numpy and the standard library;

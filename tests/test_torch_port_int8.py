@@ -359,8 +359,10 @@ def test_subpixel_matches_jax_and_the_naive_path_with_gradients():
     def jloss(x_, k_, b_):
         return jnp.sum(jup.upsample2x_conv3x3(x_, k_, b_) * g)
 
-    want = np.asarray(jup.upsample2x_conv3x3(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b)))
-    jgrads = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b))
+    want = np.asarray(jax.jit(jup.upsample2x_conv3x3)(jnp.asarray(x), jnp.asarray(k),
+                                                      jnp.asarray(b)))
+    jgrads = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jnp.asarray(x), jnp.asarray(k),
+                                                      jnp.asarray(b))
     outs, grads = {}, {}
     for subpixel in (True, False):
         tup.set_use_subpixel(subpixel)
@@ -377,7 +379,7 @@ def test_subpixel_matches_jax_and_the_naive_path_with_gradients():
         _close(got, naive)
     # the collapsed kernel is JAX's, parity-major
     k4 = tup.subpixel_kernel(torch.from_numpy(k).permute(3, 2, 0, 1))
-    jk4 = np.asarray(jup._subpixel_kernel(jnp.asarray(k)))  # (2, 2, C, 4, O)
+    jk4 = np.asarray(jax.jit(jup._subpixel_kernel)(jnp.asarray(k)))  # (2, 2, C, 4, O)
     np.testing.assert_array_equal(k4.view(4, 4, 8, 2, 2).permute(3, 4, 2, 0, 1).numpy(), jk4)
 
 

@@ -175,8 +175,8 @@ def test_full_finetune_update_matches_jax(full_setup):
     jbatch = {k: jnp.asarray(v.numpy()) for k, v in _per_update(s["samples"]).items()}
     jcond = {k: jnp.asarray(v.numpy()) for k, v in _per_update(s["cond"]).items()}
     params = s["variables"]["params"]
-    jnew, jm = s["jtrainer"]._update(jts.PSOTrainState.create(params, s["tx"]), params, jbatch,
-                                     jcond, jax.random.key(5))
+    jstate = jax.jit(lambda p: jts.PSOTrainState.create(p, s["tx"]))(params)
+    jnew, jm = s["jtrainer"]._update(jstate, params, jbatch, jcond, jax.random.key(5))
     trainer, state = _full_trainer(s["variables"])
     ref = trainer.pipe.reference_unet
     ref_before = {k: v.clone() for k, v in ref.state_dict().items()}

@@ -77,7 +77,7 @@ def slices():
 
     # JAX: the composite of bench.py's program at the tiny size
     embeds, pooled = [np.asarray(a) for a in (lambda c: (c["embeds"], c["pooled"]))(
-        jp.encode_prompt(jnp.asarray(ids1), jnp.asarray(ids2)))]
+        jax.jit(jp.encode_prompt)(jnp.asarray(ids1), jnp.asarray(ids2)))]
     cond = {"embeds": jnp.concatenate([embeds, embeds]), "pooled": jnp.concatenate([pooled, pooled]),
             "time_ids": compute_time_ids(2 * PROMPTS, RES)}
     k_init, k_step = jax.random.split(jax.random.key(7))
