@@ -236,8 +236,9 @@ PyTorch. In order:
    same function, that call (timed here only; the port never calls it):
    SDPA forward for K1, autograd of SDPA (dQ, dK, dV in one backward) for
    the backward kernel; for the backward also the whole backward (its three
-   kernels) beside the function's bound, and the backward twice at
-   ``RUN_TO_RUN`` with the max|diff| between the two runs (its sums over
+   kernels) beside the function's bound, with launch-weighted means per
+   head dim, and the backward twice at each ``RUN_TO_RUN`` shape (head
+   dims 64 and 40) with the max|diff| between the two runs (its sums over
    blocks come in another order each run). Back-to-back calls on one
    input: an input under the 50 MB L2 stays there, as a GroupNorm input
    just written by a conv does. Also the
@@ -695,26 +696,31 @@ def local_heads(heads, tp=(0, 1)):
 def attention_shapes(ucfg, batch, latent_hw, text_len=77, tp=(0, 1)):
     """(q shape (B, S, H, D), kv length) of each attention call of one UNet
     forward at ``batch`` and a ``latent_hw`` x ``latent_hw`` latent: per
-    transformer block a self-attention over the level's tokens and a
-    cross-attention to the ``text_len`` text tokens; H the local heads of
-    model rank ``tp[0]`` of ``tp[1]``."""
+    transformer block (the mid block's at the last level) a self-attention
+    over the level's tokens and a cross-attention to the ``text_len`` text
+    tokens; H the local heads of model rank ``tp[0]`` of ``tp[1]`` and D
+    the level's head dim (``heads_for``: SDXL's fixed 64, SD1.x's 8 fixed
+    heads)."""
     n, lpb, depths = len(ucfg.block_out_channels), ucfg.layers_per_block, ucfg.transformer_layers
     shapes = []
     for i, (ch, d) in enumerate(zip(ucfg.block_out_channels, depths)):
-        blocks = d * (2 * lpb + 1) + (depths[-1] if i == n - 1 else 0)
+        blocks = d * (2 * lpb + 1) + (ucfg.mid_depth if i == n - 1 else 0)
         tokens = (latent_hw // 2 ** i) ** 2
-        q = (batch, tokens, local_heads(ch // ucfg.head_dim, tp), ucfg.head_dim)
+        heads, head_dim = ucfg.heads_for(ch)
+        q = (batch, tokens, local_heads(heads, tp), head_dim)
         shapes += [(q, tokens), (q, text_len)] * blocks
     return shapes
 
 
 def bwd_needs_post(q_shape, skv, sms=132):
-    """Whether the bf16 backward at these lengths runs the post kernel (has
-    an fp32 accumulator; ``ops.flash_attention.bwd_plan``)."""
+    """Whether the bf16 backward at these lengths and q's head dim runs the
+    post kernel (has an fp32 accumulator; ``ops.flash_attention.bwd_plan``;
+    a head dim the kernel does not take, the CPU tests' tiny models', is
+    planned as 64's)."""
     from pairwise_sample_optimization_tpu_torch.ops import flash_attention as tfa
 
-    b, sq, h, _ = q_shape
-    _, dq_rows, kv_rows = tfa.bwd_plan(b * h, sq, skv, sms)
+    b, sq, h, d = q_shape
+    _, dq_rows, kv_rows = tfa.bwd_plan(b * h, sq, skv, sms, d if d in tfa.BWD_KV_ROWS else 64)
     return bool(dq_rows or kv_rows)
 
 
@@ -1731,8 +1737,9 @@ def full_finetune_slice(seed, recorder):
         rebuilt = SDXLUNet(pipe.reference_unet.config, device="meta").to_empty(
             device=pipe.device)
         init_random_(rebuilt, torch.Generator(device=pipe.device).manual_seed(seed))
-        changed = [k for k, v in rebuilt.state_dict().items()
-                   if not torch.equal(v, pipe.reference_unet.state_dict()[k])]
+        # one state_dict of the reference: taken per key, 1680 of them cost ~30 s
+        ref_state = pipe.reference_unet.state_dict()
+        changed = [k for k, v in rebuilt.state_dict().items() if not torch.equal(v, ref_state[k])]
         if changed:
             raise AssertionError(f"{label}: the reference copy changed: {changed[:5]}")
         del rebuilt
@@ -1820,7 +1827,7 @@ def full_finetune_slice(seed, recorder):
     if traces != ["epoch-1.json"]:
         raise AssertionError(f"run C's profile_dir holds {traces}, not the second epoch's trace")
     size, n_kernels, names = _trace_kernels(trace_dir / "epoch-1.json")
-    missing = [k for k in ("flash_fwd_kernel", "flash_bwd_pre_kernel", "flash_bwd_kernel_d64",
+    missing = [k for k in ("flash_fwd_kernel", "flash_bwd_pre_kernel", "flash_bwd_kernel",
                            "gn_stats_kernel", "gn_norm_silu_kernel")
                if not any(k in n for n in names)]
     if missing:
@@ -3756,7 +3763,6 @@ SD15_GRAD_SPREAD_FACTOR = 4
 # the small fp32 check: a 4-level SD1.x UNet whose head dims are the kernels' own
 # (one fixed head over 40, 80, 160 channels), 3 CFG-DDIM steps at 32x32 latents
 SD15_SMALL_TIMESTEPS = (667, 334, 1)
-_BWD_FMA_SRC = "pairwise_sample_optimization_tpu_torch/csrc/flash_attn_bwd_fma.cu"
 # (entry of the kernels line, its launch counter, head dim): the attention
 # kernels' SD1.x instances, listed apart from the counter's other head dims
 HEAD_DIM_ENTRIES = (("flash_attn_fwd_d40", "flash_attn_fwd", 40),
@@ -3780,15 +3786,19 @@ def attention_calls_by_head_dim(ucfg):
     return {d: n for d, n in calls.items() if n}
 
 
-def expected_sd15_launches(ucfg, unet_calls, backward_calls=0):
+def expected_sd15_launches(ucfg, unet_calls, backward_calls=0, batch=2 * SD15_PROMPTS,
+                           latent_hw=64):
     """(launch counts, launches by (kernel, head dim)) of ``unet_calls`` UNet
-    forwards, ``backward_calls`` of them differentiated (every attention's
-    q, k and v need a gradient under LoRA): the backward at head dims other
-    than 64 takes the pre kernel and the two-kernel path, no post kernel."""
+    forwards at ``batch`` and ``latent_hw``, ``backward_calls`` of them
+    differentiated (every attention's q, k and v need a gradient under
+    LoRA): per attention call in a backward the pre kernel, the bf16
+    one-kernel backward and, where ``bwd_needs_post``, the post kernel."""
     attn, gn = _unet_counts(ucfg)
+    post = sum(bwd_needs_post(q, skv) for q, skv in attention_shapes(ucfg, batch, latent_hw))
     counts = {k: 0 for k in KERNELS}
     counts.update({"flash_attn_fwd": unet_calls * attn, "flash_attn_bwd_pre": backward_calls * attn,
-                   "flash_attn_bwd": backward_calls * attn, "gn_stats": unet_calls * gn,
+                   "flash_attn_bwd": backward_calls * attn,
+                   "flash_attn_bwd_post": backward_calls * post, "gn_stats": unet_calls * gn,
                    "gn_silu_norm": unet_calls * gn})
     by_dim = {}
     for d, n in attention_calls_by_head_dim(ucfg).items():
@@ -4193,7 +4203,9 @@ def attention_phase(shapes, seed):
     return {"flash_attn_fwd": rows}
 
 
-RUN_TO_RUN = ((2, 4096, 10, 64), 4096)  # the backward twice at this shape, bf16
+# the backward twice at these shapes, bf16: the DMD2 loop's longest at d = 64
+# and SD1.x's at d = 40 (dQ summed over 32 blocks of keys either way)
+RUN_TO_RUN = (((2, 4096, 10, 64), 4096), ((4, 4096, 8, 40), 4096))
 
 
 def _bwd_bounds(q, k, skv, acc_q, acc_kv):
@@ -4232,7 +4244,8 @@ def attention_bwd_phase(shapes, seed):
     ``bwd_post_plain`` on the same accumulator, bit for bit. CUDA-event ms
     of each kernel, the whole backward, the plain backward and SDPA's
     backward (autograd: dQ, dK, dV in one call); the function's bound and
-    each kernel's. Then the whole backward twice at ``RUN_TO_RUN``: the
+    each kernel's; launch-weighted means of the whole backward per head
+    dim. Then the whole backward twice at each ``RUN_TO_RUN`` shape: the
     max|diff| between the two runs (the sums taken by bulk reductions come
     in another order) must lie within ``bwd_tolerance``."""
     import torch
@@ -4249,7 +4262,7 @@ def attention_bwd_phase(shapes, seed):
               for qs, skv in RAGGED + TP_LOCAL + RAGGED_SD15]
     cases += _sd15_fp32_cases(shapes)
     rows = {name: [] for name in ("flash_attn_bwd_pre", "flash_attn_bwd", "flash_attn_bwd_post")}
-    whole_rows = []
+    whole_rows, by_dim = [], {}
     for qs, ks, dt, launches in cases:
         q, k, v = (torch.randn(s, generator=gen, device="cuda", dtype=dt) for s in (qs, ks, ks))
         do = torch.randn(qs, generator=gen, device="cuda", dtype=dt)
@@ -4268,8 +4281,8 @@ def attention_bwd_phase(shapes, seed):
 
         whole_err, whole_used = held("backward", tfa.flash_attention_bwd(q, k, v, o, lse, do))
         # kernel by kernel, as flash_attention_bwd runs them
-        if dt == torch.bfloat16 and d == tfa.BWD_ONE_KERNEL_DIM:
-            q_chunk, dq_rows, kv_rows = tfa.bwd_plan(b * h, sq, skv, sms)
+        if dt == torch.bfloat16:
+            q_chunk, dq_rows, kv_rows = tfa.bwd_plan(b * h, sq, skv, sms, d)
         else:
             q_chunk, dq_rows, kv_rows = -(-sq // tfa.TILE), 0, 0
         acc = torch.full((b * h * (dq_rows + 2 * kv_rows) * d,), float("nan"), device="cuda")
@@ -4291,8 +4304,8 @@ def attention_bwd_phase(shapes, seed):
         out = F.scaled_dot_product_attention(qt, kt, vt)
         dot = do.transpose(1, 2)
         big = b * h * sq * skv > PLAIN_LOGITS // 4  # fewer timed calls of a slow plain version
-        # the two-kernel path (fp32 arithmetic on the CUDA cores) at the long shapes too
-        slow = (3, 2) if big and (d != tfa.BWD_ONE_KERNEL_DIM or dt == torch.float32) else ()
+        # fewer timed calls of the fp32 two-kernel path (FMAs on the CUDA cores) at the long shapes
+        slow = (3, 2) if big and dt == torch.float32 else ()
         t = {
             "sdpa": timed_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                          retain_graph=True)),
@@ -4342,20 +4355,34 @@ def attention_bwd_phase(shapes, seed):
             + f"); {launches} launches")
         del out, qt, kt, vt, acc
 
-    qs, skv = RUN_TO_RUN
-    ks = (qs[0], skv, *qs[2:])
-    q, k, v, do = (torch.randn(s, generator=gen, device="cuda", dtype=torch.bfloat16)
-                   for s in (qs, ks, ks, qs))
-    o, lse = tfa.flash_attention_fwd(q, k, v)
-    first = tfa.flash_attention_bwd(q, k, v, o, lse, do)
-    second = tfa.flash_attention_bwd(q, k, v, o, lse, do)
-    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)
-    run_to_run = {}
-    for n, a_, b_, w in zip(("dq", "dk", "dv"), first, second, want):
-        run_to_run[n] = check_close(f"run to run {n} {qs} kv {skv}", b_, a_, bwd_tolerance(w))
-    log(f"backward run to run at {qs} kv {skv} bf16: max|diff| between two runs "
-        + ", ".join(f"{n} {e:.2e}" for n, e in run_to_run.items()))
-    return rows, whole_rows, {"q": list(qs), "kv": skv, "max_abs_diff": run_to_run}
+    bf16_rows = [{**r, "library_ms": r["sdpa_bwd_ms"]} for r in whole_rows if r["dtype"] == "bf16"]
+    for d in sorted({r["shape"]["q"][-1] for r in bf16_rows if r["launches"]}):
+        at_d = [r for r in bf16_rows if r["shape"]["q"][-1] == d]
+        m = _means(at_d)
+        by_dim[d] = {"launches": sum(r["launches"] for r in at_d), **m}
+        log(f"whole backward at d = {d}: {by_dim[d]['launches']} launches, {m['ms']:.4f} ms vs "
+            f"bound {m['bound_ms']:.4f} ({m['bound_by']}), plain {m['plain_ms']:.4f}, SDPA bwd "
+            f"{m['library_ms']:.4f} (launch-weighted means)")
+    run_to_run = []
+    for qs, skv in RUN_TO_RUN:
+        ks = (qs[0], skv, *qs[2:])
+        q, k, v, do = (torch.randn(s, generator=gen, device="cuda", dtype=torch.bfloat16)
+                       for s in (qs, ks, ks, qs))
+        o, lse = tfa.flash_attention_fwd(q, k, v)
+        first = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+        second = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+        want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        diff = {n: check_close(f"run to run {n} {qs} kv {skv}", b_, a_, bwd_tolerance(w))
+                for n, a_, b_, w in zip(("dq", "dk", "dv"), first, second, want)}
+        used = max(tolerance_used(b_, a_, bwd_tolerance(w))
+                   for a_, b_, w in zip(first, second, want))
+        run_to_run.append({"q": list(qs), "kv": skv, "max_abs_diff": diff,
+                           "tolerance_used": used})
+        log(f"backward run to run at {qs} kv {skv} bf16: max|diff| between two runs "
+            + ", ".join(f"{n} {e:.2e}" for n, e in diff.items())
+            + f", share of bwd_tolerance {used:.3f}")
+        del q, k, v, do, o, lse, first, second, want
+    return rows, whole_rows, by_dim, run_to_run
 
 
 def attention_function_check(seed):
@@ -4500,8 +4527,6 @@ def summarize(name, rows, launches):
     head dim); max_abs_err over every case."""
     counter = next((c for e, c, _ in HEAD_DIM_ENTRIES if e == name), name)
     src, replaces = KERNELS[counter]
-    if counter == "flash_attn_bwd" and name != counter:  # the two-kernel route's own source
-        src = _BWD_FMA_SRC
     out = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
            **_means(rows), "shapes": rows}
@@ -4607,8 +4632,8 @@ def main(argv=None) -> int:
                 for name, counts in dist_summary["launches_by_run"].items()}, **sd15_paths}
     entries = list(KERNELS) + [e for e, _, _ in HEAD_DIM_ENTRIES]
     launches = {k: sum(p.get(k, 0) for p in paths.values()) for k in entries}
-    bwd_rows, bwd_whole, run_to_run = phase("attention_bwd_phase", attention_bwd_phase,
-                                            recorder.attention_bwd, args.seed)
+    bwd_rows, bwd_whole, bwd_by_dim, run_to_run = phase(
+        "attention_bwd_phase", attention_bwd_phase, recorder.attention_bwd, args.seed)
     int8_rows, int8_sites = phase("int8_phase", int8_phase, recorder.int8, args.seed)
     rows = {**phase("attention_phase", attention_phase, recorder.attention, args.seed),
             **bwd_rows, **phase("gn_phase", gn_phase, recorder.gn, args.seed), **int8_rows}
@@ -4625,7 +4650,8 @@ def main(argv=None) -> int:
               "int8": int8_summary, "int8_matmul_sites": int8_sites, "distributed": dist_summary,
               "sd15": sd15_summary,
               "launches_by_path": paths, "function_check": function_errs, "kernels": kernels,
-              "backward": bwd_whole, "backward_run_to_run": run_to_run, "phase_s": phase_s,
+              "backward": bwd_whole, "backward_by_head_dim": bwd_by_dim,
+              "backward_run_to_run": run_to_run, "phase_s": phase_s,
               "seconds": time.perf_counter() - t_start}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

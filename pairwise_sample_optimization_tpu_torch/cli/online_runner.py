@@ -141,16 +141,32 @@ def mesh_spec(config) -> MeshSpec:
     return MeshSpec(int(config.mesh.data), int(config.mesh.model), bool(config.mesh.fsdp))
 
 
+def train_timesteps(config) -> int:
+    """The trained transitions: ``train.distilled_train_steps``, where 0 or
+    a missing key reads as ``sample.num_steps - 1`` (as the JAX package's
+    ``run_online_pso`` reads it)."""
+    return int(config.train.get("distilled_train_steps", 0)) or config.sample.num_steps - 1
+
+
 def check_config(config, sampler: str, world: int = 1) -> None:
     """Refuse an unknown sampler or ``param_dtype``, a mesh that does not
     cover the ``world`` processes, FSDP with ``mesh.model > 1``, and
-    ``train.distilled_train_steps`` other than the sampled transitions. The
-    remat mode is the UNet's to check (``models/unet.py``)."""
+    :func:`train_timesteps` other than the sampled transitions. The remat
+    mode is the UNet's to check (``models/unet.py``)."""
     mesh_spec(config).resolve(world)
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r}; have {SAMPLERS}")
     if config.param_dtype not in PARAM_DTYPES:
         raise ValueError(f"param_dtype={config.param_dtype!r}: use one of {list(PARAM_DTYPES)}")
+    if train_timesteps(config) != config.sample.num_steps - 1:
+        raise ValueError(f"train.distilled_train_steps ({train_timesteps(config)}) "
+                         f"must equal sample.num_steps - 1 ({config.sample.num_steps - 1})")
+
+
+def check_cli_train_steps(config) -> None:
+    """The CLI entry points take ``train.distilled_train_steps`` only as
+    ``sample.num_steps - 1`` itself (0 is refused there, as the JAX
+    package's CLIs assert); :func:`run_online_pso` also reads 0 as that."""
     if config.train.distilled_train_steps != config.sample.num_steps - 1:
         raise ValueError(f"train.distilled_train_steps ({config.train.distilled_train_steps}) "
                          f"must equal sample.num_steps - 1 ({config.sample.num_steps - 1})")
@@ -303,7 +319,7 @@ def run_online_pso(config, sampler: str = "turbo", num_epochs: Optional[int] = N
         compare="sample" if sampler == "turbo" else "pareto",
         clamp_mode=config.train.clamp_mode,
         shared_noise=bool(config.sample.get("shared_noise", True)),
-        num_train_timesteps=config.train.distilled_train_steps,
+        num_train_timesteps=train_timesteps(config),
         # policy and reference run different weights under full finetuning
         fuse_ref_pass=bool(config.train.fuse_ref_pass) and not full_ft,
         full_finetune=full_ft, int8_ref_pass=bool(config.train.int8_ref_pass))

@@ -10,7 +10,8 @@ Runs ``cli.online_runner.run_online_pso(sampler="dmd")`` with the
 2-level models at 16x16 with one pair batch of 2 prompts per epoch (a CPU
 run of a few seconds); the device is CUDA unless ``--device cpu`` is given.
 ``train.distilled_train_steps`` must equal ``sample.num_steps - 1``
-(``online_runner.check_config`` refuses any other value before any work).
+(``online_runner.check_cli_train_steps`` refuses any other value, 0 too,
+before any work; ``run_online_pso`` itself reads 0 as that).
 
 Data-parallel over N cards of one machine:
 
@@ -33,7 +34,7 @@ import argparse
 
 from ..configs.sdxl_dmd_dpo import get_config
 from ..parallel import shutdown_distributed
-from .online_runner import run_online_pso
+from .online_runner import check_cli_train_steps, run_online_pso
 from .train_online_pso_sdxl_turbo import TINY_OVERRIDES
 
 
@@ -56,6 +57,7 @@ def main(argv=None):
     ap.add_argument("overrides", nargs="*", help="dotted key=value config overrides")
     args = ap.parse_args(argv)
     config = build_config(args.tiny, args.overrides)
+    check_cli_train_steps(config)
     run_online_pso(config, sampler="dmd", num_epochs=args.epochs, device=args.device)
 
 

@@ -30,7 +30,7 @@ import argparse
 
 from ..configs.sdxl_turbo_dpo import get_config
 from ..parallel import shutdown_distributed
-from .online_runner import run_online_pso
+from .online_runner import check_cli_train_steps, run_online_pso
 
 TINY_OVERRIDES = (
     "tiny_model=True", "sample.resolution=16", "sample.batch_size=2",
@@ -60,6 +60,7 @@ def main(argv=None):
     ap.add_argument("overrides", nargs="*", help="dotted key=value config overrides")
     args = ap.parse_args(argv)
     config = build_config(args.tiny, args.overrides)
+    check_cli_train_steps(config)
     run_online_pso(config, sampler="turbo", num_epochs=args.epochs, device=args.device)
 
 

@@ -1,8 +1,9 @@
 // Flash-attention backward for Hopper (sm_90a), the two-kernel route: the
 // gradients dQ, dK and dV of softmax(Q K^T * scale) V from the forward's
 // per-row fp32 logsumexp (LSE) and the pre kernel's Di (flash_attn_bwd.cu),
-// at head dims 40, 80 and 160 (the SD1.5 UNet's 8 fixed heads over 320, 640
-// and 1280 channels) in bf16 or fp32, and at 64 in fp32.
+// in fp32 at head dims 40, 64, 80 and 160 (the fp32 cross-attention shapes
+// and the small fp32 pipelines). bf16 at every head dim takes the one-kernel
+// wgmma backward of flash_attn_bwd.cu.
 //
 // Replaces the TPU kernels pairwise_sample_optimization_tpu/ops/
 // flash_attention.py::_bwd_dkv_kernel (K2) and ::_bwd_dq_kernel (K3), as
@@ -12,37 +13,30 @@
 //   dP = dO V^T
 //   dS = P * (dP - Di) * scale,          Di = rowsum(O * dO) in fp32
 //   dV = P^T dO,  dK = dS^T Q,  dQ = dS K
-// P and dS are rounded to the input dtype before their products, which
-// accumulate in fp32; outputs are written in the input dtype.
+// All in fp32: the products exact fp32 FMAs, the outputs fp32.
 //
-// What bounds it on an H100: tensor-core operations at the SD1.5 UNet's
-// 4096- and 1024-token self-attention (seven products of 2*Sq*Skv*d per
-// head, S and dP computed in both kernels as in the TPU design) and bytes
-// at the 77-token cross-attention and the 256- and 64-token shapes. This
+// What bounds it on an H100: fp32 operations (seven products of
+// 2*Sq*Skv*d per head, S and dP computed in both kernels as in the TPU
+// design) at the long shapes, bytes at the 77-token cross-attention. This
 // design is the simple, right one: its products run as exact fp32 FMAs on
-// the CUDA cores, far from either bound (the one-kernel wgmma design of
-// flash_attn_bwd.cu at these head dims is later work).
+// the CUDA cores, a correctness path, not a fast one.
 //
-// The design (flash_bwd_dkv_kernel<T, D> then flash_bwd_dq_kernel<T, D>):
+// The design (flash_bwd_dkv_kernel<D> then flash_bwd_dq_kernel<D>):
 // - 64x64 tiles, 4 x WN warps (WN = 2 above d = 64, so that the dK / dV
 //   accumulators fit the registers); warp w owns 16 rows of S / dP (64 / WN
 //   columns) and, in the dK/dV kernel, 16 kv rows of the dK / dV
 //   accumulators (D / WN columns), in the dQ kernel 16 q rows of dQ,
 //   computed with exact fp32 FMAs in the m16n8 fragment layout.
-// - tiles are copied to shared memory as fp32 (bf16 widened on the way) with
-//   16-byte loads from the caller's (B, S, H, D) strides; rows past either
+// - tiles are copied to shared memory with 16-byte loads from the caller's
+//   (B, S, H, D) strides; rows past either
 //   sequence end are zero-filled and their probabilities set to 0, which
 //   covers the 77-token kv without padding on the host. Rows that do not
 //   exist are never written. d = 40 runs S and dP over a depth of 48, the 8
 //   pad columns zero.
-// - in bf16, P and dS are rounded to bf16 before their products, as in the
-//   one-kernel route and the TPU kernels; the outputs are written in the
-//   input dtype.
 // - the dK/dV kernel stores P^T and dS^T in shared memory so the transposed
 //   products read a row-major A operand; the dQ kernel stores dS row-major.
 // - shared memory (fp32 tiles): up to 198 KB at d = 160, one block an SM.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -51,7 +45,6 @@
 
 namespace {
 
-using pso::from_float;
 using pso::tile_mma;
 
 constexpr float kMask = -1e30f;
@@ -75,13 +68,6 @@ struct Params {
 
 namespace fma {
 
-// x rounded to T and back: P and dS enter their products in the input dtype
-template <typename T> __device__ __forceinline__ float round_to(float x);
-template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 template <int HD>
 struct Cfg {
   static constexpr int DK = (HD + 15) / 16 * 16;  // S's and dP's depth: d = 40 zero-padded to 48
@@ -100,27 +86,18 @@ struct Cfg {
   static_assert(HD % (8 * WN) == 0, "head dim split");
 };
 
-// Copy rows [row0, row0 + rows) of one head (HD values of T each) into
-// fp32 rows of shared memory (leading dim ld), zero-filling rows at or
-// past n. 16-byte loads; the wrapper guarantees 16-byte aligned rows.
-template <typename T, int HD, int THREADS>
-__device__ __forceinline__ void load_tile_f32(float* dst, int ld, const T* src,
+// Copy rows [row0, row0 + rows) of one head (HD fp32 values each) into
+// shared memory (leading dim ld), zero-filling rows at or past n. 16-byte
+// loads; the wrapper guarantees 16-byte aligned rows.
+template <int HD, int THREADS>
+__device__ __forceinline__ void load_tile_f32(float* dst, int ld, const float* src,
                                               long long row_stride, int row0, int rows, int n) {
-  constexpr int VEC = 16 / sizeof(T), CHUNKS = HD / VEC;
+  constexpr int CHUNKS = HD / 4;
   for (int i = threadIdx.x; i < rows * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * VEC;
-    float* out = dst + r * ld + c;
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 4;
     uint4 u = make_uint4(0, 0, 0, 0);
     if (row0 + r < n) u = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-    if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<uint4*>(out) = u;
-    } else {
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-      const float2 a = __bfloat1622float2(h2[0]), b = __bfloat1622float2(h2[1]);
-      const float2 c2 = __bfloat1622float2(h2[2]), d2 = __bfloat1622float2(h2[3]);
-      reinterpret_cast<float4*>(out)[0] = make_float4(a.x, a.y, b.x, b.y);
-      reinterpret_cast<float4*>(out)[1] = make_float4(c2.x, c2.y, d2.x, d2.y);
-    }
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = u;
   }
 }
 
@@ -176,9 +153,9 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* di_s, const Param
 }
 
 // Write a warp's 16 x (8 N) fp32 accumulator (rows row0.., columns col0..,
-// fragment layout) to dst rows < n in T.
-template <typename T, int N>
-__device__ __forceinline__ void store_rows(T* dst, long long row_stride, const float (&acc)[N][4],
+// fragment layout) to dst rows < n.
+template <int N>
+__device__ __forceinline__ void store_rows(float* dst, long long row_stride, const float (&acc)[N][4],
                                            int row0, int col0, int n, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -187,9 +164,9 @@ __device__ __forceinline__ void store_rows(T* dst, long long row_stride, const f
     if (r >= n) continue;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      T* out = dst + (long long)r * row_stride + col0 + j * 8 + 2 * t;
-      out[0] = from_float<T>(acc[j][half * 2]);
-      out[1] = from_float<T>(acc[j][half * 2 + 1]);
+      float* out = dst + (long long)r * row_stride + col0 + j * 8 + 2 * t;
+      out[0] = acc[j][half * 2];
+      out[1] = acc[j][half * 2 + 1];
     }
   }
 }
@@ -197,7 +174,7 @@ __device__ __forceinline__ void store_rows(T* dst, long long row_stride, const f
 // K2: one block per (kv tile of BN rows, batch*head); loops over q tiles.
 // Warp w owns rows 16 (w % 4).. of S / dP (columns 64 / WN (w / 4)..) and
 // kv rows 16 (w % 4).. of dK / dV (columns HD / WN (w / 4)..).
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(Cfg<HD>::THREADS) flash_bwd_dkv_kernel(Params p) {
   using C = Cfg<HD>;
   constexpr int LDT = C::LDT, LDX = C::LDX, THREADS = C::THREADS;
@@ -217,14 +194,14 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS) flash_bwd_dkv_kernel(Params 
   const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
   const int k0 = blockIdx.x * BN;
 
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dob = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
 
   zero_pad<HD, THREADS>(Ks, Vs, Qs, dOs, 64);
-  load_tile_f32<T, HD, THREADS>(Ks, LDT, kb, p.k_ss, k0, BN, p.skv);
-  load_tile_f32<T, HD, THREADS>(Vs, LDT, vb, p.v_ss, k0, BN, p.skv);
+  load_tile_f32<HD, THREADS>(Ks, LDT, kb, p.k_ss, k0, BN, p.skv);
+  load_tile_f32<HD, THREADS>(Vs, LDT, vb, p.v_ss, k0, BN, p.skv);
 
   float dk[C::NTD][4], dv[C::NTD][4];
 #pragma unroll
@@ -236,8 +213,8 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS) flash_bwd_dkv_kernel(Params 
   for (int qt = 0; qt < n_q; ++qt) {
     const int q0 = qt * BM;
     __syncthreads();  // the previous tile's readers of Qs / dOs / Pt / dSt are done
-    load_tile_f32<T, HD, THREADS>(Qs, LDT, qb, p.q_ss, q0, BM, p.sq);
-    load_tile_f32<T, HD, THREADS>(dOs, LDT, dob, p.do_ss, q0, BM, p.sq);
+    load_tile_f32<HD, THREADS>(Qs, LDT, qb, p.q_ss, q0, BM, p.sq);
+    load_tile_f32<HD, THREADS>(dOs, LDT, dob, p.do_ss, q0, BM, p.sq);
     load_rows(lse_s, di_s, p, bh, q0);
     __syncthreads();
 
@@ -255,8 +232,8 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS) flash_bwd_dkv_kernel(Params 
           pr = __expf(sv - lse_s[r]);
           ds = pr * (dp[j][e] - di_s[r]) * p.scale;
         }
-        Pt[c * LDX + r] = round_to<T>(pr);
-        dSt[c * LDX + r] = round_to<T>(ds);
+        Pt[c * LDX + r] = pr;
+        dSt[c * LDX + r] = ds;
       }
     }
     __syncthreads();
@@ -273,16 +250,16 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS) flash_bwd_dkv_kernel(Params 
     }
   }
 
-  T* dkb = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  T* dvb = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
-  store_rows<T, C::NTD>(dkb, p.dk_ss, dk, k0 + wm * 16, wn * (HD / C::WN), p.skv, lane);
-  store_rows<T, C::NTD>(dvb, p.dv_ss, dv, k0 + wm * 16, wn * (HD / C::WN), p.skv, lane);
+  float* dkb = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  float* dvb = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  store_rows<C::NTD>(dkb, p.dk_ss, dk, k0 + wm * 16, wn * (HD / C::WN), p.skv, lane);
+  store_rows<C::NTD>(dvb, p.dv_ss, dv, k0 + wm * 16, wn * (HD / C::WN), p.skv, lane);
 }
 
 // K3: one block per (q tile of BM rows, batch*head); loops over kv tiles.
 // Warp w owns rows 16 (w % 4).. of S / dP (columns 64 / WN (w / 4)..) and
 // q rows 16 (w % 4).. of dQ (columns HD / WN (w / 4)..).
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(Cfg<HD>::THREADS) flash_bwd_dq_kernel(Params p) {
   using C = Cfg<HD>;
   constexpr int LDT = C::LDT, LDS = C::LDS, THREADS = C::THREADS;
@@ -301,14 +278,14 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS) flash_bwd_dq_kernel(Params p
   const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
   const int q0 = blockIdx.x * BM;
 
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dob = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
 
   zero_pad<HD, THREADS>(Qs, dOs, Ks, Vs, 64);
-  load_tile_f32<T, HD, THREADS>(Qs, LDT, qb, p.q_ss, q0, BM, p.sq);
-  load_tile_f32<T, HD, THREADS>(dOs, LDT, dob, p.do_ss, q0, BM, p.sq);
+  load_tile_f32<HD, THREADS>(Qs, LDT, qb, p.q_ss, q0, BM, p.sq);
+  load_tile_f32<HD, THREADS>(dOs, LDT, dob, p.do_ss, q0, BM, p.sq);
   load_rows(lse_s, di_s, p, bh, q0);
 
   float dq[C::NTD][4];
@@ -321,8 +298,8 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS) flash_bwd_dq_kernel(Params p
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * BN;
     __syncthreads();  // the previous tile's readers of Ks / Vs / dSs are done
-    load_tile_f32<T, HD, THREADS>(Ks, LDT, kb, p.k_ss, k0, BN, p.skv);
-    load_tile_f32<T, HD, THREADS>(Vs, LDT, vb, p.v_ss, k0, BN, p.skv);
+    load_tile_f32<HD, THREADS>(Ks, LDT, kb, p.k_ss, k0, BN, p.skv);
+    load_tile_f32<HD, THREADS>(Vs, LDT, vb, p.v_ss, k0, BN, p.skv);
     __syncthreads();
 
     float s[C::NTS][4], dp[C::NTS][4];
@@ -338,7 +315,7 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS) flash_bwd_dq_kernel(Params p
           const float sv = (k0 + c < p.skv) ? s[j][e] * p.scale : kMask;
           ds = __expf(sv - lse_s[r]) * (dp[j][e] - di_s[r]) * p.scale;
         }
-        dSs[r * LDS + c] = round_to<T>(ds);
+        dSs[r * LDS + c] = ds;
       }
     }
     __syncthreads();  // a dS row's columns come from the WN warps of its row group
@@ -354,27 +331,27 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS) flash_bwd_dq_kernel(Params p
     }
   }
 
-  T* dqb = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  store_rows<T, C::NTD>(dqb, p.dq_ss, dq, q0 + wm * 16, wn * (HD / C::WN), p.sq, lane);
+  float* dqb = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  store_rows<C::NTD>(dqb, p.dq_ss, dq, q0 + wm * 16, wn * (HD / C::WN), p.sq, lane);
 }
 
 // K2 then K3 on the stream.
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   using C = Cfg<HD>;
   // once per instantiation: the host's launch rate bounds the update
   static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_DKV);
+      flash_bwd_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_DKV);
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_DQ);
+      flash_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_DQ);
   if (attr_dkv != cudaSuccess) return attr_dkv;
   if (attr_dq != cudaSuccess) return attr_dq;
   const unsigned bh = (unsigned)(batch * p.heads);
-  flash_bwd_dkv_kernel<T, HD>
+  flash_bwd_dkv_kernel<HD>
       <<<dim3((p.skv + BN - 1) / BN, bh), C::THREADS, C::SMEM_DKV, stream>>>(p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<T, HD><<<dim3((p.sq + BM - 1) / BM, bh), C::THREADS, C::SMEM_DQ, stream>>>(p);
+  flash_bwd_dq_kernel<HD><<<dim3((p.sq + BM - 1) / BM, bh), C::THREADS, C::SMEM_DQ, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -384,8 +361,8 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = bfloat16 (d = 40, 80 or 160), 1 = float32 (d = 40, 64, 80 or
-// 160); any other is refused. The signature of flash_attn_bwd.cu's entry
+// dtype: 1 = float32 (d = 40, 64, 80 or 160); any other is refused (bf16
+// takes flash_attn_bwd.cu). The signature of flash_attn_bwd.cu's entry
 // of the same name: acc and q_chunk are unused here (dq, dk and dv are
 // written, no accumulator). q, k, v, dout, dq, dk, dv are (B, S, H, d)
 // views (strides in elements, last dim contiguous); lse and di (B*H, Sq)
@@ -410,15 +387,11 @@ int flash_attn_bwd(int dtype, int d, const void* q, const void* k, const void* v
   p.dv_sb = dv_sb, p.dv_ss = dv_ss, p.dv_sh = dv_sh;
   p.heads = heads, p.sq = sq, p.skv = skv, p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (d == 40) return fma::launch<__nv_bfloat16, 40>(p, batch, s);
-    if (d == 80) return fma::launch<__nv_bfloat16, 80>(p, batch, s);
-    if (d == 160) return fma::launch<__nv_bfloat16, 160>(p, batch, s);
-  } else if (dtype == 1) {
-    if (d == 40) return fma::launch<float, 40>(p, batch, s);
-    if (d == 64) return fma::launch<float, 64>(p, batch, s);
-    if (d == 80) return fma::launch<float, 80>(p, batch, s);
-    if (d == 160) return fma::launch<float, 160>(p, batch, s);
+  if (dtype == 1) {
+    if (d == 40) return fma::launch<40>(p, batch, s);
+    if (d == 64) return fma::launch<64>(p, batch, s);
+    if (d == 80) return fma::launch<80>(p, batch, s);
+    if (d == 160) return fma::launch<160>(p, batch, s);
   }
   return (int)cudaErrorInvalidValue;
 }

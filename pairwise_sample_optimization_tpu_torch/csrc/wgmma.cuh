@@ -1,6 +1,6 @@
 // Hopper warpgroup-product helpers shared by the flash-attention kernels
 // built on wgmma (the bf16 forward at head dims 40, 64, 80, 160 and 512,
-// the bf16 backward at 64): the swizzled shared-memory layouts that cp.async
+// the bf16 backward at 40, 64, 80 and 160): the swizzled shared-memory layouts that cp.async
 // writes and wgmma reads, the shared-memory matrix descriptors, the wgmma
 // instructions and the fences around them, and the bulk reductions that
 // add a shared-memory tile into global memory.
@@ -51,16 +51,18 @@ struct RowBlocks {
 // head dim that is not a multiple of 16, are zero-filled, their source
 // clamped to a real address. A copy of more than 8 chunks a thread (the
 // d = 512 tiles) is unrolled by 4 only: fully unrolled, its addresses would
-// take registers from the 128 of O that stay live across it.
+// take registers from the 128 of O that stay live across it. Where the
+// threads do not divide the tile's chunks (64 rows of d = 40 or 80 over 256
+// threads) the last round's surplus threads copy nothing.
 template <int D, int ROWS, int NTHREADS>
 __device__ __forceinline__ void copy_rows_swz(uint32_t dst, const __nv_bfloat16* src,
                                               long long row_stride, int row0, int n) {
   using RB = RowBlocks<D>;
-  constexpr int FULL = RB::FULL, SLOTS = RB::SLOTS;
-  constexpr int ITERS = ROWS * SLOTS / NTHREADS;
-  static_assert((ROWS * SLOTS) % NTHREADS == 0, "copy split");
+  constexpr int FULL = RB::FULL, SLOTS = RB::SLOTS, TOTAL = ROWS * SLOTS;
+  constexpr int ITERS = (TOTAL + NTHREADS - 1) / NTHREADS;
   auto chunk = [&](int it) {
     const unsigned i = threadIdx.x + it * NTHREADS;  // unsigned: / and % fold to shifts
+    if (TOTAL % NTHREADS != 0 && i >= (unsigned)TOTAL) return;
     const int r = i / SLOTS, c = i % SLOTS;
     const int row = row0 + r, src_row = row < n ? row : n - 1, blk = c >> 3;
     const int tb = RB::TAILS > 1 ? (c - 8 * FULL) >> 1 : 0;  // 32-byte block of a tail chunk
@@ -92,12 +94,13 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo_bytes,
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes) {
   return smem_desc(addr, lbo_bytes, 1024, 1);
 }
-__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
-  return smem_desc(addr, 256, 256, 3);
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lbo_bytes = 256) {
+  return smem_desc(addr, lbo_bytes, 256, 3);
 }
 // Advancing a K-major descriptor by one k-step of 16 values (32 bytes of a
 // row) adds 2; an MN-major one by 16 rows adds 128 (128-byte rows) or 32
-// (32-byte rows), all in 16-byte units.
+// (32-byte rows), all in 16-byte units. An MN-major operand of several
+// 16-column blocks (n = 48) gives their distance as the leading offset.
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -203,6 +206,49 @@ __device__ __forceinline__ void wgmma_rs_mn_n16(float (&c)[2][4], const uint32_t
         "+f"(c[1][1]), "+f"(c[1][2]), "+f"(c[1][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// The same with n = 16 (a 32-byte-swizzled B block).
+__device__ __forceinline__ void wgmma_ss_tt_n16(float (&c)[2][4], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]), "+f"(c[1][0]),
+        "+f"(c[1][1]), "+f"(c[1][2]), "+f"(c[1][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// n = 48 over three 32-byte-swizzled B blocks of 16 columns (d = 40's row),
+// read MN-major through one descriptor whose leading byte offset is the
+// distance between the blocks: A from registers, or MN-major in shared memory.
+#define PSO_ACC24(c)                                                                       \
+  "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]), "+f"(c[1][0]), "+f"(c[1][1]), \
+      "+f"(c[1][2]), "+f"(c[1][3]), "+f"(c[2][0]), "+f"(c[2][1]), "+f"(c[2][2]),            \
+      "+f"(c[2][3]), "+f"(c[3][0]), "+f"(c[3][1]), "+f"(c[3][2]), "+f"(c[3][3]),            \
+      "+f"(c[4][0]), "+f"(c[4][1]), "+f"(c[4][2]), "+f"(c[4][3]), "+f"(c[5][0]),            \
+      "+f"(c[5][1]), "+f"(c[5][2]), "+f"(c[5][3])
+__device__ __forceinline__ void wgmma_rs_mn_n48(float (&c)[6][4], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23}, "
+      "{%24,%25,%26,%27}, %28, p, 1, 1, 1;\n}\n"
+      : PSO_ACC24(c)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_ss_tt_n48(float (&c)[6][4], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23}, "
+      "%24, %25, p, 1, 1, 1, 1;\n}\n"
+      : PSO_ACC24(c)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+#undef PSO_ACC24
 
 // Keep the compiler from moving reads or writes of an accumulator across
 // the asynchronous wgmma that owns it.

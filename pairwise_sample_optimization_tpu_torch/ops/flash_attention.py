@@ -15,14 +15,12 @@ raises. The forward takes head dims ``HEAD_DIMS``: 64 (the SDXL UNet), 80
 (the ViT-H/14 scorers), 512 (the VAE mid-block), 40 and 160 (the SD1.5
 UNet's 8 fixed heads over 320 and 1280 channels; 80 over 640).
 :class:`FlashAttentionFunction` runs the forward (K1) and saves q, k, v, o
-and the logsumexp; its backward takes head dims ``BWD_HEAD_DIMS``. At 64 in
-bf16 it takes three launches: the pre kernel (Di = rowsum(O * dO), the
-fp32 accumulators zeroed), one kernel that computes dQ, dK and dV (in
-place of K2 and K3; dQ summed over kv tiles into an fp32 accumulator) and
-the post kernel (the accumulators to bf16). fp32 at 64, and either dtype
-at 40, 80 and 160, run the pre kernel and the two-kernel path (K2 then
-K3 as the TPU has them, fp32 arithmetic, P and dS rounded to the input
-dtype before their products).
+and the logsumexp; its backward takes head dims ``BWD_HEAD_DIMS``. In bf16
+it takes three launches: the pre kernel (Di = rowsum(O * dO), the fp32
+accumulators zeroed), one kernel that computes dQ, dK and dV (in place of
+K2 and K3; dQ summed over blocks of kv rows into an fp32 accumulator) and
+the post kernel (the accumulators to bf16). fp32 runs the pre kernel and
+the two-kernel path (K2 then K3 as the TPU has them, fp32 arithmetic).
 """
 
 from __future__ import annotations
@@ -43,17 +41,18 @@ _SIGNATURES = {
 _BWD_SIGNATURES = {
     "flash_attn_bwd_pre": [_I, _I] + [_P] * 4 + [_LL] * 7 + [_I, _I, _I, _P],
     "flash_attn_bwd": [_I, _I] + [_P] * 10 + [_LL] * 21 + [_I] * 5 + [_F, _P],
-    "flash_attn_bwd_post": [_P] * 4 + [_LL] * 9 + [_I] * 6 + [_P],
+    "flash_attn_bwd_post": [_I] + [_P] * 4 + [_LL] * 9 + [_I] * 6 + [_P],
 }
 # the two-kernel backward's library: an entry of the same name and signature
 _BWD_FMA_SIGNATURES = {"flash_attn_bwd": _BWD_SIGNATURES["flash_attn_bwd"]}
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 HEAD_DIMS = (40, 64, 80, 160, 512)
 BWD_HEAD_DIMS = (40, 64, 80, 160)
-BWD_ONE_KERNEL_DIM = 64  # the bf16 head dim of the one-kernel backward; others two kernels
 TILE = 64  # the backward kernels' q and kv tile
-BWD_KV_ROWS = 128  # kv rows a block of the bf16 backward kernel (two warpgroups of 64)
-BWD_BLOCKS_PER_SM = 1  # its blocks an SM (147 KB of shared memory, 256 threads)
+# kv rows a block of the bf16 backward kernel by head dim: two warpgroups of 64
+# rows, or at 160 two that share 64 rows and split the columns
+BWD_KV_ROWS = {40: 128, 64: 128, 80: 128, 160: 64}
+BWD_BLOCKS_PER_SM = 1  # its blocks an SM (115-219 KB of shared memory, 256 threads)
 
 
 def _scale(q, scale):
@@ -166,12 +165,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def bwd_plan(batch_heads: int, sq: int, skv: int, sms: int) -> tuple[int, int, int]:
-    """How the bf16 backward runs at these lengths on a card of ``sms`` SMs:
-    (q tiles of ``TILE`` rows a block walks, rows of 64 fp32 values per
-    batch*head of dQ's accumulator, of dK's and of dV's).
+def bwd_plan(batch_heads: int, sq: int, skv: int, sms: int, d: int = 64) -> tuple[int, int, int]:
+    """How the bf16 backward runs at these lengths and head dim ``d`` on a
+    card of ``sms`` SMs: (q tiles of ``TILE`` rows a block walks, rows of
+    d fp32 values per batch*head of dQ's accumulator, of dK's and of dV's).
 
-    One block runs per (``BWD_KV_ROWS`` kv rows, chunk of q tiles,
+    One block runs per (``BWD_KV_ROWS[d]`` kv rows, chunk of q tiles,
     batch*head). A block walks all the q tiles, unless one block per (kv
     rows, batch*head) would leave the card under one wave (the 77-key
     cross-attention has one block of kv rows): then chunks sized for about
@@ -180,33 +179,40 @@ def bwd_plan(batch_heads: int, sq: int, skv: int, sms: int) -> tuple[int, int, i
     dK and dV have accumulators only where the q loop is split. The post
     kernel runs where any accumulator does."""
     n_q, n_kv = -(-sq // TILE), -(-skv // TILE)
-    blocks, wave = -(-skv // BWD_KV_ROWS) * batch_heads, BWD_BLOCKS_PER_SM * sms
+    kv_rows = BWD_KV_ROWS[d]
+    blocks, wave = -(-skv // kv_rows) * batch_heads, BWD_BLOCKS_PER_SM * sms
     q_chunk = n_q if blocks >= wave else -(-n_q // min(n_q, -(-2 * wave // blocks)))
-    dq_rows = n_q * TILE if skv > BWD_KV_ROWS else 0
+    dq_rows = n_q * TILE if skv > kv_rows else 0
     return q_chunk, dq_rows, n_kv * TILE if q_chunk < n_q else 0
 
 
-def _acc_chunk_perm():
-    """Index of the 16-byte chunk stored at each place of an accumulator tile
-    row: chunk c of row r sits at c ^ 2 (r % 8) (``acc_off`` in the source)."""
+def acc_tile_index(d: int):
+    """(TILE, d) long: where each element of a 64-row accumulator tile of d
+    fp32 columns is stored, as an index into the tile's flat floats
+    (``acc_off`` in the source): the tile's 64-column blocks first, each 64
+    rows of 256 bytes with 8-column group j of row r at group j ^ (r % 8),
+    then its remaining 8-column groups, each 64 rows of 32 bytes."""
     r = torch.arange(TILE)[:, None]
-    return torch.arange(16)[None, :] ^ ((r % 8) * 2)
+    j, e = torch.arange(d)[None, :] // 8, torch.arange(d)[None, :] % 8
+    full = d // 64
+    in_block = (j // 8) * TILE * 64 + r * 64 + ((j % 8) ^ (r % 8)) * 8 + e
+    in_groups = full * TILE * 64 + (j - 8 * full) * TILE * 8 + r * 8 + e
+    return torch.where(j < 8 * full, in_block, in_groups)
 
 
 def bwd_post_plain(acc, dq, dk, dv, with_q: bool, with_kv: bool):
     """The post kernel's plain version: the fp32 accumulator tiles (64 rows
-    of 256 bytes, each row's 16-byte chunks permuted as the kernel stores
-    them) written into ``dq`` (``with_q``) and ``dk``, ``dv``
-    (``with_kv``), (B, S, H, D) in their dtype."""
+    of d values, stored as :func:`acc_tile_index` says) written into ``dq``
+    (``with_q``) and ``dk``, ``dv`` (``with_kv``), (B, S, H, d) in their
+    dtype."""
     b, sq, h, d = dq.shape
     skv = dk.shape[1]
     n_q, n_kv = -(-sq // TILE), -(-skv // TILE)
-    place = _acc_chunk_perm().to(acc.device)  # place[r, c] = where chunk c of row r is
+    place = acc_tile_index(d).to(acc.device).reshape(-1)  # where element (r, c) of a tile is
 
     def decode(flat, tiles, n, out):
-        t = flat.view(b * h, tiles, TILE, 16, 4)
-        idx = place[None, None, :, :, None].expand(b * h, tiles, TILE, 16, 4)
-        rows = torch.gather(t, 3, idx).reshape(b, h, tiles * TILE, d)[:, :, :n]
+        t = flat.view(b * h, tiles, TILE * d)[:, :, place]
+        rows = t.reshape(b, h, tiles * TILE, d)[:, :, :n]
         out.copy_(rows.transpose(1, 2))
 
     q_part = b * h * n_q * TILE * d if with_q else 0
@@ -233,16 +239,14 @@ def flash_attention_bwd_pre(o, do, acc):
 
 
 def flash_attention_bwd_main(q, k, v, do, lse, di, acc, q_chunk: int, scale):
-    """Kernel: the backward from Di -> (dq, dk, dv). bf16 at head dim 64:
-    as :func:`bwd_plan` says, dQ is added into ``acc`` (and dq left for the
+    """Kernel: the backward from Di -> (dq, dk, dv). bf16: as
+    :func:`bwd_plan` says, dQ is added into ``acc`` (and dq left for the
     post kernel) or written, and dK and dV are added into ``acc`` where
-    ``q_chunk`` splits the q loop, else written. fp32, and other head dims:
-    all three written (the two-kernel path; ``acc`` and ``q_chunk``
-    unused)."""
+    ``q_chunk`` splits the q loop, else written. fp32: all three written
+    (the two-kernel path; ``acc`` and ``q_chunk`` unused)."""
     b, sq, h, d = q.shape
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
-    one_kernel = q.dtype == torch.bfloat16 and d == BWD_ONE_KERNEL_DIM
-    lib = (kernel_lib.load("flash_attn_bwd", _BWD_SIGNATURES) if one_kernel
+    lib = (kernel_lib.load("flash_attn_bwd", _BWD_SIGNATURES) if q.dtype == torch.bfloat16
            else kernel_lib.load("flash_attn_bwd_fma", _BWD_FMA_SIGNATURES))
     rc = lib.flash_attn_bwd(
         _DTYPES[q.dtype], d, *[t.data_ptr() for t in (q, k, v, do, lse, di, dq, dk, dv, acc)],
@@ -255,9 +259,9 @@ def flash_attention_bwd_main(q, k, v, do, lse, di, acc, q_chunk: int, scale):
 
 def flash_attention_bwd_post(acc, dq, dk, dv, with_q: bool, with_kv: bool):
     """Kernel (bf16): :func:`bwd_post_plain` on the card."""
-    b, sq, h, _ = dq.shape
+    b, sq, h, d = dq.shape
     lib = kernel_lib.load("flash_attn_bwd", _BWD_SIGNATURES)
-    rc = lib.flash_attn_bwd_post(acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+    rc = lib.flash_attn_bwd_post(d, acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                                  *_strides(dq, dk, dv), b, h, sq, dk.shape[1], int(with_q),
                                  int(with_kv), kernel_lib.stream_ptr(dq.device))
     kernel_lib.check(lib, rc, "flash_attn_bwd_post")
@@ -269,17 +273,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: Optional[float] = None):
     upstream gradient ``do``, from the forward's ``lse``.
     :func:`flash_attention_bwd_plain` on a CPU tensor; on a CUDA one the
     pre kernel (Di, the accumulators zeroed), the backward kernel and, in
-    bf16 at head dim 64 where :func:`bwd_plan` gives an accumulator, the
-    post kernel (the fp32 accumulators to bf16). A ``do`` view the kernels
-    cannot read is copied to a contiguous tensor first."""
+    bf16 where :func:`bwd_plan` gives an accumulator, the post kernel (the
+    fp32 accumulators to bf16). A ``do`` view the kernels cannot read is
+    copied to a contiguous tensor first."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
     if not _takes_layout(do):
         do = do.contiguous()
     _check_bwd(q, k, v, o, do, lse)
     b, sq, h, d = q.shape
-    if q.dtype == torch.bfloat16 and d == BWD_ONE_KERNEL_DIM:
-        q_chunk, dq_rows, kv_rows = bwd_plan(b * h, sq, k.shape[1], _sm_count(q.device.index or 0))
+    if q.dtype == torch.bfloat16:
+        q_chunk, dq_rows, kv_rows = bwd_plan(b * h, sq, k.shape[1],
+                                             _sm_count(q.device.index or 0), d)
     else:
         q_chunk, dq_rows, kv_rows = -(-sq // TILE), 0, 0
     acc = torch.empty((b * h * (dq_rows + 2 * kv_rows) * d,), dtype=torch.float32,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Check and time the port's bf16 flash-attention kernels at the attention
 shapes of the SDXL-Turbo online loop, of the SDXL-DMD2 loop and eval at
-1024^2, and at the ragged lengths of ``chip_smoke.RAGGED`` and
-``chip_smoke.RAGGED_FWD``, on one CUDA card.
+1024^2, of the SD1.x rollout and gradient at 512^2 (head dims 40, 80, 160),
+and at the ragged lengths of ``chip_smoke.RAGGED``, ``chip_smoke.RAGGED_FWD``
+and ``chip_smoke.RAGGED_SD15``, on one CUDA card.
 
     python3 scripts/time_port_attention.py [--root DIR] [--tag NAME] [--seed N]
 
@@ -11,8 +12,8 @@ is imported and built (default: this one), so that two versions of the
 kernels can be timed in one call on one card, in turns (parent, change,
 change, parent). The limits, the timer and the bounds are this checkout's
 ``chip_smoke.py`` (``fwd_tolerance``, ``grad_tolerance``, ``timed_ms``,
-``bound``, ``_bwd_bounds``). At head dim 64 it runs K1 and the backward;
-at PickScore's 80 and the VAE's 512 (forward only) K1. For each shape it
+``bound``, ``_bwd_bounds``). At head dims 40, 64, 80 and 160 it runs K1
+and the backward; at PickScore's 80 and the VAE's 512 (forward only) K1. For each shape it
 prints each check's share of its limit, K1's CUDA-event device ms beside
 its bound and SDPA's forward, and for the backward: each of its kernels'
 ms (this version's pre / backward / post kernels, or an older checkout's
@@ -22,7 +23,8 @@ casts included) beside the function's bound (five products of
 products), and SDPA's backward (autograd, dQ + dK + dV); then
 launch-weighted means over each path's shapes (Turbo: one epoch of the
 loop; DMD2: one epoch of the loop and one 8-prompt eval run, the runs
-``chip_smoke.py`` drives). Everything goes to
+``chip_smoke.py`` drives; SD1.x: ``chip_smoke.sd15_slice``'s rollout and
+gradient, the backward's means also per head dim). Everything goes to
 ``time_port_attention_<tag>.json`` in the output directory that
 ``chip_smoke.py`` writes its record to. It exits non-zero if any check
 failed.
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import math
 import subprocess
@@ -54,6 +57,12 @@ DMD_PATH = (((4, 4096, 10, 64), 4096, 160, 0), ((4, 4096, 10, 64), 77, 160, 0),
             ((4, 257, 16, 80), 257, 128, 0), ((2, 257, 16, 80), 257, 384, 0),
             ((2, 257, 16, 64), 257, 96, 0), ((4, 16384, 1, 512), 16384, 4, 0),
             ((2, 16384, 1, 512), 16384, 4, 0))
+# the same for ``chip_smoke.sd15_slice``: 20 rollout steps and the gradient's 2
+# UNet calls at batch 4 (2 prompts with CFG), 5 transformer blocks a level and
+# the mid block's one; the gradient's 2 backward calls
+SD15_PATH = tuple((q, skv, 22 * n, 2 * n) for q, n in (
+    ((4, 4096, 8, 40), 5), ((4, 1024, 8, 80), 5), ((4, 256, 8, 160), 5), ((4, 64, 8, 160), 1))
+    for skv in (q[1], 77))
 
 
 def _smoke():
@@ -84,9 +93,11 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"[{args.tag}] {card}; kernels from {kernel_lib.CSRC}", flush=True)
-    build_s = kernel_lib.build(["flash_attn_fwd", "flash_attn_bwd"])
+    libs = [n for n in ("flash_attn_fwd", "flash_attn_bwd", "flash_attn_bwd_fma")
+            if n in kernel_lib.SOURCES]
+    build_s = kernel_lib.build(libs)
     ptxas = []
-    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+    for name in libs:
         for line in kernel_lib._lib_path(name).with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 ptxas.append(f"{name}: {line.strip()}")
@@ -97,7 +108,12 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     bf16 = torch.bfloat16
     cases = ([("turbo",) + c for c in MAIN_PATH] + [("dmd",) + c for c in DMD_PATH]
-             + [("ragged", qs, skv, 0, 0) for qs, skv in cs.RAGGED + cs.RAGGED_FWD])
+             + [("sd15",) + c for c in SD15_PATH]
+             + [("ragged", qs, skv, 0, 0) for qs, skv in cs.RAGGED + cs.RAGGED_FWD
+                + cs.RAGGED_SD15])
+    # this checkout's plan by head dim, or an older one's: bf16 at d = 64 only
+    # (the two-kernel route elsewhere: no accumulator)
+    by_dim = "d" in inspect.signature(getattr(tfa, "bwd_plan", lambda *a: None)).parameters
     rows, failures = [], []
 
     def held(what, got, want, tol):
@@ -144,7 +160,12 @@ def main(argv=None) -> int:
             used.update({n: cs.tolerance_used(got[n], want[n], tol[n]) for n in got})
             kernels, acc_q, acc_kv = {}, True, False
             if hasattr(tfa, "bwd_plan"):  # the pre / backward / post kernels
-                q_chunk, dq_rows, kv_rows = tfa.bwd_plan(b * h, sq, skv, sms)
+                if by_dim:
+                    q_chunk, dq_rows, kv_rows = tfa.bwd_plan(b * h, sq, skv, sms, d)
+                elif d == 64:
+                    q_chunk, dq_rows, kv_rows = tfa.bwd_plan(b * h, sq, skv, sms)
+                else:
+                    q_chunk, dq_rows, kv_rows = -(-sq // 64), 0, 0
                 acc_q, acc_kv = bool(dq_rows), bool(kv_rows)
                 acc = torch.zeros(b * h * (dq_rows + 2 * kv_rows) * d, device="cuda")
                 di = tfa.flash_attention_bwd_pre(o, do, acc)
@@ -190,7 +211,7 @@ def main(argv=None) -> int:
         return sum(r[key] * r[weight] for r in subset) / sum(r[weight] for r in subset)
 
     means = {}
-    for path, prefix in (("turbo", ""), ("dmd", "dmd_")):
+    for path, prefix in (("turbo", ""), ("dmd", "dmd_"), ("sd15", "sd15_")):
         at_path = [r for r in rows if r["path"] == path]
         for d in sorted({r["q"][3] for r in at_path}):
             at_d = [r for r in at_path if r["q"][3] == d]
@@ -205,6 +226,11 @@ def main(argv=None) -> int:
             means[f"{prefix}{kern}_kernel_ms"] = sum(
                 r["kernel_ms"].get(kern, 0.0) * r["bwd_launches"] for r in bwd) / sum(
                 r["bwd_launches"] for r in bwd)
+        if path == "sd15":  # the backward per head dim
+            for d in sorted({r["q"][3] for r in bwd}):
+                means.update({f"{prefix}d{d}_{key}": mean(key, "bwd_launches",
+                                                          [r for r in bwd if r["q"][3] == d])
+                              for key in ("bwd_ms", "bwd_bound_ms", "sdpa_bwd_ms")})
     print(f"[{args.tag}] launch-weighted means over each path's shapes: "
           + ", ".join(f"{k} {v:.4f}" for k, v in means.items()), flush=True)
     out = ROOT / "chiprun_out"

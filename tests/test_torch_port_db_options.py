@@ -60,7 +60,7 @@ HP = dict(learning_rate=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=1e-
 NO_CLIP = math.inf  # the optimizers alone: the JAX transformations have no clip
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The shapes here are tiny: one intra-op thread is as fast, and does not
     oversubscribe the CPU when test files run in parallel workers."""

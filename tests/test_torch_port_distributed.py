@@ -57,7 +57,7 @@ EVAL_ARGS = ["--tiny", "--device", "cpu", "--max_prompts", "5", "--scorers", "pi
 LORA_ARGS = dict(learning_rate=1e-3)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The shapes here are tiny: one intra-op thread is as fast, and does not
     oversubscribe the CPU when test files run in parallel workers."""

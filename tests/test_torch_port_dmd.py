@@ -46,7 +46,7 @@ AC = make_alphas_cumprod()
 LATTICE = distill_timesteps(STEPS)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The shapes here are tiny: one intra-op thread is as fast, and does not
     oversubscribe the CPU when test files run in parallel workers."""

@@ -56,7 +56,7 @@ HP = dict(learning_rate=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=1e-
           max_grad_norm=1.0)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The shapes here are tiny: one intra-op thread is as fast, and does not
     oversubscribe the CPU when test files run in parallel workers."""

@@ -41,7 +41,7 @@ ATOL, RTOL = 3e-5, 2e-4
 STEPS, RES, PROMPTS = 4, 32, 3
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The shapes here are tiny: one intra-op thread is as fast, and does not
     oversubscribe the CPU when test files run in parallel workers."""

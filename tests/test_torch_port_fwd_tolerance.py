@@ -16,6 +16,7 @@ mid-block at 512 (one head, 1024 of its 4096 tokens); inputs are standard
 normal, as in the smoke's kernel phase.
 """
 
+import functools
 import importlib.util
 import math
 from pathlib import Path
@@ -29,6 +30,14 @@ from pairwise_sample_optimization_tpu_torch.ops import flash_attention as tfa
 
 ROOT = Path(__file__).resolve().parent.parent
 TILE = 64  # K1's kv tile
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -96,9 +105,17 @@ def _forward(q, k, v, fault=""):
     return o.transpose(1, 2).to(torch.bfloat16), lse
 
 
+@functools.lru_cache(maxsize=None)
 def _outputs(case, fault):
-    q, k, v = _inputs(case)
-    return _forward(q, k, v, fault), tfa.flash_attention_plain(q, k, v)
+    """(``fault``'s forward, the plain forward) at ``case``'s inputs; once a
+    (case, fault) for the module, the plain one once a case (no test
+    changes them)."""
+    return _forward(*_inputs(case), fault), _plain(case)
+
+
+@functools.lru_cache(maxsize=None)
+def _plain(case):
+    return tfa.flash_attention_plain(*_inputs(case))
 
 
 def _used(smoke, case, fault):

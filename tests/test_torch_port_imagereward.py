@@ -48,7 +48,7 @@ PROMPTS = [
 ]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The shapes here are tiny: one intra-op thread is as fast, and does not
     oversubscribe the CPU when test files run in parallel workers."""
@@ -168,7 +168,7 @@ def test_vit_matches_jax(checkpoint):
     js, port, _, _ = checkpoint
     images, _, _ = _inputs()
     pixels = j_preprocess(jnp.asarray(images), js.vit_config.image_size)
-    want = js.vit.apply(js.vit_variables, pixels)
+    want = jax.jit(js.vit.apply)(js.vit_variables, pixels)
     with torch.no_grad():
         got = port.vit(torch.from_numpy(np.array(pixels)).permute(0, 3, 1, 2).contiguous())
     assert got.shape == (B, 17, 32)
@@ -186,9 +186,9 @@ def test_bert_matches_jax(checkpoint, mode):
     ctx = np.random.default_rng(2).standard_normal((B, 17, 32)).astype(np.float32)
     m = None if mode.startswith("unmasked") else mask
     c = None if mode == "masked_without_context" else ctx
-    want = js.bert.apply(js.bert_variables, jnp.asarray(ids),
-                         None if m is None else jnp.asarray(m),
-                         None if c is None else jnp.asarray(c))
+    want = jax.jit(js.bert.apply)(js.bert_variables, jnp.asarray(ids),
+                                  None if m is None else jnp.asarray(m),
+                                  None if c is None else jnp.asarray(c))
     with torch.no_grad():
         got = port.bert(torch.from_numpy(ids).long(), None if m is None else torch.from_numpy(m),
                         None if c is None else torch.from_numpy(c))

@@ -28,7 +28,7 @@ from pairwise_sample_optimization_tpu_torch.models import unet as tunet
 RANK = 4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The shapes here are tiny: one intra-op thread is as fast, and does not
     oversubscribe the CPU when test files run in parallel workers."""

@@ -21,6 +21,14 @@ from pairwise_sample_optimization_tpu_torch.train import train_state as tts
 ATOL, RTOL = 3e-5, 2e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(got, want, atol=ATOL, rtol=RTOL):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=rtol)

@@ -61,7 +61,7 @@ HP = dict(learning_rate=1e-3, beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=1e-
 SELECTIVE = ("full", "resnets", "dots", "lowres", "lowres_dots")
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)

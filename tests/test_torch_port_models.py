@@ -27,6 +27,14 @@ from pairwise_sample_optimization_tpu_torch.models import vae as tvae
 ATOL, RTOL = 3e-5, 2e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(got, want):
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=RTOL)
 

@@ -51,7 +51,7 @@ HP = dict(learning_rate=1e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=1e-
           max_grad_norm=1.0)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The shapes here are tiny: one intra-op thread is as fast, and does not
     oversubscribe the CPU when test files run in parallel workers."""
@@ -650,6 +650,88 @@ def test_remat_modes_not_ported_raise():
     with pytest.raises(ValueError):
         tunet.SDXLUNet(dataclasses.replace(tunet.UNetConfig.tiny(), remat="bogus"),
                        device="cpu")
+
+
+def test_distilled_train_steps_resolve_as_the_jax_runner_does(monkeypatch):
+    """``train.distilled_train_steps`` of 0 or a missing key reads as
+    ``sample.num_steps - 1`` in ``run_online_pso`` of both packages: the
+    JAX runner is run up to its trainer config (its models, scorer,
+    tokenizers, data and global kernel switches stubbed out) and the port's
+    ``check_config`` and ``train_timesteps`` take the same configs; a wrong
+    value is refused by both, and the port's CLI check refuses 0 as JAX's
+    CLIs assert."""
+    import ml_collections
+    from pairwise_sample_optimization_tpu.cli import online_runner as jrun
+    from pairwise_sample_optimization_tpu.configs import sdxl_turbo_dpo as jcfg
+
+    class Resolved(Exception):
+        pass
+
+    def stop(**kw):
+        raise Resolved(kw["num_train_timesteps"])
+
+    pipe = type("Pipe", (), {"te1": type("TE", (), {"config": type("C", (), {"vocab_size": 8})})})
+    stubs = {"maybe_initialize_distributed": lambda: None, "enable_compilation_cache": lambda: None,
+             "set_default_impl": lambda *a: None, "set_use_pallas": lambda *a: None,
+             "set_use_subpixel": lambda *a: None, "set_use_int8_decode": lambda *a: None,
+             "set_int8_smooth_alpha": lambda *a: None, "set_gelu_exact": lambda *a: None}
+    import pairwise_sample_optimization_tpu.models.layers as jlayers
+    import pairwise_sample_optimization_tpu.ops.attention as jattn
+    import pairwise_sample_optimization_tpu.ops.group_norm as jgn
+    import pairwise_sample_optimization_tpu.ops.qconv as jq
+    import pairwise_sample_optimization_tpu.ops.upsample as jup
+    import pairwise_sample_optimization_tpu.parallel.multihost as jmh
+    import pairwise_sample_optimization_tpu.utils.cache as jcache
+    for mod in (jmh, jcache, jattn, jgn, jup, jq, jlayers):
+        for name, fn in stubs.items():
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, fn)
+    monkeypatch.setattr(jrun, "make_mesh", lambda spec: None)
+    monkeypatch.setattr(jrun.SDXLPipeline, "random", staticmethod(lambda **kw: pipe()))
+    monkeypatch.setattr(jrun, "PickScoreScorer", lambda **kw: None)
+    monkeypatch.setattr(jrun, "build_tokenizers", lambda config, vocab_size: (None,) * 3)
+    monkeypatch.setattr(jrun, "PromptDataset", lambda path: None)
+    monkeypatch.setattr(jrun, "PromptLoader", lambda *a, **kw: None)
+    monkeypatch.setattr(jrun, "OnlinePSOConfig", stop)
+
+    def jax_resolves(value):
+        config = jcfg.get_config()
+        config.tiny_model = True
+        if value is None:
+            with config.train.unlocked():
+                del config.train["distilled_train_steps"]
+        else:
+            config.train.distilled_train_steps = value
+        try:
+            jrun.run_online_pso(config, sampler="turbo", num_epochs=1)
+        except Resolved as r:
+            return r.args[0]
+        except AssertionError:
+            return "refused"
+
+    def port_resolves(value):
+        config = build_config(True)
+        if value is None:
+            del config.train["distilled_train_steps"]
+        else:
+            config.train.distilled_train_steps = value
+        try:
+            online_runner.check_config(config, "turbo")
+        except ValueError:
+            return "refused"
+        return online_runner.train_timesteps(config)
+
+    assert isinstance(jcfg.get_config(), ml_collections.ConfigDict)
+    steps = build_config(True).sample.num_steps
+    assert steps == jcfg.get_config().sample.num_steps == 4
+    for value, want in ((0, steps - 1), (None, steps - 1), (steps - 1, steps - 1),
+                        (steps, "refused")):
+        assert jax_resolves(value) == port_resolves(value) == want, value
+    config = build_config(True)
+    config.train.distilled_train_steps = 0
+    with pytest.raises(ValueError, match="distilled_train_steps"):
+        online_runner.check_cli_train_steps(config)
+    online_runner.check_cli_train_steps(build_config(True))
 
 
 def test_trainer_config_refusals():

@@ -25,6 +25,14 @@ from pairwise_sample_optimization_tpu_torch.ops.fused_groupnorm import fused_gro
 from pairwise_sample_optimization_tpu_torch.ops.group_norm import group_norm
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def interpret():
     jfa.set_interpret(True)

@@ -8,6 +8,7 @@ the init and per-step noise are drawn in JAX exactly as the JAX sampler
 draws them and handed to the port.
 """
 
+import contextlib
 import math
 
 import jax
@@ -22,6 +23,7 @@ from pairwise_sample_optimization_tpu.ops.schedules import make_euler_ancestral_
 from pairwise_sample_optimization_tpu.pipeline import SDXLPipeline as JPipeline
 from pairwise_sample_optimization_tpu.rewards import PickScoreScorer as JScorer
 from pairwise_sample_optimization_tpu.train.sampling import sample_turbo_trajectories
+from pairwise_sample_optimization_tpu.utils import init as jinit
 from pairwise_sample_optimization_tpu_torch.checkpoints import state_dict_from_jax
 from pairwise_sample_optimization_tpu_torch.pipeline import SDXLPipeline
 
@@ -34,6 +36,16 @@ def _ids(rng, vocab):
     for i, pos in enumerate(rng.integers(5, 70, size=PROMPTS)):
         ids[i, pos] = vocab - 1  # EOS: the highest id
     return ids
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the module (its fixture too): the towers are
+    tiny, so a thread pool costs more than it gives."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _fill(tree, rng, lora_b_std=0.0):
@@ -61,16 +73,28 @@ def _fill(tree, rng, lora_b_std=0.0):
     return jax.tree_util.tree_map_with_path(leaf, tree)
 
 
+@contextlib.contextmanager
+def _host_zero_init():
+    """``fast_init``'s zero-filled JAX params as host arrays: every tower
+    built under it is filled with numpy draws (``_fill``) at once, so the
+    device zero-fill program JAX would compile for each is not needed."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jinit, "zeros_from_shapes",
+                   lambda shapes: jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes))
+        yield
+
+
 @pytest.fixture(scope="module")
 def slices():
     rng = np.random.default_rng(0)
-    jp = JPipeline.random(tiny=True, resolution=RES, lora_rank=4, fast_init=True)
+    with _host_zero_init():
+        jp = JPipeline.random(tiny=True, resolution=RES, lora_rank=4, fast_init=True)
+        js = JScorer(text_config=CLIPTextConfig.tiny(), vision_config=CLIPVisionConfig.tiny(),
+                     fast_init=True)
     # LoRA B made non-zero so the adapter does work
     uvars = _fill(jp.unet_variables, rng, lora_b_std=0.2)
     for name in ("vae_variables", "te1_variables", "te2_variables"):
         setattr(jp, name, _fill(getattr(jp, name), rng))
-    js = JScorer(text_config=CLIPTextConfig.tiny(), vision_config=CLIPVisionConfig.tiny(),
-                 fast_init=True)
     js.variables = _fill(js.variables, rng)
     ids1, ids2 = _ids(rng, 1000), _ids(rng, 1000)
     reward_ids = _ids(rng, 1000)

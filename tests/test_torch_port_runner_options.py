@@ -32,7 +32,7 @@ from pairwise_sample_optimization_tpu_torch.utils.png import write_png
 FIXTURE = Path(__file__).parent / "fixtures" / "pickapic_test_unique_export"
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The shapes here are tiny: one intra-op thread is as fast, and does not
     oversubscribe the CPU when test files run in parallel workers."""

@@ -48,7 +48,7 @@ def _close(got, want, atol=ATOL, rtol=RTOL):
     np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=rtol)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -345,6 +345,16 @@ def interpret():
     jfa.set_interpret(False)
 
 
+def _jax_vjp(fn, primals, cotangent):
+    """(fn's output, its cotangents for ``cotangent``) at ``primals``, traced
+    and compiled as one jitted call (eagerly, the Pallas kernels' interpret
+    mode dispatches op by op)."""
+    def run(args, ct):
+        out, vjp = jax.vjp(fn, *args)
+        return out, vjp(ct)
+    return jax.jit(run)(tuple(map(jnp.asarray, primals)), jnp.asarray(cotangent))
+
+
 @pytest.mark.parametrize("d", [40, 80, 160])
 @pytest.mark.parametrize("skv", ["full", 77])
 def test_attention_plain_versions_match_the_pallas_kernels(interpret, d, skv):
@@ -358,14 +368,14 @@ def test_attention_plain_versions_match_the_pallas_kernels(interpret, d, skv):
     q, k, v = (r.standard_normal(s).astype(np.float32)
                for s in ((1, sq, 2, d), (1, skv, 2, d), (1, skv, 2, d)))
     do = r.standard_normal((1, sq, 2, d)).astype(np.float32)
-    o_j, vjp = jax.vjp(jfa.flash_attention, *map(jnp.asarray, (q, k, v)))
+    o_j, grads_j = _jax_vjp(jfa.flash_attention, (q, k, v), do)
     o_t, lse_t = tfa.flash_attention_fwd(*map(torch.from_numpy, (q, k, v)))
     _close(o_t, o_j)
     lse_x = jax.nn.logsumexp(jnp.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(d), axis=-1)
     _close(lse_t, lse_x)
     grads_t = tfa.flash_attention_bwd(*map(torch.from_numpy, (q, k, v)), o_t, lse_t,
                                       torch.from_numpy(do))
-    for got, want in zip(grads_t, vjp(jnp.asarray(do))):
+    for got, want in zip(grads_t, grads_j):
         _close(got, want)
 
 
@@ -395,15 +405,22 @@ def test_lora_gradient_matches_jax_grad(lora_pair):
 
 
 def test_new_head_dims_route_to_the_two_kernel_backward(monkeypatch):
-    """On a non-CPU tensor the backward at head dims 40, 80 and 160, in either
-    dtype, launches the pre kernel then the two-kernel path (no
-    accumulator, no post kernel), counted by head dim; head dim 48 raises
-    before any launch (meta tensors stand in for CUDA ones)."""
-    src = (kernel_lib.CSRC / kernel_lib.SOURCES["flash_attn_bwd_fma"]).read_text()
-    entry = src[src.index('extern "C" {'):]
-    params = entry[entry.index("int flash_attn_bwd("):]
-    assert params[:params.index(")")].count(",") + 1 == len(
-        tfa._BWD_FMA_SIGNATURES["flash_attn_bwd"])
+    """On a non-CPU tensor the backward at head dims 40, 80 and 160 launches
+    the pre kernel, then in bf16 the one-kernel backward of the
+    ``flash_attn_bwd`` library (and its post kernel where ``bwd_plan``
+    gives an accumulator: at 160, kv 77 is more than a block's 64 keys) and
+    in fp32 the two-kernel path of ``flash_attn_bwd_fma`` (no accumulator,
+    no post kernel), counted by head dim; head dim 48 raises before any
+    launch (meta tensors stand in for CUDA ones). The test keeps the name it
+    had while bf16 took the two-kernel path too."""
+    for name, sigs in (("flash_attn_bwd_fma", tfa._BWD_FMA_SIGNATURES),
+                       ("flash_attn_bwd", tfa._BWD_SIGNATURES)):
+        src = (kernel_lib.CSRC / kernel_lib.SOURCES[name]).read_text()
+        entry = src[src.index('extern "C" {'):]
+        params = entry[entry.index("int flash_attn_bwd("):]
+        assert params[:params.index(")")].count(",") + 1 == len(sigs["flash_attn_bwd"])
+    fma = (kernel_lib.CSRC / kernel_lib.SOURCES["flash_attn_bwd_fma"]).read_text()
+    assert "bfloat16" not in fma and "dtype == 1" in fma  # fp32 instances only
     calls, libs = [], []
 
     class Lib:
@@ -412,11 +429,13 @@ def test_new_head_dims_route_to_the_two_kernel_backward(monkeypatch):
 
     monkeypatch.setattr(kernel_lib, "load", lambda name, sigs: libs.append(name) or Lib())
     monkeypatch.setattr(kernel_lib, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(tfa, "_sm_count", lambda index: 132)  # an H100's
     q = torch.empty((2, 64, 2, 48), device="meta")
     with pytest.raises(ValueError, match="head dim 48"):
         tfa.flash_attention_fwd(q, q, q)
     monkeypatch.setattr(tfa, "_check", lambda *a: None)  # the device checks: meta tensors
     kernel_lib.reset_launch_counts()
+    want_calls, want_libs = [], []
     for d in (40, 80, 160):
         for dt in (torch.bfloat16, torch.float32):
             q = torch.empty((2, 64, 2, d), device="meta", dtype=dt)
@@ -424,11 +443,16 @@ def test_new_head_dims_route_to_the_two_kernel_backward(monkeypatch):
             lse = torch.empty((2, 2, 64), device="meta")
             tfa.flash_attention_fwd(q, k, k)
             tfa.flash_attention_bwd(q, k, k, torch.empty_like(q), lse, torch.empty_like(q))
-    assert calls == ["flash_attn_fwd", "flash_attn_bwd_pre", "flash_attn_bwd"] * 6
-    assert libs[2::3] == ["flash_attn_bwd_fma"] * 6  # the two-kernel route's own library
+            post = dt == torch.bfloat16 and d == 160
+            want_calls += ["flash_attn_fwd", "flash_attn_bwd_pre", "flash_attn_bwd"]
+            want_calls += ["flash_attn_bwd_post"] * post
+            main = "flash_attn_bwd" if dt == torch.bfloat16 else "flash_attn_bwd_fma"
+            want_libs += ["flash_attn_fwd", "flash_attn_bwd", main] + ["flash_attn_bwd"] * post
+    assert calls == want_calls
+    assert libs == want_libs
     assert kernel_lib.head_dim_launches == {(n, d): 2 for n in ("flash_attn_fwd",
                                                                "flash_attn_bwd")
                                             for d in (40, 80, 160)}
-    assert kernel_lib.launch_counts["flash_attn_bwd_post"] == 0
+    assert kernel_lib.launch_counts["flash_attn_bwd_post"] == 1
     kernel_lib.reset_launch_counts()
     assert not kernel_lib.head_dim_launches

@@ -67,7 +67,7 @@ SHARED_OPTS = ["sample.batch_size=1", "train.batch_size=1", "activation_checkpoi
                "offload_aux_during_update=True"]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -18,7 +18,9 @@ derives for its launch counts.
 
 import collections
 import dataclasses
+import functools
 import importlib.util
+import math
 from pathlib import Path
 
 import numpy as np
@@ -31,6 +33,14 @@ ROOT = Path(__file__).resolve().parent.parent
 TILE = 64  # the kernels' q and kv tile
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
@@ -39,10 +49,10 @@ def smoke():
     return cs
 
 
-def _inputs(skv, seed):
+def _inputs(skv, seed, d=64):
     r = np.random.default_rng(seed)
     return [torch.from_numpy(r.standard_normal(s).astype(np.float32)).to(torch.bfloat16)
-            for s in ((1, 1024, 4, 64), (1, skv, 4, 64), (1, skv, 4, 64), (1, 1024, 4, 64))]
+            for s in ((1, 1024, 4, d), (1, skv, 4, d), (1, skv, 4, d), (1, 1024, 4, d))]
 
 
 def _backward(q, k, v, o, lse, do, fault=""):
@@ -67,11 +77,19 @@ def _backward(q, k, v, o, lse, do, fault=""):
     return [t.to(torch.bfloat16) for t in (dq, dk, dv)]
 
 
-def _gradients(skv, fault):
-    q, k, v, do = _inputs(skv, seed=skv)
+@functools.lru_cache(maxsize=None)
+def _reference(skv, d=64):
+    """The inputs at kv length ``skv`` and head dim ``d`` (seeded by skv),
+    (q, k, v, o, lse, do), and the plain backward's gradients; once a
+    (skv, d) for the whole module (no test changes them)."""
+    q, k, v, do = _inputs(skv, seed=skv, d=d)
     o, lse = tfa.flash_attention_plain(q, k, v)
-    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)
-    return _backward(q, k, v, o, lse, do, fault), want
+    return (q, k, v, o, lse, do), tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+
+
+def _gradients(skv, fault):
+    inputs, want = _reference(skv)
+    return _backward(*inputs, fault), want
 
 
 def _held(smoke, skv, fault):
@@ -132,31 +150,40 @@ def test_bf16_backward_limit_fails_copied_pad_q_rows(smoke):
 SMS = 132  # an H100's SMs: the chunking of bwd_plan on the card
 
 
-def _fused_backward(q, k, v, o, lse, do, fault="", seed=0):
-    """The bf16 backward kernel's arithmetic in torch: P and dS rounded to
-    bf16 before the products; dQ summed in fp32 over blocks of
-    ``BWD_KV_ROWS`` keys, dK and dV over the chunks of q rows that
-    ``bwd_plan`` gives these lengths, each sum in a shuffled order (the
-    bulk reductions add in the order blocks finish). ``fault`` drops one
-    block's dQ share, or drops or doubles one q chunk's dK / dV share."""
+@functools.lru_cache(maxsize=None)
+def _fused_parts(skv, d):
+    """The bf16 backward kernel's partial sums in torch at ``_reference``'s
+    inputs: P and dS rounded to bf16 before the products; dQ's shares over
+    blocks of ``BWD_KV_ROWS[d]`` keys, dK's and dV's over the chunks of q
+    rows that ``bwd_plan`` gives these lengths. Once a (skv, d)."""
+    (q, k, v, o, lse, do), _ = _reference(skv, d)
     bf = lambda t: t.to(torch.bfloat16).float()
-    b, sq, h, d = q.shape
-    skv = k.shape[1]
-    scale = 1.0 / 8.0
+    b, sq, h, _ = q.shape
+    scale = 1.0 / math.sqrt(d)
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - tfa.attention_di(o, do)[..., None]) * scale
     p, ds = bf(p), bf(ds)
-    q_chunk, _, _ = tfa.bwd_plan(b * h, sq, skv, SMS)
-    gen = torch.Generator().manual_seed(seed)
-    kv_blocks = list(range(0, skv, tfa.BWD_KV_ROWS))
+    q_chunk, _, _ = tfa.bwd_plan(b * h, sq, skv, SMS, d)
+    rows = tfa.BWD_KV_ROWS[d]
+    kv_blocks = list(range(0, skv, rows))
     chunks = list(range(0, sq, q_chunk * TILE))
-    dq_parts = [torch.einsum("bhqk,bkhd->bqhd", ds[..., k0:k0 + tfa.BWD_KV_ROWS],
-                             kf[:, k0:k0 + tfa.BWD_KV_ROWS]) for k0 in kv_blocks]
+    dq_parts = [torch.einsum("bhqk,bkhd->bqhd", ds[..., k0:k0 + rows], kf[:, k0:k0 + rows])
+                for k0 in kv_blocks]
     kv_parts = [(torch.einsum("bhqk,bqhd->bkhd", ds[:, :, q0:q0 + q_chunk * TILE],
                               qf[:, q0:q0 + q_chunk * TILE]),
                  torch.einsum("bhqk,bqhd->bkhd", p[:, :, q0:q0 + q_chunk * TILE],
                               dof[:, q0:q0 + q_chunk * TILE])) for q0 in chunks]
+    return dq_parts, kv_parts, qf, kf
+
+
+def _fused_backward(skv, d, fault="", seed=0):
+    """The bf16 backward kernel's arithmetic: ``_fused_parts`` each summed
+    in fp32 in a shuffled order (the bulk reductions add in the order blocks
+    finish). ``fault`` drops one block's dQ share, or drops or doubles one
+    q chunk's dK / dV share."""
+    dq_parts, kv_parts, qf, kf = _fused_parts(skv, d)
+    gen = torch.Generator().manual_seed(seed)
     if fault == "drops_a_kv_block_of_dq":
         dq_parts = dq_parts[:-1]
     if fault == "drops_a_q_chunk_of_dkv":
@@ -175,76 +202,102 @@ def _fused_backward(q, k, v, o, lse, do, fault="", seed=0):
     return [t.to(torch.bfloat16) for t in (dq, dk, dv)]
 
 
-def _fused_held(smoke, skv, fault, seed=0):
-    q, k, v, do = _inputs(skv, seed=skv)
-    o, lse = tfa.flash_attention_plain(q, k, v)
-    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)
-    got = _fused_backward(q, k, v, o, lse, do, fault, seed)
-    return got, want
+def _fused_held(smoke, skv, fault, seed=0, d=64):
+    return _fused_backward(skv, d, fault, seed), _reference(skv, d)[1]
 
 
+@pytest.mark.parametrize("d", tfa.BWD_HEAD_DIMS)
 @pytest.mark.parametrize("skv", [1024, 77])
-def test_bf16_backward_limit_passes_the_fused_kernels_sums(smoke, skv):
-    """Sums over 8 kv blocks (dQ) and 8 or 16 q chunks (dK, dV) in two
-    shuffled orders stay within half the limit, and the two orders differ
-    by far less than the limit (the run-to-run check of chip_smoke)."""
-    runs = [_fused_held(smoke, skv, "", seed) for seed in (0, 1)]
+def test_bf16_backward_limit_passes_the_fused_kernels_sums(smoke, skv, d):
+    """Sums over 8 or 16 kv blocks (dQ) and 2 to 16 q chunks (dK, dV) in two
+    shuffled orders stay within half the limit at every head dim, and the
+    two orders differ by far less than the limit (the run-to-run check of
+    chip_smoke): at d = 64 by under 0.2 of it; at the SD1.x head dims by
+    under 0.4, one bf16 rounding step (2^-8 relative) over the rtol of 1e-2
+    (at d = 160 one element of ~6x the rms rounds the other way: 0.22)."""
+    runs = [_fused_held(smoke, skv, "", seed, d) for seed in (0, 1)]
     for got, want in runs:
         assert max(smoke.tolerance_used(g, w, smoke.bwd_tolerance(w))
                    for g, w in zip(got, want)) < 0.5
     (first, want), (second, _) = runs
     assert max(smoke.tolerance_used(b, a, smoke.bwd_tolerance(w))
-               for a, b, w in zip(first, second, want)) < 0.2
+               for a, b, w in zip(first, second, want)) < (0.2 if d == 64 else 0.4)
 
 
+@pytest.mark.parametrize("d", tfa.BWD_HEAD_DIMS)
 @pytest.mark.parametrize("fault", ["drops_a_kv_block_of_dq", "drops_a_q_chunk_of_dkv",
                                    "adds_a_q_chunk_of_dkv_twice"])
 @pytest.mark.parametrize("skv", [1024, 77])
-def test_bf16_backward_limit_fails_a_wrong_fused_kernel(smoke, skv, fault):
-    got, want = _fused_held(smoke, skv, fault)
+def test_bf16_backward_limit_fails_a_wrong_fused_kernel(smoke, skv, fault, d):
+    got, want = _fused_held(smoke, skv, fault, d=d)
     assert max(smoke.tolerance_used(g, w, smoke.bwd_tolerance(w))
                for g, w in zip(got, want)) > 1
 
 
-def test_bwd_plan_at_the_update_shapes():
+# (batch * heads, sq, skv) -> (q tiles a block walks, dQ accumulator, dK / dV
+# accumulators) by head dim: SD1.x's shapes (2 prompts with CFG x 8 heads) at
+# every head dim; at 64 also the Turbo (8 x 10 / 20 heads) and DMD2 (2 x 10 /
+# 20 heads) update shapes
+_SD15_PLAN = {(32, 4096, 4096): (64, True, False), (32, 4096, 77): (8, False, True),
+              (32, 1024, 1024): (16, True, False), (32, 1024, 77): (2, False, True),
+              (32, 256, 256): (1, True, True), (32, 256, 77): (1, False, True),
+              (32, 64, 64): (1, False, False), (32, 64, 77): (1, False, False)}
+PLANS = {
+    40: _SD15_PLAN, 80: _SD15_PLAN,
+    64: {**_SD15_PLAN,
+         (80, 1024, 1024): (16, True, False), (80, 1024, 77): (4, False, True),
+         (160, 256, 256): (4, True, False), (160, 256, 77): (4, False, False),
+         (20, 4096, 4096): (64, True, False), (20, 4096, 77): (5, False, True),
+         (40, 1024, 1024): (16, True, False), (40, 1024, 77): (3, False, True)},
+    # two warpgroups share 64 kv rows: dQ has an accumulator past 64 keys
+    160: {**_SD15_PLAN, (32, 4096, 77): (13, True, True), (32, 1024, 77): (4, True, True),
+          (32, 256, 256): (2, True, True), (32, 256, 77): (1, True, True),
+          (32, 64, 77): (1, True, False)},
+}
+
+
+@pytest.mark.parametrize("d", tfa.BWD_HEAD_DIMS)
+def test_bwd_plan_at_the_update_shapes(d):
     """Per (batch * heads, sq, skv) on 132 SMs: the q tiles a block walks
     (every chunk non-empty, all tiles covered) and which gradients go
     through fp32 accumulators: dQ wherever more than one block of keys
     adds to it, dK and dV where the q loop is split."""
-    cases = {  # Turbo (8 x 10 / 20 heads) and DMD2 (2 x 10 / 20 heads) update shapes
-        (80, 1024, 1024): (16, True, False), (80, 1024, 77): (4, False, True),
-        (160, 256, 256): (4, True, False), (160, 256, 77): (4, False, False),
-        (20, 4096, 4096): (64, True, False), (20, 4096, 77): (5, False, True),
-        (40, 1024, 1024): (16, True, False), (40, 1024, 77): (3, False, True),
-    }
-    for (bh, sq, skv), (chunk, acc_q, acc_kv) in cases.items():
-        q_chunk, dq_rows, kv_rows = tfa.bwd_plan(bh, sq, skv, SMS)
+    for (bh, sq, skv), (chunk, acc_q, acc_kv) in PLANS[d].items():
+        q_chunk, dq_rows, kv_rows = tfa.bwd_plan(bh, sq, skv, SMS, d)
         n_q = -(-sq // TILE)
         assert (q_chunk, bool(dq_rows), bool(kv_rows)) == (chunk, acc_q, acc_kv), (bh, sq, skv)
         assert dq_rows in (0, n_q * TILE) and kv_rows in (0, -(-skv // TILE) * TILE)
+        assert bool(dq_rows) == (skv > tfa.BWD_KV_ROWS[d])
         assert (-(-n_q // q_chunk) - 1) * q_chunk < n_q  # the last chunk is not empty
 
 
-def test_bwd_post_plain_reads_the_kernels_tile_layout():
+@pytest.mark.parametrize("d", tfa.BWD_HEAD_DIMS)
+def test_bwd_post_plain_reads_the_kernels_tile_layout(d):
     """The accumulators' layout as the kernels write it (``acc_off``: per
-    head 64-row tiles of 256-byte rows, 16-byte chunk c of row r stored at
-    chunk c ^ 2 (r % 8)), built here element by element, decodes to the
-    gradients it encodes."""
+    head 64-row tiles; each 64-column block of a tile 64 rows of 256 bytes,
+    the 8-column group j of row r at group j ^ (r % 8); then the remaining
+    8-column groups, each 64 rows of 32 bytes), built here element by
+    element, decodes to the gradients it encodes."""
     r = np.random.default_rng(5)
-    b, sq, h, d, skv = 2, 100, 3, 64, 70
+    b, sq, h, skv = 2, 100, 3, 70
     grads = [torch.from_numpy(r.standard_normal(s).astype(np.float32))
              for s in ((b, sq, h, d), (b, skv, h, d), (b, skv, h, d))]
+    full = d // 64
+
+    def place(row, col):  # the float index of element (row, col) within its tile
+        j, e = col // 8, col % 8
+        if j < 8 * full:
+            return (j // 8) * TILE * 64 + row * 64 + ((j % 8) ^ (row % 8)) * 8 + e
+        return full * TILE * 64 + (j - 8 * full) * TILE * 8 + row * 8 + e
 
     def encode(x):
         n = x.shape[1]
         tiles = -(-n // TILE)
-        out = np.zeros((b * h, tiles * TILE, 64), np.float32)
+        out = np.zeros((b * h, tiles, TILE * d), np.float32)
         rows = x.permute(0, 2, 1, 3).reshape(b * h, n, d).numpy()
         for row in range(n):
-            rr = row % TILE
-            for c in range(16):
-                place = (row - rr) + rr, c ^ ((rr % 8) * 2)
-                out[:, place[0], 4 * place[1]:4 * place[1] + 4] = rows[:, row, 4 * c:4 * c + 4]
+            for col in range(d):
+                out[:, row // TILE, place(row % TILE, col)] = rows[:, row, col]
         return torch.from_numpy(out.reshape(-1))
 
     acc = torch.cat([encode(g) for g in grads])

@@ -22,7 +22,7 @@ from pairwise_sample_optimization_tpu_torch.ops.group_norm import group_norm_pla
 ATOL, RTOL = 3e-5, 2e-4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The shapes here are tiny: one intra-op thread is as fast, and does not
     oversubscribe the CPU when test files run in parallel workers."""
@@ -51,11 +51,20 @@ def _attention_inputs(seed, b, sq, skv, h, d):
             for s in ((b, sq, h, d), (b, skv, h, d), (b, skv, h, d), (b, sq, h, d))]
 
 
+def _jax_vjp(fn, primals, cotangent):
+    """(fn's output, its cotangents for ``cotangent``) at ``primals``, traced
+    and compiled as one jitted call (eagerly, the Pallas kernels' interpret
+    mode dispatches op by op)."""
+    def run(args, ct):
+        out, vjp = jax.vjp(fn, *args)
+        return out, vjp(ct)
+    return jax.jit(run)(tuple(map(jnp.asarray, primals)), jnp.asarray(cotangent))
+
+
 @pytest.mark.parametrize("skv", [77, 128], ids=["kv77_masked", "kv_eq_sq"])
 def test_attention_function_grads_match_jax_vjp(interpret, skv):
     q, k, v, do = _attention_inputs(skv, 2, 128, skv, 2, 64)
-    o_j, vjp = jax.vjp(jfa.flash_attention, *map(jnp.asarray, (q, k, v)))
-    want = vjp(jnp.asarray(do))
+    o_j, want = _jax_vjp(jfa.flash_attention, (q, k, v), do)
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     o_t = tfa.flash_attention(tq, tk, tv)
     _close(o_t, o_j)
@@ -97,9 +106,8 @@ def test_gn_silu_function_grads_match_jax_vjp(interpret, b, h, w, c, groups):
     scale = (r.standard_normal(c) * 0.1 + 1.0).astype(np.float32)
     bias = (r.standard_normal(c) * 0.1).astype(np.float32)
     gy = r.standard_normal((b, h, w, c)).astype(np.float32)
-    y_j, vjp = jax.vjp(lambda x_, s_, b_: jfg.fused_groupnorm_silu(x_, s_, b_, groups),
-                       *map(jnp.asarray, (x, scale, bias)))
-    want = vjp(jnp.asarray(gy))
+    y_j, want = _jax_vjp(lambda x_, s_, b_: jfg.fused_groupnorm_silu(x_, s_, b_, groups),
+                         (x, scale, bias), gy)
     xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).requires_grad_()
     st, bt = torch.from_numpy(scale).requires_grad_(), torch.from_numpy(bias).requires_grad_()
     y_t = tfg.fused_groupnorm_silu(xt, st, bt, groups)
