@@ -127,12 +127,13 @@ PyTorch. In order:
    runs of the first "full" run's, the loss likewise;
 10. full finetuning (``full_finetune_slice``): ``run_online_pso`` with
    ``use_lora=False``, fp32 masters and ``offload_aux_during_update`` for 2
-   epochs of 2 pairs at 512^2 (run A, the per-tensor AdamW), the
-   whole-UNet train state (~31 GB) written after update 1, restored into a
-   fresh run bit for bit and resumed for one epoch at step 2, then deleted;
-   1 epoch without the offload; run C, 2 epochs with the per-tensor 8-bit
-   AdamW and ``profile_dir``, whose second epoch's trace must hold the
-   hand-written kernels' events. Runs A and C: launch counts, the first
+   epochs of 2 pairs at 512^2 (run A, the per-tensor AdamW); 1 epoch
+   without the offload; run C, 2 epochs with the per-tensor 8-bit AdamW and
+   ``profile_dir``, whose second epoch's trace must hold the hand-written
+   kernels' events, and its whole-UNet train state (~15.5 GB: fp32 masters,
+   int8 moments) written after update 1, restored into a fresh run bit for
+   bit and resumed for one epoch at step 2, then deleted. Runs A and C:
+   launch counts, the first
    loss log 2, every weight with a gradient moved, the frozen reference
    copy bit-equal to the seed's weights, the VAE, scorer and text encoders
    in pinned host memory during each update and back after it, the second
@@ -250,10 +251,13 @@ PyTorch. In order:
    bf16 at the ``RAGGED`` shapes. The plain attention forward runs over
    slices of the batch where its logits would pass 1 GiB (the VAE's 16384
    tokens). GroupNorm rows report the share of the limit used. The
-   attention forward's times are also printed per head dim. The int8
+   attention forward's times are also printed per head dim, at d = 40
+   beside the SFU's floor for its exponentials (``H100_EX2_PER_S``). The int8
    kernels (``int8_phase``) at every shape the paths gave them and at the
-   512^2 VAE decode's (``int8_off_path_shapes``, 0 launches): absmaxes,
-   integers, scales and outputs equal to the plain versions' bit for bit;
+   512^2 VAE decode's (``int8_off_path_shapes``, 0 launches), the absmax
+   also at the edges of its 16-byte loads (``INT8_ABSMAX_EDGES``: tails,
+   unaligned bases; 0 launches): absmaxes, integers, scales and outputs
+   equal to the plain versions' bit for bit;
    per ``torch._int_mm`` shape the whole int8 matmul beside bf16
    ``torch.matmul``;
 13. prints the card line again, the ``{"kernels": [...]}`` line (launches:
@@ -292,6 +296,10 @@ RUN_DIR = ROOT / "chip_smoke_runs"  # the training run's checkpoints (git-ignore
 # rate, bf16 tensor-core rate, fp32 rate outside the tensor cores.
 H100_BYTES_PER_S = 3.35e12
 H100_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+# its special-function units: 16 exponentials a clock an SM, 132 SMs at the
+# 1.98 GHz boost clock (data sheet); the attention forward's softmax takes
+# one a (q, kv) pair, the floor reported beside the bound at d = 40
+H100_EX2_PER_S = 16 * 132 * 1.98e9
 GN_STATS_OPS, GN_NORM_OPS = 3, 8  # fp32 operations per element of K4, K5
 # (atol, rtol); in bf16 see fwd_tolerance and bwd_tolerance
 TOL = {"attention": {"bf16": (5e-2, 1e-2), "fp32": (2e-3, 2e-3)},
@@ -1644,21 +1652,21 @@ def full_finetune_slice(seed, recorder):
     pairs (one update of 2 x 3 microbatches at policy batch 2 each), no
     validation:
 
-    - run A: the per-tensor AdamW, ``offload_aux_during_update=True``, the
-      whole-UNet train state written after update 1 (``checkpointing_steps``
+    - run A: the per-tensor AdamW, ``offload_aux_during_update=True``;
+    - the same without the offload, 1 epoch, for its peak;
+    - run C: ``train.use_8bit_adam=True`` (the per-tensor 8-bit AdamW) with
+      the offload and ``profile_dir``: the trace of its second epoch must
+      hold the card's kernel events, K1's and the backward kernel's among
+      them; its size and kernel events are printed and it is deleted. Its
+      whole-UNet train state (fp32 masters, int8 moments: half run A's
+      bytes) is written after update 1 (``checkpointing_steps``
       ``FULL_FT_CKPT_EVERY``: step 1 alone). Then a fresh run restores it
       (``resume_from``) and trains one epoch: every restored master and
       moment bit-equal to what was saved (:func:`state_fingerprints` at the
       save and after the restore), the step numbering continuing at 2. The
       free disk and MemTotal before the write, the size, the write, fsync
       and read seconds and the host's peak resident memory are printed; the
-      checkpoint is then deleted. Where the disk or the host could not hold
-      it, the round trip runs on run C's state instead;
-    - the same without the offload, 1 epoch, for its peak;
-    - run C: ``train.use_8bit_adam=True`` (the per-tensor 8-bit AdamW) with
-      the offload and ``profile_dir``: the trace of its second epoch must
-      hold the card's kernel events, K1's and the backward kernel's among
-      them; its size and kernel events are printed and it is deleted.
+      checkpoint is then deleted.
 
     Runs A and C: launch counts as implied (zeroed before, read after), the
     first loss log 2 within 1e-3, every UNet weight with a gradient in the
@@ -1675,7 +1683,7 @@ def full_finetune_slice(seed, recorder):
     from pairwise_sample_optimization_tpu_torch.cli.online_runner import run_dir, run_online_pso
     from pairwise_sample_optimization_tpu_torch.configs import sdxl_turbo_dpo
     from pairwise_sample_optimization_tpu_torch.models.layers import init_random_
-    from pairwise_sample_optimization_tpu_torch.models.unet import SDXLUNet, UNetConfig
+    from pairwise_sample_optimization_tpu_torch.models.unet import SDXLUNet
     from pairwise_sample_optimization_tpu_torch.ops import kernel_lib
 
     def run(offload, epochs, extra=(), resume=False, name="online_full"):
@@ -1800,17 +1808,9 @@ def full_finetune_slice(seed, recorder):
         shutil.rmtree(RUN_DIR, ignore_errors=True)
         torch.cuda.empty_cache()
 
-    # the round trip needs the state on the disk once and in host memory once
-    # (the restore reads it whole): run A's fp32 masters and two fp32 moments
-    elements = sum(p.numel() for p in SDXLUNet(UNetConfig.sdxl(), device="meta").parameters())
-    RUN_DIR.mkdir(exist_ok=True)
-    free, mem_total = shutil.disk_usage(RUN_DIR).free, _mem_total_bytes()
-    trip_on_a = 12 * elements * 1.2 < min(free, mem_total / 2)
     ckpt_extra = {"checkpointing_steps": FULL_FT_CKPT_EVERY}
-    a = run(True, 2, ckpt_extra if trip_on_a else {})
+    a = run(True, 2)
     summary = check(a, "run A")
-    if trip_on_a:
-        round_trip(a, summary, "run A", ckpt_extra)
     del a
     torch.cuda.empty_cache()
     off = run(False, 1)
@@ -1819,9 +1819,8 @@ def full_finetune_slice(seed, recorder):
     del off
     torch.cuda.empty_cache()
     trace_dir = RUN_DIR / "trace"
-    c_extra = {"train.use_8bit_adam": True, "profile_dir": str(trace_dir),
-               **({} if trip_on_a else ckpt_extra)}
-    c = run(True, 2, c_extra)
+    c_extra = {"train.use_8bit_adam": True, **ckpt_extra}
+    c = run(True, 2, {**c_extra, "profile_dir": str(trace_dir)})
     summary["run_c"] = check(c, "run C")
     traces = sorted(p.name for p in trace_dir.iterdir())
     if traces != ["epoch-1.json"]:
@@ -1835,15 +1834,12 @@ def full_finetune_slice(seed, recorder):
     summary["run_c"]["trace"] = {"bytes": size, "kernel_events": n_kernels,
                                  "kernel_names": len(names)}
     shutil.rmtree(trace_dir, ignore_errors=True)
-    if not trip_on_a:
-        log(f"checkpoint round trip on run C: {free / 1e9:.1f} GB free on the disk, MemTotal "
-            f"{mem_total / 2**30:.1f} GiB cannot hold run A's ~{12 * elements / 1e9:.1f} GB")
-        round_trip(c, summary["run_c"], "run C", c_extra)
+    round_trip(c, summary["run_c"], "run C", c_extra)  # resumed without the profiler
     del c
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     runs = [summary, summary["no_offload"], summary["run_c"]]
-    trip = summary.get("checkpoint") or summary["run_c"]["checkpoint"]
+    trip = summary["run_c"]["checkpoint"]
     summary["launches"] = {k: sum(x["launches"][k] for x in runs) + trip["resumed_launches"][k]
                            for k in summary["launches"]}
 
@@ -3613,6 +3609,16 @@ def int8_off_path_shapes(batch=8, latent_hw=64):
     return keys
 
 
+# Q1a at the edges of its 16-byte loads (0 launches; bit-equal, timed): (shape,
+# dtype, mode, divisor, offset of the base in elements): a segment length no
+# multiple of 8 (the scalar tails), and bases off the 16-byte boundary (the
+# scalar heads), in each mode and dtype
+INT8_ABSMAX_EDGES = (((3, 1001), "torch.bfloat16", "rows", False, 0),
+                     ((5, 3001), "torch.bfloat16", "rows", False, 1),
+                     ((2, 3, 33, 33), "torch.bfloat16", "samples", True, 1),
+                     ((2, 5, 31, 31), "torch.bfloat16", "channels", False, 3),
+                     ((4, 1027), "torch.float32", "rows", False, 1),
+                     ((1, 7, 45, 45), "torch.float32", "samples", False, 2))
 INT8_TIMING = {"reps": 3, "inner": 5}
 INT8_PLAIN_TIMING = {"reps": 1, "inner": 1, "warm": 1}  # the plain conv: float64 integers
 QUANTIZE_OPS, ABSMAX_OPS, DEQUANT_OPS = 5, 2, 3  # fp32 operations per element
@@ -3651,10 +3657,14 @@ def int8_phase(entries, seed):
                 raise AssertionError(f"{name}: kernel and plain version differ (max|diff| {diff})")
         return 0.0
 
-    def rand(shape, dtype):
-        return (torch.randn(shape, generator=gen, device="cuda") * 1.7 + 0.1).to(dtype)
+    def rand(shape, dtype, offset=0):
+        n = math.prod(shape)
+        x = torch.randn((n + offset,), generator=gen, device="cuda") * 1.7 + 0.1
+        return x.to(dtype)[offset:].view(shape)
 
-    for key, launches in sorted(cases.items(), key=str):
+    edges = [(("absmax", shape, dtype, mode, div), 0, offset)
+             for shape, dtype, mode, div, offset in INT8_ABSMAX_EDGES]
+    for key, launches, offset in [(k, n, 0) for k, n in sorted(cases.items(), key=str)] + edges:
         kind = key[0]
         if kind == "int_mm":
             m, k, n = key[1:]
@@ -3667,7 +3677,7 @@ def int8_phase(entries, seed):
             continue
         if kind in ("absmax", "quantize_rows", "quantize_nhwc"):
             shape, dtype = key[1], dt[key[2]]
-            x = rand(shape, dtype)
+            x = rand(shape, dtype, offset)
             el, n = x.element_size(), x.numel()
             div = None
             if (kind == "absmax" and key[4]) or (kind == "quantize_nhwc" and key[3]):
@@ -3683,6 +3693,8 @@ def int8_phase(entries, seed):
                               ABSMAX_OPS * n, "fp32")
                 table, desc = "int8_absmax", {"x": list(shape), "mode": mode,
                                               "divisor": div is not None}
+                if offset:
+                    desc["base_offset"] = offset  # elements past a 16-byte boundary
             else:
                 rows_n = shape[0]
                 am = rand((rows_n,), torch.float32).abs() * 3
@@ -3772,7 +3784,12 @@ HEAD_DIM_ENTRIES = (("flash_attn_fwd_d40", "flash_attn_fwd", 40),
                     ("flash_attn_bwd_d160", "flash_attn_bwd", 160))
 # the SD1.x shapes off the main path (0 launches; forward and backward): the
 # ragged lengths of the zero-filled and masked tile edges at the new head dims
-RAGGED_SD15 = (((2, 1000, 3, 40), 77), ((1, 200, 5, 160), 1000), ((1, 1, 2, 40), 1))
+RAGGED_SD15 = (((2, 1000, 3, 40), 77), ((1, 200, 5, 160), 1000), ((1, 1, 2, 40), 1),
+               # d = 40's own kernels: the long one's kv tiles of 128 keys and
+               # blocks of 128 query rows, the short one's bound of 80 keys and
+               # q tiles of 64 rows, each just under, at and just over
+               ((1, 255, 2, 40), 127), ((1, 256, 2, 40), 128), ((1, 257, 2, 40), 129),
+               ((2, 63, 3, 40), 79), ((2, 64, 3, 40), 80), ((2, 65, 3, 40), 81))
 
 
 def attention_calls_by_head_dim(ucfg):
@@ -4195,11 +4212,14 @@ def attention_phase(shapes, seed):
             "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
+        if d == 40:  # the exponentials' floor on the SFUs, beside the bound
+            row["sfu_floor_ms"] = b * h * sq * skv / H100_EX2_PER_S * 1e3
         rows.append(row)
         log(f"flash_attn_fwd {row['dtype']} q{qs} kv{skv}: max|diff| {err:.2e}, share of "
             f"tolerance used O {used['o']:.3f} (atol {tol[0]:.2e}) LSE {used['lse']:.3f}, "
-            f"{row['ms']:.4f} ms vs bound {bound_ms:.4f} ({bound_by}), plain "
-            f"{row['plain_ms']:.4f}, sdpa {row['library_ms']:.4f}, {launches} launches")
+            f"{row['ms']:.4f} ms vs bound {bound_ms:.4f} ({bound_by})"
+            + (f", SFU floor {row['sfu_floor_ms']:.4f}" if "sfu_floor_ms" in row else "")
+            + f", plain {row['plain_ms']:.4f}, sdpa {row['library_ms']:.4f}, {launches} launches")
     return {"flash_attn_fwd": rows}
 
 
@@ -4530,6 +4550,13 @@ def summarize(name, rows, launches):
     out = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
            **_means(rows), "shapes": rows}
+    on_path = [r for r in rows if r["launches"]]
+    if on_path and all("sfu_floor_ms" in r for r in on_path):  # d = 40: the SFU's floor
+        out["sfu_floor_ms"] = (sum(r["sfu_floor_ms"] * r["launches"] for r in on_path)
+                               / sum(r["launches"] for r in on_path))
+        log(f"{name}: {out['ms']:.4f} ms vs bound {out['bound_ms']:.4f} ({out['bound_by']}), "
+            f"SFU floor {out['sfu_floor_ms']:.4f}, sdpa {out['library_ms']:.4f} "
+            f"(launch-weighted means)")
     if name == "flash_attn_fwd":
         dims = sorted({r["shape"]["q"][-1] for r in rows if r["launches"]})
         out["by_head_dim"] = {d: {"launches": sum(r["launches"] for r in rows

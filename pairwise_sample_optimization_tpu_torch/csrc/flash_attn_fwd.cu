@@ -36,24 +36,25 @@
 //
 // d = 64 (the SDXL UNet, 7280 of the online loop's 7412 launches per epoch),
 // d = 80 (PickScore's ViT-H/14, 128; the SD1.5 UNet's 640-channel level)
-// and d = 40 and 160 (the SD1.5 UNet's 8 fixed heads over 320 and 1280
-// channels) share flash_fwd_kernel_wgmma<D>: one warpgroup (4 warps) per
-// (64 query rows, batch*head), warp w owning rows 16w..16w+15; a 2-stage
-// K / V ring, so the next tile's copy overlaps this tile's products, one
-// __syncthreads a tile. A row is stored as blocks of 64 columns in the
-// 128-byte swizzle, then blocks of 16 in the 32-byte one (pso::RowBlocks):
-// d = 64 one 128-byte block; 80 one and one 16-column block (S takes a
-// fifth k-step from it and P V a second product of n = 16); 160 two and
-// two; 40 three 16-column blocks, the last holding columns 32..39 and 8
-// columns the copy zero-fills, so S runs 3 k-steps of 16 over a depth of
-// 48 (20% more products than d needs) and P V three products of n = 16,
-// whose 8 pad columns of O are never stored. d = 64: 41 KB of shared memory
-// and 114 registers, 4 blocks an SM; on the H100 this ran 1-9% faster at
-// every main-path shape than two warpgroups sharing 128 rows, and 1.3-1.4x
-// faster than the same structure on mma.sync with ldmatrix operands
-// (PERF.md). d = 80: 51 KB and 146 registers, 3 blocks an SM (4, capped at
-// 128 registers, ran no faster). d = 40: 31 KB, 4 blocks an SM; d = 160:
-// 101 KB (O is 80 fp32 registers a thread), 2 blocks an SM.
+// and d = 160 (the SD1.5 UNet's 8 fixed heads over 1280 channels) share
+// flash_fwd_kernel_wgmma<D>: one warpgroup (4 warps) per (64 query rows,
+// batch*head), warp w owning rows 16w..16w+15; a 2-stage K / V ring, so the
+// next tile's copy overlaps this tile's products, one __syncthreads a tile.
+// A row is stored as blocks of 64 columns in the 128-byte swizzle, then
+// blocks of 16 in the 32-byte one (pso::RowBlocks): d = 64 one 128-byte
+// block; 80 one and one 16-column block (S takes a fifth k-step from it and
+// P V a second product of n = 16); 160 two and two. d = 64: 41 KB of shared
+// memory and 114 registers, 4 blocks an SM; on the H100 this ran 1-9%
+// faster at every main-path shape than two warpgroups sharing 128 rows, and
+// 1.3-1.4x faster than the same structure on mma.sync with ldmatrix
+// operands (PERF.md). d = 80: 51 KB and 146 registers, 3 blocks an SM (4,
+// capped at 128 registers, ran no faster). d = 160: 101 KB (O is 80 fp32
+// registers a thread), 2 blocks an SM.
+//
+// d = 40 (the SD1.5 UNet's 320-channel level) has kernels of its own,
+// flash_fwd_kernel_d40 and flash_fwd_kernel_d40_short (namespace d40
+// below): the row as three 32-byte-swizzled 16-column blocks, the last
+// holding columns 32..39 and 8 zero-filled ones, S over a depth of 48.
 //
 // d = 512 (the VAE mid-block, 4096 tokens, one head) takes
 // flash_fwd_kernel_d512: a 64 x 512 fp32 O is 256 registers a thread in one
@@ -87,6 +88,7 @@
 #include <stdint.h>
 
 #include "mma_tile.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -293,21 +295,39 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 using bf16 = __nv_bfloat16;
 constexpr int BM = 64, BN = 64;  // query rows a block, keys a kv tile (the wgmma kernels)
 
-// The online softmax of one kv tile on S (64 x 64 fp32 over the warpgroup,
+// 2^x on the FMA pipe, for x <= 0 (the softmax's exponents): x rounded to
+// the nearest integer n by adding 1.5 * 2^23, 2^(x - n) by a degree-5
+// polynomial on [-0.5, 0.5] (relative error 2.3e-7 in fp32, as ex2.approx's
+// 2^-22), n added to its exponent. x is clamped at -126, so a masked key
+// gives 2^-126 (~1e-38) where ex2.approx.ftz gives 0.
+__device__ __forceinline__ float ex2_fma(float x) {
+  x = fmaxf(x, -126.f);
+  const float r = x + 12582912.f;
+  const float f = x - (r - 12582912.f);
+  float p = fmaf(0.0013276457f, f, 0.0096755410f);
+  p = fmaf(p, f, 0.0555071346f);
+  p = fmaf(p, f, 0.2402212024f);
+  p = fmaf(p, f, 0.6931469440f);
+  p = fmaf(p, f, 1.0000001192f);
+  return __uint_as_float(__float_as_uint(p) + (__float_as_uint(r) << 23));
+}
+
+// The online softmax of one kv tile on S (64 x 8N fp32 over the warpgroup,
 // this thread's rows g and g+8 of its warp's 16): scale to log2 units, mask
-// keys at or past skv (the tile at k0 is the last when k0 + BN > skv),
+// keys at or past skv (the tile at k0 is the last when k0 + 8N > skv),
 // update the running max m and row sum l (this lane's part of it), replace
 // S by P = exp2(S - m) and return the factors alpha that rescale O.
-__device__ __forceinline__ void softmax_tile(float (&s)[BN / 8][4], float (&m)[2], float (&l)[2],
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N][4], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], float sl2, int k0, int skv,
                                              int t) {
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] *= sl2;
-  if (k0 + BN > skv) {  // the last tile: zero-filled keys get the finite mask
+  if (k0 + 8 * N > skv) {  // the last tile: zero-filled keys get the finite mask
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
+    for (int j = 0; j < N; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (k0 + j * 8 + 2 * t + (e & 1) >= skv) s[j][e] = kMask * kLog2e;
@@ -316,7 +336,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 8][4], float (&m)[2
   // the row sum
   float mx[2] = {m[0], m[1]}, rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+  for (int j = 0; j < N; ++j) {
     mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
     mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
   }
@@ -328,9 +348,61 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 8][4], float (&m)[2
     m[i] = mx[i];
   }
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+  for (int j = 0; j < N; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = pso::ex2(s[j][e] - m[e >> 1]);
+    rs[0] += s[j][0] + s[j][1];
+    rs[1] += s[j][2] + s[j][3];
+  }
+  l[0] = alpha[0] * l[0] + rs[0];  // from the fp32 P
+  l[1] = alpha[1] * l[1] + rs[1];
+}
+
+// d = 40's softmax of a tile: as softmax_tile, with the row max taken on the
+// raw S and the scale folded into one FFMA before each exponential
+// (FlashAttention-3's), an operation an element fewer; one rounding of
+// S * scale * log2 e - m where softmax_tile rounds twice. The last PN of the
+// N n-tiles take their exponentials on the FMA pipe (ex2_fma), the others
+// on the SFU, whose 16 a clock an SM bound d = 40. A scale <= 0 (the row
+// max is then the raw minimum) takes softmax_tile.
+template <int N, int PN>
+__device__ __forceinline__ void softmax_tile_ffma(float (&s)[N][4], float (&m)[2], float (&l)[2],
+                                                  float (&alpha)[2], float sl2, int k0, int skv,
+                                                  int t) {
+  if (!(sl2 > 0.f)) {
+    softmax_tile(s, m, l, alpha, sl2, k0, skv, t);
+    return;
+  }
+  if (k0 + 8 * N > skv) {  // the last tile: zero-filled keys give exp2(-inf) = 0
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + j * 8 + 2 * t + (e & 1) >= skv) s[j][e] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY}, rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+  float nm[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * sl2);  // the max of S * sl2: sl2 > 0
+    alpha[i] = pso::ex2(m[i] - m_new);  // 0 on the first tile
+    m[i] = m_new;
+    nm[i] = -m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = fmaf(s[j][e], sl2, nm[e >> 1]);
+      s[j][e] = j < N - PN ? pso::ex2(x) : ex2_fma(x);
+    }
     rs[0] += s[j][0] + s[j][1];
     rs[1] += s[j][2] + s[j][3];
   }
@@ -372,7 +444,7 @@ __device__ __forceinline__ void store_lse(const Params& p, int bh, int row0, con
   }
 }
 
-// ---- bf16 at head dims 40, 64, 80 and 160: one warpgroup ----------------
+// ---- bf16 at head dims 64, 80 and 160: one warpgroup --------------------
 namespace wg {
 
 using namespace pso;
@@ -383,12 +455,12 @@ constexpr int TBLK = 64 * 32;  // one 64-row block of 16 columns, 32-byte swizzl
 
 template <int D>
 struct Shape {
-  static_assert(D == 40 || D == 64 || D == 80 || D == 160, "head dim");
+  static_assert(D == 64 || D == 80 || D == 160, "head dim");
   using RB = RowBlocks<D>;
-  static constexpr int FULL = RB::FULL;    // 64-column blocks: 0, 1, 1, 2
-  static constexpr int TAILS = RB::TAILS;  // 16-column blocks after them: 3, 0, 1, 2
+  static constexpr int FULL = RB::FULL;    // 64-column blocks: 1, 1, 2
+  static constexpr int TAILS = RB::TAILS;  // 16-column blocks after them: 0, 1, 2
   static constexpr int MAIN = FULL * BLK;  // where a tile's 16-column blocks start
-  static constexpr int TILE = RB::TILE;    // one Q, K or V tile of 64 rows: 6, 8, 10 or 20 KB
+  static constexpr int TILE = RB::TILE;    // one Q, K or V tile of 64 rows: 8, 10 or 20 KB
   static constexpr int CHUNKS = RB::CHUNKS;  // real 16-byte chunks of a row
   // 1 KB of slack to align the tiles to the 1024-byte swizzle period
   static constexpr size_t SMEM = 1024 + (size_t)TILE * (1 + 2 * STAGES);
@@ -457,8 +529,7 @@ flash_fwd_kernel_wgmma(Params p) {
     const uint64_t dv = sw128_desc(Vt, 1024);
 
     // S = Q K^T, both K-major in shared memory: 4 k-steps a 64-column block
-    // (32 bytes of each swizzled row a step), 1 a 16-column block (d = 40:
-    // its last 8 columns zero in Q and K)
+    // (32 bytes of each swizzled row a step), 1 a 16-column block
     float s[BN / 8][4];
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -565,6 +636,356 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
 }
 
 }  // namespace wg
+
+// ---- bf16 at head dim 40: its own kernels ---------------------------------
+// d = 40 (the SD1.5 UNet's 320-channel level: 4096 tokens at 512^2, 8
+// heads) does per (q, kv) pair the elementwise work of d = 64 (max, one
+// exponential, the row sum, the bf16 cast) for 60% of its products. On the
+// H100 (PERF.md) the one-warpgroup kernel above took 0.53 ms at
+// (4,4096,8,40) kv 4096: its products and softmax took turns, and each
+// 64-row block read all of K and V again. Two kernels replace it:
+//
+// flash_fwd_kernel_d40 (kv longer than KN keys, or none):
+// - a block is two consumer warpgroups of 64 query rows sharing each K / V
+//   tile, and one producer warp whose one thread fetches Q once and every
+//   K and V tile of BN = 128 keys by TMA (tensor maps built per call,
+//   pso::bshd_map: three 16-column boxes a tile, 32-byte swizzled, keys
+//   past kv_len and columns 40..47 zero-filled) into rings of ST stages;
+//   a tile completes a "full" mbarrier, and each consumer thread frees its
+//   stage through an "empty" one once its product has read it. No barrier
+//   joins the warpgroups in the loop.
+// - in a warpgroup, an iteration issues S for tile j+1 (3 k-steps of
+//   m64n128k16, depth 48) and O += P_j V_j (8 of m64n48k16: one descriptor
+//   whose leading offset spans V's three 16-column blocks; O is 24
+//   registers, its 8 pad columns never stored), and runs the softmax of
+//   tile j+1 while the second product runs; both are drained before the
+//   back edge, so no product's accumulators are in flight across it.
+// - the two warpgroups take turns at issuing (named barriers 1 and 2,
+//   FlashAttention-3's ping-pong), so one's softmax runs under the other's
+//   products.
+// - the softmax takes the row max on the raw S and folds the scale into
+//   one FFMA before each exponential (softmax_tile_ffma); PN of the 16
+//   n-tiles take their exponentials on the FMA pipe (ex2_fma).
+//   168 registers, one block an SM (Q 12 KB, 4 stages of K and V 96 KB).
+//   On the H100 it ran 1.5-1.7x as fast as the one-warpgroup kernel, about
+//   as fast as SDPA's forward (PERF.md). Probes on the card with
+//   parts taken out showed both the SFU and the copies (the L2 -> SM
+//   traffic of 80-byte rows) near its time. Tried there and no faster:
+//   cp.async with a __syncthreads a tile, three or four consumer
+//   warpgroups, 64- or 96-key tiles, one 128-byte box a row, a 2-CTA
+//   cluster sharing K and V by TMA multicast (much slower), P rounded by
+//   integer operations.
+//
+// flash_fwd_kernel_d40_short (kv_len <= KN = 80: the 77-token
+// cross-attention): K and V are one tile, read once a block; the block
+// walks q tiles of 64 rows (each SM's blocks in one wave), the next q
+// tile's copy (cp.async) running under this one's products, softmax and
+// stores. S is one m64n80k16 product a k-step, so no key past 80 takes an
+// exponential. 123 registers, 4 blocks an SM.
+namespace d40 {
+
+using namespace pso;
+
+constexpr int D = 40;
+constexpr int BN = 128, NWG = 2, ST = 4, PN = 2;  // the long kernel (measured, PERF.md)
+constexpr int NC = 128 * NWG, NTHREADS = NC + 32, QROWS = 64 * NWG;
+constexpr int QT = QROWS * 96, KT = BN * 96;  // a tile: three 32-byte-swizzled 16-column blocks
+// 1 KB of alignment slack, Q, the K and V rings, then the mbarriers: Q's,
+// and the full and empty ones of each K and V stage
+constexpr size_t SMEM = 1024 + QT + 2 * ST * (size_t)KT + 8 * (1 + 4 * ST);
+constexpr int KN = 80, SHORT_BLOCKS = 4;  // the short kernel: keys, blocks an SM
+
+// S = Q K^T over a depth of 48 (Q's and K's columns 40..47 zero-filled):
+// one K-major product of n = N a 16-column block; Qw is the warpgroup's
+// first row of Q's blocks of qrows rows.
+template <int N>
+__device__ __forceinline__ void s_product(float (&s)[N / 8][4], uint32_t Qw, uint32_t Kt,
+                                          int qrows) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const uint64_t dq = sw32_desc(Qw + c * qrows * 32), dk = sw32_desc(Kt + c * N * 32);
+    if constexpr (N == 128)
+      wgmma_ss_n128(s, dq, dk, c);
+    else
+      wgmma_ss_n80(s, dq, dk, c);
+  }
+}
+
+// O += P V over N keys: one n = 48 product a 16-key step, V read MN-major
+// over its three 16-column blocks (N rows of 32 bytes each apart).
+template <int N>
+__device__ __forceinline__ void pv_product(float (&o)[6][4], const uint32_t (&pa)[N / 16][4],
+                                           uint32_t Vt) {
+  const uint64_t dv = sw32_desc(Vt, N * 32);
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) wgmma_rs_mn_n48(o, pa[kk], dv + kk * (512 >> 4));
+}
+
+// O (6 n-tiles of this thread's rows g and g + 8), normalised by inv,
+// staged in the warp's own 16 (swizzled) rows of a Q tile of qrows rows at
+// Ow, then written as 16-byte rows (5 of the 6 chunks a row) from query row
+// row0; the LSE beside it.
+__device__ __forceinline__ void store_o(const Params& p, unsigned char* Ow, int qrows,
+                                        const float (&o)[6][4], const float (&inv)[2], bf16* ob,
+                                        int row0, int bh, const float (&m)[2],
+                                        const float (&l)[2], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = g + 8 * i;
+#pragma unroll
+    for (int jj = 0; jj < 6; ++jj)
+      *reinterpret_cast<uint32_t*>(Ow + (jj >> 1) * qrows * 32 + sw32(r, jj & 1) + 4 * t) =
+          pack_f32(o[jj][2 * i] * inv[i], o[jj][2 * i + 1] * inv[i]);
+  }
+  __syncwarp();
+  constexpr int CH = RowBlocks<D>::CHUNKS;
+#pragma unroll
+  for (int it = 0; it < (16 * CH + 31) / 32; ++it) {
+    const unsigned idx = lane + 32 * it;
+    const int r = idx / CH, ch = idx % CH;
+    const int row = row0 + r;
+    if (idx < 16 * CH && row < p.sq)
+      *reinterpret_cast<uint4*>(ob + (long long)row * p.o_ss + ch * 8) =
+          *reinterpret_cast<const uint4*>(Ow + (ch >> 1) * qrows * 32 + sw32(r, ch & 1));
+  }
+  store_lse(p, bh, row0, m, l, g, t);
+}
+
+// One block per (QROWS query rows, batch*head): warpgroup w owns query rows
+// 64w..64w+63 (warp i of it 16i..16i+15), the last warp is the producer.
+// hs: each map's order of the head and row dims (pso::bshd_map).
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel_d40(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, int3 hs, Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t Qa = base, Ka = Qa + QT, Va = Ka + ST * KT;  // stage i at + i * KT
+  const uint32_t bars = Va + ST * KT, full_q = bars;
+  auto full_k = [&](int i) { return bars + 8 * (1 + i); };
+  auto empty_k = [&](int i) { return bars + 8 * (1 + ST + i); };
+  auto full_v = [&](int i) { return bars + 8 * (1 + 2 * ST + i); };
+  auto empty_v = [&](int i) { return bars + 8 * (1 + 3 * ST + i); };
+
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = blockIdx.x * QROWS;
+  const int n_kv = (p.skv + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full_k(i), 1);
+      mbar_init(empty_k(i), NC);
+      mbar_init(full_v(i), 1);
+      mbar_init(empty_v(i), NC);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NC) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == NC && n_kv > 0) {
+      mbar_expect_tx(full_q, QT);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        tma_load_bshd(Qa + c * QROWS * 32, &tq, hs.x, 16 * c, q0, h, b, full_q);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % ST;
+        const uint32_t ph = ((j / ST) & 1) ^ 1;  // a fresh stage's wait passes at once
+        mbar_wait(empty_k(st), ph);
+        mbar_expect_tx(full_k(st), KT);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          tma_load_bshd(Ka + st * KT + c * BN * 32, &tk, hs.y, 16 * c, j * BN, h, b, full_k(st));
+        mbar_wait(empty_v(st), ph);
+        mbar_expect_tx(full_v(st), KT);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          tma_load_bshd(Va + st * KT + c * BN * 32, &tv, hs.z, 16 * c, j * BN, h, b, full_v(st));
+      }
+    }
+    return;
+  }
+
+  const int wgi = threadIdx.x >> 7, lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int t = lane & 3;
+  const float sl2 = p.scale * kLog2e;
+  const uint32_t Qw = Qa + wgi * 64 * 32;
+  // ping-pong: barrier 1 + w opens warpgroup w's product issue; the other
+  // warpgroup opens it once it has issued its own (warpgroup 0 first; the
+  // counts match: each warpgroup issues n_kv + 1 times)
+  auto issue_begin = [&] { named_sync(1 + wgi, 256); };
+  auto issue_end = [&](bool more) {
+    if (more || wgi == 0) named_arrive(2 - wgi, 256);
+  };
+
+  float s[BN / 8][4], o[6][4];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  if (n_kv > 0) {  // (no keys: O = 0 and the LSE -inf, as the plain version's)
+    if (wgi == 1) named_arrive(1, 256);
+    mbar_wait(full_q, 0);
+    mbar_wait(full_k(0), 0);
+    issue_begin();
+    fence_acc(s);
+    wgmma_fence();
+    s_product<BN>(s, Qw, Ka, QROWS);
+    wgmma_commit();
+    issue_end(true);
+    wgmma_wait<0>();
+    fence_acc(s);
+    mbar_arrive(empty_k(0));
+    softmax_tile_ffma<BN / 8, PN>(s, m, l, alpha, sl2, 0, p.skv, t);
+    uint32_t pa[BN / 16][4];  // P of the tile whose P V comes next, bf16
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) acc_to_a(pa[kk], s, kk);
+
+    for (int j = 0; j + 1 < n_kv; ++j) {
+      const int sk = (j + 1) % ST, sv = j % ST;
+      mbar_wait(full_k(sk), ((j + 1) / ST) & 1);
+      mbar_wait(full_v(sv), (j / ST) & 1);
+      issue_begin();
+      fence_acc(s);
+      fence_acc(o);
+      wgmma_fence();
+      s_product<BN>(s, Qw, Ka + sk * KT, QROWS);  // S_{j+1}
+      wgmma_commit();
+      pv_product<BN>(o, pa, Va + sv * KT);  // O += P_j V_j
+      wgmma_commit();
+      issue_end(true);
+      wgmma_wait<1>();  // S_{j+1}; the softmax runs under P_j V_j
+      fence_acc(s);
+      mbar_arrive(empty_k(sk));
+      softmax_tile_ffma<BN / 8, PN>(s, m, l, alpha, sl2, (j + 1) * BN, p.skv, t);
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_a(pa);
+      mbar_arrive(empty_v(sv));
+      rescale(o, alpha);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) acc_to_a(pa[kk], s, kk);
+    }
+    const int sv = (n_kv - 1) % ST;
+    mbar_wait(full_v(sv), ((n_kv - 1) / ST) & 1);
+    issue_begin();
+    fence_acc(o);
+    wgmma_fence();
+    pv_product<BN>(o, pa, Va + sv * KT);
+    wgmma_commit();
+    issue_end(false);
+    wgmma_wait<0>();
+    fence_acc(o);
+    fence_a(pa);
+  }
+  float inv[2];
+  finish_rows(l, inv);
+  // O staged in this warp's own rows of Q (its products are done with them)
+  store_o(p, smem_raw + (Qa - raw) + (wgi * 64 + warp * 16) * 32, QROWS, o, inv,
+          static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh, q0 + wgi * 64 + warp * 16, bh, m, l,
+          lane);
+}
+
+// kv_len <= KN: one block of one warpgroup per (chunk of q tiles,
+// batch*head), walking q tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+__global__ void __launch_bounds__(128, SHORT_BLOCKS) flash_fwd_kernel_d40_short(Params p) {
+  constexpr int QT1 = 64 * 96, KT1 = KN * 96;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 255) & ~255u;
+  const uint32_t Ka = base, Va = Ka + KT1, Qa = Va + KT1;  // Q buffer i at Qa + i * QT1
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  bf16* ob = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float sl2 = p.scale * kLog2e;
+  const int n_q = (p.sq + 63) / 64;
+
+  copy_rows_swz<D, KN, 128>(Ka, kb, p.k_ss, 0, p.skv);
+  copy_rows_swz<D, KN, 128>(Va, vb, p.v_ss, 0, p.skv);
+  copy_rows_swz<D, 64, 128>(Qa, qb, p.q_ss, blockIdx.x * 64, p.sq);
+  cp_async_commit();
+  for (int i = blockIdx.x, it = 0; i < n_q; i += gridDim.x, ++it) {
+    const uint32_t Qt = Qa + (it & 1) * QT1;
+    cp_async_wait<0>();  // q tile i (and K, V)
+    fence_proxy_async();
+    __syncthreads();  // ... visible to all; the other buffer's last readers done
+    if (i + gridDim.x < n_q)
+      copy_rows_swz<D, 64, 128>(Qa + ((it + 1) & 1) * QT1, qb, p.q_ss, (i + gridDim.x) * 64,
+                                p.sq);
+    cp_async_commit();
+
+    float s[KN / 8][4], o[6][4];
+#pragma unroll
+    for (int j = 0; j < KN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    fence_acc(s);
+    wgmma_fence();
+    s_product<KN>(s, Qt, Ka, 64);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    softmax_tile_ffma<KN / 8, 0>(s, m, l, alpha, sl2, 0, p.skv, t);
+    uint32_t pa[KN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KN / 16; ++kk) acc_to_a(pa[kk], s, kk);
+    fence_acc(o);
+    wgmma_fence();
+    pv_product<KN>(o, pa, Va);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+    fence_a(pa);
+
+    float inv[2];
+    finish_rows(l, inv);
+    __syncthreads();  // every warp's S has read the q tile
+    store_o(p, smem_raw + (Qt - raw) + warp * 16 * 32, 64, o, inv, ob, i * 64 + warp * 16, bh,
+            m, l, lane);
+  }
+}
+
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  if (p.skv > 0 && p.skv <= KN) {
+    constexpr size_t SMEM1 = 256 + 2 * (size_t)KN * 96 + 2 * 64 * 96;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_fwd_kernel_d40_short, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM1);
+    if (attr != cudaSuccess) return attr;
+    static const int sms = [] {
+      int dev = 0, n = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+      return n;
+    }();
+    const int n_q = (p.sq + 63) / 64, bh = batch * p.heads;
+    const int per_bh = (sms * SHORT_BLOCKS + bh - 1) / bh;  // each SM's blocks, one wave
+    dim3 grid(per_bh < n_q ? per_bh : n_q, bh);
+    flash_fwd_kernel_d40_short<<<grid, 128, SMEM1, stream>>>(p);
+    return cudaGetLastError();
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel_d40, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tq, tk, tv;
+  int3 hs;
+  cudaError_t e = bshd_map(&tq, &hs.x, p.q, D, p.sq, p.heads, batch, p.q_ss, p.q_sh, p.q_sb, QROWS);
+  if (e == cudaSuccess)
+    e = bshd_map(&tk, &hs.y, p.k, D, p.skv, p.heads, batch, p.k_ss, p.k_sh, p.k_sb, BN);
+  if (e == cudaSuccess)
+    e = bshd_map(&tv, &hs.z, p.v, D, p.skv, p.heads, batch, p.v_ss, p.v_sh, p.v_sb, BN);
+  if (e != cudaSuccess) return e;
+  dim3 grid((p.sq + QROWS - 1) / QROWS, batch * p.heads);
+  flash_fwd_kernel_d40<<<grid, NTHREADS, SMEM, stream>>>(tq, tk, tv, hs, p);
+  return cudaGetLastError();
+}
+
+}  // namespace d40
 
 // ---- bf16 at head dim 512: two warpgroups split d -------------------------
 namespace d512 {
@@ -739,7 +1160,7 @@ int flash_attn_fwd(int dtype, int d, const void* q, const void* k, const void* v
            k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, heads, sq,  skv, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (d == 40) return wg::launch<40>(p, batch, s);
+    if (d == 40) return d40::launch(p, batch, s);
     if (d == 64) return wg::launch<64>(p, batch, s);
     if (d == 80) return wg::launch<80>(p, batch, s);
     if (d == 160) return wg::launch<160>(p, batch, s);

@@ -15,8 +15,9 @@
 //                          and a channel (B segments of H*W); a per-segment
 //                          divisor (the SmoothQuant migration, one per
 //                          channel of a sample) divides each element first.
-//                          Blocks take chunks of a segment and meet in an
-//                          atomicMax, which is exact in any order.
+//                          One launch: a warp a short row, or blocks over
+//                          chunks of a long one whose last block to finish
+//                          takes the rows' maxima (exact in any order).
 //   q8_quantize_rows_kernel  (M, K) -> int8 (M, K) and the scale (M,).
 //   q8_quantize_nhwc_kernel  NCHW -> int8 NHWC and the scale (B,), through a
 //                          shared-memory transpose, so the convolution reads
@@ -60,51 +61,132 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ float block_max(float v) {
-  __shared__ float partial[kThreads / 32];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) partial[warp] = v;
-  __syncthreads();
-  float m = 0.f;
-  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) m = fmaxf(m, partial[i]);
-  __syncthreads();
-  return m;
-}
-
 __device__ __forceinline__ int8_t quantize(float v, float s) {
   const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
   return static_cast<int8_t>(q);
 }
 
 // ---- Q1a: absmax ------------------------------------------------------------
-// Block: one chunk of one segment of one row. The row's maximum is reduced
-// with atomicMax on the float's bits (non-negative floats order as their
-// bits), into `absmax` zeroed by the entry point: max is exact, so the
-// order of the atomics does not change the result.
-template <typename T>
+// A row is n_seg segments of seg_len contiguous elements, segment s at
+// row * row_stride + s * seg_stride. The host's plan (ops/qconv.py::
+// absmax_plan) gives each row `tpr` threads (32 to 256: 256 / tpr rows a
+// block) and, for a few long rows, `splits` blocks a row, each over `chunk`
+// elements of the row's n_seg * seg_len (segment by segment). Unsplit, a
+// row's threads write its maximum; split, each block writes its own to
+// `partial` and the last block to finish (a counter, counted after a
+// fence) takes every row's maximum over its splits, a group of lanes a row,
+// and resets the counter for the next launch (one counter a device: split
+// launches run one at a time, as the port's single stream runs them). One
+// launch a call, nothing zeroed first; max is exact, so neither the order
+// of the blocks nor that of the loads changes a bit of the result. Loads are 16 bytes where the
+// piece is aligned (a scalar head and tail around them), 4 in flight a
+// thread.
+__device__ unsigned int g_absmax_done = 0;  // blocks done in the running launch
+
+template <bool DIV>
+__device__ __forceinline__ float absf(float v, float d) {
+  return fabsf(DIV ? __fdiv_rn(v, d) : v);
+}
+
+template <bool DIV>
+__device__ __forceinline__ float vec_max(uint4 u, float d, float m, const float*) {
+  m = fmaxf(m, fmaxf(absf<DIV>(__uint_as_float(u.x), d), absf<DIV>(__uint_as_float(u.y), d)));
+  return fmaxf(m, fmaxf(absf<DIV>(__uint_as_float(u.z), d), absf<DIV>(__uint_as_float(u.w), d)));
+}
+template <bool DIV>
+__device__ __forceinline__ float vec_max(uint4 u, float d, float m, const __nv_bfloat16*) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    m = fmaxf(m, fmaxf(absf<DIV>(__uint_as_float(w[i] << 16), d),
+                       absf<DIV>(__uint_as_float(w[i] & 0xffff0000u), d)));
+  return m;
+}
+
+// This thread's maximum of |p[i] (/ d)| over its share (i = tid, tid +
+// NTH, ...) of n contiguous elements, folded into m.
+template <typename T, bool DIV, int NTH, int UNROLL = 4>
+__device__ __forceinline__ float piece_max(const T* p, int n, float d, int tid, float m) {
+  constexpr int V = 16 / sizeof(T);
+  const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(p) & 15) / sizeof(T));
+  const int head = min(n, mis ? V - mis : 0);
+  if (tid < head) m = fmaxf(m, absf<DIV>(to_float(p[tid]), d));
+  const uint4* pv = reinterpret_cast<const uint4*>(p + head);
+  const int nv = (n - head) / V;
+  int i = tid;
+  for (; i + (UNROLL - 1) * NTH < nv; i += UNROLL * NTH) {
+    uint4 u[UNROLL];
+#pragma unroll
+    for (int k = 0; k < UNROLL; ++k) u[k] = __ldg(pv + i + k * NTH);
+#pragma unroll
+    for (int k = 0; k < UNROLL; ++k) m = vec_max<DIV>(u[k], d, m, p);
+  }
+  for (; i < nv; i += NTH) m = vec_max<DIV>(__ldg(pv + i), d, m, p);
+  const int e = head + nv * V + tid;
+  if (e < n) m = fmaxf(m, absf<DIV>(to_float(p[e]), d));
+  return m;
+}
+
+// The maximum of m over groups of `lanes` (a power of 2 up to 32) lanes.
+__device__ __forceinline__ float group_max(float m, int lanes) {
+  for (int off = lanes >> 1; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  return m;
+}
+
+template <typename T, bool DIV, int TPR>
 __global__ void __launch_bounds__(kThreads) q8_absmax_kernel(
     const T* __restrict__ x, const float* __restrict__ div, float* __restrict__ absmax,
-    long long row_stride, int n_seg, long long seg_len, long long seg_stride, int splits,
-    long long chunk) {
-  const long long blk = blockIdx.x;
-  const long long row_seg = blk / splits;
-  const int split = static_cast<int>(blk - row_seg * splits);
-  const long long row = row_seg / n_seg;
-  const int seg = static_cast<int>(row_seg - row * n_seg);
-  const long long lo = split * chunk;
-  const long long hi = lo + chunk < seg_len ? lo + chunk : seg_len;
-  const T* base = x + row * row_stride + seg * seg_stride;
-  const float d = div != nullptr ? div[seg] : 1.f;
+    float* __restrict__ partial, long long rows, long long row_stride, int n_seg, int seg_len,
+    long long seg_stride, int splits, int chunk) {
+  constexpr int PER_BLOCK = kThreads / TPR;
+  __shared__ float warp_max[kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tid = threadIdx.x % TPR;
+  const long long row = static_cast<long long>(blockIdx.x / splits) * PER_BLOCK + threadIdx.x / TPR;
+  const int split = static_cast<int>(blockIdx.x % splits);
+  const int lo = split * chunk, hi = min(lo + chunk, n_seg * seg_len);
   float m = 0.f;
-  for (long long l = lo + threadIdx.x; l < hi; l += blockDim.x) {
-    float v = to_float(base[l]);
-    if (div != nullptr) v = __fdiv_rn(v, d);
-    m = fmaxf(m, fabsf(v));
+  if (row < rows) {
+    const T* base = x + row * row_stride;
+    for (int s = lo / seg_len; s * seg_len < hi; ++s) {  // segment by segment
+      const int a = max(lo, s * seg_len) - s * seg_len, b = min(hi, (s + 1) * seg_len) - s * seg_len;
+      m = piece_max<T, DIV, TPR>(base + s * seg_stride + a, b - a, DIV ? div[s] : 1.f, tid, m);
+    }
   }
-  m = block_max(m);
-  if (threadIdx.x == 0) atomicMax(reinterpret_cast<int*>(absmax + row), __float_as_int(m));
+  m = group_max(m, 32);
+  if constexpr (TPR > 32) {  // a row's warps meet in shared memory
+    if (lane == 0) warp_max[warp] = m;
+    __syncthreads();
+    if (tid == 0)
+      for (int w = 1; w < TPR / 32; ++w) m = fmaxf(m, warp_max[warp + w]);
+  }
+  if (splits == 1) {
+    if (tid == 0 && row < rows) absmax[row] = m;
+    return;
+  }
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = m;
+    __threadfence();  // the partial before the count
+    last = atomicAdd(&g_absmax_done, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // a group of lanes a row (a power of 2 up to a warp), each lane over
+  // every lanes-th split
+  int lanes = 1;
+  while (lanes < 32 && lanes < splits) lanes <<= 1;
+  const int group = threadIdx.x / lanes, groups = kThreads / lanes, gl = threadIdx.x % lanes;
+  for (long long r0 = 0; r0 < rows; r0 += groups) {  // whole warps go round together
+    const long long r = r0 + group;
+    float mr = 0.f;
+    if (r < rows)
+      for (int s = gl; s < splits; s += lanes) mr = fmaxf(mr, __ldcg(partial + r * splits + s));
+    mr = group_max(mr, lanes);
+    if (gl == 0 && r < rows) absmax[r] = mr;
+  }
+  if (threadIdx.x == 0) g_absmax_done = 0;
 }
 
 // s = max(absmax, 1e-8) / 127
@@ -333,27 +415,58 @@ long long grid_for(long long n) {
   return blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16;
 }
 
+template <typename T, bool DIV>
+cudaError_t absmax_launch(const void* x, const float* div, float* absmax, float* partial,
+                          long long rows, long long row_stride, int n_seg, int seg_len,
+                          long long seg_stride, int tpr, int splits, int chunk, cudaStream_t s) {
+  const long long per_block = kThreads / tpr;
+  const dim3 grid(static_cast<unsigned>((rows + per_block - 1) / per_block * splits));
+  const T* xt = static_cast<const T*>(x);
+#define PSO_ABSMAX(TPR)                                                                       \
+  q8_absmax_kernel<T, DIV, TPR><<<grid, kThreads, 0, s>>>(                                    \
+      xt, div, absmax, partial, rows, row_stride, n_seg, seg_len, seg_stride, splits, chunk)
+  switch (tpr) {
+    case 32: PSO_ABSMAX(32); break;
+    case 64: PSO_ABSMAX(64); break;
+    case 128: PSO_ABSMAX(128); break;
+    case 256: PSO_ABSMAX(256); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef PSO_ABSMAX
+  return cudaGetLastError();
+}
+
+cudaError_t absmax_dispatch(int dtype, const void* x, const float* div, float* absmax,
+                            float* partial, long long rows, long long row_stride, int n_seg,
+                            int seg_len, long long seg_stride, int tpr, int splits, int chunk,
+                            cudaStream_t s) {
+  if (dtype == 0)
+    return div != nullptr
+               ? absmax_launch<__nv_bfloat16, true>(x, div, absmax, partial, rows, row_stride,
+                                                    n_seg, seg_len, seg_stride, tpr, splits, chunk,
+                                                    s)
+               : absmax_launch<__nv_bfloat16, false>(x, div, absmax, partial, rows, row_stride,
+                                                     n_seg, seg_len, seg_stride, tpr, splits,
+                                                     chunk, s);
+  return div != nullptr ? absmax_launch<float, true>(x, div, absmax, partial, rows, row_stride,
+                                                     n_seg, seg_len, seg_stride, tpr, splits,
+                                                     chunk, s)
+                        : absmax_launch<float, false>(x, div, absmax, partial, rows, row_stride,
+                                                      n_seg, seg_len, seg_stride, tpr, splits,
+                                                      chunk, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 bf16, 1 fp32 (the input's for Q1, the output's for Q2 and Q3)
-int q8_absmax(int dtype, const void* x, const float* div, float* absmax, long long rows,
-              long long row_stride, int n_seg, long long seg_len, long long seg_stride,
-              int splits, long long chunk, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(absmax, 0, rows * sizeof(float), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(rows * n_seg * splits));
-  if (dtype == 0)
-    q8_absmax_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), div, absmax, row_stride, n_seg, seg_len,
-        seg_stride, splits, chunk);
-  else
-    q8_absmax_kernel<float><<<grid, kThreads, 0, s>>>(static_cast<const float*>(x), div, absmax,
-                                                      row_stride, n_seg, seg_len, seg_stride,
-                                                      splits, chunk);
-  return static_cast<int>(cudaGetLastError());
+int q8_absmax(int dtype, const void* x, const float* div, float* absmax, float* partial,
+              long long rows, long long row_stride, int n_seg, int seg_len,
+              long long seg_stride, int tpr, int splits, int chunk, void* stream) {
+  return static_cast<int>(absmax_dispatch(dtype, x, div, absmax, partial, rows, row_stride, n_seg,
+                                          seg_len, seg_stride, tpr, splits, chunk,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 int q8_quantize_rows(int dtype, const void* x, const float* absmax, int8_t* q, float* scale,

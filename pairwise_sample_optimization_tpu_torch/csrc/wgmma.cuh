@@ -250,6 +250,41 @@ __device__ __forceinline__ void wgmma_ss_tt_n48(float (&c)[6][4], uint64_t da, u
 }
 #undef PSO_ACC24
 
+// c = [c +] A B (m64n128k16), A and B K-major in shared memory (d = 40's S
+// over a kv tile of 128 keys: Q's 16 columns read once for all 128).
+#define PSO_ACC8(c, j)                                                                    \
+  "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3]), "+f"(c[j + 1][0]),          \
+      "+f"(c[j + 1][1]), "+f"(c[j + 1][2]), "+f"(c[j + 1][3])
+__device__ __forceinline__ void wgmma_ss_n128(float (&c)[16][4], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : PSO_ACC8(c, 0), PSO_ACC8(c, 2), PSO_ACC8(c, 4), PSO_ACC8(c, 6), PSO_ACC8(c, 8),
+        PSO_ACC8(c, 10), PSO_ACC8(c, 12), PSO_ACC8(c, 14)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The same with n = 80 (d = 40's S over a kv of at most 80 keys).
+__device__ __forceinline__ void wgmma_ss_n80(float (&c)[10][4], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n}\n"
+      : PSO_ACC8(c, 0), PSO_ACC8(c, 2), PSO_ACC8(c, 4), PSO_ACC8(c, 6), PSO_ACC8(c, 8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+#undef PSO_ACC8
+
 // Keep the compiler from moving reads or writes of an accumulator across
 // the asynchronous wgmma that owns it.
 template <int N>

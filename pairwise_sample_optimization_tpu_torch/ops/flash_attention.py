@@ -13,7 +13,10 @@ length are masked in the kernels.
 A CPU tensor takes the plain versions; a CUDA tensor takes the kernels or
 raises. The forward takes head dims ``HEAD_DIMS``: 64 (the SDXL UNet), 80
 (the ViT-H/14 scorers), 512 (the VAE mid-block), 40 and 160 (the SD1.5
-UNet's 8 fixed heads over 320 and 1280 channels; 80 over 640).
+UNet's 8 fixed heads over 320 and 1280 channels; 80 over 640). The C entry
+picks the kernel by head dim; bf16 at 40 has two of its own (one for at
+most 80 keys, one for longer kv), each raising on a failed build or
+launch like the others.
 :class:`FlashAttentionFunction` runs the forward (K1) and saves q, k, v, o
 and the logsumexp; its backward takes head dims ``BWD_HEAD_DIMS``. In bf16
 it takes three launches: the pre kernel (Di = rowsum(O * dO), the fp32

@@ -41,6 +41,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -49,15 +51,19 @@ from . import kernel_lib
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "q8_absmax": [_I, _P, _P, _P, _LL, _LL, _I, _LL, _LL, _I, _LL, _P],
+    "q8_absmax": [_I, _P, _P, _P, _P, _LL, _LL, _I, _I, _LL, _I, _I, _I, _P],
     "q8_quantize_rows": [_I, _P, _P, _P, _P, _LL, _LL, _P],
     "q8_quantize_nhwc": [_I, _P, _P, _P, _P, _P, _I, _I, _LL, _P],
     "q8_conv3x3": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "q8_dequant": [_I, _P, _P, _P, _P, _P, _LL, _LL, _P],
 }
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_TARGET_BLOCKS = 1024  # absmax blocks to spread over 132 SMs
-_MIN_CHUNK = 4096  # elements a block reads at the least
+# Q1a's plan (``absmax_plan``)
+ABSMAX_THREADS = 256  # threads a block (kThreads in csrc/int8_conv.cu)
+ABSMAX_LOADS = 8  # loads of 8 elements a thread of a row at most, before the row takes more threads
+ABSMAX_BLOCKS_PER_SM = 8  # blocks an SM holds at once: one wave
+ABSMAX_TWO_WAVES = 2**28  # elements above which the split rows take two waves
+ABSMAX_MIN_CHUNK = 32768  # elements a block of a split row reads at the least
 
 _USE_INT8_DECODE = False
 _USE_INT8_SCORER = False
@@ -202,41 +208,79 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(fn, *args, name):
     lib = kernel_lib.load("int8_conv", _SIGNATURES)
     kernel_lib.check(lib, getattr(lib, fn)(*args), fn)
     kernel_lib.launch_counts[name] += 1
 
 
-def _splits(rows_segs: int, seg_len: int):
-    """(splits, chunk): blocks per segment and elements per block."""
-    want = max(1, -(-_TARGET_BLOCKS // max(rows_segs, 1)))
-    splits = max(1, min(want, seg_len // _MIN_CHUNK))
-    chunk = -(-seg_len // splits)
-    return -(-seg_len // chunk), chunk
+def absmax_plan(rows: int, row_len: int, sms: int) -> tuple[int, int, int]:
+    """How Q1a's one launch covers ``rows`` rows of ``row_len`` elements on
+    a card of ``sms`` SMs: (threads a row, splits, chunk). A row takes the
+    fewest threads (32, 64, 128 or 256) that read it in at most
+    ``ABSMAX_LOADS`` loads of 8 elements each (16 bytes of bf16). Rows that
+    take a whole block and give fewer than two blocks an SM are each split
+    into ``splits`` blocks of ``chunk`` elements (a multiple of 8, so a
+    16-byte aligned row keeps its chunks aligned): as many as fill the card
+    once (``ABSMAX_BLOCKS_PER_SM`` blocks an SM over all rows; twice above
+    ``ABSMAX_TWO_WAVES`` elements, which streamed faster so on the H100),
+    none under ``ABSMAX_MIN_CHUNK`` elements, none empty."""
+    vecs, tpr = -(-row_len // 8), 32
+    while tpr < ABSMAX_THREADS and vecs > ABSMAX_LOADS * tpr:
+        tpr *= 2
+    if tpr < ABSMAX_THREADS or rows >= 2 * sms:
+        return tpr, 1, row_len
+    waves = 2 if rows * row_len > ABSMAX_TWO_WAVES else 1
+    want = -(-sms * ABSMAX_BLOCKS_PER_SM * waves // rows)
+    splits = max(1, min(want, row_len // ABSMAX_MIN_CHUNK))
+    chunk = -(-row_len // splits)
+    chunk = -(-chunk // 8) * 8
+    return tpr, -(-row_len // chunk), chunk
+
+
+def absmax_geometry(shape, mode: str, divided: bool = False):
+    """Q1a's rows of ``x`` (contiguous, ``shape``) for ``mode``: (rows, row
+    stride, segments a row, segment length, segment stride), in elements. A
+    row is its segments one after the other: a token of (M, K) is one
+    segment; a sample of (B, C, H, W) is C segments of H*W (one contiguous
+    one unless ``divided``: each channel has its own divisor); a channel is
+    B segments of H*W, C*H*W apart."""
+    if mode == "rows":
+        rows, k = shape
+        return rows, k, 1, k, 0
+    b, c = shape[:2]
+    hw = math.prod(shape) // (b * c)
+    if mode == "samples":
+        return (b, c * hw, c, hw, hw) if divided else (b, c * hw, 1, c * hw, 0)
+    return c, hw, b, hw, c * hw
 
 
 def absmax(x, mode: str, div=None):
-    """Q1a: fp32 absmax (rows,) of ``x``; see :func:`absmax_plain`."""
+    """Q1a: fp32 absmax (rows,) of ``x``; see :func:`absmax_plain`. One
+    launch; ``absmax_plan`` lays out its grid."""
     if not _on_cuda(x, div, what="int8_absmax"):
         return absmax_plain(x, mode, div)
     _check_input(x, "int8_absmax")
-    if mode == "rows":
-        rows, k = x.shape
-        geometry = (rows, k, 1, k, 0)  # rows, row stride, segments, segment length, its stride
-    else:
-        b, c = x.shape[:2]
-        hw = x.numel() // (b * c)
-        geometry = ((b, c * hw, c, hw, hw) if mode == "samples" else (c, hw, b, hw, c * hw))
     if div is not None and (mode != "samples" or div.dtype != torch.float32
                             or div.shape != (x.shape[1],)):
         raise ValueError(f"a divisor takes sample mode and fp32 (C,), got {mode}, "
                          f"{tuple(div.shape)} {div.dtype}")
-    rows, row_stride, n_seg, seg_len, seg_stride = geometry
-    splits, chunk = _splits(rows * n_seg, seg_len)
+    rows, row_stride, n_seg, seg_len, seg_stride = absmax_geometry(x.shape, mode,
+                                                                   div is not None)
+    if n_seg * seg_len >= 2**31:
+        raise ValueError(f"int8_absmax takes rows of fewer than 2**31 elements, got "
+                         f"{n_seg * seg_len} ({tuple(x.shape)}, {mode})")
+    tpr, splits, chunk = absmax_plan(rows, n_seg * seg_len, _sm_count(x.device.index or 0))
     out = torch.empty(rows, dtype=torch.float32, device=x.device)
-    _launch("q8_absmax", _DTYPES[x.dtype], x.data_ptr(), _ptr(div), out.data_ptr(), rows,
-            row_stride, n_seg, seg_len, seg_stride, splits, chunk,
+    partial = (torch.empty(rows * splits, dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    _launch("q8_absmax", _DTYPES[x.dtype], x.data_ptr(), _ptr(div), out.data_ptr(),
+            _ptr(partial), rows, row_stride, n_seg, seg_len, seg_stride, tpr, splits, chunk,
             kernel_lib.stream_ptr(x.device), name="int8_absmax")
     return out
 

@@ -24,8 +24,13 @@ products), and SDPA's backward (autograd, dQ + dK + dV); then
 launch-weighted means over each path's shapes (Turbo: one epoch of the
 loop; DMD2: one epoch of the loop and one 8-prompt eval run, the runs
 ``chip_smoke.py`` drives; SD1.x: ``chip_smoke.sd15_slice``'s rollout and
-gradient, the backward's means also per head dim). Everything goes to
-``time_port_attention_<tag>.json`` in the output directory that
+gradient, the backward's means also per head dim). Then the int8 absmax
+(Q1a, ``ops/qconv.py::absmax``) at the 512^2 VAE decode's shapes of
+``chip_smoke.int8_off_path_shapes`` (rows of the weights, samples of the
+activations) and at the same samples with a per-channel divisor (the
+SmoothQuant path), each held bit-equal to ``absmax_plain`` and timed beside
+``torch.linalg.vector_norm(ord=inf)`` where no divisor is taken. Everything
+goes to ``time_port_attention_<tag>.json`` in the output directory that
 ``chip_smoke.py`` writes its record to. It exits non-zero if any check
 failed.
 """
@@ -233,14 +238,48 @@ def main(argv=None) -> int:
                               for key in ("bwd_ms", "bwd_bound_ms", "sdpa_bwd_ms")})
     print(f"[{args.tag}] launch-weighted means over each path's shapes: "
           + ", ".join(f"{k} {v:.4f}" for k, v in means.items()), flush=True)
+    absmax_rows = absmax_phase(cs, args, gen, failures)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"time_port_attention_{args.tag}.json").write_text(json.dumps(
         {"card": card, "root": args.root, "build_s": build_s, "ptxas": ptxas, "rows": rows,
-         "launch_weighted_means": means, "failures": failures}, indent=1))
+         "launch_weighted_means": means, "absmax": absmax_rows, "failures": failures}, indent=1))
     if failures:
         print(f"[{args.tag}] {len(failures)} checks failed", file=sys.stderr)
     return 1 if failures else 0
+
+
+def absmax_phase(cs, args, gen, failures):
+    """Q1a of the checkout at the VAE decode's absmax shapes, bf16, without
+    and with a divisor: bit-equal to its plain version, CUDA-event ms beside
+    ``vector_norm(ord=inf)`` (no divisor) and the bytes bound."""
+    import torch
+
+    from pairwise_sample_optimization_tpu_torch.ops import qconv as tq
+
+    keys = sorted({(k[1], k[3]) for k in cs.int8_off_path_shapes() if k[0] == "absmax"})
+    cases = [(shape, mode, False) for shape, mode in keys]
+    cases += [(shape, mode, True) for shape, mode in keys if mode == "samples"]
+    rows = []
+    for shape, mode, divided in cases:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 1.7 + 0.1).to(torch.bfloat16)
+        div = (torch.rand(shape[1], generator=gen, device="cuda") + 0.5) if divided else None
+        name = f"absmax {shape} {mode}" + (" with a divisor" if divided else "")
+        if not torch.equal(tq.absmax(x, mode, div), tq.absmax_plain(x, mode, div)):
+            failures.append(f"{name}: differs from its plain version")
+            print(f"[{args.tag}] FAILED {name}: differs from its plain version", flush=True)
+        dims = {"rows": -1, "samples": (1, 2, 3)}[mode]
+        n_rows = shape[0]
+        row = {"x": list(shape), "mode": mode, "divisor": divided,
+               "ms": cs.timed_ms(lambda: tq.absmax(x, mode, div)),
+               "library_ms": None if divided else cs.timed_ms(
+                   lambda: torch.linalg.vector_norm(x, float("inf"), dim=dims)),
+               "bound_ms": cs.bound(x.numel() * 2 + 4 * n_rows + (4 * shape[1] if divided else 0),
+                                    cs.ABSMAX_OPS * x.numel(), "fp32")[0]}
+        rows.append(row)
+        print(f"[{args.tag}] {name}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f})"
+              + ("" if divided else f", vector_norm {row['library_ms']:.4f}"), flush=True)
+    return rows
 
 
 if __name__ == "__main__":

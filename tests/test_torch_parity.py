@@ -77,9 +77,9 @@ def test_clip_text_tower_matches_transformers():
     )
     tower = CLIPTextTower(cfg)
     ids_j = jnp.asarray(ids.astype(np.int32))
-    variables = tower.init(jax.random.key(0), ids_j)
+    variables = jax.eval_shape(tower.init, jax.random.key(0), ids_j)  # the tree, not its values
     params, _ = torch_to_flax(sd, variables["params"], clip_text_param_map)
-    got = tower.apply({"params": params}, ids_j)
+    got = jax.jit(tower.apply)({"params": params}, ids_j)
 
     np.testing.assert_allclose(
         _np(got["penultimate"]), out.hidden_states[-2].numpy(), atol=ATOL, rtol=RTOL
@@ -133,9 +133,9 @@ def test_clip_vision_tower_matches_transformers():
     )
     tower = CLIPVisionTower(cfg)
     px_nhwc = jnp.asarray(np.transpose(px_nchw, (0, 2, 3, 1)))
-    variables = tower.init(jax.random.key(0), px_nhwc)
+    variables = jax.eval_shape(tower.init, jax.random.key(0), px_nhwc)  # the tree
     params, _ = torch_to_flax(sd, variables["params"], clip_vision_param_map)
-    got = tower.apply({"params": params}, px_nhwc)
+    got = jax.jit(tower.apply)({"params": params}, px_nhwc)
     np.testing.assert_allclose(
         _np(got), out.image_embeds.numpy(), atol=ATOL, rtol=RTOL
     )
@@ -195,10 +195,10 @@ def test_pickscore_dual_encoder_matches_transformers_clipmodel():
     )
     px_nhwc = jnp.asarray(np.transpose(px, (0, 2, 3, 1)))
     ids_j = jnp.asarray(ids.astype(np.int32))
-    abstract = dual.init(jax.random.key(0), px_nhwc, ids_j)
+    abstract = jax.eval_shape(dual.init, jax.random.key(0), px_nhwc, ids_j)
     sd = {k: v.numpy() for k, v in hf.state_dict().items()}
     variables = load_hf_clip_dual(sd, abstract)
-    img_j, txt_j, _ = dual.apply(variables, px_nhwc, ids_j)
+    img_j, txt_j, _ = jax.jit(dual.apply)(variables, px_nhwc, ids_j)
     got = jnp.sum(txt_j * img_j, axis=-1)
     # cosine of two independently-normalized towers compounds fp error;
     # 2e-4 absolute on a [-1,1] similarity is well inside score noise
@@ -344,8 +344,8 @@ def test_flax_to_torch_roundtrip_runs_in_torch():
     tower = CLIPTextTower(cfg)
     ids = np.array([[1, 5, 99, 3, 2, 6, 7, 8]], np.int64)
     ids_j = jnp.asarray(ids.astype(np.int32))
-    variables = tower.init(jax.random.key(42), ids_j)
-    want = tower.apply(variables, ids_j)
+    variables = jax.jit(tower.init)(jax.random.key(42), ids_j)
+    want = jax.jit(tower.apply)(variables, ids_j)
 
     sd = flax_to_torch(variables["params"], clip_text_param_map)
     hf_cfg = HFTextConfig(

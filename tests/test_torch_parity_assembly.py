@@ -33,7 +33,7 @@ import jax.numpy as jnp  # noqa: E402
 from test_torch_parity_blocks import (  # noqa: E402
     _nchw,
     _np,
-    _randomize,
+    _random_variables,
     t_conv,
     t_gn,
     t_linear,
@@ -171,15 +171,14 @@ def test_full_unet_assembly_matches_torch():
     pooled = jax.random.normal(jax.random.key(3), (b, cfg.pooled_embed_dim))
     time_ids = jnp.tile(jnp.asarray([[512.0, 512, 0, 0, 512, 512]]), (b, 1))
 
-    variables = _randomize(
-        model.init(jax.random.key(0), sample, timesteps, ctx, pooled, time_ids),
-        jax.random.key(4),
+    variables = _random_variables(
+        model.init, jax.random.key(0), sample, timesteps, ctx, pooled, time_ids, seed=4
     )
     sd = flax_to_torch(
         variables["params"], functools.partial(unet_param_map, n_levels=3)
     )
 
-    got = model.apply(variables, sample, timesteps, ctx, pooled, time_ids)
+    got = jax.jit(model.apply)(variables, sample, timesteps, ctx, pooled, time_ids)
     want = t_unet2dcondition(
         _nchw(sample),
         torch.from_numpy(_np(timesteps)),
@@ -219,13 +218,11 @@ def test_full_unet_assembly_matches_torch_sd15():
     sample = jax.random.normal(jax.random.key(1), (b, 16, 16, 4))
     timesteps = jnp.asarray([13.0, 981.0])
     ctx = jax.random.normal(jax.random.key(2), (b, 6, cfg.cross_attention_dim))
-    variables = _randomize(
-        model.init(jax.random.key(0), sample, timesteps, ctx), jax.random.key(4)
-    )
+    variables = _random_variables(model.init, jax.random.key(0), sample, timesteps, ctx, seed=4)
     sd = flax_to_torch(
         variables["params"], functools.partial(unet_param_map, n_levels=4)
     )
-    got = model.apply(variables, sample, timesteps, ctx)
+    got = jax.jit(model.apply)(variables, sample, timesteps, ctx)
 
     # torch side: same transcription minus add_embedding, with fixed heads
     n_levels = 4
@@ -350,7 +347,9 @@ def test_tiny_chain_encode_unet_step_decode_score_matches_torch():
             projection_dim=pooled_dim, dtype=jnp.float32,
         )
         tower = CLIPTextTower(cfg)
-        variables = tower.init(jax.random.key(0), jnp.asarray(ids.astype(np.int32)))
+        # the tree alone: every value comes from the transformers model
+        variables = jax.eval_shape(tower.init, jax.random.key(0),
+                                   jnp.asarray(ids.astype(np.int32)))
         sd = {k: v.numpy() for k, v in hf.state_dict().items()}
         params, _ = torch_to_flax(sd, variables["params"], clip_text_param_map)
         return tower, {"params": params}
@@ -373,16 +372,15 @@ def test_tiny_chain_encode_unet_step_decode_score_matches_torch():
     unet = SDXLUNet(ucfg)
     hw = 8
     time_ids = jnp.tile(jnp.asarray([[16.0, 16, 0, 0, 16, 16]]), (b, 1))
-    uvars = _randomize(
-        unet.init(
-            jax.random.key(0),
-            jnp.zeros((1, hw, hw, 4)),
-            jnp.zeros((1,)),
-            jnp.zeros((1, ids.shape[1], ucfg.cross_attention_dim)),
-            jnp.zeros((1, pooled_dim)),
-            time_ids[:1],
-        ),
-        jax.random.key(5),
+    uvars = _random_variables(
+        unet.init,
+        jax.random.key(0),
+        jnp.zeros((1, hw, hw, 4)),
+        jnp.zeros((1,)),
+        jnp.zeros((1, ids.shape[1], ucfg.cross_attention_dim)),
+        jnp.zeros((1, pooled_dim)),
+        time_ids[:1],
+        seed=5,
     )
     unet_sd = flax_to_torch(
         uvars["params"], functools.partial(unet_param_map, n_levels=2)
@@ -391,9 +389,8 @@ def test_tiny_chain_encode_unet_step_decode_score_matches_torch():
     # --- VAE (decode side) ---
     vcfg = VAEConfig.tiny()
     vae = AutoencoderKL(vcfg)
-    vvars = _randomize(
-        vae.init(jax.random.key(0), jnp.zeros((1, 16, 16, 3)), jax.random.key(9)),
-        jax.random.key(6),
+    vvars = _random_variables(
+        vae.init, jax.random.key(0), jnp.zeros((1, 16, 16, 3)), jax.random.key(9), seed=6
     )
     vae_sd = flax_to_torch(vvars["params"], vae_param_map)
 
@@ -440,11 +437,11 @@ def test_tiny_chain_encode_unet_step_decode_score_matches_torch():
     )
     x = jnp.asarray(init) * schedule.init_noise_sigma
     x_in = x / jnp.sqrt(sigma0**2 + 1.0)
-    eps = unet.apply(
+    eps = jax.jit(unet.apply)(
         uvars, x_in, jnp.full((b,), t0), embeds, pooled, time_ids
     )
     x0 = x - sigma0 * eps  # the final turbo step is deterministic: x -> x0
-    images = vae.apply(vvars, x0, method=vae.decode)
+    images = jax.jit(lambda v, z: vae.apply(v, z, method=vae.decode))(vvars, x0)
     reward_ids = jnp.asarray(ids.astype(np.int32))
     scores = scorer.score(images, reward_ids)
 

@@ -31,6 +31,16 @@ import jax.numpy as jnp  # noqa: E402
 ATOL, RTOL = 3e-5, 2e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread for the module: the suite runs several
+    workers on one host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(x):
     return np.asarray(x)
 
@@ -212,6 +222,14 @@ def _randomize(variables, key):
     return jax.tree_util.tree_unflatten(treedef, new)
 
 
+def _random_variables(init, *init_args, seed=3):
+    """``_randomize(init(*init_args), key(seed))`` without running the init:
+    the tree from ``jax.eval_shape``, filled in one jitted program (an
+    eager init and fill compile every op of the module one by one)."""
+    shapes = jax.eval_shape(init, *init_args)
+    return jax.jit(lambda key: _randomize(shapes, key))(jax.random.key(seed))
+
+
 def test_unet_resnet_block_with_temb_matches_torch():
     from pairwise_sample_optimization_tpu.checkpoints import (
         flax_to_torch,
@@ -229,10 +247,10 @@ def test_unet_resnet_block_with_temb_matches_torch():
     wrap = Wrap()
     x = jax.random.normal(jax.random.key(1), (2, 6, 5, 16))
     temb = jax.random.normal(jax.random.key(2), (2, 12))
-    variables = _randomize(wrap.init(jax.random.key(0), x, temb), jax.random.key(3))
+    variables = _random_variables(wrap.init, jax.random.key(0), x, temb)
     sd = flax_to_torch(variables["params"], unet_param_map)
 
-    got = wrap.apply(variables, x, temb)
+    got = jax.jit(wrap.apply)(variables, x, temb)
     want = t_resnet(
         _nchw(x), sd, "down_blocks.0.resnets.0", groups=4, eps=1e-5,
         temb=torch.from_numpy(_np(temb)),
@@ -261,10 +279,10 @@ def test_unet_spatial_transformer_matches_torch():
     wrap = Wrap()
     x = jax.random.normal(jax.random.key(1), (2, 4, 6, c))
     ctx = jax.random.normal(jax.random.key(2), (2, 7, c))
-    variables = _randomize(wrap.init(jax.random.key(0), x, ctx), jax.random.key(3))
+    variables = _random_variables(wrap.init, jax.random.key(0), x, ctx)
     sd = flax_to_torch(variables["params"], unet_param_map)
 
-    got = wrap.apply(variables, x, ctx)
+    got = jax.jit(wrap.apply)(variables, x, ctx)
     want = t_spatial_transformer(
         _nchw(x), torch.from_numpy(_np(ctx)), sd,
         "down_blocks.1.attentions.0", heads=heads, depth=depth, groups=4,
@@ -282,13 +300,11 @@ def test_vae_decoder_matches_torch():
     cfg = VAEConfig.tiny()
     vae = AutoencoderKL(cfg)
     z_img = jax.random.normal(jax.random.key(1), (2, 8, 8, 3))
-    variables = _randomize(
-        vae.init(jax.random.key(0), z_img, jax.random.key(9)), jax.random.key(3)
-    )
+    variables = _random_variables(vae.init, jax.random.key(0), z_img, jax.random.key(9))
     sd = flax_to_torch(variables["params"], vae_param_map)
 
     z = jax.random.normal(jax.random.key(2), (2, 4, 4, cfg.latent_channels))
-    got = vae.apply(variables, z, method=vae.decode)
+    got = jax.jit(lambda v, z_: vae.apply(v, z_, method=vae.decode))(variables, z)
 
     zt = _nchw(z) / cfg.scaling_factor
     zt = t_conv(zt, sd, "post_quant_conv", padding=0)
@@ -309,12 +325,10 @@ def test_vae_encoder_matches_torch():
     cfg = VAEConfig.tiny()
     vae = AutoencoderKL(cfg)
     x = jax.random.normal(jax.random.key(1), (2, 8, 8, 3))
-    variables = _randomize(
-        vae.init(jax.random.key(0), x, jax.random.key(9)), jax.random.key(3)
-    )
+    variables = _random_variables(vae.init, jax.random.key(0), x, jax.random.key(9))
     sd = flax_to_torch(variables["params"], vae_param_map)
 
-    mean, logvar = vae.apply(variables, x, method=vae.encode)
+    mean, logvar = jax.jit(lambda v, x_: vae.apply(v, x_, method=vae.encode))(variables, x)
 
     h = t_vae_encoder(
         _nchw(x), sd, groups=cfg.norm_groups,

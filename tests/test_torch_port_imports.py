@@ -222,6 +222,7 @@ def kernel_path(monkeypatch):
     monkeypatch.setattr(tq, "_on_cuda", lambda *a, what: True)
     monkeypatch.setattr(kernel_lib, "stream_ptr", lambda device: 0)
     monkeypatch.setattr(tfa, "_sm_count", lambda index: 132)  # an H100's
+    monkeypatch.setattr(tq, "_sm_count", lambda index: 132)
     lib = _FakeLib(rc=0)
     monkeypatch.setattr(kernel_lib, "load", lambda name, sigs: lib)
     kernel_lib.reset_launch_counts()
@@ -260,6 +261,28 @@ def test_kernel_failure_propagates_and_is_not_counted(kernel_path):
     with pytest.raises(RuntimeError, match="gn_stats: CUDA error 700"):
         group_norm(torch.empty((2, 64, 8, 8), device="meta"), w, w, 32, act="silu")
     assert set(kernel_lib.launch_counts.values()) == {0}
+
+
+@pytest.mark.parametrize("skv", [77, 4096])
+def test_bf16_d40_forward_takes_the_kernel_library_or_raises(kernel_path, monkeypatch, skv):
+    """bf16 at head dim 40 (either of its kernels: at most 80 keys or more)
+    goes to the forward's library and counts one launch at d = 40; with the
+    library absent (no nvcc to build it) the call raises, and never takes
+    the plain version."""
+    q = torch.empty((2, 64, 8, 40), device="meta", dtype=torch.bfloat16)
+    kv = torch.empty((2, skv, 8, 40), device="meta", dtype=torch.bfloat16)
+    o, lse = tfa.flash_attention_fwd(q, kv, kv)
+    assert o.shape == q.shape and lse.shape == (2, 8, 64) and lse.dtype == torch.float32
+    assert kernel_path.calls == ["flash_attn_fwd"]
+    assert kernel_lib.head_dim_launches == {("flash_attn_fwd", 40): 1}
+
+    def absent(name, sigs):
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+    monkeypatch.setattr(kernel_lib, "load", absent)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tfa.flash_attention_fwd(q, kv, kv)
+    assert kernel_lib.head_dim_launches == {("flash_attn_fwd", 40): 1}
 
 
 def test_each_launch_counts_once(kernel_path):

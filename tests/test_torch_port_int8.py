@@ -169,6 +169,83 @@ def test_int8_exact_on_representable_values_as_jax(op):
     np.testing.assert_array_equal(np.asarray(jgot), want)
 
 
+def _absmax_as_the_kernel_reads(x, offset, mode, div, sms):
+    """Q1a's grid, blocks, row groups, splits, segments and 16-byte loads
+    (``csrc/int8_conv.cu::q8_absmax_kernel`` under ``absmax_plan``) walked
+    over ``x`` flattened, its element 0 ``offset`` elements past a 16-byte
+    boundary: how often each element is read, and each row's maximum of
+    |x (/ div)| in fp32 as the kernel takes it."""
+    flat = x.reshape(-1).float().numpy()  # bf16's values are exact in fp32
+    vec = 16 // x.element_size()
+    rows, row_stride, n_seg, seg_len, seg_stride = tq.absmax_geometry(x.shape, mode,
+                                                                      div is not None)
+    tpr, splits, chunk = tq.absmax_plan(rows, n_seg * seg_len, sms)
+    reads = np.zeros(flat.size, np.int64)
+    partial = np.zeros((rows, splits), np.float32)
+    for blk in range(-(-rows // (256 // tpr)) * splits):
+        split = blk % splits
+        lo, hi = split * chunk, min(split * chunk + chunk, n_seg * seg_len)
+        assert lo < hi  # no empty block
+        for row in range((blk // splits) * (256 // tpr), (blk // splits + 1) * (256 // tpr)):
+            if row >= rows:
+                continue
+            s = lo // seg_len
+            while s * seg_len < hi:
+                a, b = max(lo, s * seg_len) - s * seg_len, min(hi, (s + 1) * seg_len) - s * seg_len
+                start, n = row * row_stride + s * seg_stride + a, b - a
+                mis = (offset + start) % vec
+                head = min(n, vec - mis if mis else 0)
+                nv = (n - head) // vec
+                assert (offset + start + head) % vec == 0 and n - head - nv * vec < vec
+                piece = flat[start:start + n]
+                if div is not None:
+                    piece = piece / div[s]
+                reads[start:start + n] += 1
+                partial[row, split] = max(partial[row, split], np.abs(piece).max())
+                s += 1
+    return reads, partial.max(axis=1)
+
+
+@pytest.mark.parametrize("mode, shape, dtype, divided, offset, sms", [
+    ("rows", (37, 1001), torch.bfloat16, False, 1, 132),
+    ("samples", (3, 5, 17, 19), torch.float32, True, 2, 2),
+    ("channels", (4, 6, 9, 11), torch.bfloat16, False, 3, 2)])
+def test_absmax_plan_reads_each_element_once_and_equals_plain_and_jax(
+        monkeypatch, mode, shape, dtype, divided, offset, sms):
+    """Q1a's one-launch plan (``absmax_plan``, ``absmax_geometry``): its
+    blocks read every element of every row exactly once, in 16-byte loads
+    from aligned addresses between scalar heads and tails, and the rows'
+    maxima over the blocks' partial maxima equal the plain version's bit for
+    bit and JAX's (``jnp.max(jnp.abs(...))``, ``ops/qconv.py``). Two cases
+    take a card of 2 SMs and small chunks, so that rows split over blocks
+    and chunks cross segments; the plan's bounds hold at the paths' sizes."""
+    if sms == 2:
+        monkeypatch.setattr(tq, "ABSMAX_LOADS", 1)
+        monkeypatch.setattr(tq, "ABSMAX_MIN_CHUNK", 64)
+    r = np.random.default_rng(7)
+    x = torch.from_numpy((r.standard_normal(shape) * 1.7 + 0.1).astype(np.float32)).to(dtype)
+    div = (r.random(shape[1]) + 0.5).astype(np.float32) if divided else None
+    reads, got = _absmax_as_the_kernel_reads(x, offset, mode, div, sms)
+    assert (reads == 1).all()
+    want = tq.absmax_plain(x, mode, None if div is None else torch.from_numpy(div))
+    assert np.array_equal(got, want.numpy())
+    xf = jnp.asarray(x.float().numpy())
+    if mode == "rows":
+        jwant = jnp.max(jnp.abs(xf), axis=-1)
+    elif mode == "samples":
+        jwant = jnp.max(jnp.abs(xf / jnp.asarray(div).reshape(1, -1, 1, 1)), axis=(1, 2, 3))
+    else:
+        jwant = jnp.max(jnp.abs(xf), axis=(0, 2, 3))
+    assert np.array_equal(got, np.asarray(jwant))
+    for rows, row_len in ((8192, 640), (320, 2880), (2, 320 * 64 * 64), (1, 128 * 1024 * 1024),
+                          (512, 128 * 128), (3, 1001)):
+        tpr, splits, chunk = tq.absmax_plan(rows, row_len, sms)
+        assert tpr in (32, 64, 128, 256) and (splits - 1) * chunk < row_len <= splits * chunk
+        waves = 2 if rows * row_len > tq.ABSMAX_TWO_WAVES else 1
+        assert splits == 1 or (tpr == 256 and chunk % 8 == 0
+                               and rows * splits <= waves * sms * tq.ABSMAX_BLOCKS_PER_SM + rows)
+
+
 def test_int8_has_no_gradient():
     x = torch.randn(2, 4, 8, requires_grad=True)
     with pytest.raises(RuntimeError, match="no gradient"):
