@@ -256,8 +256,13 @@ PyTorch. In order:
    kernels (``int8_phase``) at every shape the paths gave them and at the
    512^2 VAE decode's (``int8_off_path_shapes``, 0 launches), the absmax
    also at the edges of its 16-byte loads (``INT8_ABSMAX_EDGES``: tails,
-   unaligned bases; 0 launches): absmaxes, integers, scales and outputs
-   equal to the plain versions' bit for bit;
+   unaligned bases; 0 launches), the quantize and the conv at theirs
+   (``INT8_QUANT_EDGES``, ``INT8_CONV_EDGES``: ragged rows and bases off
+   16 bytes, NHWC tiles cut by C and H*W, fp32 inputs, divisors; channels
+   past one k-slice, patches cut by H and W, O past an N tile, an image
+   under one tile, the split-K route, both output types, with and without
+   bias; 0 launches): absmaxes, integers, scales and outputs equal to the
+   plain versions' bit for bit;
    per ``torch._int_mm`` shape the whole int8 matmul beside bf16
    ``torch.matmul``;
 13. prints the card line again, the ``{"kernels": [...]}`` line (launches:
@@ -3619,6 +3624,34 @@ INT8_ABSMAX_EDGES = (((3, 1001), "torch.bfloat16", "rows", False, 0),
                      ((2, 5, 31, 31), "torch.bfloat16", "channels", False, 3),
                      ((4, 1027), "torch.float32", "rows", False, 1),
                      ((1, 7, 45, 45), "torch.float32", "samples", False, 2))
+# Q1b / Q1c at the edges of their 16-byte loads and stores (0 launches): (layout,
+# shape, dtype, divisor, base offset in elements): rows of a length no multiple
+# of 8 (scalar tails) and bases off 16 bytes (scalar heads, unaligned int8
+# stores); NHWC with C no multiple of the 64-channel tile, H*W odd (scalar
+# loads), fp32 inputs and divisors
+INT8_QUANT_EDGES = (("quantize_rows", (3, 1001), "torch.bfloat16", False, 0),
+                    ("quantize_rows", (5, 3001), "torch.bfloat16", False, 1),
+                    ("quantize_rows", (9, 7), "torch.bfloat16", False, 2),
+                    ("quantize_rows", (4, 1027), "torch.float32", False, 1),
+                    ("quantize_nhwc", (2, 80, 7, 9), "torch.bfloat16", False, 0),
+                    ("quantize_nhwc", (3, 200, 45, 45), "torch.bfloat16", True, 0),
+                    ("quantize_nhwc", (2, 3, 33, 33), "torch.bfloat16", True, 1),
+                    ("quantize_nhwc", (1, 48, 5, 5), "torch.float32", True, 0),
+                    ("quantize_nhwc", (2, 100, 9, 9), "torch.float32", False, 2))
+# Q2 at its edges (0 launches): (x (B, H, W, C), O, output dtype, bias): C of 16
+# and 48 (one k-slice, channels past C zero-filled), H and W no multiples of the
+# 16-wide patch, O no multiple of the N tile, an image under one tile, the
+# split-K route at (2,16,16,1280) x 1280, 64-wide patches cut by W, H and O
+# (bf16, the TMA store), fp32 outputs with and without bias
+INT8_CONV_EDGES = (((1, 5, 5, 16), 24, "torch.bfloat16", True),
+                   ((1, 7, 9, 48), 32, "torch.bfloat16", True),
+                   ((2, 33, 17, 64), 80, "torch.float32", False),
+                   ((1, 3, 2, 16), 8, "torch.float32", True),
+                   ((2, 16, 16, 1280), 1280, "torch.bfloat16", False),
+                   ((2, 16, 16, 1280), 1280, "torch.float32", True),
+                   ((1, 5, 72, 48), 80, "torch.bfloat16", True),
+                   ((2, 9, 200, 32), 256, "torch.bfloat16", False),
+                   ((1, 6, 64, 128), 130, "torch.float32", False))
 INT8_TIMING = {"reps": 3, "inner": 5}
 INT8_PLAIN_TIMING = {"reps": 1, "inner": 1, "warm": 1}  # the plain conv: float64 integers
 QUANTIZE_OPS, ABSMAX_OPS, DEQUANT_OPS = 5, 2, 3  # fp32 operations per element
@@ -3628,8 +3661,9 @@ def int8_phase(entries, seed):
     """Each int8 kernel (Q1: ``int8_absmax``, ``int8_quantize``; Q2:
     ``int8_conv3x3``; Q3: ``int8_dequant``) against its plain version at
     every shape a path gave it (``entries``: the recorder's keys and their
-    launches) and at ``int8_off_path_shapes`` (0 launches), on inputs drawn
-    here: absmaxes, integers, scales and outputs must be equal (the plain
+    launches), at ``int8_off_path_shapes`` and at the kernels' edges
+    (``INT8_ABSMAX_EDGES``, ``INT8_QUANT_EDGES``, ``INT8_CONV_EDGES``; 0
+    launches), on inputs drawn here: absmaxes, integers, scales and outputs must be equal (the plain
     versions compute the same fp32 operations: no tolerance). Per shape ms,
     bound, plain ms and a library call where one computes the same function
     (the absmax: ``torch.linalg.vector_norm`` of order inf; the conv: bf16
@@ -3664,6 +3698,10 @@ def int8_phase(entries, seed):
 
     edges = [(("absmax", shape, dtype, mode, div), 0, offset)
              for shape, dtype, mode, div, offset in INT8_ABSMAX_EDGES]
+    edges += [((layout, shape, dtype) + ((div,) if layout == "quantize_nhwc" else ()), 0, offset)
+              for layout, shape, dtype, div, offset in INT8_QUANT_EDGES]
+    edges += [(("conv3x3", x, (o, 3, 3, x[3]), dtype, bias), 0, 0)
+              for x, o, dtype, bias in INT8_CONV_EDGES]
     for key, launches, offset in [(k, n, 0) for k, n in sorted(cases.items(), key=str)] + edges:
         kind = key[0]
         if kind == "int_mm":
@@ -3693,8 +3731,6 @@ def int8_phase(entries, seed):
                               ABSMAX_OPS * n, "fp32")
                 table, desc = "int8_absmax", {"x": list(shape), "mode": mode,
                                               "divisor": div is not None}
-                if offset:
-                    desc["base_offset"] = offset  # elements past a 16-byte boundary
             else:
                 rows_n = shape[0]
                 am = rand((rows_n,), torch.float32).abs() * 3
@@ -3707,7 +3743,9 @@ def int8_phase(entries, seed):
                 library = None
                 b, by = bound(n * el + n + 8 * rows_n, QUANTIZE_OPS * n, "fp32")
                 table, desc = "int8_quantize", {"x": list(shape), "layout": kind,
-                                                "divisor": div is not None}
+                                                "divisor": div is not None, "dtype": key[2]}
+            if offset:
+                desc["base_offset"] = offset  # elements past a 16-byte boundary
         elif kind == "conv3x3":
             (bsz, h, w_, c), (o, _, _, _), dtype, has_bias = key[1], key[2], dt[key[3]], key[4]
             xq = torch.randint(-127, 128, (bsz, h, w_, c), generator=gen, device="cuda",

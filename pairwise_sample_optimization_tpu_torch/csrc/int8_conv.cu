@@ -25,17 +25,16 @@
 //   The scale is s = max(absmax, 1e-8) / 127 and q = clip(rint(v / s),
 //   -127, 127): a true division and round-half-to-even, as JAX's jnp.round,
 //   so the integers are those of the JAX package and of the plain version.
-//   Bound by bytes: each input element is read twice (once per kernel).
+//   Bound by bytes: each input element is read twice (once per kernel);
+//   16-byte loads, 8- or 16-byte stores.
 // Q2 q8_conv3x3_kernel: 3x3, stride 1, pad 1 convolution of int8 NHWC
-//   activations with int8 (O, 3, 3, C) weights as an implicit GEMM
-//   (M = B*H*W pixels, N = O, K = 9*C ordered (tap, channel)), on
-//   mma.sync.m16n8k32 s8 tensor-core products with int32 accumulators. The
-//   tiles come in by cp.async with zero-fill at the image borders and past
-//   K, in a 4-stage ring; no im2col copy is made (it would hold 9x the
-//   activation). Epilogue: acc * (s_x[b] * s_w[o]) (+ bias[o]) in fp32
-//   with explicit _rn operations (no FMA contraction, so the result is
-//   that of the plain version's separate fp32 operations), cast, staged in
-//   shared memory and written NCHW along pixels. Bound by int8 operations
+//   activations with int8 (O, 3, 3, C) weights as an implicit GEMM on
+//   wgmma s8 products fed by TMA (namespace q2 below): a producer warp, two
+//   consumer warpgroups, the conv's padding the tensor map's zero fill,
+//   a persistent grid, K split over blocks where the tiles do not fill the
+//   card (int32 partial sums, the last block to finish adds them: one
+//   launch). Epilogue: acc * (s_x[b] * s_w[o]) (+ bias[o]) in fp32 with
+//   explicit _rn operations, cast, written NCHW. Bound by int8 operations
 //   at the decoder's and the UNet's widths.
 // Q3 q8_dequant_kernel: the int32 product of torch._int_mm (the int8
 //   matmul; JAX leaves it to lax.dot_general) read once, acc * (s_x[row] *
@@ -48,6 +47,8 @@
 #include <stdint.h>
 
 #include "mma_tile.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -194,206 +195,623 @@ __device__ __forceinline__ float scale_of(float a) {
   return __fdiv_rn(fmaxf(a, 1e-8f), 127.0f);
 }
 
-// ---- Q1b: quantize rows ----------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads) q8_quantize_rows_kernel(
-    const T* __restrict__ x, const float* __restrict__ absmax, int8_t* __restrict__ q,
-    float* __restrict__ scale, long long rows, long long k) {
-  const long long row = blockIdx.x;
-  if (row >= rows) return;
-  const float s = scale_of(absmax[row]);
-  if (threadIdx.x == 0) scale[row] = s;
-  const T* src = x + row * k;
-  int8_t* dst = q + row * k;
-  for (long long i = threadIdx.x; i < k; i += blockDim.x) dst[i] = quantize(to_float(src[i]), s);
+// ---- Q1b / Q1c: quantize ---------------------------------------------------
+// Bound by bytes (n * el read, n written). Both read 16 bytes a load (8 bf16
+// or 4 fp32 values) and write 8 or 16 bytes a store, and quantize with
+// scale_of and quantize_n below (quantize above where its test fails), so
+// the integers are the plain version's.
+
+// Eight values at p (16-byte aligned; fp32: two loads), as fp32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const uint4 a = __ldg(reinterpret_cast<const uint4*>(p)),
+              b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = __uint_as_float(w[i]);
 }
 
-// ---- Q1c: quantize NCHW -> NHWC ------------------------------------------
-// Block: 32 channels x 32 pixels of one sample; 256 threads (32 x 8).
-template <typename T>
+// quantize(f[i], s) for N values at once, through t = f * r with r = RN(1 /
+// s): |t - RN(f / s)| < |t| * 2^-21 (two roundings of at most 2^-24 each,
+// and RN's), so where every |t| is at least 129 or further than |t| * 2^-20
+// from a half-integer, clip(rint(t)) is clip(rint(RN(f / s))), the plain
+// version's integer (a NaN fails the test); else the group takes the
+// true division. The common case has no division and no branch a value.
+template <int N>
+__device__ __forceinline__ void quantize_n(const float* f, float s, float r, int8_t* q) {
+  bool fast = true;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float t = f[i] * r, a = fabsf(t);
+    fast &= a >= 129.f || fabsf(a - floorf(a) - 0.5f) > a * 0x1p-20f;
+    q[i] = static_cast<int8_t>(fminf(fmaxf(rintf(t), -127.f), 127.f));
+  }
+  if (!fast) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) q[i] = quantize(f[i], s);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack4(const int8_t* v) {
+  return (uint32_t)(uint8_t)v[0] | ((uint32_t)(uint8_t)v[1] << 8) |
+         ((uint32_t)(uint8_t)v[2] << 16) | ((uint32_t)(uint8_t)v[3] << 24);
+}
+
+// Eight quantized values at q: one 8-byte store where q is 8-byte aligned.
+__device__ __forceinline__ void store8(int8_t* q, const float (&f)[8], float s, float r,
+                                       bool aligned) {
+  int8_t v[8];
+  quantize_n<8>(f, s, r, v);
+  if (aligned) {
+    *reinterpret_cast<uint2*>(q) = make_uint2(pack4(v), pack4(v + 4));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) q[i] = v[i];
+  }
+}
+
+// Q1b: rows of k values. A row takes TPR threads (32 to 256, so 256 / TPR
+// rows a block; ops/qconv.py::quantize_rows_plan picks TPR from k, as
+// absmax_plan does for Q1a); a thread quantizes groups of 8 values (one
+// 16-byte load of bf16, two of fp32; an 8-byte store where the row's int8
+// base lines up), up to QLOADS in flight, between a scalar head (to x's
+// 16-byte boundary) and a scalar tail.
+template <typename T, int TPR>
+__global__ void __launch_bounds__(kThreads) q8_quantize_rows_kernel(
+    const T* __restrict__ x, const float* __restrict__ absmax, int8_t* __restrict__ q,
+    float* __restrict__ scale, long long rows, int k) {
+  constexpr int PER_BLOCK = kThreads / TPR, QLOADS = 4;
+  const long long row = static_cast<long long>(blockIdx.x) * PER_BLOCK + threadIdx.x / TPR;
+  const int tid = threadIdx.x % TPR;
+  if (row >= rows) return;
+  const float s = scale_of(absmax[row]), r = __frcp_rn(s);
+  if (tid == 0) scale[row] = s;
+  const T* p = x + row * k;
+  int8_t* d = q + row * k;
+  constexpr int V = 16 / sizeof(T);
+  const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(p) & 15) / sizeof(T));
+  const int head = min(k, mis ? V - mis : 0);
+  if (tid < head) d[tid] = quantize(to_float(p[tid]), s);
+  const int groups = (k - head) / 8;
+  const T* pv = p + head;
+  int8_t* dv = d + head;
+  const bool aligned = (reinterpret_cast<uintptr_t>(dv) & 7) == 0;
+  for (int i = tid; i < groups; i += QLOADS * TPR) {
+    float f[QLOADS][8];
+#pragma unroll
+    for (int u = 0; u < QLOADS; ++u)
+      if (i + u * TPR < groups) load8(pv + 8 * (i + u * TPR), f[u]);
+#pragma unroll
+    for (int u = 0; u < QLOADS; ++u)
+      if (i + u * TPR < groups) store8(dv + 8 * (i + u * TPR), f[u], s, r, aligned);
+  }
+  const int e = head + groups * 8 + tid;
+  if (e < k) d[e] = quantize(to_float(p[e]), s);
+}
+
+// Q1c: NCHW -> NHWC. A block is QC channels x QP pixels of one sample (QP
+// 128, or 32 where the 128-pixel tiles would not give each SM four blocks:
+// ops/qconv.py::quantize_nhwc_plan): its
+// threads read 16 bytes along pixels (V values of one channel, divided by
+// the channel's divisor where one is given, quantized) into a shared
+// [channel][pixel] tile of bytes, then each thread gathers 32 channels of
+// one pixel and writes them as two 16-byte stores along channels. Scalar
+// loads where the sample's rows are off 16 bytes (H*W not a multiple of V);
+// where C is not a multiple of 16, byte stores, a warp's lanes on
+// consecutive channels of a pixel.
+constexpr int QC = 64;
+
+template <typename T, int QP>
 __global__ void __launch_bounds__(kThreads) q8_quantize_nhwc_kernel(
     const T* __restrict__ x, const float* __restrict__ div, const float* __restrict__ absmax,
     int8_t* __restrict__ q, float* __restrict__ scale, int channels, long long hw) {
-  __shared__ int8_t tile[32][33];
-  const int b = blockIdx.z;
-  const long long p0 = static_cast<long long>(blockIdx.x) * 32;
-  const int c0 = blockIdx.y * 32;
-  const float s = scale_of(absmax[b]);
+  constexpr int V = 16 / sizeof(T);  // pixels a 16-byte load
+  __shared__ __align__(16) uint8_t tile[QC][QP];
+  const int b = blockIdx.z, c0 = blockIdx.y * QC;
+  const long long p0 = static_cast<long long>(blockIdx.x) * QP;
+  const float s = scale_of(absmax[b]), rs = __frcp_rn(s);
   if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) scale[b] = s;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  // read along pixels (contiguous in NCHW)
-  for (int i = ty; i < 32; i += 8) {
-    const int c = c0 + i;
-    const long long p = p0 + tx;
-    int8_t v = 0;
-    if (c < channels && p < hw) {
-      float f = to_float(x[(static_cast<long long>(b) * channels + c) * hw + p]);
-      if (div != nullptr) f = __fdiv_rn(f, div[c]);
-      v = quantize(f, s);
+  const T* xb = x + static_cast<long long>(b) * channels * hw;
+  const bool vec = hw % V == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  constexpr int LOADS = QC * QP / V / kThreads;  // 16-byte loads a thread, all in flight
+  uint4 raw[LOADS];
+#pragma unroll
+  for (int l = 0; l < LOADS; ++l) {
+    const int idx = threadIdx.x + l * kThreads, c = idx / (QP / V);
+    const long long p = p0 + (idx % (QP / V)) * V;
+    raw[l] = make_uint4(0, 0, 0, 0);
+    if (vec && c0 + c < channels && p < hw)
+      raw[l] = __ldg(reinterpret_cast<const uint4*>(xb + (c0 + c) * hw + p));
+  }
+#pragma unroll
+  for (int l = 0; l < LOADS; ++l) {
+    const int idx = threadIdx.x + l * kThreads;
+    const int c = idx / (QP / V), pl = (idx % (QP / V)) * V;
+    const int cc = c0 + c;
+    const long long p = p0 + pl;
+    int8_t v[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = 0;
+    if (cc < channels && p < hw) {
+      float f[V];
+      if (vec) {
+        if constexpr (V == 8) {
+          const uint32_t w[4] = {raw[l].x, raw[l].y, raw[l].z, raw[l].w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            f[2 * i] = __uint_as_float(w[i] << 16);
+            f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+          }
+        } else {
+          f[0] = __uint_as_float(raw[l].x), f[1] = __uint_as_float(raw[l].y);
+          f[2] = __uint_as_float(raw[l].z), f[3] = __uint_as_float(raw[l].w);
+        }
+      } else {
+        const T* src = xb + cc * hw + p;
+#pragma unroll
+        for (int i = 0; i < V; ++i) f[i] = p + i < hw ? to_float(src[i]) : 0.f;
+      }
+      if (div != nullptr) {
+        const float d = div[cc];
+#pragma unroll
+        for (int i = 0; i < V; ++i) f[i] = __fdiv_rn(f[i], d);
+      }
+      quantize_n<V>(f, s, rs, v);  // pixels past H*W read as 0: quantized to 0
     }
-    tile[i][tx] = v;
+    if constexpr (V == 8)
+      *reinterpret_cast<uint2*>(&tile[c][pl]) = make_uint2(pack4(v), pack4(v + 4));
+    else
+      *reinterpret_cast<uint32_t*>(&tile[c][pl]) = pack4(v);
   }
   __syncthreads();
-  // write along channels (contiguous in NHWC)
-  for (int i = ty; i < 32; i += 8) {
-    const long long p = p0 + i;
-    const int c = c0 + tx;
-    if (c < channels && p < hw) q[(static_cast<long long>(b) * hw + p) * channels + c] = tile[tx][i];
-  }
-}
-
-// ---- Q2: int8 3x3 convolution as an implicit GEMM ---------------------------
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4;
-constexpr int LDS = BK + 16;  // bytes a shared row: 80 keeps fragment reads conflict-free
-constexpr int kStageBytes = (BM + BN) * LDS;
-constexpr int kConvSmem = STAGES * kStageBytes;  // 81,920 bytes
-constexpr int LDC = BM + 4;                       // floats a row of the epilogue's staging
-static_assert(BN * LDC * 4 <= kConvSmem, "epilogue staging must fit the ring");
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) q8_conv3x3_kernel(
-    const int8_t* __restrict__ xq, const int8_t* __restrict__ wq, const float* __restrict__ sx,
-    const float* __restrict__ sw, const float* __restrict__ bias, T* __restrict__ out, int batch,
-    int height, int width, int channels, int outc) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int warp_m = warp >> 2, warp_n = warp & 3;  // 2 x 4 warps of 64 x 32
-  const long long hw = static_cast<long long>(height) * width;
-  const long long M = batch * hw;
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
-  const int n0 = blockIdx.y * BN;
-  const int K = 9 * channels;
-  const int ktiles = (K + BK - 1) / BK;
-
-  // each thread copies 16 bytes of two A rows and of two B rows per stage, at
-  // the same 16-byte column kc
-  const int kc = tid & 3;
-  int a_b[2], a_oh[2], a_ow[2];
-  bool a_ok[2];
-  for (int i = 0; i < 2; ++i) {
-    const long long m = m0 + (tid >> 2) + i * 64;
-    a_ok[i] = m < M;
-    const long long mm = a_ok[i] ? m : 0;
-    a_b[i] = static_cast<int>(mm / hw);
-    const long long rem = mm - a_b[i] * hw;
-    a_oh[i] = static_cast<int>(rem / width);
-    a_ow[i] = static_cast<int>(rem - static_cast<long long>(a_oh[i]) * width);
-  }
-
-  auto load_stage = [&](int slot, int kt) {
-    unsigned char* As = smem + slot * kStageBytes;
-    unsigned char* Bs = As + BM * LDS;
-    const int k = kt * BK + kc * 16;
-    const bool k_ok = k < K;
-    const int tap = k_ok ? k / channels : 0;
-    const int c = k_ok ? k - tap * channels : 0;
-    const int dr = tap / 3 - 1, ds = tap % 3 - 1;
-    for (int i = 0; i < 2; ++i) {
-      const int row = (tid >> 2) + i * 64;
-      const int ih = a_oh[i] + dr, iw = a_ow[i] + ds;
-      const bool ok = a_ok[i] && k_ok && ih >= 0 && ih < height && iw >= 0 && iw < width;
-      const int8_t* src =
-          ok ? xq + ((static_cast<long long>(a_b[i]) * height + ih) * width + iw) * channels + c
-             : xq;
-      pso::cp_async_16(pso::smem_u32(As + row * LDS + kc * 16), src, ok);
-      const int o = n0 + row;
-      const bool okb = k_ok && o < outc;
-      pso::cp_async_16(pso::smem_u32(Bs + row * LDS + kc * 16),
-                       okb ? wq + static_cast<long long>(o) * K + k : wq, okb);
+  if (channels % 16 != 0) {  // bytes, lanes on consecutive channels of a pixel
+    for (int idx = threadIdx.x; idx < QP * QC; idx += kThreads) {
+      const int cl = idx % QC, pl = idx / QC;
+      if (p0 + pl < hw && c0 + cl < channels)
+        q[(static_cast<long long>(b) * hw + p0 + pl) * channels + c0 + cl] = tile[cl][pl];
     }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < QP * (QC / 32); idx += kThreads) {
+    const int pl = idx % QP, cl = (idx / QP) * 32;  // lanes on consecutive pixels
+    const long long p = p0 + pl;
+    const int cb = c0 + cl;
+    if (p >= hw || cb >= channels) continue;
+    uint32_t w[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      w[i] = (uint32_t)tile[cl + 4 * i][pl] | ((uint32_t)tile[cl + 4 * i + 1][pl] << 8) |
+             ((uint32_t)tile[cl + 4 * i + 2][pl] << 16) | ((uint32_t)tile[cl + 4 * i + 3][pl] << 24);
+    int8_t* dst = q + (static_cast<long long>(b) * hw + p) * channels + cb;
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    if (cb + 16 < channels) *reinterpret_cast<uint4*>(dst + 16) = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+}
+
+// ---- Q2: int8 3x3 convolution on wgmma s8, fed by TMA ----------------------
+// An implicit GEMM: M = the pixels of an image, N = O, K = 9 taps x C,
+// ordered (tap, channel). Design (ops/qconv.py::conv3x3_plan lays it out):
+// - a tile is a patch of PH x PW pixels of one image (M = 128 or 256; PW
+//   16, or 64 for a bf16 output at least 64 wide: an m-block an image row)
+//   by BN output channels (256 where O is a multiple of 256, else 128: MI,
+//   the 64-row products a warpgroup issues per k-step, is 1 or 2, so both
+//   hold 128 int32 accumulators a thread); a k-step is one tap's slice of
+//   BK = 128 channels (K-major on both sides: NHWC activations and the
+//   (O, 3, 3, C) weight rows), 128-byte swizzled, so no slice straddles two
+//   taps and channels past C read as zeros;
+// - one producer warp's one thread fetches each stage by TMA into a ring of
+//   ST stages completing on mbarriers: the tap's shifted patch through a
+//   4-D map over the NHWC activations (C, W, H, B) at (c0, w0 + ds, h0 +
+//   dr, b), whose out-of-image coordinates read as zeros (the conv's
+//   padding: no thread tests a border), and the weights through a 3-D map
+//   (C, 9, O) at (c0, tap, n0); the two consumer warpgroups (each MI x 64
+//   pixel rows, all BN channels) issue m64nBNk32 s8 products on it and free
+//   the stage once their product has read it;
+// - the grid is persistent (a block an SM walks units u, u + grid, ...), so
+//   the producer fetches the next unit's stages under this one's epilogue;
+// - where the tiles leave most SMs idle, K is split over `splits` blocks
+//   (a unit is a tile's split; all units in one wave): each writes its int32 partial sums to a
+//   workspace slab and counts itself done on the tile's counter; the last
+//   to finish adds the other slabs to its own in int32 (exact in any
+//   order: |acc| <= 127^2 * 9 * C < 2^31 on the paths) and runs the
+//   epilogue, then resets the counter for the next launch (one counter
+//   array a device, as Q1a's: the port's launches run one at a time on its
+//   stream). One launch a conv, nothing zeroed;
+// - epilogue: acc * (s_x[b] * s_w[o]) (+ bias[o]) with explicit _rn
+//   operations (no FMA contraction: the plain version's fp32 operations),
+//   cast. 64-pixel patches: each warpgroup stages its image rows by
+//   stmatrix (transposed: a channel's 8 pixels a row) as 128-byte swizzled
+//   rows and one thread writes them with a TMA store over (W, H, O, B),
+//   clipped at the edges; the store drains under the next unit's products
+//   (the staging is reused once it has been read). 16-pixel patches:
+//   staged [channel][pixel] (padded: no bank conflicts; bf16 by stmatrix),
+//   written NCHW along w in 16-byte stores (scalar where W is not a
+//   multiple of 16 / element size), pixel coordinates from the tile's
+//   corner (no per-element division); fp32 outputs take two passes of
+//   half the channels, so the staging fits beside the ring.
+// Bound by int8 operations at the decoder's and the UNet's widths.
+namespace q2 {
+
+using namespace pso;
+
+constexpr int BK = 128;                      // channels (bytes) of one tap a k-step
+constexpr int NC = 256, NTHREADS = NC + 32;  // two consumer warpgroups, one producer warp
+constexpr int ST = 3;                        // stages of the ring
+constexpr int kMaxSplitTiles = 1024;         // tiles of a launch that splits K, at most
+
+__device__ unsigned int g_conv_done[kMaxSplitTiles];  // a split tile's units done
+
+// PW: patch columns, 16 or (bf16 outputs on images at least 64 wide) 64
+template <int MI, int BN, int PW>
+struct Cfg {
+  static constexpr int ROWS = 2 * MI * 64;  // pixels a tile
+  static constexpr int PH = ROWS / PW;      // patch rows (16 or 8; 64 wide: 4 or 2)
+  static constexpr int WG_ROWS = PH / 2;    // patch rows a warpgroup
+  static constexpr int A_BYTES = ROWS * BK, STAGE = (ROWS + BN) * BK;
+  static constexpr int ACC4 = MI * BN / 8;  // int4s of accumulators a thread
+};
+
+// The epilogue's staging of one warpgroup, 16-pixel patches: NP passes of
+// CH channels, each channel's PIX pixels S elements apart (the pad puts the
+// eight channels a stmatrix, or the four a store, writes on distinct banks).
+// 64-pixel patches (bf16): MI blocks of BN rows (channels) of 128 bytes (an
+// image row's 64 pixels), 128-byte swizzled, for the TMA store.
+template <typename T, int MI, int BN>
+struct Epi {
+  static constexpr int NP = sizeof(T) / 2, CH = BN / NP, PIX = 64 * MI;
+  static constexpr int S = PIX + (sizeof(T) == 2 ? 8 : 4);
+  static constexpr int WG_BYTES = CH * S * (int)sizeof(T);
+};
+constexpr int kStagingBytes = 2 * 36864;  // the largest two warpgroups' staging
+
+template <int MI, int BN, int PW>
+constexpr size_t conv_smem() {
+  return 1024 + (size_t)ST * Cfg<MI, BN, PW>::STAGE + kStagingBytes + 16 * ST;
+}
+
+struct ConvArgs {
+  const float* sx;
+  const float* sw;
+  const float* bias;
+  void* out;
+  int* ws;  // split K: a slab of NC * ACC4 int4s a unit
+  int batch, height, width, channels, outc;
+  int tiles_h, tiles_w, tiles_n, cslices, k_total, splits, chunk, units;
+};
+
+// Four 8 x 8 b16 matrices held in the accumulator fragment layout (this
+// thread's two values of row lane / 4 of each, packed), stored transposed:
+// lane l gives the shared address of row l % 8 of matrix l / 8, which
+// receives column l % 8 of the fragment (16 bytes).
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0, uint32_t r1,
+                                                  uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+template <int BN>
+__device__ __forceinline__ void mma(int (&c)[BN / 8][4], uint64_t da, uint64_t db) {
+  if constexpr (BN == 256)
+    wgmma_s8_n256(c, da, db);
+  else
+    wgmma_s8_n128(c, da, db);
+}
+
+// to: the output's map (64-pixel patches), else unused.
+template <typename T, int MI, int BN, int PW>
+__global__ void __launch_bounds__(NTHREADS, 1)
+q8_conv3x3_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                  const __grid_constant__ CUtensorMap to, ConvArgs a) {
+  using C = Cfg<MI, BN, PW>;
+  using E = Epi<T, MI, BN>;
+  constexpr bool TMA_STORE = PW == 64;
+  static_assert(!TMA_STORE || (sizeof(T) == 2 && 2 * MI * BN * 128 <= kStagingBytes), "staging");
+  static_assert(TMA_STORE || (PW == 16 && 2 * E::WG_BYTES <= kStagingBytes), "staging");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last_unit;  // split K: this block finishes the tile
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // stage i at base + i * STAGE
+  const uint32_t bars = base + ST * C::STAGE + kStagingBytes;
+  auto full = [&](int i) { return bars + 8 * i; };
+  auto empty = [&](int i) { return bars + 8 * (ST + i); };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), NC);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // unit u: tile u / splits (N fastest, then patches along w, h, images),
+  // k-steps [split * chunk, min(split * chunk + chunk, k_total))
+  int tile, b, h0, w0, n0, k0, k1;
+  auto unit = [&](int u) {
+    tile = u / a.splits;
+    const int split = u - tile * a.splits;
+    const int mt = tile / a.tiles_n, per_image = a.tiles_h * a.tiles_w;
+    b = mt / per_image;
+    const int rem = mt - b * per_image, th = rem / a.tiles_w;
+    h0 = th * C::PH;
+    w0 = (rem - th * a.tiles_w) * PW;
+    n0 = (tile - mt * a.tiles_n) * BN;
+    k0 = split * a.chunk;
+    k1 = min(k0 + a.chunk, a.k_total);
   };
 
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_stage(s, s);
-    pso::cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    pso::cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int next = kt + STAGES - 1;
-    if (next < ktiles) load_stage(next % STAGES, next);
-    pso::cp_async_commit();
-    const unsigned char* As = smem + (kt % STAGES) * kStageBytes;
-    const unsigned char* Bs = As + BM * LDS;
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const unsigned char* p = As + (warp_m * 64 + mi * 16 + g) * LDS + ks * 32 + 4 * t;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
+  if (threadIdx.x >= NC) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == NC) {
+      int it = 0;
+      for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+        unit(u);
+        for (int k = k0; k < k1; ++k, ++it) {
+          const int st = it % ST;
+          mbar_wait(empty(st), ((it / ST) & 1) ^ 1);  // a fresh stage's wait passes at once
+          mbar_expect_tx(full(st), C::STAGE);
+          const int tap = k / a.cslices, c0 = (k - tap * a.cslices) * BK;
+          const uint32_t A = base + st * C::STAGE;
+          tma_load_4d(A, &tx, c0, w0 + tap % 3 - 1, h0 + tap / 3 - 1, b, full(st));
+          tma_load_3d(A + C::A_BYTES, &tw, c0, tap, n0, full(st));
+        }
       }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const unsigned char* p = Bs + (warp_n * 32 + ni * 8 + g) * LDS + ks * 32 + 4 * t;
-        b[ni][0] = *reinterpret_cast<const uint32_t*>(p);
-        b[ni][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
     }
+    return;
   }
-  pso::cp_async_wait<0>();
-  __syncthreads();
 
-  // epilogue: scale (and bias) in fp32 into shared memory as [channel][pixel]
-  float* Cs = reinterpret_cast<float*>(smem);
+  const int ctid = threadIdx.x, wg = ctid >> 7, wtid = ctid & 127, warp = wtid >> 5;
+  const int lane = ctid & 31, g = lane >> 2, t = lane & 3;
+  int acc[MI][BN / 8][4];
+  int it = 0;
+  for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+    unit(u);
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+    for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = warp_m * 64 + mi * 16 + g + half * 8;
-      const long long m = m0 + row;
-      if (m >= M) continue;
-      const float s_x = sx[m / hw];
+      for (int j = 0; j < BN / 8; ++j) acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0;
+    for (int k = k0; k < k1; ++k, ++it) {
+      const int st = it % ST;
+      mbar_wait(full(st), (it / ST) & 1);
+      const uint32_t A = base + st * C::STAGE + wg * MI * 64 * BK, B = base + st * C::STAGE + C::A_BYTES;
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
+      for (int mi = 0; mi < MI; ++mi) fence_acc(acc[mi]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BK / 32; ++ks) {
+        const uint64_t db = sw128_desc(B, 16) + 2 * ks;
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) mma<BN>(acc[mi], sw128_desc(A + mi * 64 * BK, 16) + 2 * ks, db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous k-step's products: its stage is free
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) fence_acc(acc[mi]);
+      if (k > k0) mbar_arrive(empty((it - 1) % ST));
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) fence_acc(acc[mi]);
+    mbar_arrive(empty((it - 1) % ST));
+
+    if (a.splits > 1) {  // split K: the last unit of the tile to finish sums the slabs
+      int4* slab = reinterpret_cast<int4*>(a.ws) + static_cast<size_t>(u) * C::ACC4 * NC;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          slab[(mi * (BN / 8) + j) * NC + ctid] =
+              make_int4(acc[mi][j][0], acc[mi][j][1], acc[mi][j][2], acc[mi][j][3]);
+      __threadfence();  // the slab before the count
+      named_sync(3, NC);
+      if (ctid == 0) {
+        last_unit = atomicAdd(&g_conv_done[tile], 1u) == static_cast<unsigned>(a.splits - 1);
+        if (last_unit) g_conv_done[tile] = 0;  // every unit of the tile has counted
+      }
+      named_sync(3, NC);
+      if (!last_unit) continue;
+      __threadfence();
+      const int own = u - tile * a.splits;
+      for (int s = 0; s < a.splits; ++s) {
+        if (s == own) continue;
+        const int4* other =
+            reinterpret_cast<const int4*>(a.ws) + static_cast<size_t>(tile * a.splits + s) * C::ACC4 * NC;
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int4 v = __ldcg(other + (mi * (BN / 8) + j) * NC + ctid);
+            acc[mi][j][0] += v.x, acc[mi][j][1] += v.y, acc[mi][j][2] += v.z, acc[mi][j][3] += v.w;
+          }
+      }
+    }
+
+    // epilogue, per warpgroup: its patch rows x BN channels
+    const float s_x = a.sx[b];
+    // the scales and biases of two n-tiles (n-tile j0, j0 + 1), for this
+    // thread's channels 2t, 2t + 1 of each
+    float sxw[2][2], bo[2][2];
+    auto scales = [&](int j0) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int col = warp_n * 32 + ni * 8 + 2 * t + e;
-          const int o = n0 + col;
-          if (o >= outc) continue;
-          float y = __fmul_rn(__int2float_rn(acc[mi][ni][half * 2 + e]), __fmul_rn(s_x, sw[o]));
-          if (bias != nullptr) y = __fadd_rn(y, bias[o]);
-          Cs[col * LDC + row] = y;
+          const int o = n0 + 8 * (j0 + q) + 2 * t + e;
+          sxw[q][e] = bo[q][e] = 0.f;
+          if (o < a.outc) {
+            sxw[q][e] = __fmul_rn(s_x, a.sw[o]);
+            if (a.bias != nullptr) bo[q][e] = a.bias[o];
+          }
+        }
+    };
+    // y of accumulator r = 2 * half + e of (mi, n-tile j0 + q): pixel g + 8 *
+    // half of the warp's 16, channel 8 * (j0 + q) + 2 * t + e
+    auto y_of = [&](int mi, int j0, int q, int r) {
+      const float y = __fmul_rn(__int2float_rn(acc[mi][j0 + q][r]), sxw[q][r & 1]);
+      return a.bias != nullptr ? __fadd_rn(y, bo[q][r & 1]) : y;
+    };
+    // bf16: the four 8 x 8 (pixel x channel) fragments of n-tiles j0, j0 + 1
+    // (pixels g, g + 8) of m-block mi, packed for stmatrix_x4_trans
+    auto packed = [&](int mi, int j0, uint32_t (&r)[4]) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        r[m] = pack_f32(y_of(mi, j0, m >> 1, 2 * (m & 1)), y_of(mi, j0, m >> 1, 2 * (m & 1) + 1));
+    };
+    const int mat = lane >> 3;  // stmatrix: lane l addresses row l % 8 of fragment l / 8
+    if constexpr (TMA_STORE) {
+      // m-block mi is image row h0 + wg * MI + mi, columns w0..w0+63: staged
+      // as BN swizzled rows of 128 bytes (row o, 16-byte chunk 2 * warp +
+      // half), then one TMA store (W, H, O, B) a block, clipped at the edges
+      const uint32_t stg = base + ST * C::STAGE + wg * MI * BN * 128;
+      if (wtid == 0) bulk_wait_read<0>();  // the last store has read the staging
+      named_sync(1 + wg, 128);
+#pragma unroll
+      for (int j0 = 0; j0 < BN / 8; j0 += 2) {
+        scales(j0);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          uint32_t r[4];
+          packed(mi, j0, r);
+          stmatrix_x4_trans(stg + mi * BN * 128 + sw128(8 * (j0 + (mat >> 1)) + (lane & 7),
+                                                         2 * warp + (mat & 1)),
+                            r[0], r[1], r[2], r[3]);
+        }
+      }
+      fence_proxy_async();  // the staging, visible to the TMA store
+      named_sync(1 + wg, 128);
+      if (wtid == 0) {
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+          tma_store_4d(&to, stg + mi * BN * 128, w0, h0 + wg * MI + mi, n0, b);
+        bulk_commit();
+      }
+    } else {
+      T* stage = reinterpret_cast<T*>(smem_raw + (base - raw) + ST * C::STAGE + wg * E::WG_BYTES);
+      T* out = static_cast<T*>(a.out);
+      constexpr int V = 16 / sizeof(T), CPR = PW / V, R = C::WG_ROWS;
+      const bool vec = a.width % V == 0;
+#pragma unroll
+      for (int p = 0; p < E::NP; ++p) {
+        named_sync(1 + wg, 128);  // the staging's last readers are done
+        // pass p: n-tiles p * CH / 8 .., staged as channels 0..CH-1
+#pragma unroll
+        for (int jj = 0; jj < E::CH / 8; jj += 2) {
+          const int j0 = p * (E::CH / 8) + jj;
+          scales(j0);
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            if constexpr (sizeof(T) == 2) {
+              uint32_t r[4];
+              packed(mi, j0, r);
+              stmatrix_x4_trans(smem_u32(stage + (8 * (jj + (mat >> 1)) + (lane & 7)) * E::S +
+                                         mi * 64 + warp * 16 + 8 * (mat & 1)),
+                                r[0], r[1], r[2], r[3]);
+            } else {
+#pragma unroll
+              for (int q = 0; q < 2; ++q)
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+                  stage[(8 * (jj + q) + 2 * t + (r & 1)) * E::S + mi * 64 + warp * 16 + g +
+                        8 * (r >> 1)] = y_of(mi, j0, q, r);
+            }
+          }
+        }
+        named_sync(1 + wg, 128);
+        // 16-byte chunks along w: chunk ch of patch row r of channel ol
+        for (int idx = wtid; idx < E::CH * R * CPR; idx += 128) {
+          const int ch = idx % CPR, r = (idx / CPR) % R, ol = idx / (CPR * R);
+          const int o = n0 + p * E::CH + ol, h = h0 + wg * R + r, w = w0 + ch * V;
+          if (o >= a.outc || h >= a.height || w >= a.width) continue;
+          const uint4 v = *reinterpret_cast<const uint4*>(stage + ol * E::S + r * PW + ch * V);
+          T* dst = out + ((static_cast<long long>(b) * a.outc + o) * a.height + h) * a.width + w;
+          if (vec) {
+            *reinterpret_cast<uint4*>(dst) = v;
+          } else {
+            const T* vs = reinterpret_cast<const T*>(&v);
+#pragma unroll
+            for (int i = 0; i < V; ++i)
+              if (w + i < a.width) dst[i] = vs[i];
+          }
         }
       }
     }
   }
-  __syncthreads();
-  for (int idx = tid; idx < BM * BN; idx += kThreads) {
-    const int col = idx / BM, row = idx % BM;
-    const long long m = m0 + row;
-    const int o = n0 + col;
-    if (m >= M || o >= outc) continue;
-    const long long b = m / hw;
-    out[(b * outc + o) * hw + (m - b * hw)] = from_f32<T>(Cs[col * LDC + row]);
+  if constexpr (TMA_STORE) {
+    if (wtid == 0) bulk_wait<0>();  // the last stores are done before the block exits
   }
 }
+
+template <typename T, int MI, int BN, int PW>
+cudaError_t launch(const int8_t* xq, const int8_t* wq, const ConvArgs& a, int grid,
+                   cudaStream_t stream) {
+  constexpr size_t SMEM = conv_smem<MI, BN, PW>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      q8_conv3x3_kernel<T, MI, BN, PW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tx, tw, to;
+  const long long xd[4] = {a.channels, a.width, a.height, a.batch};
+  const long long xs[3] = {a.channels, (long long)a.width * a.channels,
+                           (long long)a.height * a.width * a.channels};
+  const int xb[4] = {BK, PW, Cfg<MI, BN, PW>::PH, 1};
+  const long long wd[3] = {a.channels, 9, a.outc};
+  const long long wst[2] = {a.channels, 9LL * a.channels};
+  const int wb[3] = {BK, 1, BN};
+  cudaError_t e = sw128_map(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, 4, xd, xs, xb);
+  if (e == cudaSuccess) e = sw128_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, wq, 3, wd, wst, wb);
+  if (e == cudaSuccess && PW == 64) {
+    const long long od[4] = {a.width, a.height, a.outc, a.batch};
+    const long long os[3] = {2LL * a.width, 2LL * a.height * a.width,
+                             2LL * a.outc * a.height * a.width};
+    const int ob[4] = {64, 1, BN, 1};
+    e = sw128_map(&to, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.out, 4, od, os, ob);
+  } else {
+    to = tx;  // unused
+  }
+  if (e != cudaSuccess) return e;
+  q8_conv3x3_kernel<T, MI, BN, PW><<<grid, NTHREADS, SMEM, stream>>>(tx, tw, to, a);
+  return cudaGetLastError();
+}
+
+// The plan's (mi, bn, pw, splits, chunk, grid) checked against the shape;
+// the rest of the geometry derived as ops/qconv.py::conv3x3_plan derives it.
+template <typename T>
+cudaError_t dispatch(const int8_t* xq, const int8_t* wq, ConvArgs a, int mi, int bn, int pw,
+                     int grid, cudaStream_t stream) {
+  if ((mi != 1 && mi != 2) || (pw != 16 && pw != 64) || (pw == 64 && sizeof(T) != 2))
+    return cudaErrorInvalidValue;
+  const int ph = 2 * mi * 64 / pw;
+  a.tiles_h = (a.height + ph - 1) / ph;
+  a.tiles_w = (a.width + pw - 1) / pw;
+  a.tiles_n = (a.outc + bn - 1) / bn;
+  a.cslices = (a.channels + BK - 1) / BK;
+  a.k_total = 9 * a.cslices;
+  const long long tiles = (long long)a.batch * a.tiles_h * a.tiles_w * a.tiles_n;
+  if (a.channels % 16 || a.splits < 1 || a.chunk < 1 ||
+      (long long)(a.splits - 1) * a.chunk >= a.k_total || (long long)a.splits * a.chunk < a.k_total ||
+      tiles * a.splits > 0x7fffffffLL || grid < 1 || (pw == 64 && a.width % 8) ||
+      (a.splits > 1 && (tiles > kMaxSplitTiles || a.ws == nullptr)))
+    return cudaErrorInvalidValue;
+  a.units = static_cast<int>(tiles * a.splits);
+#define PSO_CONV(MI, BN, PW)                                          \
+  if (mi == MI && bn == BN && pw == PW) return launch<T, MI, BN, PW>(xq, wq, a, grid, stream)
+  PSO_CONV(1, 256, 16);
+  PSO_CONV(2, 128, 16);
+  if constexpr (sizeof(T) == 2) {
+    PSO_CONV(1, 256, 64);
+    PSO_CONV(2, 128, 64);
+  }
+#undef PSO_CONV
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace q2
 
 // ---- Q3: dequantize an int32 product ----------------------------------------
 template <typename T>
@@ -470,53 +888,66 @@ int q8_absmax(int dtype, const void* x, const float* div, float* absmax, float* 
 }
 
 int q8_quantize_rows(int dtype, const void* x, const float* absmax, int8_t* q, float* scale,
-                     long long rows, long long k, void* stream) {
+                     long long rows, long long k, int tpr, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = k >= 1024 ? kThreads : 128;
-  if (dtype == 0)
-    q8_quantize_rows_kernel<__nv_bfloat16><<<static_cast<unsigned>(rows), threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), absmax, q, scale, rows, k);
-  else
-    q8_quantize_rows_kernel<float><<<static_cast<unsigned>(rows), threads, 0, s>>>(
-        static_cast<const float*>(x), absmax, q, scale, rows, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int q8_quantize_nhwc(int dtype, const void* x, const float* div, const float* absmax, int8_t* q,
-                     float* scale, int batch, int channels, long long hw, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>((hw + 31) / 32), (channels + 31) / 32, batch);
-  if (dtype == 0)
-    q8_quantize_nhwc_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), div, absmax, q, scale, channels, hw);
-  else
-    q8_quantize_nhwc_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), div, absmax, q, scale, channels, hw);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int q8_conv3x3(int dtype, const int8_t* xq, const int8_t* wq, const float* sx, const float* sw,
-               const float* bias, void* out, int batch, int height, int width, int channels,
-               int outc, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long m = static_cast<long long>(batch) * height * width;
-  const dim3 grid(static_cast<unsigned>((m + BM - 1) / BM), (outc + BN - 1) / BN);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = cudaFuncSetAttribute(q8_conv3x3_kernel<__nv_bfloat16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kConvSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    q8_conv3x3_kernel<__nv_bfloat16><<<grid, kThreads, kConvSmem, s>>>(
-        xq, wq, sx, sw, bias, static_cast<__nv_bfloat16*>(out), batch, height, width, channels,
-        outc);
-  } else {
-    err = cudaFuncSetAttribute(q8_conv3x3_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kConvSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    q8_conv3x3_kernel<float><<<grid, kThreads, kConvSmem, s>>>(
-        xq, wq, sx, sw, bias, static_cast<float*>(out), batch, height, width, channels, outc);
+  const long long per_block = kThreads / (tpr > 0 ? tpr : 1);
+  const dim3 grid(static_cast<unsigned>((rows + per_block - 1) / per_block));
+  if (k >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+#define PSO_QROWS(T, TPR)                                                                   \
+  q8_quantize_rows_kernel<T, TPR><<<grid, kThreads, 0, s>>>(static_cast<const T*>(x), absmax, q, \
+                                                            scale, rows, static_cast<int>(k))
+#define PSO_QROWS_T(T)              \
+  switch (tpr) {                    \
+    case 32: PSO_QROWS(T, 32); break;   \
+    case 64: PSO_QROWS(T, 64); break;   \
+    case 128: PSO_QROWS(T, 128); break; \
+    case 256: PSO_QROWS(T, 256); break; \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
   }
+  if (dtype == 0) {
+    PSO_QROWS_T(__nv_bfloat16)
+  } else {
+    PSO_QROWS_T(float)
+  }
+#undef PSO_QROWS_T
+#undef PSO_QROWS
   return static_cast<int>(cudaGetLastError());
+}
+
+// tile_p: pixels a block's tile (32 or 128), ops/qconv.py::quantize_nhwc_plan
+int q8_quantize_nhwc(int dtype, const void* x, const float* div, const float* absmax, int8_t* q,
+                     float* scale, int batch, int channels, long long hw, int tile_p,
+                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile_p != 32 && tile_p != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((hw + tile_p - 1) / tile_p), (channels + QC - 1) / QC,
+                  batch);
+#define PSO_QNHWC(T, QP)                                                                   \
+  q8_quantize_nhwc_kernel<T, QP><<<grid, kThreads, 0, s>>>(static_cast<const T*>(x), div, absmax, \
+                                                           q, scale, channels, hw)
+  if (dtype == 0) {
+    if (tile_p == 128) PSO_QNHWC(__nv_bfloat16, 128); else PSO_QNHWC(__nv_bfloat16, 32);
+  } else {
+    if (tile_p == 128) PSO_QNHWC(float, 128); else PSO_QNHWC(float, 32);
+  }
+#undef PSO_QNHWC
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (mi, bn, pw, splits, chunk, grid): ops/qconv.py::conv3x3_plan; ws: a slab
+// of 128 KB a unit where splits > 1, else null.
+int q8_conv3x3(int dtype, const int8_t* xq, const int8_t* wq, const float* sx, const float* sw,
+               const float* bias, void* out, int* ws, int batch, int height, int width,
+               int channels, int outc, int mi, int bn, int pw, int splits, int chunk, int grid,
+               void* stream) {
+  q2::ConvArgs a{};
+  a.sx = sx, a.sw = sw, a.bias = bias, a.out = out, a.ws = ws;
+  a.batch = batch, a.height = height, a.width = width, a.channels = channels, a.outc = outc;
+  a.splits = splits, a.chunk = chunk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dtype == 0
+                              ? q2::dispatch<__nv_bfloat16>(xq, wq, a, mi, bn, pw, grid, s)
+                              : q2::dispatch<float>(xq, wq, a, mi, bn, pw, grid, s));
 }
 
 int q8_dequant(int dtype, const int32_t* acc, const float* sx, const float* sw, const float* bias,

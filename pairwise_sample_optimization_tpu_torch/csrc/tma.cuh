@@ -1,6 +1,6 @@
 // Hopper's Tensor Memory Accelerator and shared-memory barriers, for the
 // kernels whose copies one producer thread issues (the bf16 forward at
-// d = 40): tensor maps built on the host, bulk tensor copies into shared
+// d = 40, the int8 3x3 convolution): tensor maps built on the host, bulk tensor copies into shared
 // memory that complete on an mbarrier, the mbarriers' waits and arrivals,
 // and named barriers between warpgroups.
 #pragma once
@@ -60,17 +60,69 @@ inline cudaError_t bshd_map(CUtensorMap* map, int* hs, const void* base, int d, 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The map of a dense tensor of `rank` dims (dims[0] contiguous, strides in
+// bytes of dims 1.., multiples of 16) read or written as boxes of box[0..rank)
+// elements, 128-byte swizzled in shared memory (a box row of 128 bytes is
+// one swizzle row; 1024-byte aligned boxes). Coordinates outside the tensor,
+// negative ones too, read as zeros and are not written. The int8 3x3
+// convolution's NHWC activations (C, W, H, B), (O, 3, 3, C) weights (C, 9,
+// O), both UINT8, and bf16 NCHW output (W, H, O, B).
+inline cudaError_t sw128_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                             int rank, const long long* dims, const long long* strides,
+                             const int* box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], estr[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    bx[i] = (cuuint32_t)box[i];
+    estr[i] = 1;
+    if (i + 1 < rank) st[i] = (cuuint64_t)strides[i];
+  }
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), d, st, bx, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---- device: copies and barriers -----------------------------------------
 
-// One box of a bshd_map at (column c, row, head, batch) into shared memory
-// at dst; its bytes complete the transaction count of the mbarrier at bar.
-__device__ __forceinline__ void tma_load_bshd(uint32_t dst, const CUtensorMap* map, int hs, int c,
-                                              int row, int head, int batch, uint32_t bar) {
-  const int c1 = hs ? head : row, c2 = hs ? row : head;
+// One box of a 3-D or 4-D map at coordinates (c0, c1, c2[, c3]) into shared
+// memory at dst; its bytes complete the transaction count of the mbarrier
+// at bar.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint32_t bar) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(c1), "r"(c2), "r"(batch), "r"(bar)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// One box of a bshd_map at (column c, row, head, batch).
+__device__ __forceinline__ void tma_load_bshd(uint32_t dst, const CUtensorMap* map, int hs, int c,
+                                              int row, int head, int batch, uint32_t bar) {
+  tma_load_4d(dst, map, c, hs ? head : row, hs ? row : head, batch, bar);
+}
+
+// One box of a 4-D map written from shared memory at src to coordinates
+// (c0, c1, c2, c3) (clipped at the tensor's edges); committed and waited
+// for as bulk groups (pso::bulk_commit, bulk_wait_read, bulk_wait).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

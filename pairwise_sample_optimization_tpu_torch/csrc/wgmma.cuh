@@ -1,9 +1,10 @@
-// Hopper warpgroup-product helpers shared by the flash-attention kernels
-// built on wgmma (the bf16 forward at head dims 40, 64, 80, 160 and 512,
-// the bf16 backward at 40, 64, 80 and 160): the swizzled shared-memory layouts that cp.async
-// writes and wgmma reads, the shared-memory matrix descriptors, the wgmma
-// instructions and the fences around them, and the bulk reductions that
-// add a shared-memory tile into global memory.
+// Hopper warpgroup-product helpers shared by the kernels built on wgmma
+// (the bf16 flash-attention forward at head dims 40, 64, 80, 160 and 512,
+// the bf16 backward at 40, 64, 80 and 160, the int8 3x3 convolution): the
+// swizzled shared-memory layouts that cp.async or TMA writes and wgmma
+// reads, the shared-memory matrix descriptors, the wgmma instructions (bf16
+// and s8) and the fences around them, and the bulk reductions that add a
+// shared-memory tile into global memory.
 //
 // Layouts (CUTLASS's canonical GMMA layouts, bf16):
 // - a row of 64 values (128 bytes) is one row of the 128-byte swizzle:
@@ -285,6 +286,48 @@ __device__ __forceinline__ void wgmma_ss_n80(float (&c)[10][4], uint64_t da, uin
 }
 #undef PSO_ACC8
 
+// int8: c += A B (m64nNk32, s8 x s8 -> s32), A and B K-major in shared
+// memory, 128-byte swizzled (a row of 128 int8 values is one swizzle row,
+// so a k-step of 32 values advances a descriptor by 2, as bf16's of 16).
+// The accumulators' layout is the fp32 one above (c[n-tile][4]). The int8
+// 3x3 convolution (csrc/int8_conv.cu) at N = 128 and 256.
+#define PSO_S32_8(c, j)                                                                   \
+  "+r"(c[j][0]), "+r"(c[j][1]), "+r"(c[j][2]), "+r"(c[j][3]), "+r"(c[j + 1][0]),          \
+      "+r"(c[j + 1][1]), "+r"(c[j + 1][2]), "+r"(c[j + 1][3])
+__device__ __forceinline__ void wgmma_s8_n128(int (&c)[16][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "%64, %65, p;\n}\n"
+      : PSO_S32_8(c, 0), PSO_S32_8(c, 2), PSO_S32_8(c, 4), PSO_S32_8(c, 6), PSO_S32_8(c, 8),
+        PSO_S32_8(c, 10), PSO_S32_8(c, 12), PSO_S32_8(c, 14)
+      : "l"(da), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_s8_n256(int (&c)[32][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+      "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+      "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+      "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,"
+      "%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127}, "
+      "%128, %129, p;\n}\n"
+      : PSO_S32_8(c, 0), PSO_S32_8(c, 2), PSO_S32_8(c, 4), PSO_S32_8(c, 6), PSO_S32_8(c, 8),
+        PSO_S32_8(c, 10), PSO_S32_8(c, 12), PSO_S32_8(c, 14), PSO_S32_8(c, 16),
+        PSO_S32_8(c, 18), PSO_S32_8(c, 20), PSO_S32_8(c, 22), PSO_S32_8(c, 24),
+        PSO_S32_8(c, 26), PSO_S32_8(c, 28), PSO_S32_8(c, 30)
+      : "l"(da), "l"(db), "r"(1));
+}
+#undef PSO_S32_8
+
 // Keep the compiler from moving reads or writes of an accumulator across
 // the asynchronous wgmma that owns it.
 template <int N>
@@ -293,6 +336,13 @@ __device__ __forceinline__ void fence_acc(float (&c)[N][4]) {
   for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(c[j][e])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&c)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(c[j][e])::"memory");
 }
 
 // P (or dS) stays in its registers until the wgmma that reads it is done.

@@ -30,7 +30,8 @@ stops at 2**24). A CUDA tensor takes the kernels or raises:
   sample or channel, then the quantize (rows in place, an NCHW tensor into
   NHWC for the conv);
 - ``int8_conv3x3`` (Q2): the 3x3 stride-1 pad-1 conv as an implicit GEMM
-  (PyTorch has no int8 convolution on CUDA);
+  on ``wgmma`` s8 fed by TMA, laid out by :func:`conv3x3_plan` (PyTorch has
+  no int8 convolution on CUDA);
 - ``int8_dequant`` (Q3): the epilogue of the matmul, whose int32 product
   is ``torch._int_mm``, as the JAX package leaves it to ``lax.dot_general``.
 
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -52,9 +54,10 @@ from . import kernel_lib
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "q8_absmax": [_I, _P, _P, _P, _P, _LL, _LL, _I, _I, _LL, _I, _I, _I, _P],
-    "q8_quantize_rows": [_I, _P, _P, _P, _P, _LL, _LL, _P],
-    "q8_quantize_nhwc": [_I, _P, _P, _P, _P, _P, _I, _I, _LL, _P],
-    "q8_conv3x3": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "q8_quantize_rows": [_I, _P, _P, _P, _P, _LL, _LL, _I, _P],
+    "q8_quantize_nhwc": [_I, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _P],
+    "q8_conv3x3": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _P],
     "q8_dequant": [_I, _P, _P, _P, _P, _P, _LL, _LL, _P],
 }
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -64,6 +67,25 @@ ABSMAX_LOADS = 8  # loads of 8 elements a thread of a row at most, before the ro
 ABSMAX_BLOCKS_PER_SM = 8  # blocks an SM holds at once: one wave
 ABSMAX_TWO_WAVES = 2**28  # elements above which the split rows take two waves
 ABSMAX_MIN_CHUNK = 32768  # elements a block of a split row reads at the least
+# Q1b's plan (``quantize_rows_plan``): groups of 8 elements (one 16-byte load of
+# bf16) a thread of a row at most, before the row takes more threads; and the
+# threads an SM is given before a row's threads stop doubling (both measured
+# on the H100 at the paths' row shapes)
+QUANT_GROUPS = 8
+QUANT_SM_THREADS = 1536
+# Q1c's tile (``QC`` x ``QP`` in csrc/int8_conv.cu): channels x pixels a block,
+# 128 pixels where that gives each SM ``NHWC_MIN_BLOCKS`` blocks, else 32
+NHWC_TILE_C, NHWC_TILE_PS = 64, (128, 32)
+NHWC_MIN_BLOCKS = 4
+# Q2's plan (``conv3x3_plan``; csrc/int8_conv.cu namespace q2)
+CONV_BK = 128  # channels of one tap a k-step
+CONV_CONSUMERS = 256  # consumer threads a block (two warpgroups)
+CONV_ACC = 128  # int32 accumulators a consumer thread (mi * bn / 2)
+CONV_MIN_SPLIT_STEPS = 4  # k-steps a split takes at the least
+# a split unit's cost in k-steps on the H100: writing its int32 slab, and
+# the last unit's adding of each other slab (measured with the card's SMs
+# all writing at once)
+CONV_SLAB_WRITE_STEPS, CONV_SLAB_READ_STEPS = 10, 6
 
 _USE_INT8_DECODE = False
 _USE_INT8_SCORER = False
@@ -243,6 +265,96 @@ def absmax_plan(rows: int, row_len: int, sms: int) -> tuple[int, int, int]:
     return tpr, -(-row_len // chunk), chunk
 
 
+def quantize_rows_plan(rows: int, k: int, sms: int) -> tuple[int, int]:
+    """How Q1b covers ``rows`` rows of ``k`` elements on a card of ``sms``
+    SMs: (threads a row, blocks). A row takes the fewest threads (32, 64,
+    128 or 256) that quantize it in at most ``QUANT_GROUPS`` groups of 8
+    elements each, as ``absmax_plan`` does for Q1a, and twice as many while
+    that keeps the launch within ``QUANT_SM_THREADS`` threads an SM and a
+    thread has more than one group; a block of ``ABSMAX_THREADS`` threads
+    holds ``ABSMAX_THREADS / tpr`` rows."""
+    groups, tpr = -(-k // 8), 32
+    while tpr < ABSMAX_THREADS and (groups > QUANT_GROUPS * tpr or (
+            rows * 2 * tpr <= sms * QUANT_SM_THREADS and groups > tpr)):
+        tpr *= 2
+    return tpr, -(-rows // (ABSMAX_THREADS // tpr))
+
+
+def quantize_nhwc_plan(batch: int, channels: int, hw: int,
+                       sms: int) -> tuple[int, tuple[int, int, int]]:
+    """Q1c's tile and grid: a block a tile of ``NHWC_TILE_C`` channels x
+    ``tile_p`` pixels of one sample (128, or 32 where the 128-pixel tiles
+    would give the card's ``sms`` SMs fewer than ``NHWC_MIN_BLOCKS`` blocks
+    each): (tile_p, (pixel tiles, channel tiles, samples))."""
+    for tile_p in NHWC_TILE_PS:
+        grid = (-(-hw // tile_p), -(-channels // NHWC_TILE_C), batch)
+        if math.prod(grid) >= NHWC_MIN_BLOCKS * sms:
+            break
+    return tile_p, grid
+
+
+@dataclasses.dataclass(frozen=True)
+class Conv3x3Plan:
+    """Q2's layout of one conv (``conv3x3_plan``): tiles of ``patch_h`` x
+    ``pw`` pixels of one image by ``bn`` output channels, each
+    warpgroup issuing ``mi`` 64-row products a k-step; ``k_steps`` k-steps
+    of ``CONV_BK`` channels of one tap, split into ``splits`` ranges of
+    ``chunk``; ``units`` = tiles x splits walked by ``grid`` persistent
+    blocks."""
+
+    mi: int
+    bn: int
+    pw: int
+    patch_h: int
+    tiles_h: int
+    tiles_w: int
+    tiles_n: int
+    tiles: int
+    cslices: int
+    k_steps: int
+    splits: int
+    chunk: int
+    units: int
+    grid: int
+
+
+def conv3x3_plan(batch: int, height: int, width: int, channels: int, outc: int, sms: int,
+                 bf16_out: bool = True) -> Conv3x3Plan:
+    """How Q2 covers a (B, H, W, C) x (O, 3, 3, C) conv on a card of ``sms``
+    SMs. N tiles of 256 channels where O is a multiple of 256 (one 64-row
+    product a warpgroup), else of 128 (two), so a thread holds ``CONV_ACC``
+    accumulators either way; patches 64 pixels wide (an m-block an image
+    row, written by a TMA store) for a bf16 output at least 64 wide with
+    rows on 16 bytes, else 16 wide. Where the tiles leave half the SMs or
+    more idle, K is split, all units in one wave: among the splits of at
+    least ``CONV_MIN_SPLIT_STEPS`` k-steps each, the one whose last unit
+    takes the fewest k-steps (its chunk, ``CONV_SLAB_WRITE_STEPS`` and
+    ``CONV_SLAB_READ_STEPS`` for each other slab), if that beats K whole;
+    ties to the fewest splits. One block an SM, walking units u, u + grid,
+    ... (tile u // splits: N tiles fastest, then patches along w, h and
+    images; k-steps [split * chunk, split * chunk + chunk))."""
+    mi, bn = (1, 256) if outc % 256 == 0 else (2, 128)
+    pw = 64 if bf16_out and width >= 64 and width % 8 == 0 else 16
+    patch_h = 2 * mi * 64 // pw
+    tiles_h, tiles_w, tiles_n = -(-height // patch_h), -(-width // pw), -(-outc // bn)
+    tiles = batch * tiles_h * tiles_w * tiles_n
+    cslices = -(-channels // CONV_BK)
+    k_steps = 9 * cslices
+    best = (k_steps, 1)
+    if tiles <= sms // 2:
+        for s in range(2, min(k_steps // CONV_MIN_SPLIT_STEPS, sms // tiles) + 1):
+            chunk = -(-k_steps // s)
+            if -(-k_steps // chunk) != s:
+                continue
+            cost = chunk + CONV_SLAB_WRITE_STEPS + (s - 1) * CONV_SLAB_READ_STEPS
+            best = min(best, (cost, s))
+    splits = best[1]
+    chunk = -(-k_steps // splits)
+    units = tiles * splits
+    return Conv3x3Plan(mi, bn, pw, patch_h, tiles_h, tiles_w, tiles_n, tiles, cslices, k_steps,
+                       splits, chunk, units, min(units, sms))
+
+
 def absmax_geometry(shape, mode: str, divided: bool = False):
     """Q1a's rows of ``x`` (contiguous, ``shape``) for ``mode``: (rows, row
     stride, segments a row, segment length, segment stride), in elements. A
@@ -293,8 +405,9 @@ def quantize_rows(x, absmax_):
     rows, k = x.shape
     q = torch.empty((rows, k), dtype=torch.int8, device=x.device)
     s = torch.empty(rows, dtype=torch.float32, device=x.device)
+    tpr, _ = quantize_rows_plan(rows, k, _sm_count(x.device.index or 0))
     _launch("q8_quantize_rows", _DTYPES[x.dtype], x.data_ptr(), absmax_.contiguous().data_ptr(),
-            q.data_ptr(), s.data_ptr(), rows, k, kernel_lib.stream_ptr(x.device),
+            q.data_ptr(), s.data_ptr(), rows, k, tpr, kernel_lib.stream_ptr(x.device),
             name="int8_quantize")
     return q, s
 
@@ -308,8 +421,9 @@ def quantize_nhwc(x, absmax_, div=None):
     b, c, h, w = x.shape
     q = torch.empty((b, h, w, c), dtype=torch.int8, device=x.device)
     s = torch.empty(b, dtype=torch.float32, device=x.device)
+    tile_p, _ = quantize_nhwc_plan(b, c, h * w, _sm_count(x.device.index or 0))
     _launch("q8_quantize_nhwc", _DTYPES[x.dtype], x.data_ptr(), _ptr(div),
-            absmax_.contiguous().data_ptr(), q.data_ptr(), s.data_ptr(), b, c, h * w,
+            absmax_.contiguous().data_ptr(), q.data_ptr(), s.data_ptr(), b, c, h * w, tile_p,
             kernel_lib.stream_ptr(x.device), name="int8_quantize")
     return q, s
 
@@ -328,9 +442,13 @@ def conv3x3(xq, wq, sx, sw, bias=None, dtype=torch.float32):
     if c % 16:
         raise ValueError(f"int8_conv3x3 takes channels in multiples of 16, got {c}")
     out = torch.empty((b, o, h, w), dtype=dtype, device=xq.device)
+    plan = conv3x3_plan(b, h, w, c, o, _sm_count(xq.device.index or 0), dtype == torch.bfloat16)
+    ws = (torch.empty((plan.units, CONV_CONSUMERS * CONV_ACC), dtype=torch.int32,
+                      device=xq.device) if plan.splits > 1 else None)
     _launch("q8_conv3x3", _DTYPES[dtype], xq.data_ptr(), wq.data_ptr(), sx.data_ptr(),
-            sw.data_ptr(), _ptr(bias), out.data_ptr(), b, h, w, c, o,
-            kernel_lib.stream_ptr(xq.device), name="int8_conv3x3")
+            sw.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(ws), b, h, w, c, o, plan.mi,
+            plan.bn, plan.pw, plan.splits, plan.chunk, plan.grid, kernel_lib.stream_ptr(xq.device),
+            name="int8_conv3x3")
     return out
 
 
