@@ -261,10 +261,12 @@ PyTorch. In order:
    16 bytes, NHWC tiles cut by C and H*W, fp32 inputs, divisors; channels
    past one k-slice, patches cut by H and W, O past an N tile, an image
    under one tile, the split-K route, both output types, with and without
-   bias; 0 launches): absmaxes, integers, scales and outputs equal to the
-   plain versions' bit for bit;
-   per ``torch._int_mm`` shape the whole int8 matmul beside bf16
-   ``torch.matmul``;
+   bias; 0 launches), the matmul at its own (``INT8_MATMUL_EDGES``: M from
+   1, N past a tile, K of 8 and K % 16 = 8, split K; 0 launches):
+   absmaxes, integers, scales and outputs equal to the plain versions' bit
+   for bit; the matmul beside ``torch._int_mm`` alone and bf16
+   ``torch.matmul`` of its shape, and per site of the paths the whole int8
+   matmul beside bf16 ``torch.matmul``;
 13. prints the card line again, the ``{"kernels": [...]}`` line (launches:
    the sum over the runs of steps 5-11b, the sharded runs' and the world-1
    run's of step 11 among them; K1 at head dims 40 and 160 and the backward
@@ -370,9 +372,10 @@ KERNELS = {
     "int8_absmax": (_INT8_SRC, f"{_JAX_QCONV}:115, {_JAX_QCONV}:158 (jnp, no Pallas kernel)"),
     "int8_quantize": (_INT8_SRC, f"{_JAX_QCONV}:117, {_JAX_QCONV}:160 (jnp, no Pallas kernel)"),
     "int8_conv3x3": (_INT8_SRC, f"{_JAX_QCONV}:164 (lax.conv_general_dilated, no Pallas kernel)"),
-    "int8_dequant": (_INT8_SRC, f"{_JAX_QCONV}:123 (jnp, no Pallas kernel)"),
+    "int8_matmul": (_INT8_SRC, f"{_JAX_QCONV}:119, {_JAX_QCONV}:123 (lax.dot_general and jnp, "
+                    "no Pallas kernel)"),
 }
-INT8_KERNELS = ("int8_absmax", "int8_quantize", "int8_conv3x3", "int8_dequant")
+INT8_KERNELS = ("int8_absmax", "int8_quantize", "int8_conv3x3", "int8_matmul")
 
 
 def log(msg):
@@ -619,12 +622,12 @@ def _remat_recomputed(ucfg, trained_cond=False):
 
 def int8_launches(matmuls=0, convs=0, smoothed_convs=0):
     """Launches of dynamic int8 (``ops/qconv.py``): a matmul quantizes its
-    activations and weights (two absmax, two quantize) and dequantizes the
-    ``torch._int_mm`` product; a conv the same and the implicit-GEMM conv,
-    with SmoothQuant one absmax more (the channels')."""
+    activations and weights (two absmax, two quantize) and runs the product
+    with its dequantize (one launch); a conv the same with the implicit-GEMM
+    conv, with SmoothQuant one absmax more (the channels')."""
     c = convs + smoothed_convs
     return {"int8_absmax": 2 * (matmuls + c) + smoothed_convs, "int8_quantize": 2 * (matmuls + c),
-            "int8_conv3x3": c, "int8_dequant": matmuls}
+            "int8_conv3x3": c, "int8_matmul": matmuls}
 
 
 def unet_int8_sites(ucfg, subpixel=False):
@@ -834,7 +837,7 @@ class ShapeRecorder:
     """Records the shapes the main path hands each kernel wrapper, by
     wrapping the module functions the models reach (observation only)."""
 
-    INT8_WRAPPERS = ("absmax", "quantize_rows", "quantize_nhwc", "conv3x3", "dequant", "int_mm")
+    INT8_WRAPPERS = ("absmax", "quantize_rows", "quantize_nhwc", "conv3x3", "matmul")
 
     def __init__(self):
         from pairwise_sample_optimization_tpu_torch.ops import flash_attention as tfa
@@ -868,10 +871,9 @@ class ShapeRecorder:
                                                  a["div"] is not None),
                        "conv3x3": lambda: (shape(a["xq"]), shape(a["wq"]), str(a["dtype"]),
                                            a["bias"] is not None),
-                       "dequant": lambda: (shape(a["acc"]), str(a["dtype"]),
-                                           a["bias"] is not None),
-                       # the product between Q1 and Q3 (torch._int_mm): (M, K, N)
-                       "int_mm": lambda: shape(a["xq"]) + (a["wq"].shape[0],)}[name]()
+                       # the product with its dequantize: (M, K, N), out, bias
+                       "matmul": lambda: shape(a["xq"]) + (a["wq"].shape[0], str(a["dtype"]),
+                                                           a["bias"] is not None)}[name]()
                 count(self.int8, (name,) + key)
                 return fn(*args, **kwargs)
             return wrapper
@@ -906,7 +908,7 @@ class ShapeRecorder:
         calls = lambda *names: sum(n for key, n in self.int8.items() if key[0] in names)
         return {"int8_absmax": calls("absmax"),
                 "int8_quantize": calls("quantize_rows", "quantize_nhwc"),
-                "int8_conv3x3": calls("conv3x3"), "int8_dequant": calls("dequant")}
+                "int8_conv3x3": calls("conv3x3"), "int8_matmul": calls("matmul")}
 
 
 class HostPeak:
@@ -3626,8 +3628,8 @@ INT8_ABSMAX_EDGES = (((3, 1001), "torch.bfloat16", "rows", False, 0),
                      ((1, 7, 45, 45), "torch.float32", "samples", False, 2))
 # Q1b / Q1c at the edges of their 16-byte loads and stores (0 launches): (layout,
 # shape, dtype, divisor, base offset in elements): rows of a length no multiple
-# of 8 (scalar tails) and bases off 16 bytes (scalar heads, unaligned int8
-# stores); NHWC with C no multiple of the 64-channel tile, H*W odd (scalar
+# of 8 (scalar tails; the int8 rows written on a 16-byte stride, padded past
+# the length) and bases off 16 bytes (scalar heads); NHWC with C no multiple of the 64-channel tile, H*W odd (scalar
 # loads), fp32 inputs and divisors
 INT8_QUANT_EDGES = (("quantize_rows", (3, 1001), "torch.bfloat16", False, 0),
                     ("quantize_rows", (5, 3001), "torch.bfloat16", False, 1),
@@ -3652,24 +3654,44 @@ INT8_CONV_EDGES = (((1, 5, 5, 16), 24, "torch.bfloat16", True),
                    ((1, 5, 72, 48), 80, "torch.bfloat16", True),
                    ((2, 9, 200, 32), 256, "torch.bfloat16", False),
                    ((1, 6, 64, 128), 130, "torch.float32", False))
+# Q3 at its edges (0 launches): (M, K, N, output dtype, bias): M of 1 and 16
+# (under torch._int_mm's CUDA rule), 17 and 65 (an M tile cut by M), 154 (two
+# images' 77 context tokens); N no multiple of the 128-column tile (24, 200,
+# 136); K = 8, the smallest the route takes, and K % 16 = 8 (int8 rows padded
+# to 16 bytes); the split-K route; 256-column tiles with M cut by a tile
+# (2000); bf16 and fp32 outputs with and without bias
+INT8_MATMUL_EDGES = ((1, 640, 640, "torch.bfloat16", True),
+                     (16, 2048, 640, "torch.bfloat16", False),
+                     (17, 1280, 1280, "torch.float32", True),
+                     (65, 64, 24, "torch.bfloat16", True),
+                     (154, 2048, 1280, "torch.float32", False),
+                     (300, 256, 200, "torch.bfloat16", True),
+                     (33, 8, 40, "torch.bfloat16", True),
+                     (100, 72, 136, "torch.float32", False),
+                     (256, 5120, 1280, "torch.bfloat16", True),
+                     (128, 5120, 640, "torch.float32", False),
+                     (2000, 640, 1280, "torch.float32", True))
 INT8_TIMING = {"reps": 3, "inner": 5}
 INT8_PLAIN_TIMING = {"reps": 1, "inner": 1, "warm": 1}  # the plain conv: float64 integers
-QUANTIZE_OPS, ABSMAX_OPS, DEQUANT_OPS = 5, 2, 3  # fp32 operations per element
+QUANTIZE_OPS, ABSMAX_OPS = 5, 2  # fp32 operations per element
 
 
 def int8_phase(entries, seed):
     """Each int8 kernel (Q1: ``int8_absmax``, ``int8_quantize``; Q2:
-    ``int8_conv3x3``; Q3: ``int8_dequant``) against its plain version at
+    ``int8_conv3x3``; Q3: ``int8_matmul``) against its plain version at
     every shape a path gave it (``entries``: the recorder's keys and their
     launches), at ``int8_off_path_shapes`` and at the kernels' edges
-    (``INT8_ABSMAX_EDGES``, ``INT8_QUANT_EDGES``, ``INT8_CONV_EDGES``; 0
-    launches), on inputs drawn here: absmaxes, integers, scales and outputs must be equal (the plain
-    versions compute the same fp32 operations: no tolerance). Per shape ms,
-    bound, plain ms and a library call where one computes the same function
-    (the absmax: ``torch.linalg.vector_norm`` of order inf; the conv: bf16
-    ``F.conv2d`` of the same shape, the yardstick the int8 conv is for);
-    per ``torch._int_mm`` shape of the int8 matmul sites the whole int8
-    matmul (Q1 twice, the product, Q3) beside the bf16 ``torch.matmul``."""
+    (``INT8_ABSMAX_EDGES``, ``INT8_QUANT_EDGES``, ``INT8_CONV_EDGES``,
+    ``INT8_MATMUL_EDGES``; 0 launches), on inputs drawn here (Q2's and Q3's
+    integers over all of [-127, 127], so Q3's sums pass 2^24): absmaxes,
+    integers, scales and outputs must be equal (the plain versions compute
+    the same fp32 operations: no tolerance). Per shape ms, bound, plain ms
+    and a library call where one computes the same function (the absmax:
+    ``torch.linalg.vector_norm`` of order inf; the conv: bf16 ``F.conv2d``
+    of the same shape, the yardstick the int8 conv is for); Q3 beside two
+    yardsticks of its shape, ``torch._int_mm`` alone (M > 16) and the bf16
+    ``torch.matmul``; per int8 matmul site of the paths the whole int8
+    matmul (Q1 twice, Q3) beside the bf16 ``torch.matmul``."""
     import torch
     import torch.nn.functional as F
 
@@ -3702,17 +3724,10 @@ def int8_phase(entries, seed):
               for layout, shape, dtype, div, offset in INT8_QUANT_EDGES]
     edges += [(("conv3x3", x, (o, 3, 3, x[3]), dtype, bias), 0, 0)
               for x, o, dtype, bias in INT8_CONV_EDGES]
+    edges += [(("matmul",) + edge, 0, 0) for edge in INT8_MATMUL_EDGES]
     for key, launches, offset in [(k, n, 0) for k, n in sorted(cases.items(), key=str)] + edges:
         kind = key[0]
-        if kind == "int_mm":
-            m, k, n = key[1:]
-            x, w = rand((m, k), torch.bfloat16), rand((n, k), torch.bfloat16) * 0.05
-            sites.append({"m": m, "k": k, "n": n, "launches": launches,
-                          "int8_ms": timed_ms(lambda: tq.int8_matmul(x, w), **INT8_TIMING),
-                          "bf16_matmul_ms": timed_ms(lambda: x @ w.t(), **INT8_TIMING),
-                          "bound_int8_ms": bound(m * k * 2 + n * k * 2 + m * n * 2,
-                                                 2 * m * k * n, "int8")[0]})
-            continue
+        extra = {}  # yardsticks beside the library call
         if kind in ("absmax", "quantize_rows", "quantize_nhwc"):
             shape, dtype = key[1], dt[key[2]]
             x = rand(shape, dtype, offset)
@@ -3765,35 +3780,65 @@ def int8_phase(entries, seed):
                           2 * bsz * h * w_ * o * 9 * c, "int8")
             table, desc = "int8_conv3x3", {"x": [bsz, h, w_, c], "w": [o, 3, 3, c],
                                            "out": key[3], "bias": has_bias}
-        else:  # dequant
-            (m, n_), dtype, has_bias = key[1], dt[key[2]], key[3]
-            acc = torch.randint(-2**24, 2**24, (m, n_), generator=gen, device="cuda",
-                                dtype=torch.int32)
+        else:  # matmul
+            m, k, n_, dtype, has_bias = key[1], key[2], key[3], dt[key[4]], key[5]
+            xq, wq = int8_matmul_operands(m, k, n_, gen)
             sx = torch.rand(m, generator=gen, device="cuda") * 0.02 + 1e-3
             sw = torch.rand(n_, generator=gen, device="cuda") * 1e-3 + 1e-5
             bias = torch.randn(n_, generator=gen, device="cuda") if has_bias else None
-            fn = lambda: tq.dequant(acc, sx, sw, bias, dtype)
-            plain = lambda: tq.dequant_plain(acc, sx, sw, bias, dtype)
+            fn = lambda: tq.matmul(xq, wq, sx, sw, bias, dtype)
+            plain = lambda: tq.matmul_plain(xq, wq, sx, sw, bias, dtype)
             library = None
             out_el = torch.empty((), dtype=dtype).element_size()
-            b, by = bound(m * n_ * (4 + out_el) + 4 * (m + 2 * n_), DEQUANT_OPS * m * n_, "fp32")
-            table, desc = "int8_dequant", {"acc": [m, n_], "out": key[2], "bias": has_bias}
+            b, by = bound(m * k + n_ * k + m * n_ * out_el + 4 * (m + 2 * n_), 2 * m * k * n_,
+                          "int8")
+            table, desc = "int8_matmul", {"m": m, "k": k, "n": n_, "out": key[4],
+                                          "bias": has_bias}
+            xc, wc = xq.contiguous(), wq.contiguous()
+            x, w = rand((m, k), torch.bfloat16), rand((n_, k), torch.bfloat16) * 0.05
+            extra = {"int_mm_ms": (timed_ms(lambda: torch._int_mm(xc, wc.t()), **INT8_TIMING)
+                                   if m > 16 else None),
+                     "bf16_matmul_ms": timed_ms(lambda: x @ w.t(), **INT8_TIMING)}
+            if launches:
+                bias_x = None if bias is None else bias.to(x.dtype)
+                sites.append({"m": m, "k": k, "n": n_, "out": key[4], "bias": has_bias,
+                              "launches": launches,
+                              "int8_ms": timed_ms(lambda: tq.int8_matmul(x, w, bias_x,
+                                                                         out_dtype=dtype),
+                                                  **INT8_TIMING),
+                              "bf16_matmul_ms": extra["bf16_matmul_ms"],
+                              "bound_int8_ms": bound(m * k * 2 + n_ * k * 2 + m * n_ * out_el,
+                                                     2 * m * k * n_, "int8")[0]})
         err = equal(f"{table} {desc}", fn(), plain())
         row = {"shape": desc, "launches": launches, "max_abs_err": err,
                "ms": timed_ms(fn, **INT8_TIMING),
                "plain_ms": timed_ms(plain, **INT8_PLAIN_TIMING),
                "library_ms": timed_ms(library, **INT8_TIMING) if library else None,
-               "bound_ms": b, "bound_by": by}
+               "bound_ms": b, "bound_by": by, **extra}
         rows[table].append(row)
         log(f"{table} {desc}: equal to the plain version; {row['ms']:.4f} ms (bound {b:.4f}, "
             f"{by}), plain {row['plain_ms']:.4f}"
-            + (f", library {row['library_ms']:.4f}" if library else "") + f"; {launches} launches")
+            + (f", library {row['library_ms']:.4f}" if library else "")
+            + "".join(f", {k_} {v:.4f}" for k_, v in extra.items() if v is not None)
+            + f"; {launches} launches")
         torch.cuda.empty_cache()
     for s_ in sites:
-        log(f"int8 matmul site (M, K, N) = ({s_['m']}, {s_['k']}, {s_['n']}): whole int8 matmul "
-            f"{s_['int8_ms']:.4f} ms vs bf16 torch.matmul {s_['bf16_matmul_ms']:.4f} ms (int8 "
-            f"operation bound {s_['bound_int8_ms']:.4f}); {s_['launches']} launches")
+        log(f"int8 matmul site (M, K, N) = ({s_['m']}, {s_['k']}, {s_['n']}) {s_['out']} bias="
+            f"{s_['bias']}: whole int8 matmul {s_['int8_ms']:.4f} ms vs bf16 torch.matmul "
+            f"{s_['bf16_matmul_ms']:.4f} ms (int8 operation bound {s_['bound_int8_ms']:.4f}); "
+            f"{s_['launches']} launches")
     return rows, sites
+
+
+def int8_matmul_operands(m, k, n, gen):
+    """Int8 (M, K) and (N, K) drawn over [-127, 127] on the card, their rows
+    16 bytes apart as ``quantize_rows`` writes them on the card (padded
+    past K where K % 16 != 0)."""
+    import torch
+
+    kp = -(-k // 16) * 16
+    return tuple(torch.randint(-127, 128, (r, kp), generator=gen, device="cuda",
+                               dtype=torch.int8)[:, :k] for r in (m, n))
 
 
 # ---------------------------------------------------------------------- #

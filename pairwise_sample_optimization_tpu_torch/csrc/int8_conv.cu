@@ -1,11 +1,12 @@
 // Dynamic int8 on Hopper (sm_90a): the quantize, the 3x3 convolution and the
-// dequantize of the opt-in int8 paths (ops/qconv.py).
+// matmul of the opt-in int8 paths (ops/qconv.py).
 //
 // None of these replaces a TPU kernel. The JAX package computes them in
 // pairwise_sample_optimization_tpu/ops/qconv.py with jnp and
 // lax.dot_general / lax.conv_general_dilated, outside any Pallas kernel;
 // the port needs kernels of its own because PyTorch has no int8
-// convolution and no fused absmax-quantize on CUDA.
+// convolution, no int8 product with a fused dequantize and no fused
+// absmax-quantize on CUDA.
 //
 // Q1 (two kernels, launched one after the other):
 //   q8_absmax_kernel       per-row absmax over strided rows: a row is n_seg
@@ -18,7 +19,9 @@
 //                          One launch: a warp a short row, or blocks over
 //                          chunks of a long one whose last block to finish
 //                          takes the rows' maxima (exact in any order).
-//   q8_quantize_rows_kernel  (M, K) -> int8 (M, K) and the scale (M,).
+//   q8_quantize_rows_kernel  (M, K) -> int8 (M, K) and the scale (M,); the
+//                          int8 rows optionally padded to 16 bytes (for the
+//                          matmul's TMA maps).
 //   q8_quantize_nhwc_kernel  NCHW -> int8 NHWC and the scale (B,), through a
 //                          shared-memory transpose, so the convolution reads
 //                          its K dimension (channels) contiguously.
@@ -36,10 +39,19 @@
 //   launch). Epilogue: acc * (s_x[b] * s_w[o]) (+ bias[o]) in fp32 with
 //   explicit _rn operations, cast, written NCHW. Bound by int8 operations
 //   at the decoder's and the UNet's widths.
-// Q3 q8_dequant_kernel: the int32 product of torch._int_mm (the int8
-//   matmul; JAX leaves it to lax.dot_general) read once, acc * (s_x[row] *
-//   s_w[col]) (+ bias[col]) with the same _rn operations, cast. Bound by
-//   bytes.
+// Q3 q8_matmul_kernel: the int8 matmul, int8 (M, K) x int8 (N, K)^T, on
+//   the same parts (namespace q8mm below: 2-D tensor maps, M from 1, split
+//   K where the tiles leave half the SMs idle), with the dequantize acc *
+//   (s_x[m] * s_w[n]) (+ bias[n]) (the same _rn operations) as its
+//   epilogue, written by TMA stores: the int32 product never reaches device
+//   memory. It takes the place of torch._int_mm and a dequantize pass. Bound
+//   by int8 operations at the UNet's wide products, by bytes at narrow ones.
+//
+// Checks: on the CPU, tests/test_torch_port_int8_plans.py walks the plans
+// (ops/qconv.py) as the kernels walk them and tests/test_torch_port_int8.py
+// holds the plain versions against the JAX package; on the card,
+// chip_smoke.py holds every kernel bit-equal to its plain version at the
+// paths' shapes and edges, and scripts/time_port_int8.py times them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,11 +68,6 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ int8_t quantize(float v, float s) {
   const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
@@ -263,11 +270,13 @@ __device__ __forceinline__ void store8(int8_t* q, const float (&f)[8], float s, 
 // absmax_plan does for Q1a); a thread quantizes groups of 8 values (one
 // 16-byte load of bf16, two of fp32; an 8-byte store where the row's int8
 // base lines up), up to QLOADS in flight, between a scalar head (to x's
-// 16-byte boundary) and a scalar tail.
+// 16-byte boundary) and a scalar tail. Output rows lie ldq bytes apart (k
+// rounded up to 16, as the int8 matmul's TMA maps need; the pad is not
+// written).
 template <typename T, int TPR>
 __global__ void __launch_bounds__(kThreads) q8_quantize_rows_kernel(
     const T* __restrict__ x, const float* __restrict__ absmax, int8_t* __restrict__ q,
-    float* __restrict__ scale, long long rows, int k) {
+    float* __restrict__ scale, long long rows, int k, long long ldq) {
   constexpr int PER_BLOCK = kThreads / TPR, QLOADS = 4;
   const long long row = static_cast<long long>(blockIdx.x) * PER_BLOCK + threadIdx.x / TPR;
   const int tid = threadIdx.x % TPR;
@@ -275,7 +284,7 @@ __global__ void __launch_bounds__(kThreads) q8_quantize_rows_kernel(
   const float s = scale_of(absmax[row]), r = __frcp_rn(s);
   if (tid == 0) scale[row] = s;
   const T* p = x + row * k;
-  int8_t* d = q + row * k;
+  int8_t* d = q + row * ldq;
   constexpr int V = 16 / sizeof(T);
   const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(p) & 15) / sizeof(T));
   const int head = min(k, mis ? V - mis : 0);
@@ -813,25 +822,310 @@ cudaError_t dispatch(const int8_t* xq, const int8_t* wq, ConvArgs a, int mi, int
 
 }  // namespace q2
 
-// ---- Q3: dequantize an int32 product ----------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads) q8_dequant_kernel(
-    const int32_t* __restrict__ acc, const float* __restrict__ sx, const float* __restrict__ sw,
-    const float* __restrict__ bias, T* __restrict__ out, long long rows, long long cols) {
-  const long long n = rows * cols;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long r = i / cols, c = i - r * cols;
-    float y = __fmul_rn(__int2float_rn(acc[i]), __fmul_rn(sx[r], sw[c]));
-    if (bias != nullptr) y = __fadd_rn(y, bias[c]);
-    out[i] = from_f32<T>(y);
-  }
+// ---- Q3: int8 matmul on wgmma s8, fed by TMA, dequantized in its epilogue ----
+// int8 (M, K) x int8 (N, K)^T -> (M, N): y = acc * (s_x[m] * s_w[n]) (+
+// bias[n]) in fp32 with explicit _rn operations (the chain of the plain
+// version, ops/qconv.py::matmul_plain: torch._int_mm, then dequant_plain),
+// cast to bf16 or fp32. The int32 sums are exact in any order (|acc| <=
+// 127^2 * K < 2^31 on the paths). Design (ops/qconv.py::matmul_plan lays
+// it out), Q2's without the taps:
+// - a tile is BM = 128 rows (64 a consumer warpgroup) by BN = 128 or 256
+//   columns (the plan's choice); a k-step is BK = 128 bytes of K, both
+//   operands K-major (the rows of xq and wq) and 128-byte swizzled;
+// - one producer thread fetches each stage, the A and B boxes through 2-D
+//   maps (K, M) and (K, N), into a ring of ST stages on mbarriers; rows past
+//   M or N and bytes past K read as zeros (TMA's fill), so ragged shapes and
+//   M from 1 need no test in the loop. A map's row stride is a multiple of
+//   16 bytes: the quantize (quantize_rows) writes its rows on a 16-byte
+//   stride, padded past K where K % 16 != 0; the pad lies past the map's K
+//   and is never read;
+// - the grid is persistent (a block an SM walks units u, u + grid, ...), so
+//   the producer fetches the next unit's stages under this one's epilogue;
+// - where the tiles leave half the SMs idle, K is split over `splits` units
+//   of a tile (all in one wave) with Q2's int32 slabs: the last unit of a
+//   tile to finish adds the others' in int32 (exact) and runs the epilogue;
+// - epilogue: the scales and bias read per column pair, y as above; bf16
+//   staged by stmatrix, fp32 by 8-byte stores, as 128-byte swizzled blocks
+//   of 64 rows x 128 bytes, two a warpgroup at a time (so the ring keeps 4
+//   stages at BN = 256, 6 at 128), written by TMA stores over (N, M)
+//   clipped at the edges; the last pass's stores drain under the next
+//   unit's products. The int32
+//   product never reaches device memory (torch._int_mm and a dequantize
+//   pass would write it and read it back).
+// Bound by int8 operations at the UNet's GEGLU widths, by bytes at narrow
+// ones.
+namespace q8mm {
+
+using namespace pso;
+
+constexpr int BM = 128, BK = 128;            // rows a tile; bytes of K a k-step
+constexpr int NC = 256, NTHREADS = NC + 32;  // two consumer warpgroups, one producer warp
+constexpr int kMaxSmem = 232448;             // the shared memory a block can take on the H100
+constexpr int kMaxStages = 6;
+constexpr int kMaxSplitTiles = 1024;         // tiles of a launch that splits K, at most
+
+__device__ unsigned int g_mm_done[kMaxSplitTiles];  // a split tile's units done
+
+template <typename T, int BN>
+struct Cfg {
+  static constexpr int A_BYTES = BM * BK, STAGE = (BM + BN) * BK;
+  static constexpr int ACC4 = BN / 8;                  // int4s of accumulators a thread
+  static constexpr int COLS = 128 / (int)sizeof(T);    // output columns a 128-byte staging row
+  // the epilogue stages a warpgroup's 64 rows in passes of PASS_BLOCKS
+  // blocks of 64 rows x 128 bytes (PASS_TILES n-tiles), each written by TMA
+  // stores before the next pass: the ring keeps the rest of the SM's memory
+  static constexpr int PASS_BLOCKS = 2, PASS_TILES = PASS_BLOCKS * COLS / 8;
+  static constexpr int PASSES = BN / 8 / PASS_TILES;
+  static constexpr int WG_STG = PASS_BLOCKS * 64 * 128;  // one warpgroup's staging bytes
+  static constexpr int FREE = kMaxSmem - 1024 - 2 * WG_STG - 16 * kMaxStages;
+  static constexpr int ST = FREE / STAGE < kMaxStages ? FREE / STAGE : kMaxStages;
+  static constexpr size_t SMEM = 1024 + (size_t)ST * STAGE + 2 * WG_STG + 16 * ST;
+  static_assert(ST >= 2 && SMEM <= (size_t)kMaxSmem, "shared memory");
+};
+
+struct MmArgs {
+  const float* sx;
+  const float* sw;
+  const float* bias;
+  int* ws;  // split K: a slab of NC * ACC4 int4s a unit
+  int m, n, k;
+  int tiles_n, k_total, splits, chunk, units;
+};
+
+// Four 8 x 8 b16 matrices held in the accumulator fragment layout (this
+// thread's two values of row lane / 4 of each, packed): lane l gives the
+// shared address of row l % 8 of matrix l / 8 (16 bytes).
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
 }
 
-long long grid_for(long long n) {
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  return blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16;
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
 }
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(NTHREADS, 1)
+q8_matmul_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                 const __grid_constant__ CUtensorMap to, MmArgs a) {
+  using C = Cfg<T, BN>;
+  constexpr int ST = C::ST;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last_unit;  // split K: this block finishes the tile
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // stage i at base + i * STAGE
+  const uint32_t staging = base + ST * C::STAGE;
+  const uint32_t bars = staging + 2 * C::WG_STG;
+  auto full = [&](int i) { return bars + 8 * i; };
+  auto empty = [&](int i) { return bars + 8 * (ST + i); };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), NC);
+    }
+    mbar_fence_init();
+  } else if (threadIdx.x == NC) {  // the maps' descriptors fetched under the barriers' set-up
+    prefetch_tensormap(&ta);
+    prefetch_tensormap(&tb);
+    prefetch_tensormap(&to);
+  }
+  __syncthreads();
+
+  // unit u: tile u / splits (N tiles fastest), k-steps [split * chunk,
+  // min(split * chunk + chunk, k_total))
+  int tile, m0, n0, k0, k1;
+  auto unit = [&](int u) {
+    tile = u / a.splits;
+    const int split = u - tile * a.splits, mt = tile / a.tiles_n;
+    m0 = mt * BM;
+    n0 = (tile - mt * a.tiles_n) * BN;
+    k0 = split * a.chunk;
+    k1 = min(k0 + a.chunk, a.k_total);
+  };
+
+  if (threadIdx.x >= NC) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == NC) {
+      int it = 0;
+      for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+        unit(u);
+        for (int k = k0; k < k1; ++k, ++it) {
+          const int st = it % ST;
+          mbar_wait(empty(st), ((it / ST) & 1) ^ 1);  // a fresh stage's wait passes at once
+          mbar_expect_tx(full(st), C::STAGE);
+          const uint32_t A = base + st * C::STAGE;
+          tma_load_2d(A, &ta, k * BK, m0, full(st));
+          tma_load_2d(A + C::A_BYTES, &tb, k * BK, n0, full(st));
+        }
+      }
+    }
+    return;
+  }
+
+  const int ctid = threadIdx.x, wg = ctid >> 7, wtid = ctid & 127, warp = wtid >> 5;
+  const int lane = ctid & 31, g = lane >> 2, t = lane & 3;
+  int acc[BN / 8][4];
+  int it = 0;
+  for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+    unit(u);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+    for (int k = k0; k < k1; ++k, ++it) {
+      const int st = it % ST;
+      mbar_wait(full(st), (it / ST) & 1);
+      const uint32_t A = base + st * C::STAGE + wg * 64 * BK, B = base + st * C::STAGE + C::A_BYTES;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BK / 32; ++ks)
+        q2::mma<BN>(acc, sw128_desc(A, 16) + 2 * ks, sw128_desc(B, 16) + 2 * ks);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous k-step's products: its stage is free
+      fence_acc(acc);
+      if (k > k0) mbar_arrive(empty((it - 1) % ST));
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    mbar_arrive(empty((it - 1) % ST));
+
+    if (a.splits > 1) {  // split K: the last unit of the tile to finish sums the slabs
+      int4* slab = reinterpret_cast<int4*>(a.ws) + static_cast<size_t>(u) * C::ACC4 * NC;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        slab[j * NC + ctid] = make_int4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+      __threadfence();  // the slab before the count
+      named_sync(3, NC);
+      if (ctid == 0) {
+        last_unit = atomicAdd(&g_mm_done[tile], 1u) == static_cast<unsigned>(a.splits - 1);
+        if (last_unit) g_mm_done[tile] = 0;  // every unit of the tile has counted
+      }
+      named_sync(3, NC);
+      if (!last_unit) continue;
+      __threadfence();
+      const int own = u - tile * a.splits;
+      for (int s = 0; s < a.splits; ++s) {
+        if (s == own) continue;
+        const int4* other = reinterpret_cast<const int4*>(a.ws) +
+                            static_cast<size_t>(tile * a.splits + s) * C::ACC4 * NC;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int4 v = __ldcg(other + j * NC + ctid);
+          acc[j][0] += v.x, acc[j][1] += v.y, acc[j][2] += v.z, acc[j][3] += v.w;
+        }
+      }
+    }
+
+    // epilogue, per warpgroup: rows m0 + 64 wg + 16 warp + g (+ 8), BN
+    // columns; accumulator r of n-tile j is row + 8 * (r >> 1), column n0 +
+    // 8 j + 2 t + (r & 1)
+    const int row = m0 + wg * 64 + warp * 16 + g;
+    const float s_x[2] = {row < a.m ? a.sx[row] : 0.f, row + 8 < a.m ? a.sx[row + 8] : 0.f};
+    const uint32_t stg = staging + wg * C::WG_STG;
+#pragma unroll
+    for (int p = 0; p < C::PASSES; ++p) {  // a pass: PASS_BLOCKS staging blocks of columns
+      if (wtid == 0) bulk_wait_read<0>();  // the last store has read the staging
+      named_sync(1 + wg, 128);
+#pragma unroll
+      for (int jj = 0; jj < C::PASS_TILES; jj += 2) {
+        const int j0 = p * C::PASS_TILES + jj;  // n-tiles j0, j0 + 1 (q); jj, jj + 1 of the pass
+        // the scale products and biases of this thread's rows (h) and
+        // columns 2t, 2t + 1 (e) of n-tiles j0 + q
+        float sc[2][2][2], bo[2][2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n0 + 8 * (j0 + q) + 2 * t + e;
+            const float w = col < a.n ? a.sw[col] : 0.f;
+            bo[q][e] = a.bias != nullptr && col < a.n ? a.bias[col] : 0.f;
+            sc[q][0][e] = __fmul_rn(s_x[0], w);
+            sc[q][1][e] = __fmul_rn(s_x[1], w);
+          }
+        auto y = [&](int q, int r) {
+          const float v = __fmul_rn(__int2float_rn(acc[j0 + q][r]), sc[q][r >> 1][r & 1]);
+          return a.bias != nullptr ? __fadd_rn(v, bo[q][r & 1]) : v;
+        };
+        if constexpr (sizeof(T) == 2) {
+          // matrix mt = 2 q + h: rows h * 8.. of n-tile j0 + q; lane l
+          // addresses row l % 8 of matrix l / 8 (a 16-byte chunk: one n-tile)
+          uint32_t r[4];
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+            r[mt] = pack_f32(y(mt >> 1, 2 * (mt & 1)), y(mt >> 1, 2 * (mt & 1) + 1));
+          const int j = jj + (lane >> 4), rr = warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+          stmatrix_x4(stg + (j / 8) * 8192 + sw128(rr, j % 8), r[0], r[1], r[2], r[3]);
+        } else {
+          // 8 bytes a row and column pair: the pass's n-tile j holds
+          // columns 8 (j % 4) + 2 t of block j / 4
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int j = jj + q, rr = warp * 16 + h * 8 + g;
+              st_shared_v2(stg + (j / 4) * 8192 + sw128(rr, 2 * (j % 4) + (t >> 1)) + (t & 1) * 8,
+                           y(q, 2 * h), y(q, 2 * h + 1));
+            }
+        }
+      }
+      fence_proxy_async();  // the staging, visible to the TMA stores
+      named_sync(1 + wg, 128);
+      if (wtid == 0 && m0 + wg * 64 < a.m) {
+#pragma unroll
+        for (int blk = 0; blk < C::PASS_BLOCKS; ++blk) {
+          const int col = n0 + (p * C::PASS_BLOCKS + blk) * C::COLS;
+          if (col < a.n) tma_store_2d(&to, stg + blk * 8192, col, m0 + wg * 64);
+        }
+        bulk_commit();
+      }
+    }
+  }
+  if (wtid == 0) bulk_wait_read<0>();  // the last stores have read the staging before it goes
+}
+
+template <typename T, int BN>
+cudaError_t launch(const int8_t* xq, const int8_t* wq, void* out, long long lda, long long ldb,
+                   const MmArgs& a, int grid, cudaStream_t stream) {
+  using C = Cfg<T, BN>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      q8_matmul_kernel<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap ta, tb, to;
+  const long long ad[2] = {a.k, a.m}, bd[2] = {a.k, a.n}, od[2] = {a.n, a.m};
+  const long long as[1] = {lda}, bs[1] = {ldb}, os[1] = {(long long)a.n * (long long)sizeof(T)};
+  const int ab[2] = {BK, BM}, bb[2] = {BK, BN}, ob[2] = {C::COLS, 64};
+  cudaError_t e = sw128_map(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, 2, ad, as, ab);
+  if (e == cudaSuccess) e = sw128_map(&tb, CU_TENSOR_MAP_DATA_TYPE_UINT8, wq, 2, bd, bs, bb);
+  const CUtensorMapDataType out_type =
+      sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (e == cudaSuccess) e = sw128_map(&to, out_type, out, 2, od, os, ob);
+  if (e != cudaSuccess) return e;
+  q8_matmul_kernel<T, BN><<<grid, NTHREADS, C::SMEM, stream>>>(ta, tb, to, a);
+  return cudaGetLastError();
+}
+
+// The plan's (bn, splits, chunk, grid) checked against the shape; the rest
+// of the layout derived as ops/qconv.py::matmul_plan derives it.
+template <typename T>
+cudaError_t dispatch(const int8_t* xq, const int8_t* wq, void* out, long long lda, long long ldb,
+                     MmArgs a, int bn, int grid, cudaStream_t stream) {
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (a.m < 1 || a.k < 1 || a.n < 1 || (a.n * (int)sizeof(T)) % 16 || lda < a.k || ldb < a.k ||
+      lda % 16 || ldb % 16 || !aligned(xq) || !aligned(wq) || !aligned(out) ||
+      (bn != 128 && bn != 256))
+    return cudaErrorInvalidValue;
+  a.tiles_n = (a.n + bn - 1) / bn;
+  a.k_total = (a.k + BK - 1) / BK;
+  const long long tiles = (long long)((a.m + BM - 1) / BM) * a.tiles_n;
+  if (a.splits < 1 || a.chunk < 1 || (long long)(a.splits - 1) * a.chunk >= a.k_total ||
+      (long long)a.splits * a.chunk < a.k_total || tiles * a.splits > 0x7fffffffLL || grid < 1 ||
+      (a.splits > 1 && (tiles > kMaxSplitTiles || a.ws == nullptr)))
+    return cudaErrorInvalidValue;
+  a.units = static_cast<int>(tiles * a.splits);
+  if (bn == 256) return launch<T, 256>(xq, wq, out, lda, ldb, a, grid, stream);
+  return launch<T, 128>(xq, wq, out, lda, ldb, a, grid, stream);
+}
+
+}  // namespace q8mm
 
 template <typename T, bool DIV>
 cudaError_t absmax_launch(const void* x, const float* div, float* absmax, float* partial,
@@ -888,14 +1182,14 @@ int q8_absmax(int dtype, const void* x, const float* div, float* absmax, float* 
 }
 
 int q8_quantize_rows(int dtype, const void* x, const float* absmax, int8_t* q, float* scale,
-                     long long rows, long long k, int tpr, void* stream) {
+                     long long rows, long long k, long long ldq, int tpr, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long per_block = kThreads / (tpr > 0 ? tpr : 1);
   const dim3 grid(static_cast<unsigned>((rows + per_block - 1) / per_block));
-  if (k >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (k >= (1LL << 31) || ldq < k) return static_cast<int>(cudaErrorInvalidValue);
 #define PSO_QROWS(T, TPR)                                                                   \
   q8_quantize_rows_kernel<T, TPR><<<grid, kThreads, 0, s>>>(static_cast<const T*>(x), absmax, q, \
-                                                            scale, rows, static_cast<int>(k))
+                                                            scale, rows, static_cast<int>(k), ldq)
 #define PSO_QROWS_T(T)              \
   switch (tpr) {                    \
     case 32: PSO_QROWS(T, 32); break;   \
@@ -950,17 +1244,19 @@ int q8_conv3x3(int dtype, const int8_t* xq, const int8_t* wq, const float* sx, c
                               : q2::dispatch<float>(xq, wq, a, mi, bn, pw, grid, s));
 }
 
-int q8_dequant(int dtype, const int32_t* acc, const float* sx, const float* sw, const float* bias,
-               void* out, long long rows, long long cols, void* stream) {
+// (bn, splits, chunk, grid): ops/qconv.py::matmul_plan; lda, ldb: the int8
+// rows' strides in bytes (multiples of 16); ws: a slab of 256 * bn / 2 int32
+// a unit where splits > 1, else null.
+int q8_matmul(int dtype, const int8_t* xq, const int8_t* wq, const float* sx, const float* sw,
+              const float* bias, void* out, int* ws, int m, int n, int k, long long lda,
+              long long ldb, int bn, int splits, int chunk, int grid, void* stream) {
+  q8mm::MmArgs a{};
+  a.sx = sx, a.sw = sw, a.bias = bias, a.ws = ws;
+  a.m = m, a.n = n, a.k = k, a.splits = splits, a.chunk = chunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>(grid_for(rows * cols));
-  if (dtype == 0)
-    q8_dequant_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        acc, sx, sw, bias, static_cast<__nv_bfloat16*>(out), rows, cols);
-  else
-    q8_dequant_kernel<float><<<grid, kThreads, 0, s>>>(acc, sx, sw, bias,
-                                                       static_cast<float*>(out), rows, cols);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      dtype == 0 ? q8mm::dispatch<__nv_bfloat16>(xq, wq, out, lda, ldb, a, bn, grid, s)
+                 : q8mm::dispatch<float>(xq, wq, out, lda, ldb, a, bn, grid, s));
 }
 
 const char* pso_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,8 +1,8 @@
 // Hopper's Tensor Memory Accelerator and shared-memory barriers, for the
 // kernels whose copies one producer thread issues (the bf16 forward at
-// d = 40, the int8 3x3 convolution): tensor maps built on the host, bulk tensor copies into shared
-// memory that complete on an mbarrier, the mbarriers' waits and arrivals,
-// and named barriers between warpgroups.
+// d = 40, the int8 3x3 convolution and matmul): tensor maps built on the
+// host, bulk tensor copies into shared memory that complete on an mbarrier,
+// the mbarriers' waits and arrivals, and named barriers between warpgroups.
 #pragma once
 
 #include <cuda.h>
@@ -66,7 +66,8 @@ inline cudaError_t bshd_map(CUtensorMap* map, int* hs, const void* base, int d, 
 // one swizzle row; 1024-byte aligned boxes). Coordinates outside the tensor,
 // negative ones too, read as zeros and are not written. The int8 3x3
 // convolution's NHWC activations (C, W, H, B), (O, 3, 3, C) weights (C, 9,
-// O), both UINT8, and bf16 NCHW output (W, H, O, B).
+// O), both UINT8, and bf16 NCHW output (W, H, O, B); the int8 matmul's
+// int8 rows (K, M) and (K, N) and its bf16 or fp32 output (N, M).
 inline cudaError_t sw128_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
                              int rank, const long long* dims, const long long* strides,
                              const int* box) {
@@ -88,9 +89,17 @@ inline cudaError_t sw128_map(CUtensorMap* map, CUtensorMapDataType type, const v
 
 // ---- device: copies and barriers -----------------------------------------
 
-// One box of a 3-D or 4-D map at coordinates (c0, c1, c2[, c3]) into shared
-// memory at dst; its bytes complete the transaction count of the mbarrier
-// at bar.
+// One box of a 2-D, 3-D or 4-D map at coordinates (c0, c1[, c2[, c3]]) into
+// shared memory at dst; its bytes complete the transaction count of the
+// mbarrier at bar.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
                                             int c2, uint32_t bar) {
   asm volatile(
@@ -114,9 +123,16 @@ __device__ __forceinline__ void tma_load_bshd(uint32_t dst, const CUtensorMap* m
   tma_load_4d(dst, map, c, hs ? head : row, hs ? row : head, batch, bar);
 }
 
-// One box of a 4-D map written from shared memory at src to coordinates
-// (c0, c1, c2, c3) (clipped at the tensor's edges); committed and waited
-// for as bulk groups (pso::bulk_commit, bulk_wait_read, bulk_wait).
+// One box of a 2-D or 4-D map written from shared memory at src to
+// coordinates (c0, c1[, c2, c3]) (clipped at the tensor's edges); committed
+// and waited for as bulk groups (pso::bulk_commit, bulk_wait_read, bulk_wait).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
                                              int c2, int c3) {
   asm volatile(
@@ -124,6 +140,12 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
           reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Fetch a tensor map's descriptor (a __grid_constant__ kernel parameter)
+// ahead of its first copy.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {

@@ -1,10 +1,10 @@
 // Hopper warpgroup-product helpers shared by the kernels built on wgmma
 // (the bf16 flash-attention forward at head dims 40, 64, 80, 160 and 512,
-// the bf16 backward at 40, 64, 80 and 160, the int8 3x3 convolution): the
-// swizzled shared-memory layouts that cp.async or TMA writes and wgmma
-// reads, the shared-memory matrix descriptors, the wgmma instructions (bf16
-// and s8) and the fences around them, and the bulk reductions that add a
-// shared-memory tile into global memory.
+// the bf16 backward at 40, 64, 80 and 160, the int8 3x3 convolution and
+// matmul): the swizzled shared-memory layouts that cp.async or TMA writes
+// and wgmma reads, the shared-memory matrix descriptors, the wgmma
+// instructions (bf16 and s8) and the fences around them, and the bulk
+// reductions that add a shared-memory tile into global memory.
 //
 // Layouts (CUTLASS's canonical GMMA layouts, bf16):
 // - a row of 64 values (128 bytes) is one row of the 128-byte swizzle:
@@ -290,7 +290,7 @@ __device__ __forceinline__ void wgmma_ss_n80(float (&c)[10][4], uint64_t da, uin
 // memory, 128-byte swizzled (a row of 128 int8 values is one swizzle row,
 // so a k-step of 32 values advances a descriptor by 2, as bf16's of 16).
 // The accumulators' layout is the fp32 one above (c[n-tile][4]). The int8
-// 3x3 convolution (csrc/int8_conv.cu) at N = 128 and 256.
+// 3x3 convolution and matmul (csrc/int8_conv.cu) at N = 128 and 256.
 #define PSO_S32_8(c, j)                                                                   \
   "+r"(c[j][0]), "+r"(c[j][1]), "+r"(c[j][2]), "+r"(c[j][3]), "+r"(c[j + 1][0]),          \
       "+r"(c[j + 1][1]), "+r"(c[j + 1][2]), "+r"(c[j + 1][3])

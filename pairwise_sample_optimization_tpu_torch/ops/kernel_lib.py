@@ -43,7 +43,7 @@ NVCC_FLAGS = [
 # kernel name -> launches since the last reset (wrappers increment these)
 launch_counts = {"flash_attn_fwd": 0, "flash_attn_bwd_pre": 0, "flash_attn_bwd": 0,
                  "flash_attn_bwd_post": 0, "gn_stats": 0, "gn_silu_norm": 0,
-                 "int8_absmax": 0, "int8_quantize": 0, "int8_conv3x3": 0, "int8_dequant": 0}
+                 "int8_absmax": 0, "int8_quantize": 0, "int8_conv3x3": 0, "int8_matmul": 0}
 # (attention kernel name, head dim) -> launches since the last reset
 head_dim_launches: collections.Counter = collections.Counter()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -32,8 +32,11 @@ stops at 2**24). A CUDA tensor takes the kernels or raises:
 - ``int8_conv3x3`` (Q2): the 3x3 stride-1 pad-1 conv as an implicit GEMM
   on ``wgmma`` s8 fed by TMA, laid out by :func:`conv3x3_plan` (PyTorch has
   no int8 convolution on CUDA);
-- ``int8_dequant`` (Q3): the epilogue of the matmul, whose int32 product
-  is ``torch._int_mm``, as the JAX package leaves it to ``lax.dot_general``.
+- ``int8_matmul`` (Q3): the int8 product on ``wgmma`` s8 fed by TMA with
+  the dequantize as its epilogue, laid out by :func:`matmul_plan` (the JAX
+  package leaves the product to ``lax.dot_general``; its int32 result never
+  reaches device memory here). ``torch._int_mm`` is only the plain
+  version's.
 
 No gradient goes through int8: a call that would record one raises.
 """
@@ -54,11 +57,11 @@ from . import kernel_lib
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "q8_absmax": [_I, _P, _P, _P, _P, _LL, _LL, _I, _I, _LL, _I, _I, _I, _P],
-    "q8_quantize_rows": [_I, _P, _P, _P, _P, _LL, _LL, _I, _P],
+    "q8_quantize_rows": [_I, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P],
     "q8_quantize_nhwc": [_I, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _P],
     "q8_conv3x3": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                    _P],
-    "q8_dequant": [_I, _P, _P, _P, _P, _P, _LL, _LL, _P],
+    "q8_matmul": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _I, _P],
 }
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # Q1a's plan (``absmax_plan``)
@@ -86,6 +89,14 @@ CONV_MIN_SPLIT_STEPS = 4  # k-steps a split takes at the least
 # the last unit's adding of each other slab (measured with the card's SMs
 # all writing at once)
 CONV_SLAB_WRITE_STEPS, CONV_SLAB_READ_STEPS = 10, 6
+# Q3's plan (``matmul_plan``; csrc/int8_conv.cu namespace q8mm)
+MATMUL_BM, MATMUL_BK = 128, 128  # rows a tile (64 a consumer warpgroup); bytes of K a k-step
+MATMUL_MIN_SPLIT_STEPS = 4  # k-steps a split takes at the least
+# a split unit's cost in k-steps of 128-column tiles on the H100: writing its
+# int32 slab, and the last unit's adding of each other slab (fitted to every
+# split of 5 and 20 tiles over K = 5120, scripts/time_port_int8.py
+# --split-sweep)
+MATMUL_SLAB_WRITE_STEPS, MATMUL_SLAB_READ_STEPS = 8, 2.5
 
 _USE_INT8_DECODE = False
 _USE_INT8_SCORER = False
@@ -200,8 +211,18 @@ def conv3x3_plain(xq, wq, sx, sw, bias=None, dtype=torch.float32):
 
 
 def dequant_plain(acc, sx, sw, bias=None, dtype=torch.float32):
-    """Q3's plain version: int32 (M, N) -> (M, N) in ``dtype``."""
+    """The dequantize of an int32 product: (M, N) -> (M, N) in ``dtype``."""
     return _epilogue_plain(acc, sx[:, None] * sw[None, :], bias, dtype)
+
+
+def matmul_plain(xq, wq, sx, sw, bias=None, dtype=torch.float32):
+    """Q3's plain version: the exact int32 product of ``torch._int_mm``, then
+    :func:`dequant_plain`. On CUDA ``torch._int_mm`` takes M > 16 only: fewer
+    rows are padded with zero rows, which it then drops."""
+    m = xq.shape[0]
+    pad = max(0, 17 - m) if xq.device.type == "cuda" else 0
+    acc = torch._int_mm(F.pad(xq, (0, 0, 0, pad)).contiguous(), wq.contiguous().t())[:m]
+    return dequant_plain(acc, sx, sw, bias, dtype)
 
 
 # ---------------------------------------------------------------------- #
@@ -293,6 +314,25 @@ def quantize_nhwc_plan(batch: int, channels: int, hw: int,
     return tile_p, grid
 
 
+def _split_k(k_steps: int, tiles: int, sms: int, min_steps: int, write_steps: int,
+             read_steps: int) -> tuple[int, int]:
+    """(splits, chunk) of ``k_steps`` k-steps over blocks for ``tiles``
+    output tiles on ``sms`` SMs (Q2 and Q3). Only where the tiles leave half
+    the SMs or more idle, all units in one wave: among the splits of at
+    least ``min_steps`` k-steps each, the one whose last unit takes the
+    fewest k-steps (its chunk, ``write_steps`` to write its int32 slab and
+    ``read_steps`` for each other slab it adds), if that beats K whole;
+    ties to the fewest splits."""
+    best = (k_steps, 1)
+    if tiles <= sms // 2:
+        for s in range(2, min(k_steps // min_steps, sms // tiles) + 1):
+            chunk = -(-k_steps // s)
+            if -(-k_steps // chunk) != s:
+                continue
+            best = min(best, (chunk + write_steps + (s - 1) * read_steps, s))
+    return best[1], -(-k_steps // best[1])
+
+
 @dataclasses.dataclass(frozen=True)
 class Conv3x3Plan:
     """Q2's layout of one conv (``conv3x3_plan``): tiles of ``patch_h`` x
@@ -325,12 +365,9 @@ def conv3x3_plan(batch: int, height: int, width: int, channels: int, outc: int, 
     product a warpgroup), else of 128 (two), so a thread holds ``CONV_ACC``
     accumulators either way; patches 64 pixels wide (an m-block an image
     row, written by a TMA store) for a bf16 output at least 64 wide with
-    rows on 16 bytes, else 16 wide. Where the tiles leave half the SMs or
-    more idle, K is split, all units in one wave: among the splits of at
-    least ``CONV_MIN_SPLIT_STEPS`` k-steps each, the one whose last unit
-    takes the fewest k-steps (its chunk, ``CONV_SLAB_WRITE_STEPS`` and
-    ``CONV_SLAB_READ_STEPS`` for each other slab), if that beats K whole;
-    ties to the fewest splits. One block an SM, walking units u, u + grid,
+    rows on 16 bytes, else 16 wide. K is split by :func:`_split_k` with
+    ``CONV_MIN_SPLIT_STEPS``, ``CONV_SLAB_WRITE_STEPS`` and
+    ``CONV_SLAB_READ_STEPS``. One block an SM, walking units u, u + grid,
     ... (tile u // splits: N tiles fastest, then patches along w, h and
     images; k-steps [split * chunk, split * chunk + chunk))."""
     mi, bn = (1, 256) if outc % 256 == 0 else (2, 128)
@@ -340,19 +377,56 @@ def conv3x3_plan(batch: int, height: int, width: int, channels: int, outc: int, 
     tiles = batch * tiles_h * tiles_w * tiles_n
     cslices = -(-channels // CONV_BK)
     k_steps = 9 * cslices
-    best = (k_steps, 1)
-    if tiles <= sms // 2:
-        for s in range(2, min(k_steps // CONV_MIN_SPLIT_STEPS, sms // tiles) + 1):
-            chunk = -(-k_steps // s)
-            if -(-k_steps // chunk) != s:
-                continue
-            cost = chunk + CONV_SLAB_WRITE_STEPS + (s - 1) * CONV_SLAB_READ_STEPS
-            best = min(best, (cost, s))
-    splits = best[1]
-    chunk = -(-k_steps // splits)
+    splits, chunk = _split_k(k_steps, tiles, sms, CONV_MIN_SPLIT_STEPS, CONV_SLAB_WRITE_STEPS,
+                             CONV_SLAB_READ_STEPS)
     units = tiles * splits
     return Conv3x3Plan(mi, bn, pw, patch_h, tiles_h, tiles_w, tiles_n, tiles, cslices, k_steps,
                        splits, chunk, units, min(units, sms))
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulPlan:
+    """Q3's layout of one product (``matmul_plan``): tiles of ``MATMUL_BM``
+    rows by ``bn`` columns (``tiles_m`` x ``tiles_n``); ``k_steps`` k-steps of
+    ``MATMUL_BK`` bytes of K, split into ``splits`` ranges of ``chunk``;
+    ``units`` = tiles x splits walked by ``grid`` persistent blocks."""
+
+    bn: int
+    tiles_m: int
+    tiles_n: int
+    tiles: int
+    k_steps: int
+    splits: int
+    chunk: int
+    units: int
+    grid: int
+
+
+def matmul_plan(m: int, k: int, n: int, sms: int) -> MatmulPlan:
+    """How Q3 covers int8 (M, K) x (N, K)^T on a card of ``sms`` SMs. N
+    tiles of 128 columns (a ring of 6 stages), or of 256 (4 stages, a
+    k-step's products per byte 4/3 as many) where N is a multiple of 256 and
+    the 128-column tiles would take the card more than once while the
+    256-column ones fit it once: on the H100 the wider tile was slower
+    wherever the narrower ones gave each SM more tiles, or fewer than one
+    (scripts/time_port_int8.py --split-sweep). M tiles of ``MATMUL_BM``
+    rows, the last cut by M (TMA's zero fill and clipping), so any M from 1
+    is one launch. K is split by
+    :func:`_split_k` with ``MATMUL_MIN_SPLIT_STEPS``,
+    ``MATMUL_SLAB_WRITE_STEPS`` and ``MATMUL_SLAB_READ_STEPS``. One block an
+    SM, walking units u, u + grid, ... (tile u // splits: N tiles fastest,
+    then M tiles; k-steps [split * chunk, split * chunk + chunk)). The
+    kernel sizes its ring of stages to the bn it is given (its ``Cfg``)."""
+    tiles_m = -(-m // MATMUL_BM)
+    bn = 256 if n % 256 == 0 and tiles_m * -(-n // 128) > sms >= tiles_m * (n // 256) else 128
+    tiles_n = -(-n // bn)
+    tiles = tiles_m * tiles_n
+    k_steps = -(-k // MATMUL_BK)
+    splits, chunk = _split_k(k_steps, tiles, sms, MATMUL_MIN_SPLIT_STEPS,
+                             MATMUL_SLAB_WRITE_STEPS, MATMUL_SLAB_READ_STEPS)
+    units = tiles * splits
+    return MatmulPlan(bn, tiles_m, tiles_n, tiles, k_steps, splits, chunk, units,
+                      min(units, sms))
 
 
 def absmax_geometry(shape, mode: str, divided: bool = False):
@@ -398,17 +472,21 @@ def absmax(x, mode: str, div=None):
 
 
 def quantize_rows(x, absmax_):
-    """Q1b: (M, K) -> (int8 (M, K), fp32 scale (M,)) from the rows' absmax."""
+    """Q1b: (M, K) -> (int8 (M, K), fp32 scale (M,)) from the rows' absmax.
+    On the card the int8 rows start a multiple of 16 bytes apart, as
+    :func:`matmul`'s tensor maps need: where K is not a multiple of 16, the
+    result is the first K columns of rows padded past K (the pad unwritten,
+    never read)."""
     if not _on_cuda(x, absmax_, what="int8_quantize"):
         return quantize_rows_plain(x, absmax_)
     _check_input(x, "int8_quantize")
     rows, k = x.shape
-    q = torch.empty((rows, k), dtype=torch.int8, device=x.device)
+    q = torch.empty((rows, -(-k // 16) * 16), dtype=torch.int8, device=x.device)[:, :k]
     s = torch.empty(rows, dtype=torch.float32, device=x.device)
     tpr, _ = quantize_rows_plan(rows, k, _sm_count(x.device.index or 0))
     _launch("q8_quantize_rows", _DTYPES[x.dtype], x.data_ptr(), absmax_.contiguous().data_ptr(),
-            q.data_ptr(), s.data_ptr(), rows, k, tpr, kernel_lib.stream_ptr(x.device),
-            name="int8_quantize")
+            q.data_ptr(), s.data_ptr(), rows, k, q.stride(0), tpr,
+            kernel_lib.stream_ptr(x.device), name="int8_quantize")
     return q, s
 
 
@@ -435,12 +513,12 @@ def conv3x3(xq, wq, sx, sw, bias=None, dtype=torch.float32):
         return conv3x3_plain(xq, wq, sx, sw, bias, dtype)
     b, h, w, c = xq.shape
     o = wq.shape[0]
+    if c % 16:
+        raise ValueError(f"int8_conv3x3 takes channels in multiples of 16, got {c}")
     if (xq.dtype != torch.int8 or wq.dtype != torch.int8 or wq.shape != (o, 3, 3, c)
             or not (xq.is_contiguous() and wq.is_contiguous()) or dtype not in _DTYPES):
         raise ValueError(f"int8_conv3x3 takes contiguous int8 (B, H, W, C) and (O, 3, 3, C), "
                          f"got {tuple(xq.shape)} {xq.dtype}, {tuple(wq.shape)} {wq.dtype}")
-    if c % 16:
-        raise ValueError(f"int8_conv3x3 takes channels in multiples of 16, got {c}")
     out = torch.empty((b, o, h, w), dtype=dtype, device=xq.device)
     plan = conv3x3_plan(b, h, w, c, o, _sm_count(xq.device.index or 0), dtype == torch.bfloat16)
     ws = (torch.empty((plan.units, CONV_CONSUMERS * CONV_ACC), dtype=torch.int32,
@@ -452,29 +530,43 @@ def conv3x3(xq, wq, sx, sw, bias=None, dtype=torch.float32):
     return out
 
 
-def dequant(acc, sx, sw, bias=None, dtype=torch.float32):
-    """Q3: int32 (M, N) -> (M, N) ``dtype``, ``acc * (sx[m] * sw[n]) (+ bias[n])``."""
-    if not _on_cuda(acc, sx, sw, bias, what="int8_dequant"):
-        return dequant_plain(acc, sx, sw, bias, dtype)
-    if acc.dtype != torch.int32 or not acc.is_contiguous() or dtype not in _DTYPES:
-        raise ValueError(f"int8_dequant takes contiguous int32, got {acc.dtype}")
-    rows, cols = acc.shape
-    out = torch.empty((rows, cols), dtype=dtype, device=acc.device)
-    _launch("q8_dequant", _DTYPES[dtype], acc.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-            _ptr(bias), out.data_ptr(), rows, cols, kernel_lib.stream_ptr(acc.device),
-            name="int8_dequant")
-    return out
-
-
-def int_mm(xq, wq, what: str = "int8_matmul"):
-    """Exact int32 (M, N) = int8 (M, K) @ int8 (N, K)^T through
-    ``torch._int_mm``, whose CUDA path takes M > 16 and K, N multiples of 8:
-    another shape off the CPU raises, naming ``what``."""
-    (m, k), n = xq.shape, wq.shape[0]
-    if xq.device.type != "cpu" and (m <= 16 or k % 8 or n % 8):
-        raise ValueError(f"{what}: torch._int_mm on CUDA takes M > 16 and K, N multiples of 8; "
+def _matmul_shape(m: int, k: int, n: int, what: str) -> None:
+    """The int8 matmul's shapes on the card: any M, K and N multiples of 8
+    (the output's rows on 16 bytes for its TMA store); another raises,
+    naming ``what``."""
+    if k % 8 or n % 8:
+        raise ValueError(f"{what}: the int8 matmul on CUDA takes K and N multiples of 8; "
                          f"got M={m}, K={k}, N={n}")
-    return torch._int_mm(xq, wq.t())
+
+
+def matmul(xq, wq, sx, sw, bias=None, dtype=torch.float32):
+    """Q3: int8 (M, K) x int8 (N, K)^T -> (M, N) ``dtype``, ``acc * (sx[m] *
+    sw[n]) (+ bias[n])``: the product and its dequantize in one kernel, laid
+    out by :func:`matmul_plan`. On the card each operand's rows lie a
+    multiple of 16 bytes apart (as :func:`quantize_rows` writes them)."""
+    if not _on_cuda(xq, wq, sx, sw, bias, what="int8_matmul"):
+        return matmul_plain(xq, wq, sx, sw, bias, dtype)
+    (m, k), n = xq.shape, wq.shape[0]
+    _matmul_shape(m, k, n, "int8_matmul")
+    if (xq.dtype != torch.int8 or wq.dtype != torch.int8 or wq.shape[1] != k
+            or dtype not in _DTYPES or any(t.stride(1) != 1 or t.stride(0) % 16 for t in (xq, wq))):
+        raise ValueError(f"int8_matmul takes int8 (M, K) and (N, K) rows 16-byte "
+                         f"multiples apart, got {tuple(xq.shape)} {xq.dtype} {xq.stride()}, "
+                         f"{tuple(wq.shape)} {wq.dtype} {wq.stride()}")
+    if any(t is not None and (t.dtype != torch.float32 or t.shape != (r,))
+           for t, r in ((sx, m), (sw, n), (bias, n))):
+        got = [None if t is None else (tuple(t.shape), t.dtype) for t in (sx, sw, bias)]
+        raise ValueError(f"int8_matmul takes fp32 scales ({m},), ({n},) and bias ({n},), "
+                         f"got {got}")
+    out = torch.empty((m, n), dtype=dtype, device=xq.device)
+    plan = matmul_plan(m, k, n, _sm_count(xq.device.index or 0))
+    ws = (torch.empty((plan.units, CONV_CONSUMERS * plan.bn // 2), dtype=torch.int32,
+                      device=xq.device) if plan.splits > 1 else None)
+    _launch("q8_matmul", _DTYPES[dtype], xq.data_ptr(), wq.data_ptr(), sx.contiguous().data_ptr(),
+            sw.contiguous().data_ptr(), _ptr(bias), out.data_ptr(), _ptr(ws), m, n, k,
+            xq.stride(0), wq.stride(0), plan.bn, plan.splits, plan.chunk, plan.grid,
+            kernel_lib.stream_ptr(xq.device), name="int8_matmul")
+    return out
 
 
 # ---------------------------------------------------------------------- #
@@ -502,6 +594,8 @@ def int8_matmul(x, weight, bias=None, group=None, out_dtype=None, what: str = "i
     lead, c = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, c).contiguous()
     w = weight.contiguous()
+    if x.device.type != "cpu":
+        _matmul_shape(x2.shape[0], c, w.shape[0], what)
     ax, aw = absmax(x2, "rows"), absmax(w, "rows")
     if group is not None:
         import torch.distributed as dist
@@ -511,9 +605,8 @@ def int8_matmul(x, weight, bias=None, group=None, out_dtype=None, what: str = "i
         all_reduce_sum_([ax, aw], group, op=dist.ReduceOp.MAX)
     xq, sx = quantize_rows(x2, ax)
     wq, sw = quantize_rows(w, aw)
-    acc = int_mm(xq, wq, what)
     b = None if bias is None else bias.float().contiguous()
-    y = dequant(acc, sx, sw, b, out_dtype or x.dtype)
+    y = matmul(xq, wq, sx, sw, b, out_dtype or x.dtype)
     return y.reshape(*lead, w.shape[0])
 
 

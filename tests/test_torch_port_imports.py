@@ -215,7 +215,7 @@ def kernel_path(monkeypatch):
     monkeypatch.setattr(tfa, "flash_attention_bwd_plain", plain_reached)
     monkeypatch.setattr(tfg, "fused_groupnorm_silu_plain", plain_reached)
     for plain in ("absmax_plain", "quantize_rows_plain", "quantize_nhwc_plain", "conv3x3_plain",
-                  "dequant_plain"):
+                  "matmul_plain"):
         monkeypatch.setattr(tq, plain, plain_reached)
     monkeypatch.setattr(tfa, "_check", lambda *a: None)
     monkeypatch.setattr(tfg, "_check", lambda *a: None)
@@ -299,7 +299,7 @@ def test_each_launch_counts_once(kernel_path):
                                         "flash_attn_bwd": 0, "flash_attn_bwd_post": 0,
                                         "gn_stats": 1, "gn_silu_norm": 1, "int8_absmax": 0,
                                         "int8_quantize": 0, "int8_conv3x3": 0,
-                                        "int8_dequant": 0}
+                                        "int8_matmul": 0}
 
 
 # the int8 wrappers' launches: (call, C entry points in order, counts)
@@ -312,8 +312,8 @@ INT8_LAUNCHES = {
                        "q8_quantize_nhwc", "q8_conv3x3"],
                       {"int8_absmax": 3, "int8_quantize": 2, "int8_conv3x3": 1}),
     "matmul": (lambda x, w, b: tq.int8_matmul(x.flatten(2).transpose(1, 2), w[:, :, 0, 0], b),
-               ["q8_absmax", "q8_absmax", "q8_quantize_rows", "q8_quantize_rows", "q8_dequant"],
-               {"int8_absmax": 2, "int8_quantize": 2, "int8_dequant": 1}),
+               ["q8_absmax", "q8_absmax", "q8_quantize_rows", "q8_quantize_rows", "q8_matmul"],
+               {"int8_absmax": 2, "int8_quantize": 2, "int8_matmul": 1}),
 }
 
 
@@ -335,15 +335,23 @@ def test_int8_wrappers_launch_q1_to_q3_and_count_each_once(kernel_path, op):
 
 @pytest.mark.parametrize("m,k,n", [(16, 64, 24), (77, 60, 24), (77, 64, 20)])
 def test_int8_refuses_shapes_the_card_does_not_take(kernel_path, m, k, n):
-    """Off the CPU, ``torch._int_mm``'s CUDA rules (M > 16, K and N
-    multiples of 8) raise naming the layer before any launch, and the conv
+    """Off the CPU the int8 matmul takes any M (M = 16, under
+    ``torch._int_mm``'s CUDA rule, launches the product once) and refuses K
+    or N not a multiple of 8, naming the layer before any launch; the conv
     refuses channels its 16-byte loads cannot take."""
     from pairwise_sample_optimization_tpu_torch.models.layers import Int8Linear
 
     layer = Int8Linear(k, n, device="meta", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=fr"Int8Linear\({k}, {n}\).*M={m}, K={k}, N={n}"), \
-            torch.no_grad():
-        layer(torch.empty((1, m, k), device="meta", dtype=torch.bfloat16))
+    x = torch.empty((1, m, k), device="meta", dtype=torch.bfloat16)
+    if k % 8 == 0 and n % 8 == 0:
+        with torch.no_grad():
+            assert layer(x).shape == (1, m, n)
+        assert kernel_path.calls[-1] == "q8_matmul" and kernel_lib.launch_counts["int8_matmul"] == 1
+    else:
+        with pytest.raises(ValueError, match=fr"Int8Linear\({k}, {n}\).*M={m}, K={k}, N={n}"), \
+                torch.no_grad():
+            layer(x)
+        assert kernel_path.calls == []
     meta = lambda shape, dt=torch.int8: torch.empty(shape, device="meta", dtype=dt)
     with pytest.raises(ValueError, match="multiples of 16"):
         tq.conv3x3(meta((1, 4, 4, 24)), meta((8, 3, 3, 24)), meta((1,), torch.float32),

@@ -81,10 +81,14 @@ def _jax_ints(monkeypatch, call):
     return out, xq, wq
 
 
-@pytest.mark.parametrize("with_bias", [False, True])
-def test_int8_matmul_ints_scales_and_output_equal_jax(monkeypatch, with_bias):
+# (bias, the tokens' leading shape): M = 34, and M = 16, which the card's
+# int8 matmul takes where torch._int_mm's CUDA rule (M > 16) did not
+@pytest.mark.parametrize("with_bias,lead", [(False, (2, 17)), (True, (2, 17)), (True, (1, 16))],
+                         ids=["False", "True", "True-m16"])
+def test_int8_matmul_ints_scales_and_output_equal_jax(monkeypatch, with_bias, lead):
     r = np.random.default_rng(0)
-    x = r.standard_normal((2, 17, 48)).astype(np.float32) * np.linspace(0.1, 3, 48, dtype=np.float32)
+    x = (r.standard_normal(lead + (48,)).astype(np.float32)
+         * np.linspace(0.1, 3, 48, dtype=np.float32))
     w = (r.standard_normal((48, 24)) * 0.2).astype(np.float32)  # JAX (C, O)
     b = r.standard_normal(24).astype(np.float32) if with_bias else None
     want, jxq, jwq = _jax_ints(monkeypatch, lambda: jq.int8_matmul(

@@ -1,8 +1,8 @@
 """The int8 kernels' plans (``ops/qconv.py``) walked in plain Python as
-``csrc/int8_conv.cu`` walks them, on the CPU: Q2's tiles, split-K units and
-grid (``conv3x3_plan``), Q1b's threads a row and Q1c's
-tiles (``quantize_rows_plan``, ``quantize_nhwc_plan``), and the quantize's
-division-free fast path. No JAX and no card: the kernels themselves are
+``csrc/int8_conv.cu`` walks them, on the CPU: Q2's and Q3's tiles, split-K
+units and grid (``conv3x3_plan``, ``matmul_plan``), Q1b's threads a row and
+Q1c's tiles (``quantize_rows_plan``, ``quantize_nhwc_plan``), and the
+quantize's division-free fast path. No JAX and no card: the kernels themselves are
 held bit-equal to their plain versions on the card (``chip_smoke.py``).
 """
 
@@ -238,3 +238,94 @@ def test_fast_quantize_equals_the_true_division_where_it_passes():
     q, s = tq.quantize_rows_plain(x, x.abs().amax(dim=1))
     got, fast = _fast_quantize(x.numpy(), s.numpy()[:, None], np.float32(2.0**-20))
     assert fast.mean() > 0.9 and np.array_equal(got[fast], q.numpy()[fast])
+
+
+# Q3's shapes (M, K, N): the UNet's int8 sites in the reference pass at 2 and 8
+# images (the 640-wide level's 1024 tokens: q / k / v / out and proj_in / out,
+# GEGLU in and out; its cross-attention's k / v from the 2048-wide context at
+# 77 tokens; the 1280-wide level's 256 tokens the same), the CLIP vision
+# towers' MLPs at 257 tokens (ViT-L 1024 -> 4096, ViT-H 1280 -> 5120, and
+# back) at 1 and 8 images, and the edges of chip_smoke.INT8_MATMUL_EDGES
+UNET_MATMULS = [shape for b in (2, 8) for shape in (
+    (1024 * b, 640, 640), (1024 * b, 640, 5120), (1024 * b, 2560, 640), (77 * b, 2048, 640),
+    (256 * b, 1280, 1280), (256 * b, 1280, 10240), (256 * b, 5120, 1280), (77 * b, 2048, 1280))]
+CLIP_MATMULS = [(257 * b, k, n) for b in (1, 8)
+                for k, n in ((1024, 4096), (4096, 1024), (1280, 5120), (5120, 1280))]
+EDGE_MATMULS = [(1, 640, 640), (16, 2048, 640), (17, 1280, 1280), (65, 64, 24), (154, 2048, 1280),
+                (300, 256, 200), (33, 8, 40), (100, 72, 136), (256, 5120, 1280), (128, 5120, 640),
+                (2000, 640, 1280)]
+MATMULS = {"unet": UNET_MATMULS, "clip": CLIP_MATMULS, "edges": EDGE_MATMULS}
+
+
+def _matmul_walk(m, k, n):
+    """Q3's units as the kernel's blocks walk them: how often each (tile,
+    k-step) is summed, and each tile's corner (m0, n0)."""
+    plan = tq.matmul_plan(m, k, n, H100_SMS)
+    steps = np.zeros((plan.tiles, plan.k_steps), np.int32)
+    corners = {}
+    for block in range(plan.grid):
+        for u in range(block, plan.units, plan.grid):
+            tile, split = divmod(u, plan.splits)
+            mt, nt = divmod(tile, plan.tiles_n)
+            k0 = split * plan.chunk
+            k1 = min(k0 + plan.chunk, plan.k_steps)
+            assert k0 < k1  # no empty unit
+            steps[tile, k0:k1] += 1
+            corners.setdefault(tile, set()).add((mt * tq.MATMUL_BM, nt * plan.bn))
+    assert len(corners) == plan.tiles and all(len(v) == 1 for v in corners.values())
+    return plan, steps, [next(iter(v)) for v in corners.values()]
+
+
+@pytest.mark.parametrize("family", list(MATMULS))
+def test_matmul_plan_covers_each_output_and_k_step_once(family):
+    """Q3 at the paths' and the edges' shapes: the tiles are the grid of M
+    tiles x N tiles, each once, covering M and N; every tile's units sum
+    each of its ceil(K / 128) k-steps once; the grid and the split fit the
+    card (the kernel's ring fits shared memory at both N tiles by its own
+    static_assert, checked where it is built). At the edges, the epilogue's TMA
+    stores (a warpgroup's 64 rows x 128 bytes a block: 64 bf16 or 32 fp32
+    columns; none wholly past M or N) write each output element once."""
+    for m, k, n in MATMULS[family]:
+        plan, steps, corners = _matmul_walk(m, k, n)
+        assert (steps == 1).all()
+        assert sorted(corners) == sorted((mt * tq.MATMUL_BM, nt * plan.bn) for mt in
+                                         range(plan.tiles_m) for nt in range(plan.tiles_n))
+        assert plan.tiles_m * tq.MATMUL_BM >= m > (plan.tiles_m - 1) * tq.MATMUL_BM
+        assert plan.tiles_n * plan.bn >= n > (plan.tiles_n - 1) * plan.bn
+        assert plan.k_steps == math.ceil(k / tq.MATMUL_BK)
+        assert plan.bn in (128, 256) and (plan.bn == 128 or n % 256 == 0)
+        assert 1 <= plan.grid <= H100_SMS and plan.units <= GRID_X_MAX
+        if plan.splits > 1:
+            assert plan.units <= H100_SMS and plan.tiles <= H100_SMS // 2
+            assert plan.chunk >= tq.MATMUL_MIN_SPLIT_STEPS
+        if family != "edges":
+            continue
+        for cols in (64, 32):  # a staging row of 128 bytes: bf16, fp32
+            writes = np.zeros((plan.tiles_m * tq.MATMUL_BM, plan.tiles_n * plan.bn), np.int32)
+            for m0, n0 in corners:
+                for r0 in (m0, m0 + 64):  # the two consumer warpgroups
+                    for c0 in range(n0, n0 + plan.bn, cols):
+                        if r0 < m and c0 < n:
+                            writes[r0:r0 + 64, c0:c0 + cols] += 1
+            assert (writes[:m, :n] == 1).all()
+
+
+def test_matmul_plan_splits_k_only_where_the_tiles_leave_sms_idle():
+    """The split-K route at the edges that take it (20 and 5 tiles over K =
+    5120), none where the tiles fill the card (the UNet's 640-wide level at
+    8 images, the CLIP MLP); the wrapper's slab workspace (a unit's 256
+    threads x bn / 2 int32) fits int32 indexing; 256-column tiles only where
+    they cut the 128-column tiles' waves to one (the 2048-token 1280-wide
+    products: 160 tiles of 128, 80 of 256), 128 elsewhere (the 8192-token
+    GEGLU's and the 2056-token CLIP MLP's: more than one wave either way;
+    the 512- and 616-token products: one wave already)."""
+    for m, k, n in ((256, 5120, 1280), (128, 5120, 640)):
+        plan = tq.matmul_plan(m, k, n, H100_SMS)
+        assert plan.splits > 1 and plan.units <= H100_SMS
+        assert plan.units * tq.CONV_CONSUMERS * plan.bn // 2 < 2**31
+    for m, k, n in ((8192, 640, 5120), (8192, 2560, 640), (2056, 1280, 5120)):
+        assert tq.matmul_plan(m, k, n, H100_SMS).splits == 1
+    assert [tq.matmul_plan(m, k, n, H100_SMS).bn
+            for m, k, n in ((2048, 1280, 1280), (2048, 5120, 1280), (8192, 1280, 5120),
+                            (2056, 1280, 5120), (512, 1280, 1280), (616, 2048, 1280))
+            ] == [256, 256, 128, 128, 128, 128]
